@@ -1,0 +1,171 @@
+"""ResNet re-ID backbone, eval mode (port of ``reid_gan_tpu/models/resnet.py``).
+
+torchvision key names (``conv1``, ``bn1``, ``layerI.J.convK``,
+``layerI.J.downsample.{0,1}``) plus ``gap.p`` and ``feat_bn.*``, so a
+``state_dict()`` of this model is what ``reid_gan_tpu.models.resnet.
+import_torch_resnet`` reads and what ``convert.resnet_state_dict_from_jax``
+writes. ``nn.BatchNorm2d`` in eval mode already has the semantics of the JAX
+package's ``TorchBatchNorm`` (normalise with the running stats; torch stores
+the unbiased running variance), so that module needs no port.
+
+``ReIDResNet`` is the CC re-ID model (CC/clustercontrast/models/resnet.py:
+14-127): last-stride 1, GeM pooling with a trainable ``p``, a scale-only
+``feat_bn`` (bias frozen at zero, resnet.py:61) and an L2-normalised eval
+feature. With GeM and no embedding layer (the recipe's default) the whole
+eval head is kernel K2 (``pooling.gem_bn_l2n``). Train-mode outputs come with
+the training slice.
+"""
+
+import torch
+from torch import nn
+
+from .pooling import GeneralizedMeanPooling, build_pooling_layer, gem_bn_l2n, l2n
+
+
+def _conv(cin, cout, k, stride=1):
+    return nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=False)
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 3, stride)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = None
+        if stride != 1 or inplanes != planes:
+            self.downsample = nn.Sequential(_conv(inplanes, planes, 1, stride),
+                                            nn.BatchNorm2d(planes))
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return self.relu(y + residual)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1):
+        super().__init__()
+        out = planes * self.expansion
+        self.conv1 = _conv(inplanes, planes, 1)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3, stride)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = _conv(planes, out, 1)
+        self.bn3 = nn.BatchNorm2d(out)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = None
+        if stride != 1 or inplanes != out:
+            self.downsample = nn.Sequential(_conv(inplanes, out, 1, stride),
+                                            nn.BatchNorm2d(out))
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return self.relu(y + residual)
+
+
+STAGES = {
+    18: (BasicBlock, (2, 2, 2, 2)),
+    34: (BasicBlock, (3, 4, 6, 3)),
+    50: (Bottleneck, (3, 4, 6, 3)),
+    101: (Bottleneck, (3, 4, 23, 3)),
+    152: (Bottleneck, (3, 8, 36, 3)),
+}
+
+
+class ResNetBackbone(nn.Module):
+    """conv1 → maxpool → layer1..4 (NCHW in, NCHW out)."""
+
+    def __init__(self, depth=50, last_stride=1):
+        super().__init__()
+        block, sizes = STAGES[depth]
+        self.conv1 = _conv(3, 64, 7, 2)
+        self.bn1 = nn.BatchNorm2d(64)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        inplanes = 64
+        for i, planes in enumerate((64, 128, 256, 512)):
+            stride = 1 if i == 0 else (last_stride if i == 3 else 2)
+            blocks = []
+            for j in range(sizes[i]):
+                blocks.append(block(inplanes, planes, stride if j == 0 else 1))
+                inplanes = planes * block.expansion
+            setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
+        self.out_channels = inplanes
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):   # conv_kaiming of the JAX package
+                nn.init.kaiming_normal_(m.weight, mode="fan_out",
+                                        nonlinearity="relu")
+
+    def forward(self, x):
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+
+
+class ReIDResNet(ResNetBackbone):
+    """Eval: (N, 3, H, W) → (N, D) L2-normalised ``feat_bn`` output."""
+
+    def __init__(self, depth=50, num_features=0, pooling_type="gem",
+                 last_stride=1):
+        super().__init__(depth, last_stride)
+        self.gap = build_pooling_layer(pooling_type)
+        dim = self.out_channels
+        self.num_features = num_features
+        if num_features > 0:
+            self.feat = nn.Linear(dim, num_features)
+            nn.init.kaiming_normal_(self.feat.weight, mode="fan_out")
+            nn.init.zeros_(self.feat.bias)
+            dim = num_features
+        self.feat_bn = nn.BatchNorm1d(dim)
+        self.feat_bn.bias.requires_grad_(False)   # frozen at zero
+        self._fused_head = (isinstance(self.gap, GeneralizedMeanPooling)
+                            and isinstance(self.gap.p, nn.Parameter)
+                            and num_features == 0)
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError(
+                "ReIDResNet runs in eval mode only; train-mode outputs "
+                "({'feat', 'gan_feat'}) come with the training slice "
+                "(ROADMAP A1)")
+        fmap = super().forward(x)
+        # the heads run in (at least) fp32, as resnet.py:183 upcasts
+        fmap = fmap.to(torch.promote_types(fmap.dtype, torch.float32))
+        if self._fused_head:
+            bn = self.feat_bn
+            return gem_bn_l2n(fmap, self.gap.p, bn.weight, bn.running_mean,
+                              bn.running_var, self.gap.eps, bn.eps)
+        z = self.gap(fmap)
+        if self.num_features > 0:
+            z = self.feat(z)
+        return l2n(self.feat_bn(z))
+
+
+def resnet18(**kw):
+    return ReIDResNet(depth=18, **kw)
+
+
+def resnet34(**kw):
+    return ReIDResNet(depth=34, **kw)
+
+
+def resnet50(**kw):
+    return ReIDResNet(depth=50, **kw)
+
+
+def resnet101(**kw):
+    return ReIDResNet(depth=101, **kw)
+
+
+def resnet152(**kw):
+    return ReIDResNet(depth=152, **kw)

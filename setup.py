@@ -6,7 +6,8 @@ setup(
     description="TPU-native person re-identification + GAN framework "
                 "(JAX/XLA/Pallas/pjit)",
     packages=find_packages(exclude=["tests"]),
-    package_data={"reid_gan_tpu.native": ["Makefile", "src/*.cc"]},
+    package_data={"reid_gan_tpu.native": ["Makefile", "src/*.cc"],
+                  "reid_gan_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "chex", "numpy", "pillow",
