@@ -6,24 +6,39 @@ Phases, each ended by ``torch.cuda.synchronize()``; any failure raises and
 the script exits non-zero without printing a result:
 
 1. the card's name and power limit (``nvidia-smi``) and the kernel build
-   (``nvcc`` for sm_90a from ``reid_gan_torch/csrc``; ptxas report);
-2. every kernel of the eval path against its plain PyTorch version at the
-   slice's shapes: K1 ``eval_transform`` and K2 ``gem_bn_l2n`` at batch 256
-   of 256x128, K3 ``rank_stats`` at Market-1501's eval shape (3,368 queries
-   x 15,913 gallery, 751 ids, 6 cameras, 2048-d features from a seed), once
-   more with duplicated gallery rows for exact ties; max error, tolerance,
-   the kernel's and the plain version's device time, and the bound;
-3. the main path: ``Evaluator(FeatureExtractor(resnet50)).evaluate`` (the
-   call ``cli/test.py`` makes) on an in-memory uint8 eval set made with numpy
-   from a seed (1,024 queries + 3,072 gallery, 256x128, batch 256; random
-   ResNet-50 with GeM and last stride 1). Launch counts are zeroed just
-   before and read just after; every kernel must have launched. Then a warm
+   (``nvcc`` for sm_90a from ``reid_gan_torch/csrc``, one process per
+   source; ptxas report);
+2. every kernel against its plain PyTorch version at the main paths'
+   shapes, with max error, tolerance, the kernel's and the plain version's
+   device time, and the bound: K1 ``eval_transform`` and K2 ``gem_bn_l2n``
+   at batch 256 of 256x128; K3 ``rank_stats`` at Market-1501's eval shape
+   (3,368 queries x 15,913 gallery, 751 ids, 6 cameras, 2048-d), once more
+   with exact ties; K4 ``train_augment`` at 256 x 256x128; K5 ``gem_pool``
+   forward and backward (d map and dp) at (256, 2048, 16, 8); K6
+   ``infonce`` forward and backward at B 256 x D 2048 against banks of 768
+   rows (700 live) and 30,720 rows (30,000 live); K7 ``bank_fold``, plain
+   and hard, on a 16 x 16 P×K batch;
+3. the eval main path: ``Evaluator(FeatureExtractor(resnet50)).evaluate``
+   (the call ``cli/test.py`` makes) on an in-memory uint8 eval set made with
+   numpy from a seed (1,024 queries + 3,072 gallery, 256x128, batch 256;
+   random ResNet-50 with GeM and last stride 1). Launch counts are zeroed
+   just before and read just after; K1-K3 must have launched. Then a warm
    extraction pass is timed, another is traced with ``torch.profiler``
    (device time by kernel, idle share), one batch of features is held
    against the same model through the plain versions, and the rank metrics
    against the plain rank pass;
-4. a JSON line with every kernel's launches, error, times and bound;
-5. the last line: ``{"ok": true, "device": {...}}``.
+4. the train main path: ``ClusterContrastTrainer(resnet50).train`` for 20
+   steps of batch 256 (16 ids x 16 instances, 256x128) drawn by the P×K
+   sampler from an in-memory pseudo-labelled set of 700 ids x 18 images,
+   against a bank of 700 unit rows padded to 768. Launch counts are zeroed
+   just before and read just after; K4-K7, and K5's and K6's backward, must
+   have launched once per step. The loss must be finite, every parameter
+   must have moved and the bank's rows must be unit vectors. One more step
+   is held against the same step composed from the plain versions (loss,
+   the ``feat`` gradient, the folded bank); then 10 warm steps are timed
+   and 3 more traced with ``torch.profiler``;
+5. a JSON line with every kernel's launches, error, times and bound;
+6. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -209,6 +224,166 @@ def check_k3(report):
                                 bound_ms=b, bound_by=by)
 
 
+def check_k4(report):
+    from reid_gan_torch.ops.transforms import (
+        sample_augment_params,
+        train_augment,
+        train_augment_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n, h, w = 256, 256, 128
+    u8 = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8, device="cuda",
+                       generator=g)
+    params = sample_augment_params(n, h, w, g)
+    out = train_augment(u8, params, h, w)
+    ref = train_augment_plain(u8, params)
+    torch.cuda.synchronize()
+    check(out.stride() == ref.stride(), "K4 layout differs from the plain version")
+    err = float((out - ref).abs().max())
+    tol = 1e-5   # the same fp32 arithmetic; the erase fill sums in another order
+    print(f"[K4] train_augment: max_abs_err {err:.3g} (tol {tol:.3g}); "
+          f"{int(params[:, 0].sum())} flips, {int(params[:, 5].sum())} erases")
+    check(err <= tol, f"K4 error {err} > {tol}")
+    ms = device_ms(lambda: train_augment(u8, params, h, w))
+    plain = device_ms(lambda: train_augment_plain(u8, params))
+    b, by = bound_ms(u8.numel() * (1 + 4) + params.numel() * 4, 20 * u8.numel())
+    print(f"[K4] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
+    report["train_augment"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                   bound_ms=b, bound_by=by)
+
+
+def check_k5(report):
+    from reid_gan_torch.models.pooling import gem_pool, gem_pool_plain
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n, c, h, w = 256, 2048, 16, 8
+    fmap = torch.relu(torch.rand((n, c, h, w), device="cuda", generator=g) * 2 - 0.6)
+    fmap = fmap.contiguous(memory_format=torch.channels_last)
+    gout = torch.randn((n, c), device="cuda", generator=g) / n
+
+    def run(fn):
+        x = fmap.detach().requires_grad_(True)
+        p = torch.tensor([3.0], device="cuda", requires_grad=True)
+        out = fn(x, p)
+        out.backward(gout)
+        return out, x.grad, p.grad
+
+    out, dx, dp = run(gem_pool)
+    ref, dx_r, dp_r = run(gem_pool_plain)
+    torch.cuda.synchronize()
+    out, ref = out.detach(), ref.detach()
+    e_out = float((out - ref).abs().max() / ref.abs().max())
+    e_dx = float((dx - dx_r).abs().max() / dx_r.abs().max())
+    e_dp = abs(float(dp) - float(dp_r)) / abs(float(dp_r))
+    # relative: powf against torch.pow and the sum order; dp: the kernel sums
+    # 524,288 terms in double, the plain autograd in fp32
+    tol, tol_dp = 1e-5, 1e-3
+    print(f"[K5] gem_pool: rel err forward {e_out:.3g}, d map {e_dx:.3g} "
+          f"(tol {tol:.3g}), dp {e_dp:.3g} (tol {tol_dp:.3g}; dp {float(dp):.6g})")
+    check(e_out <= tol and e_dx <= tol and e_dp <= tol_dp, "K5 differs from plain")
+    x = fmap.detach().requires_grad_(True)
+    p = torch.tensor([3.0], device="cuda", requires_grad=True)
+    fwd = device_ms(lambda: gem_pool(x, p))
+    ms = device_ms(lambda: gem_pool(x, p).backward(gout))
+    plain = device_ms(lambda: gem_pool_plain(x, p).backward(gout))
+    b, by = bound_ms(4 * (3 * fmap.numel() + 4 * n * c), 8 * fmap.numel())
+    print(f"[K5] forward+backward ms {ms:.4f} (forward {fwd:.4f}) plain_ms "
+          f"{plain:.4f} bound_ms {b:.4f} ({by})")
+    report["gem_pool"] = dict(max_abs_err=float((dx - dx_r).abs().max()), ms=ms,
+                              plain_ms=plain, bound_ms=b, bound_by=by)
+
+
+def check_k6(report):
+    from reid_gan_torch.ops.cluster_memory import (
+        init_memory,
+        memory_loss,
+        memory_loss_plain,
+    )
+
+    b, d = 256, 2048
+    worst, timed = 0.0, None
+    for k_pad, nv in ((768, 700), (30720, 30000)):
+        g = torch.Generator(device="cuda").manual_seed(k_pad)
+        centers = torch.nn.functional.normalize(
+            torch.randn((nv, d), device="cuda", generator=g), dim=1)
+        state = init_memory(centers, k_pad=k_pad, device="cuda")
+        y = torch.randint(0, nv, (b,), device="cuda", generator=g, dtype=torch.int32)
+        x0 = centers[y.long()] + 0.05 * torch.randn((b, d), device="cuda", generator=g)
+
+        def run(fn, x0=x0, y=y, state=state):
+            x = x0.detach().requires_grad_(True)
+            loss, logits = fn(x, y, state)
+            loss.mean().backward()
+            return loss, logits, x.grad
+
+        loss, logits, dx = run(memory_loss)
+        loss_r, logits_r, dx_r = run(memory_loss_plain)
+        torch.cuda.synchronize()
+        e_l = float((logits[:, :nv] - logits_r[:, :nv]).abs().max())
+        e_loss = float((loss - loss_r).abs().max())
+        e_dx = float((dx - dx_r).abs().max())
+        masked = bool(torch.isneginf(logits[:, nv:]).all())
+        # temp 0.05 multiplies the fp32 product's rounding (~1e-7) by 20
+        tol, tol_dx = 1e-4, 1e-6
+        print(f"[K6] infonce B {b} D {d} K_pad {k_pad} num_valid {nv}: max_abs_err "
+              f"logits {e_l:.3g}, loss {e_loss:.3g} (tol {tol:.3g}), dx {e_dx:.3g} "
+              f"(tol {tol_dx:.3g}); masked columns -inf: {masked}")
+        check(masked and e_l <= tol and e_loss <= tol and e_dx <= tol_dx,
+              "K6 differs from plain")
+        worst = max(worst, e_loss)
+        x = x0.detach().requires_grad_(True)
+        fwd = device_ms(lambda x=x, y=y, state=state: memory_loss(x, y, state))
+        ms = device_ms(lambda x=x, y=y, state=state:
+                       memory_loss(x, y, state)[0].mean().backward())
+        plain = device_ms(lambda x=x, y=y, state=state:
+                          memory_loss_plain(x, y, state)[0].mean().backward())
+        bnd, by = bound_ms(4 * (2 * b * d + nv * d + b * k_pad + 2 * b * d),
+                           2 * (2 * b * nv * d))
+        print(f"[K6] K_pad {k_pad}: forward+backward ms {ms:.4f} (forward "
+              f"{fwd:.4f}) plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
+        if timed is None:
+            timed = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+    report["infonce"] = dict(max_abs_err=worst, **timed)
+
+
+def check_k7(report):
+    from reid_gan_torch.ops.cluster_memory import (
+        init_memory,
+        update_memory,
+        update_memory_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, d, nv, k_pad = 256, 2048, 700, 768
+    centers = torch.nn.functional.normalize(
+        torch.randn((nv, d), device="cuda", generator=g), dim=1)
+    ids = torch.randperm(nv, device="cuda", generator=g)[:16]
+    y = ids.repeat_interleave(16)[torch.randperm(b, device="cuda", generator=g)]
+    y = y.to(torch.int32).contiguous()
+    x = centers[y.long()] + 0.3 * torch.randn((b, d), device="cuda", generator=g)
+    worst = 0.0
+    for hard in (False, True):
+        state = init_memory(centers, k_pad=k_pad, device="cuda")
+        ref = state._replace(features=state.features.clone())
+        update_memory(state, x, y, use_hard=hard, group_size=16)
+        update_memory_plain(ref, x, y, use_hard=hard)
+        torch.cuda.synchronize()
+        err = float((state.features - ref.features).abs().max())
+        tol = 1e-6   # unit rows, fp32 sums in other orders
+        print(f"[K7] bank_fold {'hard' if hard else 'plain'} (16 labels x 16): "
+              f"max_abs_err {err:.3g} (tol {tol:.3g})")
+        check(err <= tol, f"K7 error {err} > {tol}")
+        worst = max(worst, err)
+    state = init_memory(centers, k_pad=k_pad, device="cuda")
+    ms = device_ms(lambda: update_memory(state, x, y, group_size=16))
+    plain = device_ms(lambda: update_memory_plain(state, x, y), reps=3)
+    bnd, by = bound_ms(4 * (b * d + b + 2 * 16 * d), 10 * b * d)
+    print(f"[K7] plain fold ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
+    report["bank_fold"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+                               bound_ms=bnd, bound_by=by)
+
+
 def _eval_set(seed=0, n_ids=256, n_query=1024, n_gallery=3072, h=256, w=128,
               batch=256):
     """In-memory uint8 eval set: per-identity base colour plus noise, ids
@@ -250,29 +425,38 @@ def _plain_rank_metrics(x, y, query, gallery, topk=100):
 PROFILE_GROUPS = (
     ("K1 eval_transform", ("eval_transform_kernel",)),
     ("K2 gem_bn_l2n", ("gem_bn_l2n_kernel",)),
-    ("batchnorm", ("bn_fw",)),
+    ("K4 train_augment", ("train_augment_kernel", "erase_fill_kernel")),
+    ("K5 gem_pool", ("gem_forward_kernel", "gem_backward_kernel",
+                     "sum_partials_kernel")),
+    ("K6 infonce", ("l2n_rows_kernel", "logits_kernel", "lse_loss_kernel",
+                    "dxh_kernel", "l2n_backward_kernel")),
+    ("K7 bank_fold", ("bank_fold_kernel",)),
+    ("batchnorm", ("bn_fw", "bn_bw", "batchnorm", "batch_norm")),
     ("host-to-device copy", ("Memcpy HtoD",)),
-    ("convolution", ("xmma", "gemm", "conv", "implicit")),
+    ("Adam (multi-tensor)", ("multi_tensor_apply",)),
+    ("convolution", ("xmma", "gemm", "conv", "implicit", "dgrad", "wgrad",
+                     "cutlass", "sm90")),
+    ("max pool", ("max_pool",)),
+    ("reduction", ("reduce_kernel",)),
     ("elementwise (ReLU, add, casts)", ("elementwise_kernel",)),
 )
 
 
-def profile_extraction(extractor, batches):
-    """One more extraction pass under ``torch.profiler``: device time by
-    kernel and the share of the window (first device event to last) in
-    which the card ran nothing."""
+def profile_device(label, fn):
+    """Run ``fn`` under ``torch.profiler``: device time by group and kernel,
+    and the share of the window (first device event to last) in which the
+    card ran nothing."""
     from torch.profiler import ProfilerActivity, profile
 
-    from reid_gan_torch.engine.evaluators import extract_features
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        extract_features(extractor, batches)
+        fn()
         torch.cuda.synchronize()
     dev = sorted(((e.time_range.start, e.time_range.end, e.name)
                   for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA))
     if not dev:
-        print("[profile] the profiler saw no device events: breakdown not measured")
+        print(f"[profile] {label}: the profiler saw no device events: "
+              "breakdown not measured")
         return
     busy, reach, by_name = 0.0, dev[0][0], {}
     for start, end, name in dev:
@@ -280,7 +464,7 @@ def profile_extraction(extractor, batches):
         reach = max(reach, end)
         by_name[name] = by_name.get(name, 0.0) + (end - start)
     span = reach - dev[0][0]
-    print(f"[profile] extraction: device busy {busy / 1e3:.3f} ms of a "
+    print(f"[profile] {label}: device busy {busy / 1e3:.3f} ms of a "
           f"{span / 1e3:.3f} ms window, idle share {1 - busy / span:.4f}")
     groups = {}
     for name, us in by_name.items():
@@ -288,9 +472,9 @@ def profile_extraction(extractor, batches):
                      "other")
         groups[group] = groups.get(group, 0.0) + us
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] group {group}: {us / busy:.2%} ({us / 1e3:.3f} ms)")
+        print(f"[profile] {label} group {group}: {us / busy:.2%} ({us / 1e3:.3f} ms)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"[profile] {us / busy:7.2%} {us / 1e3:9.3f} ms  {name[:110]}")
+        print(f"[profile] {label} {us / busy:7.2%} {us / 1e3:9.3f} ms  {name[:110]}")
 
 
 def phase_main_path(counts):
@@ -320,7 +504,8 @@ def phase_main_path(counts):
                                                 cmc_flag=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts.update(kernels.launch_counts())
+    counts.update({k: v for k, v in kernels.launch_counts().items()
+                   if k in ("eval_transform", "gem_bn_l2n", "rank_stats")})
     n_img = len(query) + len(gallery)
     print(f"[main] Evaluator.evaluate on {n_img} images (1st run, cuDNN cold): "
           f"{wall:.2f} s; mAP {mAP:.4f} top-1 {scores[0]:.4f} "
@@ -335,7 +520,7 @@ def phase_main_path(counts):
     torch.cuda.synchronize()
     ext = time.perf_counter() - t0
     print(f"[main] extraction (warm): {n_img / ext:.1f} img/s")
-    profile_extraction(extractor, batches)
+    profile_device("extraction", lambda: extract_features(extractor, batches))
     x = np.stack([features[f] for f, _, _ in query])
     y = np.stack([features[f] for f, _, _ in gallery])
     norms = np.linalg.norm(np.concatenate([x, y]), axis=1)
@@ -368,6 +553,164 @@ def phase_main_path(counts):
           "rank metrics differ from the plain rank pass")
 
 
+class _InMemoryImages:
+    """Stands in for the loader's decode cache: file name → a staged uint8
+    image of a numpy array. Budget 0, so the loader gathers per item."""
+    budget = 0
+
+    def __init__(self, imgs):
+        self.imgs = imgs
+
+    def get(self, fpath, height, width):
+        return self.imgs[int(fpath.split(".")[0])]
+
+
+def _pseudo_set(seed=0, n_ids=700, per_id=18, h=256, w=128):
+    """A pseudo-labelled train set in memory: 700 ids x 18 images, 6
+    cameras, a base colour per id plus noise, staged at 256x128."""
+    rng = np.random.default_rng(seed)
+    n = n_ids * per_id
+    pids = np.repeat(np.arange(n_ids), per_id)
+    cams = rng.integers(0, 6, n)
+    base = rng.integers(0, 256, (n_ids, 3)).astype(np.int16)
+    noise = rng.integers(-40, 40, (64, h, w, 3), dtype=np.int16)
+    imgs = np.empty((n, h, w, 3), np.uint8)
+    for s in range(0, n, 64):
+        e = min(s + 64, n)
+        imgs[s:e] = np.clip(base[pids[s:e]][:, None, None] + noise[:e - s], 0, 255)
+    items = [(f"{i:06d}.jpg", int(pids[i]), int(cams[i])) for i in range(n)]
+    return items, imgs
+
+
+def _compare_step(trainer, state, batch):
+    """One step's loss, feature gradient and folded bank through the
+    kernels (the model's own forward: K4, K5, K6, K7) and through the plain
+    versions, from the same parameters, bank and draws. cuDNN's TF32 is off
+    on both sides, so the two differ only by the kernels' arithmetic."""
+    from reid_gan_torch.models.pooling import gem_pool_plain, l2n
+    from reid_gan_torch.models.resnet import ResNetBackbone
+    from reid_gan_torch.ops.cluster_memory import (
+        memory_loss,
+        memory_loss_plain,
+        update_memory,
+        update_memory_plain,
+    )
+    from reid_gan_torch.ops.transforms import (
+        sample_augment_params,
+        train_augment,
+        train_augment_plain,
+    )
+
+    model, dev, h, w = trainer.model, trainer.device, trainer.height, trainer.width
+    img = torch.from_numpy(batch["img"]).to(dev)
+    y = torch.from_numpy(batch["pid"].astype(np.int32)).to(dev)
+    params = sample_augment_params(img.shape[0], h, w,
+                                   torch.Generator(device=dev).manual_seed(99))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        results = []
+        for plain in (False, True):
+            mem = state.memory._replace(features=state.memory.features.clone())
+            if plain:
+                x = train_augment_plain(img, params)
+                fmap = ResNetBackbone.forward(model, x)
+                feat = l2n(model.feat_bn(gem_pool_plain(fmap, model.gap.p)))
+            else:
+                x = train_augment(img, params, h, w)
+                feat = model(x, with_gan_feat=False)["feat"]
+            feat.retain_grad()
+            loss = (memory_loss_plain if plain else memory_loss)(feat, y, mem)[0].mean()
+            loss.backward()
+            (update_memory_plain if plain else update_memory)(mem, feat.detach(), y)
+            model.zero_grad(set_to_none=True)
+            results.append((float(loss.detach()), feat.grad, mem.features))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (lk, gk, bk), (lp, gp, bp) = results
+    e_loss = abs(lk - lp)
+    e_g = float((gk - gp).abs().max() / gp.abs().max())
+    e_bank = float((bk - bp).abs().max())
+    # fp32 ResNet-50 on inputs that differ by K4's rounding, then temp 0.05
+    tol_loss, tol_g, tol_bank = 1e-3, 1e-3, 1e-4
+    print(f"[train] one step, kernels vs plain versions (TF32 off): loss {lk:.6f} "
+          f"vs {lp:.6f} (err {e_loss:.3g}, tol {tol_loss:.3g}); feat grad rel err "
+          f"{e_g:.3g} (tol {tol_g:.3g}); folded bank max_abs_err {e_bank:.3g} "
+          f"(tol {tol_bank:.3g})")
+    check(e_loss <= tol_loss and e_g <= tol_g and e_bank <= tol_bank,
+          "the train step through the kernels differs from the plain versions")
+
+
+def phase_train(counts):
+    """The train main path: ``ClusterContrastTrainer.train`` on ResNet-50."""
+    from reid_gan_torch import kernels
+    from reid_gan_torch.engine.trainers import ClusterContrastTrainer
+    from reid_gan_torch.engine.usl import bank_rows, make_train_loader
+    from reid_gan_torch.models import create
+    from reid_gan_torch.ops.cluster_memory import init_memory
+
+    t0 = time.perf_counter()
+    items, imgs = _pseudo_set()
+    n_ids = 700
+    g = torch.Generator(device="cuda").manual_seed(0)
+    centers = torch.nn.functional.normalize(
+        torch.randn((n_ids, 2048), device="cuda", generator=g), dim=1)
+    memory = init_memory(centers, k_pad=bank_rows(n_ids), device="cuda")
+    torch.manual_seed(0)
+    model = create("resnet50", norm=True)            # GeM, last stride 1, fp32
+    trainer = ClusterContrastTrainer(model, height=256, width=128,
+                                     num_instances=16, device="cuda")
+    state = trainer.init_state(memory)
+    loader = make_train_loader(items, 256, 128, 256, 16, workers=4, iters=400,
+                               seed=1, cache=_InMemoryImages(imgs))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+    print(f"[train] set-up (data {len(items)} images, bank {tuple(memory.features.shape)}, "
+          f"{memory.num_valid.item()} live): {time.perf_counter() - t0:.1f} s")
+
+    steps = 20
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = trainer.train(state, 0, loader, train_iters=steps, print_freq=10,
+                                base_seed=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts.update({k: v for k, v in kernels.launch_counts().items()
+                   if k in ("train_augment", "gem_pool", "infonce", "bank_fold")})
+    phases = kernels.phase_launch_counts()
+    print(f"[train] {steps} steps (1st, cuDNN cold): {wall:.2f} s, mean loss {loss:.4f}")
+    print(f"[train] launches: {phases}")
+    for name in ("train_augment.forward", "gem_pool.forward", "gem_pool.backward",
+                 "infonce.forward", "infonce.backward", "bank_fold.forward"):
+        check(phases[name] == steps, f"{name} launched {phases[name]} times, "
+                                     f"not once per step")
+    check(np.isfinite(loss), f"loss is not finite: {loss}")
+    still = [n for n, p in model.named_parameters() if p.requires_grad
+             and torch.equal(p.detach(), before[n])]
+    check(not still, f"parameters that did not move: {still[:5]}")
+    norms = state.memory.features[:n_ids].norm(dim=1)
+    err = float((norms - 1).abs().max())
+    print(f"[train] {len(before)} parameter tensors all moved; bank rows' norm - 1: "
+          f"max {err:.3g}")
+    check(err <= 1e-5, "bank rows are not unit vectors after the fold")
+
+    _compare_step(trainer, state, loader.next())
+
+    warm = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = trainer.train(state, 1, loader, train_iters=warm, print_freq=warm,
+                             base_seed=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[train] warm: {warm / dt:.3f} steps/s, {warm * 256 / dt:.1f} img/s "
+          f"(batch 256, 256x128, ResNet-50, fp32 weights, TF32 convolutions)")
+    profile_device("train (3 warm steps)", lambda: trainer.train(
+        state, 2, loader, train_iters=3, print_freq=3, base_seed=1))
+    loader.close()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -381,9 +724,15 @@ def main():
     check_k1(report)
     check_k2(report)
     check_k3(report)
+    check_k4(report)
+    check_k5(report)
+    check_k6(report)
+    check_k7(report)
     torch.cuda.synchronize()
     counts = {}
     phase_main_path(counts)
+    torch.cuda.synchronize()
+    phase_train(counts)
     torch.cuda.synchronize()
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

@@ -9,16 +9,30 @@ namespace reid {
 
 constexpr int kWarp = 32;
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = kWarp / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Max over the block; every thread gets it. Same contract as block_sum.
+__device__ __forceinline__ float block_max(float v, float* scratch) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int nwarps = (blockDim.x + kWarp - 1) / kWarp;
+  v = warp_max(v);
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float m = scratch[0];
+  for (int w = 1; w < nwarps; ++w) m = fmaxf(m, scratch[w]);
+  return m;
 }
 
 // Sum over the block; every thread gets the total. `scratch` holds one value

@@ -1,5 +1,6 @@
-"""Host-side data loading for re-ID evaluation: decode + resize on CPU
-threads; normalisation runs on the card (``ops/transforms.py``, kernel K1).
+"""Host-side data loading for re-ID: decode + resize on CPU threads;
+normalisation and augmentation run on the card (``ops/transforms.py``,
+kernels K1 and K4).
 
 Copy of the ``reid`` mode of ``reid_gan_tpu/data/loader.py``: items are
 ``(img, fname, pid, camid, index)`` with ``img`` a uint8 HWC array already at
@@ -154,27 +155,35 @@ class _WorkerFailure:
 
 
 class DataLoader:
-    """Threaded prefetching batch loader.
+    """Threaded prefetching batch loader over the indices of ``sampler``
+    (e.g. ``sampler.RandomMultipleGallerySampler``), or over the dataset in
+    order when there is none, as ``reid_gan_tpu/data/loader.py:366-400``.
 
     Decodes items with a thread pool and keeps ``prefetch`` collated batches
     ready. Decode errors are re-raised in the consumer; abandoning the
     iterator mid-epoch stops the producer thread and joins it.
     """
 
-    def __init__(self, preprocessor, batch_size=64, num_workers=4,
+    def __init__(self, preprocessor, sampler=None, batch_size=64, num_workers=4,
                  drop_last=True, prefetch=2):
         self.pre = preprocessor
+        self.sampler = sampler
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
         self.prefetch = prefetch
 
+    def _indices(self):
+        if self.sampler is not None:
+            return list(self.sampler)
+        return list(range(len(self.pre)))
+
     def __len__(self):
-        n = len(self.pre)
+        n = len(self._indices()) if self.sampler is not None else len(self.pre)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self):
-        indices = list(range(len(self.pre)))
+        indices = self._indices()
         batches = [indices[i:i + self.batch_size]
                    for i in range(0, len(indices), self.batch_size)]
         if self.drop_last:

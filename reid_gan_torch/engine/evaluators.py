@@ -93,9 +93,10 @@ def extract_features(extractor, data_loader, print_freq=50, max_pending=8):
 
 
 def evaluate_all_features(x, y, query, gallery, cmc_topk=(1, 5, 10),
-                          cmc_flag=False, device="cpu"):
+                          cmc_flag=False, device=None):
     """mAP + market1501 CMC from query features ``x`` and gallery features
-    ``y``; the (m, n) distance matrix never leaves the device."""
+    ``y`` on ``device`` (default: the card; raises if there is none); the
+    (m, n) distance matrix never leaves the device."""
     scores, mAP = rank_metrics_features(
         x, y, [pid for _, pid, _ in query], [pid for _, pid, _ in gallery],
         [cam for _, _, cam in query], [cam for _, _, cam in gallery],

@@ -13,6 +13,7 @@ gallery index). Only the (topk,) histogram and two scalars leave the card.
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import RANK_STATS
 from ..ops.distance import squared_euclidean
 
@@ -98,13 +99,14 @@ def _default_ids_cams(m, n, query_ids, gallery_ids, query_cams, gallery_cams):
 def rank_metrics_features(query_feats, gallery_feats, query_ids=None,
                           gallery_ids=None, query_cams=None,
                           gallery_cams=None, topk=100, chunk=1024,
-                          device="cpu"):
+                          device=None):
     """Fused CMC (market1501: same-id-same-camera entries dropped, first
-    match breaks) + mAP from (m, d) query and (n, d) gallery features.
+    match breaks) + mAP from (m, d) query and (n, d) gallery features, on
+    ``device`` (default: the card; raises if there is none).
 
     Returns (cmc (topk,) float64, mAP float). Raises if no query has a valid
     match."""
-    device = torch.device(device)
+    device = resolve_device(device)
     qf = torch.as_tensor(np.asarray(query_feats, np.float32))
     m, n = qf.shape[0], len(gallery_feats)
     query_ids, gallery_ids, query_cams, gallery_cams = _default_ids_cams(

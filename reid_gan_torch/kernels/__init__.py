@@ -7,10 +7,13 @@ then one link, into ``reid_gan_torch/build/`` under a name that hashes the
 sources and flags, so a changed source is never served a stale library.
 Nothing is built or imported from CUDA when this module is imported.
 
-Each entry point is a :class:`CudaKernel`: it launches on the caller's
+Each kernel is a :class:`CudaKernel` with one C entry point, or two (forward
+and backward) for a kernel with a gradient: a call launches on the caller's
 stream, raises if the C function reports a CUDA error, and counts its
-launches in a plain integer (``launches``), so a run can show which kernels
-its path went through.
+launches per phase in plain integers (``launches``), so a run can show which
+kernels its path went through. A kernel that needs device scratch has a C
+query that returns its size (``scratch_size``), so its block geometry is
+stated in the source alone.
 """
 
 import ctypes
@@ -118,34 +121,70 @@ def load_library():
         return _lib
 
 
-class CudaKernel:
-    """One C entry point of the library: ``symbol(*args, stream)``."""
+class _Entry:
+    """One C function of the library, bound at first use: a launch
+    ``symbol(*args, stream)`` that returns a CUDA error code, or (with
+    ``stream=False``) a query that returns ``restype``."""
 
-    def __init__(self, name, symbol, argtypes, source, replaces):
-        self.name = name
+    def __init__(self, symbol, argtypes, restype=ctypes.c_int, stream=True):
         self.symbol = symbol
-        self.argtypes = list(argtypes) + [ctypes.c_void_p]   # the stream
-        self.source = source
-        self.replaces = replaces
-        self.launches = 0
+        self.argtypes = list(argtypes) + ([ctypes.c_void_p] if stream else [])
+        self.restype = restype
         self._fn = None
 
-    def __call__(self, *args, device):
-        import torch
-
+    def bind(self):
         lib = load_library()
         if self._fn is None:
             fn = getattr(lib.cdll, self.symbol)
             fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = self.restype
             self._fn = fn
+        return lib, self._fn
+
+    def launch(self, args, device):
+        import torch
+
+        lib, fn = self.bind()
         stream = torch.cuda.current_stream(device).cuda_stream
         with torch.cuda.device(device):
-            rc = self._fn(*args, stream)
+            rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} "
                                f"({lib.error_string(rc)})")
-        self.launches += 1
+
+
+class CudaKernel:
+    """A kernel of the port: its forward entry (``kernel(*args, device=)``)
+    and, for a kernel with a gradient, its backward entry
+    (``kernel.backward(*args, device=)``). ``launches`` counts the calls of
+    each phase that reached the card. ``scratch``: the symbol of the C query
+    that sizes the kernel's scratch, from int arguments."""
+
+    def __init__(self, name, symbol, argtypes, source, replaces, backward=None,
+                 scratch=None):
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.entries = {"forward": _Entry(symbol, argtypes)}
+        if backward is not None:
+            self.entries["backward"] = _Entry(*backward)
+        self.launches = dict.fromkeys(self.entries, 0)
+        self.scratch = None if scratch is None else _Entry(
+            scratch, [ctypes.c_int, ctypes.c_int], ctypes.c_longlong, stream=False)
+
+    def scratch_size(self, *args):
+        """Elements of scratch the C entry needs for these sizes."""
+        return self.scratch.bind()[1](*args)
+
+    def _launch(self, phase, args, device):
+        self.entries[phase].launch(args, device)
+        self.launches[phase] += 1
+
+    def __call__(self, *args, device):
+        self._launch("forward", args, device)
+
+    def backward(self, *args, device):
+        self._launch("backward", args, device)
 
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -165,14 +204,48 @@ RANK_STATS = CudaKernel(
     [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     source="reid_gan_torch/csrc/rank_stats.cu",
     replaces="reid_gan_tpu/engine/metrics.py:213")
+TRAIN_AUGMENT = CudaKernel(
+    "train_augment", "reid_train_augment",
+    [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F],
+    source="reid_gan_torch/csrc/train_augment.cu",
+    replaces="reid_gan_tpu/ops/transforms.py:152",
+    scratch="reid_train_augment_scratch")
+GEM_POOL = CudaKernel(
+    "gem_pool", "reid_gem_pool_forward",
+    [_P, _P, _P, _P, _I, _I, _I, _F],
+    source="reid_gan_torch/csrc/gem_pool.cu",
+    replaces="reid_gan_tpu/models/pooling.py:18",
+    backward=("reid_gem_pool_backward",
+              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F]),
+    scratch="reid_gem_pool_backward_scratch")
+INFONCE = CudaKernel(
+    "infonce", "reid_infonce_forward",
+    [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P],
+    source="reid_gan_torch/csrc/infonce.cu",
+    replaces="reid_gan_tpu/ops/cluster_memory.py:58",
+    backward=("reid_infonce_backward",
+              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P]),
+    scratch="reid_infonce_forward_scratch")
+BANK_FOLD = CudaKernel(
+    "bank_fold", "reid_bank_fold",
+    [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I],
+    source="reid_gan_torch/csrc/bank_fold.cu",
+    replaces="reid_gan_tpu/ops/cluster_memory.py:103")
 
-KERNELS = (EVAL_TRANSFORM, GEM_BN_L2N, RANK_STATS)
+KERNELS = (EVAL_TRANSFORM, GEM_BN_L2N, RANK_STATS, TRAIN_AUGMENT, GEM_POOL,
+           INFONCE, BANK_FOLD)
 
 
 def reset_launch_counts():
     for k in KERNELS:
-        k.launches = 0
+        k.launches = dict.fromkeys(k.entries, 0)
 
 
 def launch_counts():
-    return {k.name: k.launches for k in KERNELS}
+    """Launches per kernel, all phases together."""
+    return {k.name: sum(k.launches.values()) for k in KERNELS}
+
+
+def phase_launch_counts():
+    """Launches per kernel and phase, e.g. ``gem_pool.backward``."""
+    return {f"{k.name}.{phase}": n for k in KERNELS for phase, n in k.launches.items()}

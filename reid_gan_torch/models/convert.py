@@ -6,7 +6,9 @@ import torch
 
 
 def _t(a):
-    return torch.tensor(np.asarray(a, np.float32))
+    """At least float32; float64 stays float64 (the fp64 parity tests)."""
+    a = np.asarray(a)
+    return torch.tensor(a.astype(np.promote_types(a.dtype, np.float32)))
 
 
 def resnet_state_dict_from_jax(params, batch_stats):
@@ -15,7 +17,8 @@ def resnet_state_dict_from_jax(params, batch_stats):
 
     The inverse of ``reid_gan_tpu/models/resnet.py::import_torch_resnet``
     (resnet.py:263-337): conv kernels HWIO → OIHW, Dense (in, out) →
-    (out, in), BN scale/bias/mean/var → weight/bias/running_mean/running_var,
+    (out, in) (``feat``, ``classifier``), BN scale/bias/mean/var →
+    weight/bias/running_mean/running_var,
     ``base/layerI_J`` → ``layerI.J``, ``downsample_{conv,bn}`` →
     ``downsample.{0,1}``. The scale-only ``feat_bn`` gets its frozen zero
     bias. IBN variants are not covered (their ``bn1`` is split).
@@ -60,6 +63,8 @@ def resnet_state_dict_from_jax(params, batch_stats):
         sd["feat.weight"] = _t(np.asarray(params["feat"]["kernel"]).T)
         sd["feat.bias"] = _t(params["feat"]["bias"])
     bn("feat_bn", params["feat_bn"], batch_stats["feat_bn"])
+    if "classifier" in params:
+        sd["classifier.weight"] = _t(np.asarray(params["classifier"]["kernel"]).T)
     return sd
 
 

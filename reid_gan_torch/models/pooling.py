@@ -1,13 +1,14 @@
 """Pooling layers over NCHW feature maps (port of
 ``reid_gan_tpu/models/pooling.py``; parity: CC/clustercontrast/models/
 pooling.py — GeM with trainable p is the default, factory at
-pooling.py:216-226), and the fused eval head ``gem_bn_l2n`` (kernel K2).
+pooling.py:216-226), GeM with its gradient (kernel K5, ``gem_pool``) and the
+fused eval head ``gem_bn_l2n`` (kernel K2).
 """
 
 import torch
 from torch import nn
 
-from ..kernels import GEM_BN_L2N
+from ..kernels import GEM_BN_L2N, GEM_POOL
 
 
 class GeneralizedMeanPooling(nn.Module):
@@ -24,6 +25,8 @@ class GeneralizedMeanPooling(nn.Module):
             self.p = float(p)
 
     def forward(self, x):
+        if isinstance(self.p, nn.Parameter):
+            return gem_pool(x, self.p, self.eps)
         x = torch.clamp(x, min=self.eps) ** self.p
         return torch.mean(x, dim=(2, 3)) ** (1.0 / self.p)
 
@@ -93,6 +96,88 @@ def build_pooling_layer(kind, **kwargs):
     if kind not in _POOLING:
         raise KeyError(f"Unknown pooling layer: {kind}")
     return _POOLING[kind](**kwargs)
+
+
+# ---------------------------------------------------------------------------
+# GeM with a learned p, forward and backward (kernel K5)
+# ---------------------------------------------------------------------------
+
+def gem_pool_plain(fmap, p, eps=1e-6):
+    """Plain PyTorch version of K5, differentiable by autograd:
+    (N, C, H, W) map and (1,) p → (N, C)."""
+    return torch.mean(torch.clamp(fmap, min=eps) ** p, dim=(2, 3)) ** (1.0 / p)
+
+
+def _check_map(fmap, name):
+    if fmap.dtype != torch.float32 or fmap.dim() != 4:
+        raise ValueError(f"{name} takes an (N, C, H, W) float32 map, got "
+                         f"{tuple(fmap.shape)} {fmap.dtype}")
+    c = fmap.shape[1]
+    if not fmap.is_contiguous(memory_format=torch.channels_last) or \
+            fmap.data_ptr() % 16 or c % 4:
+        raise ValueError(f"{name} needs a channels_last, 16-byte aligned map "
+                         f"with C % 4 == 0 (C={c})")
+
+
+def _check_vec(t, name, size, like):
+    if t.dtype != torch.float32 or t.device != like.device or \
+            t.numel() != size or not t.is_contiguous():
+        raise ValueError(f"{name} must be {size} contiguous float32 values on "
+                         f"{like.device}")
+
+
+def _gem_forward_cuda(fmap, p, eps):
+    _check_map(fmap, "gem_pool")
+    _check_vec(p, "gem_pool: p", 1, fmap)
+    n, c, h, w = fmap.shape
+    out = torch.empty((n, c), dtype=torch.float32, device=fmap.device)
+    smean = torch.empty_like(out)
+    GEM_POOL(fmap.data_ptr(), p.data_ptr(), out.data_ptr(), smean.data_ptr(),
+             n, h * w, c, eps, device=fmap.device)
+    return out, smean
+
+
+def _gem_backward_cuda(fmap, p, smean, out, grad, eps):
+    grad = grad.contiguous()
+    _check_vec(grad, "gem_pool: the output gradient", out.numel(), fmap)
+    n, c, h, w = fmap.shape
+    dx = torch.empty_like(fmap, memory_format=torch.channels_last)
+    dp = torch.empty(1, dtype=torch.float32, device=fmap.device)
+    partial = torch.empty(GEM_POOL.scratch_size(n, c), dtype=torch.float64,
+                          device=fmap.device)
+    GEM_POOL.backward(fmap.data_ptr(), p.data_ptr(), smean.data_ptr(),
+                      out.data_ptr(), grad.data_ptr(), dx.data_ptr(),
+                      dp.data_ptr(), partial.data_ptr(), n, h * w, c, eps,
+                      device=fmap.device)
+    return dx, dp
+
+
+class _GemPool(torch.autograd.Function):
+    """K5 on the card: the forward kernel keeps S for the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, fmap, p, eps):
+        out, smean = _gem_forward_cuda(fmap, p, eps)
+        ctx.eps = eps
+        ctx.save_for_backward(fmap, p, smean, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        fmap, p, smean, out = ctx.saved_tensors
+        dx, dp = _gem_backward_cuda(fmap, p, smean, out, grad, ctx.eps)
+        return dx, dp, None
+
+
+def gem_pool(fmap, p, eps=1e-6):
+    """GeM(p) of an (N, C, H, W) map with a learned (1,) p, with gradients
+    for the map and for p (kernel K5 forward and backward on the card; the
+    plain version, differentiated by autograd, on the CPU)."""
+    if fmap.is_cuda:
+        return _GemPool.apply(fmap, p, eps)
+    if fmap.device.type != "cpu":
+        raise ValueError(f"gem_pool: unsupported device {fmap.device}")
+    return gem_pool_plain(fmap, p, eps)
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,23 @@
-"""ResNet re-ID backbone, eval mode (port of ``reid_gan_tpu/models/resnet.py``).
+"""ResNet re-ID backbone (port of ``reid_gan_tpu/models/resnet.py``).
 
 torchvision key names (``conv1``, ``bn1``, ``layerI.J.convK``,
-``layerI.J.downsample.{0,1}``) plus ``gap.p`` and ``feat_bn.*``, so a
-``state_dict()`` of this model is what ``reid_gan_tpu.models.resnet.
-import_torch_resnet`` reads and what ``convert.resnet_state_dict_from_jax``
-writes. ``nn.BatchNorm2d`` in eval mode already has the semantics of the JAX
-package's ``TorchBatchNorm`` (normalise with the running stats; torch stores
-the unbiased running variance), so that module needs no port.
+``layerI.J.downsample.{0,1}``) plus ``gap.p``, ``feat.*``, ``feat_bn.*`` and
+``classifier.weight``, so a ``state_dict()`` of this model is what
+``reid_gan_tpu.models.resnet.import_torch_resnet`` reads and what
+``convert.resnet_state_dict_from_jax`` writes. ``nn.BatchNorm2d`` already has
+the semantics of the JAX package's ``TorchBatchNorm``: in eval mode it
+normalises with the running stats; in train mode with the biased batch
+variance, and it stores the unbiased one with torch momentum 0.1 (flax
+0.9). So that module needs no port.
 
 ``ReIDResNet`` is the CC re-ID model (CC/clustercontrast/models/resnet.py:
 14-127): last-stride 1, GeM pooling with a trainable ``p``, a scale-only
-``feat_bn`` (bias frozen at zero, resnet.py:61) and an L2-normalised eval
-feature. With GeM and no embedding layer (the recipe's default) the whole
-eval head is kernel K2 (``pooling.gem_bn_l2n``). Train-mode outputs come with
-the training slice.
+``feat_bn`` (bias frozen at zero, resnet.py:61). Eval: an L2-normalised
+feature; with GeM and no embedding layer (the recipe's default) the whole
+eval head is kernel K2 (``pooling.gem_bn_l2n``). Train
+(``resnet.py:177-219``): GeM with its gradient (kernel K5,
+``pooling.gem_pool``) → ``feat`` → ``feat_bn`` on batch stats → L2 (``norm``)
+or ReLU → dropout → ``prob``.
 """
 
 import torch
@@ -113,14 +117,16 @@ class ResNetBackbone(nn.Module):
 
 
 class ReIDResNet(ResNetBackbone):
-    """Eval: (N, 3, H, W) → (N, D) L2-normalised ``feat_bn`` output."""
+    """Eval: (N, 3, H, W) → (N, D) L2-normalised ``feat_bn`` output.
+    Train: ``{'feat', 'gan_feat'}`` (+ ``'prob'``), as ``resnet.py:208-219``."""
 
-    def __init__(self, depth=50, num_features=0, pooling_type="gem",
-                 last_stride=1):
+    def __init__(self, depth=50, num_features=0, norm=False, dropout=0.0,
+                 num_classes=0, pooling_type="gem", last_stride=1):
         super().__init__(depth, last_stride)
         self.gap = build_pooling_layer(pooling_type)
         dim = self.out_channels
         self.num_features = num_features
+        self.norm = norm
         if num_features > 0:
             self.feat = nn.Linear(dim, num_features)
             nn.init.kaiming_normal_(self.feat.weight, mode="fan_out")
@@ -128,27 +134,60 @@ class ReIDResNet(ResNetBackbone):
             dim = num_features
         self.feat_bn = nn.BatchNorm1d(dim)
         self.feat_bn.bias.requires_grad_(False)   # frozen at zero
+        self.drop = nn.Dropout(dropout) if dropout > 0 else None
+        self.classifier = None
+        if num_classes > 0:
+            self.classifier = nn.Linear(dim, num_classes, bias=False)
+            nn.init.normal_(self.classifier.weight, std=0.001)
         self._fused_head = (isinstance(self.gap, GeneralizedMeanPooling)
                             and isinstance(self.gap.p, nn.Parameter)
                             and num_features == 0)
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "ReIDResNet runs in eval mode only; train-mode outputs "
-                "({'feat', 'gan_feat'}) come with the training slice "
-                "(ROADMAP A1)")
+    def forward(self, x, with_gan_feat=True):
         fmap = super().forward(x)
         # the heads run in (at least) fp32, as resnet.py:183 upcasts
         fmap = fmap.to(torch.promote_types(fmap.dtype, torch.float32))
-        if self._fused_head:
-            bn = self.feat_bn
-            return gem_bn_l2n(fmap, self.gap.p, bn.weight, bn.running_mean,
-                              bn.running_var, self.gap.eps, bn.eps)
+        if not self.training:
+            if self._fused_head:
+                bn = self.feat_bn
+                return gem_bn_l2n(fmap, self.gap.p, bn.weight, bn.running_mean,
+                                  bn.running_var, self.gap.eps, bn.eps)
+            z = self.gap(fmap)
+            if self.num_features > 0:
+                z = self.feat(z)
+            return l2n(self.feat_bn(z))
+        out = {"feat": self._train_head(fmap)}
+        if with_gan_feat:
+            out["gan_feat"] = _gan_feat(fmap)
+        if self.classifier is not None:
+            out["prob"] = self.classifier(out["feat"])
+        return out
+
+    def _train_head(self, fmap):
         z = self.gap(fmap)
         if self.num_features > 0:
             z = self.feat(z)
-        return l2n(self.feat_bn(z))
+        z = self.feat_bn(z)
+        if self.norm:
+            z = l2n(z)
+        elif self.num_features > 0:
+            z = torch.relu(z)
+        if self.drop is not None:
+            z = self.drop(z)
+        return z
+
+
+def _gan_feat(fmap):
+    """The GAN branch's per-position channel-L2 map (resnet.py:186-187),
+    NCHW. On the card it waits for the joint slice, which ports it with its
+    backward as the second half of ROADMAP B8."""
+    if fmap.is_cuda:
+        raise NotImplementedError(
+            "the train-mode gan_feat map is not ported to the card yet: it "
+            "comes with its backward in the joint slice (ROADMAP B8); call "
+            "the model with with_gan_feat=False")
+    return fmap * torch.reciprocal(
+        torch.sqrt(torch.sum(fmap * fmap, dim=1, keepdim=True)) + 1e-12)
 
 
 def resnet18(**kw):

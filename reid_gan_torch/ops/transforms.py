@@ -1,23 +1,31 @@
-"""Eval image transform: uint8 NHWC staging batch → normalised NCHW batch.
+"""Image transforms: the eval transform (kernel K1) and the train
+augmentation (kernel K4), uint8 NHWC staging batch → normalised NCHW batch.
 
-Port of the eval branch of ``reid_gan_tpu/ops/transforms.py::reid_augment``
-(``train=False``: to_float → resize → normalize), plus the cast to the
-extractor's dtype that ``engine/evaluators.py:47`` applies. The output is a
-logical NCHW tensor in channels_last memory, so it is the input's own element
-order and feeds cuDNN's channels_last convolutions without a copy.
+Port of ``reid_gan_tpu/ops/transforms.py::reid_augment``. The eval branch
+(``train=False``: to_float → resize → normalize) comes with the cast to the
+extractor's dtype that ``engine/evaluators.py:47`` applies. The train branch
+(``train=True``: flip → random sized rect crop → normalize → random erasing,
+:152-157) is split in two, as the port's ground rule for random draws asks:
+``sample_augment_params`` draws the per-image parameters from an explicit
+``torch.Generator`` and ``train_augment`` applies them. The output is a
+logical NCHW tensor in channels_last memory, so it feeds cuDNN's
+channels_last convolutions without a copy.
 
 The loader stages every batch at the target size (``data/loader.py``), so the
-resize is a no-op on this path and the port does not carry it: a batch at any
-other size raises. Resizing comes with the training slice's augmentation.
+eval resize is a no-op and the crop always upsamples; a batch at any other
+size raises.
 
 On a CUDA tensor ``eval_transform`` launches kernel K1
-(``csrc/eval_transform.cu``); on a CPU tensor it runs
-``eval_transform_plain``, the same arithmetic in plain PyTorch.
+(``csrc/eval_transform.cu``) and ``train_augment`` kernel K4
+(``csrc/train_augment.cu``); on a CPU tensor each runs its plain PyTorch
+version, the same arithmetic.
 """
+
+import math
 
 import torch
 
-from ..kernels import EVAL_TRANSFORM
+from ..kernels import EVAL_TRANSFORM, TRAIN_AUGMENT
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -65,9 +73,152 @@ def eval_transform(img_u8, height=256, width=128, dtype=torch.bfloat16):
         raise ValueError(
             f"staged batch is {tuple(img_u8.shape[1:3])}, expected "
             f"{(height, width)}: the eval path takes batches staged at the "
-            "target size (resizing comes with the training augmentation)")
+            "target size")
     if img_u8.is_cuda:
         return _eval_transform_cuda(img_u8, dtype)
     if img_u8.device.type != "cpu":
         raise ValueError(f"eval_transform: unsupported device {img_u8.device}")
     return eval_transform_plain(img_u8, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Train augmentation (kernel K4)
+# ---------------------------------------------------------------------------
+
+# Columns of the (N, 10) float32 parameter tensor, one row per image
+FLIP, CROP_TOP, CROP_LEFT, CROP_H, CROP_W, ERASE, ERASE_TOP, ERASE_LEFT, \
+    ERASE_H, ERASE_W = range(10)
+
+
+def sample_augment_params(n, h, w, generator):
+    """Per-image augmentation draws on ``generator``'s device, over the
+    ranges of the JAX functions: flip with p 0.5 (``random_hflip``,
+    :59-62); crop area in [0.64, 1]·HW and aspect h/w in [2, 3], clamped
+    into the image (``random_sized_rect_crop``, :96-102); erase with p 0.5,
+    area in [0.02, 0.4]·HW and log-aspect in [ln 0.3, ln(1/0.3)], sides
+    rounded half to even and clipped, corner floored (``random_erasing``,
+    :116-124). Returns (n, 10) float32 in the column order above."""
+    dev = generator.device
+
+    def u(lo=0.0, hi=1.0):
+        return torch.rand(n, generator=generator, device=dev) * (hi - lo) + lo
+
+    flip = (u() < 0.5).float()
+    area = h * w * u(0.64, 1.0)
+    aspect = u(2.0, 3.0)
+    crop_h = torch.clamp(torch.sqrt(area * aspect), 1.0, float(h))
+    crop_w = torch.clamp(torch.sqrt(area / aspect), 1.0, float(w))
+    top = u() * (h - crop_h)
+    left = u() * (w - crop_w)
+    erase = (u() < 0.5).float()
+    e_area = h * w * u(0.02, 0.4)
+    e_aspect = torch.exp(u(math.log(0.3), math.log(1.0 / 0.3)))
+    eh = torch.clamp(torch.round(torch.sqrt(e_area * e_aspect)), 1.0, float(h))
+    ew = torch.clamp(torch.round(torch.sqrt(e_area / e_aspect)), 1.0, float(w))
+    e_top = torch.floor(u() * (h - eh + 1))
+    e_left = torch.floor(u() * (w - ew + 1))
+    return torch.stack([flip, top, left, crop_h, crop_w, erase, e_top, e_left,
+                        eh, ew], dim=1).float()
+
+
+def _taps(out_size, size, top, crop):
+    """``jax.image.scale_and_translate``'s linear weights for one axis of
+    each image (jax/_src/image/scale.py:54-85, upsampling): the two source
+    indices and their weights, (N, out_size) each. The jitted JAX function
+    forms ``(o + 0.5) * inv - translation * inv`` as one fused multiply-add;
+    the product and the difference are taken in float64 here, which is that
+    fma's result, then rounded to float32 once."""
+    scale = size / crop
+    trans = -top * scale
+    inv = 1.0 / scale
+    o = torch.arange(out_size, dtype=torch.float32, device=crop.device)
+    fma = (o[None] + 0.5).double() * inv[:, None].double() - \
+        (trans * inv)[:, None].double()
+    f = fma.float() - 0.5
+    i0 = torch.floor(f)
+    w0 = torch.clamp_min(1.0 - torch.abs(f - i0), 0.0)
+    w1 = torch.clamp_min(1.0 - torch.abs(f - (i0 + 1.0)), 0.0)
+    w0 = torch.where((i0 >= 0) & (i0 < size), w0, 0.0)
+    w1 = torch.where((i0 + 1 >= 0) & (i0 + 1 < size), w1, 0.0)
+    total = w0 + w1
+    keep = torch.abs(total) > 1000.0 * torch.finfo(torch.float32).eps
+    safe = torch.where(total != 0, total, 1.0)
+    inside = (f >= -0.5) & (f <= size - 0.5)
+    w0 = torch.where(keep & inside, w0 / safe, 0.0)
+    w1 = torch.where(keep & inside, w1 / safe, 0.0)
+    i0 = i0.long()
+    return i0.clamp(0, size - 1), (i0 + 1).clamp(0, size - 1), w0, w1
+
+
+def train_augment_plain(img_u8, params):
+    """Plain PyTorch version of K4: (N, H, W, 3) uint8 and (N, 10) params →
+    (N, 3, H, W) float32, channels_last, at the staged size."""
+    n, h, w, _ = img_u8.shape
+    x = to_float(img_u8)
+    flip = params[:, FLIP] != 0
+    x = torch.where(flip[:, None, None, None], torch.flip(x, [2]), x)
+    ya, yb, wy0, wy1 = _taps(h, h, params[:, CROP_TOP], params[:, CROP_H])
+    xa, xb, wx0, wx1 = _taps(w, w, params[:, CROP_LEFT], params[:, CROP_W])
+    idx = torch.arange(n, device=x.device)[:, None, None]
+
+    def px(ys, xs):
+        return x[idx, ys[:, :, None], xs[:, None, :]]          # (N, H, W, 3)
+
+    wy0, wy1 = wy0[:, :, None, None], wy1[:, :, None, None]
+    wx0, wx1 = wx0[:, None, :, None], wx1[:, None, :, None]
+    v = wy0 * (wx0 * px(ya, xa) + wx1 * px(ya, xb)) + \
+        wy1 * (wx0 * px(yb, xa) + wx1 * px(yb, xb))
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    z = (v - mean) / std
+    fill = z.mean(dim=(1, 2))                                   # (N, 3)
+    yy = torch.arange(h, device=x.device, dtype=torch.float32)[None, :, None]
+    xx = torch.arange(w, device=x.device, dtype=torch.float32)[None, None, :]
+    p = params[:, :, None, None]
+    inside = ((yy >= p[:, ERASE_TOP]) & (yy < p[:, ERASE_TOP] + p[:, ERASE_H])
+              & (xx >= p[:, ERASE_LEFT]) & (xx < p[:, ERASE_LEFT] + p[:, ERASE_W])
+              & (p[:, ERASE] != 0))
+    z = torch.where(inside[..., None], fill[:, None, None, :], z)
+    return z.permute(0, 3, 1, 2)
+
+
+def _check_params(img_u8, params):
+    n = img_u8.shape[0]
+    if params.shape != (n, 10) or params.dtype != torch.float32 or \
+            params.device != img_u8.device or not params.is_contiguous():
+        raise ValueError(f"train_augment: params must be ({n}, 10) contiguous "
+                         f"float32 on {img_u8.device}")
+
+
+def _train_augment_cuda(img_u8, params):
+    if img_u8.dtype != torch.uint8 or img_u8.dim() != 4 or img_u8.shape[-1] != 3 \
+            or not img_u8.is_contiguous():
+        raise ValueError(f"train_augment takes a contiguous (N, H, W, 3) uint8 "
+                         f"batch, got {tuple(img_u8.shape)} {img_u8.dtype}")
+    _check_params(img_u8, params)
+    n, h, w, c = img_u8.shape
+    out = torch.empty((n, c, h, w), dtype=torch.float32, device=img_u8.device,
+                      memory_format=torch.channels_last)
+    partial = torch.empty(TRAIN_AUGMENT.scratch_size(n, h), dtype=torch.float32,
+                          device=img_u8.device)
+    TRAIN_AUGMENT(img_u8.data_ptr(), params.data_ptr(), out.data_ptr(),
+                  partial.data_ptr(), n, h, w, *IMAGENET_MEAN, *IMAGENET_STD,
+                  device=img_u8.device)
+    return out
+
+
+def train_augment(img_u8, params, height=256, width=128):
+    """The train augmentation of a staged batch with given draws (kernel K4
+    on the card): flip, linear crop-resize, ImageNet normalize, erase with
+    the per-image channel mean of the normalized crop. float32 out."""
+    if tuple(img_u8.shape[1:3]) != (height, width):
+        raise ValueError(
+            f"staged batch is {tuple(img_u8.shape[1:3])}, expected "
+            f"{(height, width)}: the crop upsamples from a batch staged at "
+            "the target size")
+    if img_u8.is_cuda:
+        return _train_augment_cuda(img_u8, params)
+    if img_u8.device.type != "cpu":
+        raise ValueError(f"train_augment: unsupported device {img_u8.device}")
+    _check_params(img_u8, params)
+    return train_augment_plain(img_u8, params)

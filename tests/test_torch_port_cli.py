@@ -76,6 +76,24 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_rank_metrics_refuse_the_cpu_unless_asked(monkeypatch):
+    """``evaluate_all_features`` and ``rank_metrics_features`` default to the
+    card, as every entry point does: without one they raise."""
+    from reid_gan_torch.engine.evaluators import evaluate_all_features
+    from reid_gan_torch.engine.metrics import rank_metrics_features
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    f = np.eye(2, 4, dtype=np.float32)
+    items = [("a.jpg", 0, 0), ("b.jpg", 1, 0)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rank_metrics_features(f, f, [0, 1], [0, 1], [0, 0], [1, 1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_all_features(f, f, items, items)
+    _, mAP = rank_metrics_features(f, f, [0, 1], [0, 1], [0, 0], [1, 1],
+                                   device="cpu")
+    assert mAP == 1.0
+
+
 def test_unported_options_raise():
     from reid_gan_torch.cli.test import main
     from reid_gan_torch.engine.evaluators import Evaluator
@@ -126,9 +144,10 @@ def _c_kind(decl):
 
 
 def test_kernel_bindings_match_the_c_signatures():
-    """Each CudaKernel's ctypes argtypes (plus the trailing stream) match
-    the ``extern "C"`` entry point in csrc/ — a mismatch would pass a cut
-    pointer or a wrong value to the card, and nvcc is not here to check."""
+    """Each CudaKernel's ctypes argtypes (plus the trailing stream) and its
+    scratch query's argtypes and return type match the ``extern "C"``
+    function in csrc/ — a mismatch would pass a cut pointer or a wrong value
+    to the card, and nvcc is not here to check."""
     from reid_gan_torch import kernels
 
     sigs = {}
@@ -136,16 +155,26 @@ def test_kernel_bindings_match_the_c_signatures():
         if fname.endswith(".cu"):
             with open(osp.join(kernels.CSRC_DIR, fname)) as f:
                 src = f.read()
-            for name, params in re.findall(
-                    r'extern "C" int (\w+)\(([^)]*)\)', src):
-                sigs[name] = [_c_kind(p) for p in params.split(",")]
-    assert len(kernels.KERNELS) == 3
+            for ret, name, params in re.findall(
+                    r'extern "C" (int|long long) (\w+)\(([^)]*)\)', src):
+                sigs[name] = (ret, [_c_kind(p) for p in params.split(",")])
+    assert len(kernels.KERNELS) == 7
+    scratch = []
     for k in kernels.KERNELS:
-        got = [_CTYPE[t] for t in k.argtypes]
-        assert got == sigs[k.symbol], k.symbol
+        entries = list(k.entries.values())
+        if k.scratch is not None:
+            entries.append(k.scratch)
+            scratch.append(k.name)
+        for entry in entries:
+            got = (_CTYPE[entry.restype], [_CTYPE[t] for t in entry.argtypes])
+            assert got == sigs[entry.symbol], entry.symbol
         assert osp.exists(osp.join(REPO, k.source)), k.source
-    assert kernels.launch_counts() == {"eval_transform": 0, "gem_bn_l2n": 0,
-                                       "rank_stats": 0}
+    assert scratch == ["train_augment", "gem_pool", "infonce"]
+    assert kernels.launch_counts() == {
+        "eval_transform": 0, "gem_bn_l2n": 0, "rank_stats": 0,
+        "train_augment": 0, "gem_pool": 0, "infonce": 0, "bank_fold": 0}
+    assert set(kernels.phase_launch_counts()) >= {"gem_pool.backward",
+                                                  "infonce.backward"}
 
 
 def test_cpu_paths_launch_no_kernel():
@@ -161,5 +190,5 @@ def test_cpu_paths_launch_no_kernel():
         rng.randint(0, 256, (2, 32, 16, 3)).astype(np.uint8)), 32, 16)
     with torch.no_grad():
         f = create("resnet18").eval()(x.float()).numpy()
-    rank_metrics_features(f, f, [0, 1], [0, 1], [0, 0], [1, 1])
+    rank_metrics_features(f, f, [0, 1], [0, 1], [0, 0], [1, 1], device="cpu")
     assert set(kernels.launch_counts().values()) == {0}

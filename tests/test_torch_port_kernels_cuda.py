@@ -1,7 +1,11 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 edges that ``chip_smoke.py`` does not reach: element counts off the vector
 width, narrow and odd maps, galleries smaller than a block, queries with no
-match, and rows with more matches than K3 stages in one round.
+match, rows with more matches than K3 stages in one round; crops and erase
+rectangles at the borders (K4); p other than 3, maps of zeros and odd
+sizes (K5); one live bank row, a full bank and banks off the column tile
+(K6); one label for the whole batch, all labels distinct and exact ties in
+the hard fold (K7); and the raise on inputs a kernel does not take.
 
 Needs a CUDA card; skips without one. This file imports no JAX, so it runs
 on a machine without it, with the JAX test harness left out:
@@ -111,3 +115,206 @@ def test_rank_stats_matches_plain(card, q, n, num_ids, ties, rounds):
     if rounds:
         assert int(nm[1:].min()) > 1024    # more than one staging round
     assert float((ap - ap_r).abs().max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# K4 train_augment
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,h,w", [(8, 32, 16), (3, 7, 5), (5, 256, 128)])
+def test_train_augment_matches_plain(card, n, h, w):
+    """Random draws plus crops flush with the borders, the whole image, a
+    one-pixel erase and a whole-image erase: within 1e-5 (the same fp32
+    arithmetic; the fill mean sums in another order)."""
+    from reid_gan_torch.ops.transforms import (
+        sample_augment_params,
+        train_augment,
+        train_augment_plain,
+    )
+
+    g = torch.Generator(device=card).manual_seed(n * h)
+    u8 = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8, device=card, generator=g)
+    p = sample_augment_params(n, h, w, g)
+    p[0, 1:5] = torch.tensor([0.0, 0.0, h * 0.7, w * 0.6])            # top-left
+    p[1, 1:5] = torch.tensor([h * 0.3, w * 0.4, h * 0.7, w * 0.6])    # bottom-right
+    p[2, 1:5] = torch.tensor([0.0, 0.0, float(h), float(w)])          # whole
+    p[0, 5:] = torch.tensor([1.0, h - 1.0, w - 1.0, 1.0, 1.0])        # one pixel
+    p[2, 5:] = torch.tensor([1.0, 0.0, 0.0, float(h), float(w)])      # whole image
+    out = train_augment(u8, p, h, w)
+    ref = train_augment_plain(u8, p)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.stride() == ref.stride()
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+def test_train_augment_rejects_bad_inputs(card):
+    from reid_gan_torch.ops.transforms import train_augment
+
+    u8 = torch.zeros((2, 8, 4, 3), dtype=torch.uint8, device=card)
+    p = torch.zeros((2, 10), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        train_augment(u8.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3), p, 8, 4)
+    with pytest.raises(ValueError, match="float32"):
+        train_augment(u8, p.double(), 8, 4)
+
+
+# ---------------------------------------------------------------------------
+# K5 gem_pool
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,c,h,w,p,zeros", [
+    (4, 2048, 16, 8, 3.0, False),
+    (3, 12, 3, 5, 2.5, False),       # odd map, C off the 512-channel block
+    (2, 516, 7, 1, 4.0, False),      # one column, a second channel block
+    (2, 64, 4, 4, 3.0, True),        # all zeros: every value clamps to eps
+])
+def test_gem_pool_forward_backward_match_plain(card, n, c, h, w, p, zeros):
+    """Forward, d map and dp against the plain version's autograd in fp64 on
+    the same fp32 inputs: pooled and d map within 1e-5 relative (powf and
+    the sum order), dp within 1e-4 relative (a sum of N*C differences of
+    terms of the size of ln eps, in double in the kernel)."""
+    from reid_gan_torch.models.pooling import gem_pool, gem_pool_plain
+
+    gen = torch.Generator(device=card).manual_seed(c + h)
+    fmap = torch.relu(torch.rand((n, c, h, w), device=card, generator=gen) * 2 - 0.6)
+    if zeros:
+        fmap.zero_()
+    fmap = fmap.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    pp = torch.tensor([p], device=card, requires_grad=True)
+    gout = torch.randn((n, c), device=card, generator=gen)
+    out = gem_pool(fmap, pp)
+    out.backward(gout)
+    f64 = fmap.detach().double().requires_grad_(True)
+    p64 = pp.detach().double().requires_grad_(True)
+    ref = gem_pool_plain(f64, p64)
+    ref.backward(gout.double())
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a.detach().double() - b.detach()).abs().max()
+                     / b.detach().abs().max().clamp_min(1e-30))
+
+    assert rel(out, ref) <= 1e-5
+    if zeros:
+        assert float(fmap.grad.abs().max()) == 0.0
+        assert abs(float(pp.grad) - float(p64.grad)) <= 1e-9
+    else:
+        assert rel(fmap.grad, f64.grad) <= 1e-5
+        assert abs(float(pp.grad) - float(p64.grad)) <= 1e-4 * abs(float(p64.grad))
+    assert fmap.grad.is_contiguous(memory_format=torch.channels_last)
+
+
+# ---------------------------------------------------------------------------
+# K6 infonce (memory_loss)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,d,k_pad,nv", [
+    (256, 2048, 768, 1),       # one live row
+    (256, 2048, 768, 768),     # a full bank
+    (20, 64, 100, 37),         # batch and bank off the tiles
+    (33, 512, 64, 64),         # one column tile, a batch one past a row tile
+])
+def test_memory_loss_matches_plain(card, b, d, k_pad, nv):
+    """Loss, logits (−inf past num_valid) and dL/dx of the mean loss against
+    the plain version's autograd in fp64 on the same fp32 inputs: logits
+    within 1e-4 (temp 0.05 multiplies the product's fp32 rounding by 20),
+    loss within 1e-4, gradient within 1e-6."""
+    from reid_gan_torch.ops.cluster_memory import (
+        init_memory,
+        memory_loss,
+        memory_loss_plain,
+    )
+
+    g = torch.Generator(device=card).manual_seed(b + k_pad + nv)
+    centers = torch.nn.functional.normalize(
+        torch.randn((nv, d), device=card, generator=g), dim=1)
+    state = init_memory(centers, k_pad=k_pad, device=card)
+    y = torch.randint(0, nv, (b,), device=card, generator=g, dtype=torch.int32)
+    x = (centers[y.long()] + 0.5 * torch.randn((b, d), device=card, generator=g))
+    x = x.contiguous().requires_grad_(True)
+    loss, logits = memory_loss(x, y, state)
+    loss.mean().backward()
+    x64 = x.detach().double().requires_grad_(True)
+    s64 = state._replace(features=state.features.double())
+    ref, ref_logits = memory_loss_plain(x64, y, s64)
+    ref.mean().backward()
+    torch.cuda.synchronize()
+    assert torch.isneginf(logits[:, nv:]).all()
+    assert float((logits[:, :nv].double() - ref_logits[:, :nv]).abs().max()) <= 1e-4
+    assert float((loss.double() - ref).abs().max()) <= 1e-4
+    assert float((x.grad.double() - x64.grad).abs().max()) <= 1e-6
+
+
+def test_memory_loss_rejects_bad_inputs(card):
+    from reid_gan_torch.ops.cluster_memory import init_memory, memory_loss
+
+    state = init_memory(torch.eye(4, 8, device=card), k_pad=8, device=card)
+    y = torch.zeros(2, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        memory_loss(torch.ones((2, 8), device=card, dtype=torch.float64), y, state)
+    with pytest.raises(ValueError, match="D % 4"):
+        memory_loss(torch.ones((2, 10), device=card)[:, :6], y, state)
+    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+        memory_loss(torch.ones((2, 8), device=card), y, state,
+                    ex_f=torch.ones((2, 8), device=card))
+
+
+# ---------------------------------------------------------------------------
+# K7 bank_fold (update_memory)
+# ---------------------------------------------------------------------------
+
+def _fold_inputs(card, b, d, k_pad, labels, seed):
+    from reid_gan_torch.ops.cluster_memory import init_memory
+
+    g = torch.Generator(device=card).manual_seed(seed)
+    centers = torch.nn.functional.normalize(
+        torch.randn((k_pad, d), device=card, generator=g), dim=1)
+    gan = torch.randn((k_pad, d), device=card, generator=g)
+    x = torch.randn((b, d), device=card, generator=g)
+    y = torch.as_tensor(labels, dtype=torch.int32, device=card)
+    return (init_memory(centers, k_pad=k_pad, gan_centroids=gan, device=card),
+            x, y)
+
+
+@pytest.mark.parametrize("case", ["one_label", "all_distinct", "pxk", "hard_tie"])
+def test_update_memory_matches_plain(card, case):
+    """Plain fold (feature and GAN banks) and hard fold against the plain
+    version on copies of the same bank: within 1e-6 on unit rows."""
+    from reid_gan_torch.ops.cluster_memory import update_memory, update_memory_plain
+
+    b, d, k_pad = 256, 2048, 300
+    hard = case == "hard_tie"
+    if case == "one_label":
+        labels = [7] * b
+    elif case == "all_distinct":
+        labels = list(range(b))
+    else:
+        labels = [(i * 37) % 16 * 17 for i in range(b)]     # 16 labels x 16
+    state, x, y = _fold_inputs(card, b, d, k_pad, labels, seed=len(case))
+    if hard:   # two slots of one label with the same, least similarity
+        row = state.features[y[3].long()]
+        x[3] = -row * 2
+        x[3 + 16 * 2] = x[3]                   # the same label 32 slots later
+        assert int(y[3]) == int(y[3 + 32])
+    ref = state._replace(features=state.features.clone(),
+                         gan_features=state.gan_features.clone())
+    update_memory(state, x, y, use_hard=hard, gan_x=None if hard else x * 3)
+    update_memory_plain(ref, x, y, use_hard=hard, gan_x=None if hard else x * 3)
+    torch.cuda.synchronize()
+    assert float((state.features - ref.features).abs().max()) <= 1e-6
+    assert float((state.gan_features - ref.gan_features).abs().max()) <= 1e-5
+    touched = torch.unique(y.long())
+    norms = state.features[touched].norm(dim=1)
+    assert float((norms - 1).abs().max()) <= 1e-5
+
+
+def test_update_memory_rejects_bad_inputs(card):
+    from reid_gan_torch.ops.cluster_memory import init_memory, update_memory
+
+    state = init_memory(torch.eye(4, 8, device=card), device=card)
+    y = torch.zeros(2, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="D == 8"):
+        update_memory(state, torch.ones((2, 12), device=card), y)
+    wide = init_memory(torch.ones((2, 4100), device=card), device=card)
+    with pytest.raises(ValueError, match="4096"):
+        update_memory(wide, torch.ones((2, 4100), device=card), y)

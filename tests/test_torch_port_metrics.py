@@ -50,7 +50,8 @@ def test_rank_metrics_features_matches_jax(ties):
     qf, gf = _features(rng, m, n, ties)
     qid, gid, qcam, gcam = _ids_cams(rng, m, n)
     ref_cmc, ref_map = jax_rank(qf, gf, qid, gid, qcam, gcam, chunk=16)
-    cmc, mAP = rank_metrics_features(qf, gf, qid, gid, qcam, gcam, chunk=16)
+    cmc, mAP = rank_metrics_features(qf, gf, qid, gid, qcam, gcam, chunk=16,
+                                     device="cpu")
     assert cmc.shape == (100,)
     np.testing.assert_allclose(cmc, ref_cmc, atol=1e-6, rtol=0)
     assert abs(mAP - ref_map) <= 1e-6
