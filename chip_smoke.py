@@ -7,7 +7,9 @@ the script exits non-zero without printing a result:
 
 1. the card's name and power limit (``nvidia-smi``) and the kernel build
    (``nvcc`` for sm_90a from ``reid_gan_torch/csrc``, one process per
-   source; ptxas report);
+   source; ptxas report), with ``g++`` building the host C++ library of
+   ``reid_gan_torch/native`` at the same time, then the import of
+   ``scipy.sparse`` that the Jaccard step needs;
 2. every kernel against its plain PyTorch version at the main paths'
    shapes, with max error, tolerance, the kernel's and the plain version's
    device time, and the bound: K1 ``eval_transform`` and K2 ``gem_bn_l2n``
@@ -17,7 +19,9 @@ the script exits non-zero without printing a result:
    forward and backward (d map and dp) at (256, 2048, 16, 8); K6
    ``infonce`` forward and backward at B 256 x D 2048 against banks of 768
    rows (700 live) and 30,720 rows (30,000 live); K7 ``bank_fold``, plain
-   and hard, on a 16 x 16 P×K batch;
+   and hard, on a 16 x 16 P×K batch; K8 ``knn_topk`` at Market-1501's train
+   shape (12,936 x 2048), L2 with k 30 and inner product with k 15, once
+   more with exact ties, and timed alone at MSMT17's 32,621 rows;
 3. the eval main path: ``Evaluator(FeatureExtractor(resnet50)).evaluate``
    (the call ``cli/test.py`` makes) on an in-memory uint8 eval set made with
    numpy from a seed (1,024 queries + 3,072 gallery, 256x128, batch 256;
@@ -37,11 +41,25 @@ the script exits non-zero without printing a result:
    is held against the same step composed from the plain versions (loss,
    the ``feat`` gradient, the folded bank); then 10 warm steps are timed
    and 3 more traced with ``torch.profiler``;
-5. a JSON line with every kernel's launches, error, times and bound;
-6. the last line: ``{"ok": true, "device": {...}}``.
+5. the whole USL loop: one epoch of ``cli/train_usl.run`` on an in-memory
+   set of Market-1501's train size (12,936 images of 751 ids, two colour
+   blocks an id) and the eval set of phase 3, with the recipe's clustering
+   (eps 0.4, min_samples 4, k1 30, k2 6) and 20 steps instead of 400.
+   Launch counts are zeroed just before and read just after: K1, K2 once a
+   batch of the clustering extraction and of both evals, K8 once, K4-K7
+   once a step, K3 once an eval. It needs at least 16 clusters and half the
+   images labelled, and prints the epoch's time split; then the labels of
+   the features run() clustered, taken through the plain kNN, must match
+   the labels run() made through K8 (under 1% of the points moved where the
+   two kNN tables differ), and Infomap runs once on K8's inner-product
+   graph;
+6. a JSON line with every kernel's launches, error, times and bound;
+7. the last line: ``{"ok": true, "device": {...}}``.
 """
 
+import importlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -88,10 +106,23 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
-    from reid_gan_torch import kernels
+    from concurrent.futures import ThreadPoolExecutor
 
-    lib = kernels.load_library()
-    print(f"[build] {lib.path} in {lib.seconds:.1f} s")
+    from reid_gan_torch import kernels, native
+
+    # g++ builds the host C++ beside nvcc, so that no later span times a build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.ensure_built)
+        lib = kernels.load_library()
+        host.result()
+    print(f"[build] {lib.path} in {lib.seconds:.1f} s; the host C++ library "
+          f"(g++) beside it, both ready after {time.perf_counter() - t0:.1f} s")
+    # the Jaccard step imports scipy.sparse at its first call; importing it
+    # here keeps that one-time cost out of the epoch's spans
+    t0 = time.perf_counter()
+    importlib.import_module("scipy.sparse")
+    print(f"[build] scipy.sparse imported in {time.perf_counter() - t0:.2f} s")
     for line in lib.log.splitlines():
         if any(k in line for k in ("entry function", "registers", "spill")):
             print(f"[ptxas] {line.strip()}")
@@ -382,6 +413,98 @@ def check_k7(report):
     print(f"[K7] plain fold ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
     report["bank_fold"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
                                bound_ms=bnd, bound_by=by)
+
+
+def _train_features(g, n, ids=751, dim=2048, quantize=False):
+    """Features shaped like Market-1501's train set from a seed: identity
+    centroids plus noise, L2-normalised. ``quantize``: rounded to multiples
+    of 2^-8 with every odd row a copy of the even row before it. Then every
+    partial sum of a norm or a product is an integer multiple of 2^-16 below
+    2^24 of them, so both versions compute every key exactly, whatever their
+    summation order, and the rows hold exact ties (the duplicates, and many
+    coincidences on the coarse grid)."""
+    centers = torch.randn((ids, dim), device="cuda", generator=g)
+    pid = torch.randint(0, ids, (n,), device="cuda", generator=g)
+    f = torch.nn.functional.normalize(
+        centers[pid] + 3.5 * torch.randn((n, dim), device="cuda", generator=g), dim=1)
+    if quantize:
+        f = torch.round(f * 256) / 256
+        f[1::2] = f[0::2][:n // 2]
+    return f.contiguous()
+
+
+def _swap_gap(f, idx, pv, pi, metric):
+    """Where K8's index table ``idx`` differs from the plain one ``pi``:
+    the rows of the differing entries, and the largest gap between the plain
+    version's key of the index K8 put there and the plain key at that slot
+    (``pv``). A swap of a near-tie leaves a gap at rounding level."""
+    from reid_gan_torch.ops.distance import matmul_fp32, squared_euclidean
+
+    rows, cols = np.nonzero(idx != pi)
+    if not rows.size:
+        return rows, 0.0
+    ur, at = np.unique(rows, return_inverse=True)
+    gap = 0.0
+    for s in range(0, ur.size, 2048):    # a few (2048, N) key blocks at a time
+        sel = (at >= s) & (at < s + 2048)
+        fr = f[torch.from_numpy(ur[s:s + 2048]).cuda()]
+        dr = squared_euclidean(fr, f) if metric == "l2" else matmul_fp32(fr, f.T)
+        got = dr[torch.from_numpy(at[sel] - s).cuda(),
+                 torch.from_numpy(idx[rows[sel], cols[sel]].astype(np.int64)).cuda()]
+        gap = max(gap, float(np.abs(got.cpu().numpy() - pv[rows[sel], cols[sel]]).max()))
+    return rows, gap
+
+
+def check_k8(report):
+    """K8 against its plain version (row-blocked distances, stable sort) at
+    Market-1501's train shape: L2 with k 30 (the Jaccard step) and inner
+    product with k 15 (the Infomap graph)."""
+    from reid_gan_torch.ops.distance import knn_search_plain, knn_topk_cuda, matmul_fp32
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    n, dim, tol = 12936, 2048, 2e-5   # fp32 products summed in other orders
+    f = _train_features(g, n)
+    worst = 0.0
+    for metric, k in (("l2", 30), ("ip", 15)):
+        vals, idx = (t.cpu().numpy() for t in knn_topk_cuda(f, k, metric))
+        pv, pi = knn_search_plain(f, k, metric)
+        torch.cuda.synchronize()
+        err = float(np.abs(vals - pv).max())
+        rows, gap = _swap_gap(f, idx, pv, pi, metric)
+        self_first = bool(np.array_equal(idx[:, 0], np.arange(n)))
+        print(f"[K8] knn_topk {metric} N {n} D {dim} k {k}: vals max_abs_err {err:.3g} "
+              f"(tol {tol:.3g}); {rows.size} swapped entries in {np.unique(rows).size} "
+              f"rows, largest plain-side gap {gap:.3g} (tol {tol:.3g}); self first: "
+              f"{self_first}")
+        check(err <= tol and gap <= tol and self_first, f"K8 {metric} differs from plain")
+        worst = max(worst, err)
+    fq = _train_features(g, n, quantize=True)
+    for metric, k in (("l2", 30), ("ip", 15)):
+        vals, idx = (t.cpu().numpy() for t in knn_topk_cuda(fq, k, metric))
+        pv, pi = knn_search_plain(fq, k, metric)
+        ties = int((pv[:, 1:] == pv[:, :-1]).sum())
+        print(f"[K8] exact ties {metric} k {k}: {ties} tied neighbour pairs; indices "
+              f"identical: {np.array_equal(idx, pi)}, values identical: "
+              f"{np.array_equal(vals, pv)}")
+        check(ties > 0 and np.array_equal(idx, pi) and np.array_equal(vals, pv),
+              f"K8 {metric} orders exact ties otherwise than the plain version")
+
+    ms = device_ms(lambda: knn_topk_cuda(f, 30, "l2"))
+    plain = device_ms(lambda: knn_search_plain(f, 30, "l2"))
+    mm = device_ms(lambda: matmul_fp32(f, f.T), reps=3)
+    # the keys are symmetric (q.g = g.q, |q|^2 + |g|^2 = |g|^2 + |q|^2), so all
+    # N lists need only the N (N + 1) / 2 products of the upper triangle
+    b, by = bound_ms(4 * (n * dim + 2 * n * 30), n * (n + 1) * dim)
+    print(f"[K8] L2 k 30 at N {n}: ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} "
+          f"({by}); fp32 torch.matmul of the same product alone: {mm:.4f} ms "
+          f"(context, not a library version of K8)")
+    n2 = 32621   # MSMT17's train set
+    f2 = _train_features(g, n2)
+    ms2 = device_ms(lambda: knn_topk_cuda(f2, 30, "l2"), reps=3)
+    b2, by2 = bound_ms(4 * (n2 * dim + 2 * n2 * 30), n2 * (n2 + 1) * dim)
+    print(f"[K8] L2 k 30 at N {n2}: ms {ms2:.4f} bound_ms {b2:.4f} ({by2})")
+    report["knn_topk"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b,
+                              bound_by=by)
 
 
 def _eval_set(seed=0, n_ids=256, n_query=1024, n_gallery=3072, h=256, w=128,
@@ -711,6 +834,146 @@ def phase_train(counts):
     loader.close()
 
 
+def _usl_set(seed=0, n_train=12936, ids=751, n_query=1024, n_gallery=3072,
+             eval_ids=256, h=256, w=128):
+    """An in-memory dataset at Market-1501's train size (12,936 images of 751
+    ids) and the eval set of ``[main]`` (1,024 queries + 3,072 gallery of 256
+    other ids), 6 cameras, staged at 256x128. Each id wears two colours, an
+    upper and a lower block, so even a random ResNet-50 tells ids apart and
+    DBSCAN finds clusters; per-pixel noise (a bank of 64 fields, ±40) makes
+    every image of an id different."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    n = n_train + n_query + n_gallery
+    pids = np.concatenate([np.arange(n_train) % ids,
+                           ids + np.arange(n_query + n_gallery) % eval_ids])
+    cams = rng.integers(0, 6, n)
+    colours = rng.integers(0, 256, (ids + eval_ids, 2, 3)).astype(np.int16)
+    noise = rng.integers(-40, 40, (64, h, w, 3), dtype=np.int16)
+    imgs = np.empty((n, h, w, 3), np.uint8)
+    block = np.empty((64, h, 1, 3), np.int16)
+    for s in range(0, n, 64):
+        e = min(s + 64, n)
+        block[:e - s, :h // 2] = colours[pids[s:e], 0][:, None, None]
+        block[:e - s, h // 2:] = colours[pids[s:e], 1][:, None, None]
+        np.clip(block[:e - s] + noise[:e - s], 0, 255, out=imgs[s:e], casting="unsafe")
+    items = [(f"{i:06d}.jpg", int(pids[i]), int(cams[i])) for i in range(n)]
+    return SimpleNamespace(train=items[:n_train], query=items[n_train:n_train + n_query],
+                           gallery=items[n_train + n_query:]), imgs
+
+
+def _changed_points(a, b):
+    """Points whose cluster in ``a`` is not the one most of their ``b``
+    cluster went to (noise counts as a cluster of its own)."""
+    changed = 0
+    for lab in np.unique(b):
+        members = a[b == lab]
+        vals, counts = np.unique(members, return_counts=True)
+        changed += members.size - counts.max()
+    return int(changed)
+
+
+def phase_usl(counts):
+    """The whole USL epoch through ``cli/train_usl.run``: extraction (K1,
+    K2), kNN (K8), Jaccard and DBSCAN (host C++), the bank, 20 P×K steps
+    (K4-K7), eval (K1-K3) and the checkpoint."""
+    import tempfile
+
+    from reid_gan_torch import kernels
+    from reid_gan_torch.cli.train_usl import run
+    from reid_gan_torch.clustering.dbscan import dbscan
+    from reid_gan_torch.config import Config
+    from reid_gan_torch.engine.usl import pseudo_labels_infomap
+    from reid_gan_torch.ops.distance import knn_search, knn_search_plain
+    from reid_gan_torch.ops.jaccard import jaccard_from_rank
+    from reid_gan_torch.utils import Timer
+
+    t_phase = time.perf_counter()
+    dataset, imgs = _usl_set()
+    cache = _InMemoryImages(imgs)
+    cfg = Config()                     # the recipe: eps 0.4, min_samples 4, k1 30, k2 6
+    cfg.data.workers = 4
+    cfg.train.epochs, cfg.train.iters, cfg.train.eval_step = 1, 20, 1
+    print(f"[usl] data: {len(dataset.train)} train images of 751 ids, "
+          f"{len(dataset.query)} + {len(dataset.gallery)} eval, 256x128, made in "
+          f"{time.perf_counter() - t_phase:.1f} s; depth cut: 1 epoch of "
+          f"{cfg.train.iters} steps instead of {Config().train.iters}")
+
+    clustered = []                     # the epoch's (features, labels)
+    with tempfile.TemporaryDirectory() as logs:
+        cfg.train.logs_dir = logs
+        Timer.spans.clear()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = run(cfg, dataset, device="cuda", image_cache=cache,
+                   on_cluster=lambda f, lab: clustered.append((f, lab)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        phases = kernels.phase_launch_counts()
+        counts.update(kernels.launch_counts())
+        secs = dict(Timer.spans)
+        saved = sorted(os.listdir(logs))
+    (feats, run_labels), = clustered
+    n_clusters, n_train = int(run_labels.max()) + 1, len(dataset.train)
+    n_labelled = int((run_labels >= 0).sum())
+    print(f"[usl] run(): {wall:.2f} s, best mAP {best:.4f}; {n_clusters} clusters, "
+          f"{n_labelled} of {n_train} images pseudo-labelled; wrote {saved}")
+    print(f"[usl] launches: {phases}")
+    check(phases["knn_topk.forward"] == 1, "K8 did not launch once in the clustering")
+    for name in ("train_augment.forward", "gem_pool.forward", "gem_pool.backward",
+                 "infonce.forward", "infonce.backward", "bank_fold.forward"):
+        check(phases[name] == cfg.train.iters, f"{name} launched {phases[name]} times, "
+                                               f"not once per step")
+    # K1, K2: one per batch of the clustering extraction and of both evals
+    # (the epoch's and the best model's); K3: one per 1,024-query chunk of each eval
+    batches = -(-n_train // cfg.data.batch_size) + 2 * -(
+        -(len(dataset.query) + len(dataset.gallery)) // cfg.data.batch_size)
+    for name, want in (("eval_transform.forward", batches), ("gem_bn_l2n.forward", batches),
+                       ("rank_stats.forward", 2 * -(-len(dataset.query) // 1024))):
+        check(phases[name] == want, f"{name} launched {phases[name]} times, not {want}")
+    check(n_clusters >= 16 and n_labelled >= n_train / 2,
+          f"too few clusters ({n_clusters}) or pseudo-labels ({n_labelled})")
+    check(np.isfinite(best) and {"checkpoint.pth.tar", "model_best.pth.tar"} <= set(saved),
+          "no finite mAP or no checkpoint")
+    steps = f"{cfg.train.iters} steps"
+    split = {"extraction": secs["extract"], "kNN": secs["knn"],
+             "Jaccard": secs["jaccard"] - secs["knn"], "DBSCAN": secs["dbscan"],
+             "bank": secs["bank"], steps: secs["train"], "eval": secs["eval"]}
+    cluster_s = sum(v for k, v in split.items() if k not in (steps, "eval"))
+    print("[usl] epoch split (s, host clock): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    # at the 20 steps' mean pace, which carries the new trainer's start: an upper figure
+    full, step_s = Config().train.iters, secs["train"] / cfg.train.iters
+    print(f"[usl] projected {full}-step epoch: clustering {cluster_s:.2f} s + {full} steps "
+          f"{full * step_s:.2f} s ({step_s:.3f} s a step, the {steps}' mean) + eval "
+          f"{split['eval']:.2f} s")
+
+    # the labels run() made through K8 against those from the plain kNN on
+    # the same features
+    f_dev = torch.from_numpy(feats).cuda()
+    k1, k2 = cfg.cluster.k1, cfg.cluster.k2
+    rank = knn_search(f_dev, k1)[1]
+    plain_vals, plain_rank = knn_search_plain(f_dev, k1)
+    plain_labels = dbscan(jaccard_from_rank(plain_rank, feats, k1, k2), cfg.cluster.eps,
+                          cfg.cluster.min_samples)
+    rows, gap = _swap_gap(f_dev, rank, plain_vals, plain_rank, "l2")
+    swapped = int(np.unique(rows).size)
+    changed = _changed_points(run_labels, plain_labels)
+    same = np.array_equal(run_labels, plain_labels)
+    print(f"[usl] labels check: kNN tables differ in {swapped} rows (largest plain-side "
+          f"gap {gap:.3g}); labels identical: {same}; {changed} of {n_train} points "
+          f"changed cluster")
+    check(same if swapped == 0 else changed < n_train / 100,
+          "K8's kNN changes the labels against the plain kNN")
+    info = pseudo_labels_infomap(feats, eps=0.5, k1=15, cluster_num=4,
+                                 print_flag=False, device="cuda")
+    print(f"[usl] Infomap (eps 0.5, k1 15, through K8's inner product): "
+          f"{int(info.max()) + 1} clusters, {int((info < 0).sum())} outliers")
+    print(f"[usl] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -728,11 +991,14 @@ def main():
     check_k5(report)
     check_k6(report)
     check_k7(report)
+    check_k8(report)
     torch.cuda.synchronize()
     counts = {}
     phase_main_path(counts)
     torch.cuda.synchronize()
     phase_train(counts)
+    torch.cuda.synchronize()
+    phase_usl(counts)       # the whole loop: its counts are the line's launches
     torch.cuda.synchronize()
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

@@ -2,11 +2,11 @@
 CC/examples/test.py:57-89): load a checkpoint → mAP/CMC.
 
     python -m reid_gan_torch.cli.test --dataset market1501 --data-dir ./data \
-        --resume-torch logs/checkpoint.pth.tar [--device cuda]
+        --resume-torch logs/model_best.pth.tar [--rerank] [--device cuda]
 
-Runs on the card unless ``--device cpu`` is given. Not ported yet:
-``--rerank`` (ROADMAP A8), ``--resume`` of a flax msgpack checkpoint (the
-serialization item, A8) and ``--dsbn`` (A8).
+Runs on the card unless ``--device cpu`` is given. ``--resume-torch`` reads
+``cli/train_usl``'s checkpoints. Not ported yet: ``--resume`` of a flax
+msgpack checkpoint (the serialization item, A8) and ``--dsbn`` (A8).
 """
 
 import argparse

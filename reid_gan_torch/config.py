@@ -1,10 +1,13 @@
 """Config system: a dataclass tree with argparse adapters preserving the
 reference's flag names (copy of ``reid_gan_tpu/config.py``, the sections the
-eval CLI parses: data, model, cluster, train).
+eval and USL CLIs parse: data, model, optim, cluster, train).
 """
 
 import argparse
+import os
 from dataclasses import dataclass, field, fields
+
+from .utils.osutils import mkdir_if_missing
 
 
 @dataclass
@@ -31,6 +34,15 @@ class ModelConfig:
     pooling_type: str = "gem"
     norm: bool = True            # L2-normalize bn_x in train mode
     num_classes: int = 0
+
+
+@dataclass
+class OptimConfig:
+    lr: float = 3.5e-4
+    weight_decay: float = 5e-4
+    momentum: float = 0.9        # (SGD variants)
+    step_size: int = 20          # StepLR gamma 0.1 every step_size epochs
+    optimizer: str = "adam"
 
 
 @dataclass
@@ -66,6 +78,7 @@ class Config:
     """Top-level config tree."""
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
     cluster: ClusterConfig = field(default_factory=ClusterConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
@@ -96,7 +109,7 @@ def add_dataclass_args(parser, dc_cls, prefix=""):
             parser.add_argument(*opts, dest=prefix + f.name, type=ftype, default=None)
 
 
-def parse_config(argv=None, sections=("data", "model", "cluster", "train")):
+def parse_config(argv=None, sections=("data", "model", "optim", "cluster", "train")):
     """Build a Config from CLI args. Later sections win on duplicate flag
     names (none currently collide across the enabled sections)."""
     cfg = Config()
@@ -110,3 +123,19 @@ def parse_config(argv=None, sections=("data", "model", "cluster", "train")):
         sec, fname = key.split(".", 1)
         setattr(getattr(cfg, sec), fname, val)
     return cfg
+
+
+def dump_config(cfg, out_dir, fname="train_opt.txt"):
+    """Write the resolved options, one ``section.field: value`` line each
+    (config.py:222-235; parity: CC/examples/options/base_options.py:148-159)."""
+    mkdir_if_missing(out_dir)
+    lines = ["------------ Options -------------"]
+    for sec_field in fields(cfg):
+        sec = getattr(cfg, sec_field.name)
+        for f in fields(sec):
+            lines.append(f"{sec_field.name}.{f.name}: {getattr(sec, f.name)}")
+    lines.append("-------------- End ----------------")
+    path = os.path.join(out_dir, fname)
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return path

@@ -69,17 +69,31 @@ class _NullCache:
         return _decode(fpath, height, width)
 
 
-def make_image_cache():
-    """Cache sized by ``REID_IMAGE_CACHE_MB`` (default 4096; 0 disables)."""
-    mb = float(os.environ.get("REID_IMAGE_CACHE_MB", "4096"))
-    return ImageCache(int(mb * (1 << 20))) if mb > 0 else _NullCache()
+_default_cache = None
+_default_cache_lock = threading.Lock()
+
+
+def default_image_cache():
+    """The process-wide cache every Preprocessor shares by default, so the
+    clustering extraction, the P×K loader and the test loader decode each
+    image once per run (loader.py:98-111). Budget from
+    ``REID_IMAGE_CACHE_MB`` (default 4096; 0 disables caching)."""
+    global _default_cache
+    with _default_cache_lock:
+        if _default_cache is None:
+            mb = float(os.environ.get("REID_IMAGE_CACHE_MB", "4096"))
+            _default_cache = ImageCache(int(mb * (1 << 20))) if mb > 0 \
+                else _NullCache()
+        return _default_cache
 
 
 class Preprocessor:
-    """Per-index item factory returning plain numpy dicts (``reid`` mode)."""
+    """Per-index item factory returning plain numpy dicts (``reid`` mode).
+    ``cache``: ``"default"`` (the shared ``default_image_cache()``), None (no
+    caching) or an object with ``get(fpath, height, width)`` and ``budget``."""
 
     def __init__(self, dataset, root=None, mode="reid", height=256, width=128,
-                 cache=None):
+                 cache="default"):
         if mode != "reid":
             raise ValueError(f"unsupported mode {mode!r}: the port's loader "
                              "serves the eval path ('reid') only")
@@ -87,7 +101,8 @@ class Preprocessor:
         self.root = root
         self.mode = mode
         self.height, self.width = height, width
-        self.cache = make_image_cache() if cache is None else cache
+        self.cache = default_image_cache() if cache == "default" else \
+            (cache if cache is not None else _NullCache())
         self._packed = None
 
     def __len__(self):

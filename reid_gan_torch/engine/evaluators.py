@@ -5,7 +5,9 @@ evaluators.py Evaluator, extract_features, evaluate_all).
 The host ships raw uint8 batches; on the card the eval transform (K1), the
 backbone (cuDNN), the fused GeM/feat_bn/L2 head (K2) and, per query chunk,
 the distance product (cuBLAS) and the rank pass (K3) run without a host
-round trip. Re-ranking is not ported yet.
+round trip. With re-ranking, the three distance matrices come to the host
+for the k-reciprocal re-ranking (host C++), and the rank pass (K3) runs on
+the re-ranked matrix, sent back in chunks.
 """
 
 import time
@@ -15,16 +17,19 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.distance import pairwise_distance as _pairwise
+from ..ops.jaccard import re_ranking
 from ..ops.transforms import eval_transform
 from ..utils import AverageMeter
-from .metrics import rank_metrics_features
+from .metrics import rank_metrics, rank_metrics_features
 
 
 class FeatureExtractor:
     """Eval forward: uint8 staging batch → L2-normalised features.
 
     The model is moved to ``device`` (default: the card; raises if there is
-    none) in channels_last memory and put in eval mode. The staged batch is
+    none) in channels_last memory and run in eval mode (each batch sets it,
+    as a trainer may share the model). The staged batch is
     normalised and rounded to ``dtype`` (default bf16, as the JAX extractor
     rounds its input, evaluators.py:47), then cast to the model's parameter
     dtype.
@@ -43,6 +48,7 @@ class FeatureExtractor:
         """Enqueue the forward of a host (B, H, W, 3) uint8 batch and return
         the device features and B, without waiting for the card."""
         x = torch.from_numpy(np.ascontiguousarray(img_u8)).to(self.device)
+        self.model.eval()
         with torch.inference_mode():
             x = eval_transform(x, self.height, self.width, self.dtype)
             return self.model(x.to(self.param_dtype)), img_u8.shape[0]
@@ -92,15 +98,16 @@ def extract_features(extractor, data_loader, print_freq=50, max_pending=8):
     return features, labels
 
 
-def evaluate_all_features(x, y, query, gallery, cmc_topk=(1, 5, 10),
-                          cmc_flag=False, device=None):
-    """mAP + market1501 CMC from query features ``x`` and gallery features
-    ``y`` on ``device`` (default: the card; raises if there is none); the
-    (m, n) distance matrix never leaves the device."""
-    scores, mAP = rank_metrics_features(
-        x, y, [pid for _, pid, _ in query], [pid for _, pid, _ in gallery],
-        [cam for _, _, cam in query], [cam for _, _, cam in gallery],
-        device=device)
+def pairwise_distance(features, query, gallery, device=None):
+    """(distmat, x, y) from the fname-keyed feature dict (evaluators.py:
+    139-148); the host distance matrix is computed in row blocks on
+    ``device`` (default: the card)."""
+    x = np.stack([features[f] for f, _, _ in query])
+    y = np.stack([features[f] for f, _, _ in gallery])
+    return _pairwise(x, y, device=device), x, y
+
+
+def _print_scores(scores, mAP, cmc_topk, cmc_flag):
     print("Mean AP: {:4.1%}".format(mAP))
     if not cmc_flag:
         return mAP
@@ -110,6 +117,28 @@ def evaluate_all_features(x, y, query, gallery, cmc_topk=(1, 5, 10),
     return scores, mAP
 
 
+def evaluate_all(distmat, query, gallery, cmc_topk=(1, 5, 10), cmc_flag=False,
+                 device=None):
+    """mAP + market1501 CMC of a host (m, n) distance matrix
+    (evaluators.py:151-171), ranked on ``device`` (default: the card)."""
+    scores, mAP = rank_metrics(
+        distmat, [pid for _, pid, _ in query], [pid for _, pid, _ in gallery],
+        [cam for _, _, cam in query], [cam for _, _, cam in gallery], device=device)
+    return _print_scores(scores, mAP, cmc_topk, cmc_flag)
+
+
+def evaluate_all_features(x, y, query, gallery, cmc_topk=(1, 5, 10),
+                          cmc_flag=False, device=None):
+    """mAP + market1501 CMC from query features ``x`` and gallery features
+    ``y`` on ``device`` (default: the card; raises if there is none); the
+    (m, n) distance matrix never leaves the device."""
+    scores, mAP = rank_metrics_features(
+        x, y, [pid for _, pid, _ in query], [pid for _, pid, _ in gallery],
+        [cam for _, _, cam in query], [cam for _, _, cam in gallery],
+        device=device)
+    return _print_scores(scores, mAP, cmc_topk, cmc_flag)
+
+
 class Evaluator:
     """Parity: CC/clustercontrast/evaluators.py:125-142."""
 
@@ -117,12 +146,19 @@ class Evaluator:
         self.extractor = extractor
 
     def evaluate(self, data_loader, query, gallery, cmc_flag=False, rerank=False):
-        if rerank:
-            raise NotImplementedError(
-                "re-ranking is not ported yet: it waits for "
-                "ops/jaccard.py::re_ranking (ROADMAP A8)")
+        """(evaluators.py:199-214) Without ``rerank`` no host distance
+        matrix exists; with it, the metrics before and after re-ranking."""
+        device = self.extractor.device
         features = extract_features(self.extractor, data_loader)[0]
-        x = np.stack([features[f] for f, _, _ in query])
-        y = np.stack([features[f] for f, _, _ in gallery])
-        return evaluate_all_features(x, y, query, gallery, cmc_flag=cmc_flag,
-                                     device=self.extractor.device)
+        if not rerank:
+            x = np.stack([features[f] for f, _, _ in query])
+            y = np.stack([features[f] for f, _, _ in gallery])
+            return evaluate_all_features(x, y, query, gallery, cmc_flag=cmc_flag,
+                                         device=device)
+        distmat, _, _ = pairwise_distance(features, query, gallery, device)
+        evaluate_all(distmat, query, gallery, cmc_flag=cmc_flag, device=device)
+        print("Applying person re-ranking ...")
+        distmat_qq, _, _ = pairwise_distance(features, query, query, device)
+        distmat_gg, _, _ = pairwise_distance(features, gallery, gallery, device)
+        distmat = re_ranking(distmat, distmat_qq, distmat_gg)
+        return evaluate_all(distmat, query, gallery, cmc_flag=cmc_flag, device=device)

@@ -1,7 +1,9 @@
-"""CMC (market1501 protocol) and mAP straight from features, on the device.
+"""CMC (market1501 protocol) and mAP on the device, from features or from a
+host distance matrix.
 
 Port of ``reid_gan_tpu/engine/metrics.py::rank_metrics_features``
-(metrics.py:282-352) and of its per-chunk rank pass ``_chunk_stats_jax``
+(metrics.py:282-352), of the distance-matrix entry ``rank_metrics``
+(:394-420) and of their per-chunk rank pass ``_chunk_stats_jax``
 (:213-259). For each chunk of queries the (chunk, n) distance block is
 ``ops.distance.squared_euclidean`` (a plain fp32 ``torch.matmul``, as the JAX
 package leaves the product to XLA) and the rank statistics are kernel K3
@@ -96,22 +98,14 @@ def _default_ids_cams(m, n, query_ids, gallery_ids, query_cams, gallery_cams):
             np.asarray(query_cams), np.asarray(gallery_cams))
 
 
-def rank_metrics_features(query_feats, gallery_feats, query_ids=None,
-                          gallery_ids=None, query_cams=None,
-                          gallery_cams=None, topk=100, chunk=1024,
-                          device=None):
-    """Fused CMC (market1501: same-id-same-camera entries dropped, first
-    match breaks) + mAP from (m, d) query and (n, d) gallery features, on
-    ``device`` (default: the card; raises if there is none).
-
-    Returns (cmc (topk,) float64, mAP float). Raises if no query has a valid
-    match."""
-    device = resolve_device(device)
-    qf = torch.as_tensor(np.asarray(query_feats, np.float32))
-    m, n = qf.shape[0], len(gallery_feats)
+def _rank_chunks(block, m, n, query_ids, gallery_ids, query_cams, gallery_cams,
+                 topk, chunk, device):
+    """The chunk loop shared by both entries: ``block(s, e)`` gives the
+    (e - s, n) device distance block of queries s..e; each is padded to
+    ``chunk`` rows and ranked by K3 (its plain version on the CPU). Only the
+    (topk,) histogram and two scalars leave the device."""
     query_ids, gallery_ids, query_cams, gallery_cams = _default_ids_cams(
         m, n, query_ids, gallery_ids, query_cams, gallery_cams)
-    gf = torch.as_tensor(np.asarray(gallery_feats, np.float32)).to(device)
     gids = torch.as_tensor(np.asarray(gallery_ids, np.int32)).to(device)
     gcams = torch.as_tensor(np.asarray(gallery_cams, np.int32)).to(device)
     hist = torch.zeros(topk, dtype=torch.float64, device=device)
@@ -119,21 +113,20 @@ def rank_metrics_features(query_feats, gallery_feats, query_ids=None,
     valid_q = torch.zeros((), dtype=torch.int64, device=device)
     for s in range(0, m, chunk):
         e = min(s + chunk, m)
-        q = qf[s:e]
+        d = block(s, e)
         qid = np.asarray(query_ids[s:e], np.int32)
         qcam = np.asarray(query_cams[s:e], np.int32)
         if e - s < chunk:      # pad to the fixed chunk shape
             pad = chunk - (e - s)
-            q = torch.nn.functional.pad(q, (0, 0, 0, pad))
+            d = torch.nn.functional.pad(d, (0, 0, 0, pad))
             # int32 min can never be a real gallery id/cam → padded rows
             # have zero matches and drop out via the has-mask
             sentinel = np.iinfo(np.int32).min
             qid = np.pad(qid, (0, pad), constant_values=sentinel)
             qcam = np.pad(qcam, (0, pad), constant_values=sentinel)
-        d = squared_euclidean(q.to(device), gf)
         ap, first_bin, num_matches = rank_stats(
-            d, torch.as_tensor(qid).to(device), torch.as_tensor(qcam).to(device),
-            gids, gcams)
+            d.contiguous(), torch.as_tensor(qid).to(device),
+            torch.as_tensor(qcam).to(device), gids, gcams)
         has = num_matches > 0
         bins = first_bin[has & (first_bin < topk)].to(torch.int64)
         hist += torch.bincount(bins, minlength=topk).to(torch.float64)
@@ -143,3 +136,36 @@ def rank_metrics_features(query_feats, gallery_feats, query_ids=None,
     if valid_q == 0:
         raise RuntimeError("No valid query")
     return hist.cpu().numpy().cumsum() / valid_q, float(ap_sum) / valid_q
+
+
+def rank_metrics_features(query_feats, gallery_feats, query_ids=None,
+                          gallery_ids=None, query_cams=None,
+                          gallery_cams=None, topk=100, chunk=1024,
+                          device=None):
+    """Fused CMC (market1501: same-id-same-camera entries dropped, first
+    match breaks) + mAP from (m, d) query and (n, d) gallery features, on
+    ``device`` (default: the card; raises if there is none); no distance
+    matrix leaves the device.
+
+    Returns (cmc (topk,) float64, mAP float). Raises if no query has a valid
+    match."""
+    device = resolve_device(device)
+    qf = torch.as_tensor(np.asarray(query_feats, np.float32))
+    gf = torch.as_tensor(np.asarray(gallery_feats, np.float32)).to(device)
+    return _rank_chunks(lambda s, e: squared_euclidean(qf[s:e].to(device), gf),
+                        qf.shape[0], gf.shape[0], query_ids, gallery_ids,
+                        query_cams, gallery_cams, topk, chunk, device)
+
+
+def rank_metrics(distmat, query_ids=None, gallery_ids=None, query_cams=None,
+                 gallery_cams=None, topk=100, chunk=1024, device=None):
+    """The same CMC + mAP from a host (m, n) distance matrix
+    (metrics.py:394-420, first_match_break and no separate camera set, as
+    the evaluators call it): sent to ``device`` (default: the card) in
+    ``chunk``-row blocks, each ranked by K3."""
+    device = resolve_device(device)
+    distmat = np.asarray(distmat, np.float32)
+    m, n = distmat.shape
+    return _rank_chunks(lambda s, e: torch.from_numpy(distmat[s:e]).to(device),
+                        m, n, query_ids, gallery_ids, query_cams, gallery_cams,
+                        topk, chunk, device)

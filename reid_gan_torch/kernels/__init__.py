@@ -232,8 +232,15 @@ BANK_FOLD = CudaKernel(
     source="reid_gan_torch/csrc/bank_fold.cu",
     replaces="reid_gan_tpu/ops/cluster_memory.py:103")
 
+KNN_TOPK = CudaKernel(
+    "knn_topk", "reid_knn_topk",
+    [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    source="reid_gan_torch/csrc/knn_topk.cu",
+    replaces="reid_gan_tpu/ops/distance.py:118",
+    scratch="reid_knn_topk_scratch")
+
 KERNELS = (EVAL_TRANSFORM, GEM_BN_L2N, RANK_STATS, TRAIN_AUGMENT, GEM_POOL,
-           INFONCE, BANK_FOLD)
+           INFONCE, BANK_FOLD, KNN_TOPK)
 
 
 def reset_launch_counts():

@@ -2,7 +2,8 @@
 
 import numpy as np
 
-from .meters import AverageMeter
+from .logging import Logger
+from .meters import AverageMeter, Timer
 from .osutils import mkdir_if_missing
 
 
@@ -14,4 +15,4 @@ def to_numpy(x):
     return np.asarray(x)
 
 
-__all__ = ["AverageMeter", "mkdir_if_missing", "to_numpy"]
+__all__ = ["AverageMeter", "Logger", "Timer", "mkdir_if_missing", "to_numpy"]

@@ -7,7 +7,8 @@ setup(
                 "(JAX/XLA/Pallas/pjit)",
     packages=find_packages(exclude=["tests"]),
     package_data={"reid_gan_tpu.native": ["Makefile", "src/*.cc"],
-                  "reid_gan_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "reid_gan_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "reid_gan_torch.native": ["reidnative.cc"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "chex", "numpy", "pillow",

@@ -5,7 +5,9 @@ match, rows with more matches than K3 stages in one round; crops and erase
 rectangles at the borders (K4); p other than 3, maps of zeros and odd
 sizes (K5); one live bank row, a full bank and banks off the column tile
 (K6); one label for the whole batch, all labels distinct and exact ties in
-the hard fold (K7); and the raise on inputs a kernel does not take.
+the hard fold (K7); sets smaller than a tile, D off the stage and off the
+vector width, k of 1 and 64, exact ties and the inner product (K8); and the
+raise on inputs a kernel does not take.
 
 Needs a CUDA card; skips without one. This file imports no JAX, so it runs
 on a machine without it, with the JAX test harness left out:
@@ -318,3 +320,70 @@ def test_update_memory_rejects_bad_inputs(card):
     wide = init_memory(torch.ones((2, 4100), device=card), device=card)
     with pytest.raises(ValueError, match="4096"):
         update_memory(wide, torch.ones((2, 4100), device=card), y)
+
+
+# ---------------------------------------------------------------------------
+# K8 knn_topk (knn_search)
+# ---------------------------------------------------------------------------
+
+def _knn_features(card, n, d, seed, ties=False):
+    g = torch.Generator(device=card).manual_seed(seed)
+    f = torch.nn.functional.normalize(torch.randn((n, d), device=card, generator=g), dim=1)
+    if ties:   # exact keys on both sides (see chip_smoke._train_features)
+        f = torch.round(f * 256) / 256
+        f[1::2] = f[0::2][:n // 2]
+    return f.contiguous()
+
+
+@pytest.mark.parametrize("n,d,k,metric,ties", [
+    (40, 8, 1, "l2", False),        # N below one 64-row tile, k = 1
+    (40, 2048, 30, "ip", False),
+    (1000, 100, 30, "l2", False),   # N and D off the tiles (D off the 32 stage)
+    (1000, 2048, 64, "l2", False),  # the largest k
+    (700, 8, 64, "ip", False),
+    (4100, 36, 30, "l2", True),     # exact ties, several gallery splits
+    (4100, 36, 15, "ip", True),
+    (129, 10, 7, "l2", False),      # D not a multiple of 4: zero columns added
+])
+def test_knn_search_matches_plain(card, n, d, k, metric, ties):
+    """Values within 2e-5 of the plain version; where an index differs, the
+    plain version's key of the kernel's index is within 2e-5 of the key at
+    that slot (a near-tie summed in another order). With exact ties the
+    indices and values are identical (the lower index first). Self first in
+    the tie-free case."""
+    from reid_gan_torch.ops.distance import (
+        knn_search,
+        knn_search_plain,
+        matmul_fp32,
+        squared_euclidean,
+    )
+
+    f = _knn_features(card, n, d, seed=n + d + k, ties=ties)
+    vals, idx = knn_search(f, k, metric)
+    pv, pi = knn_search_plain(f, k, metric)
+    assert vals.shape == (n, k) and idx.dtype == pi.dtype
+    if ties:
+        assert (pv[:, 1:] == pv[:, :-1]).any()
+        assert (idx == pi).all() and (vals == pv).all()
+        return
+    assert float(abs(vals - pv).max()) <= 2e-5
+    rows, cols = (idx != pi).nonzero()
+    if rows.size:
+        full = squared_euclidean(f, f) if metric == "l2" else matmul_fp32(f, f.T)
+        got = full.cpu().numpy()[rows, idx[rows, cols]]
+        assert float(abs(got - pv[rows, cols]).max()) <= 2e-5
+    assert (idx[:, 0] == range(n)).all()
+
+
+def test_knn_search_rejects_k_above_64(card):
+    from reid_gan_torch import kernels
+    from reid_gan_torch.ops.distance import knn_search
+
+    f = _knn_features(card, 100, 8, seed=0)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="k <= min"):
+        knn_search(f, 65)
+    with pytest.raises(ValueError, match="k <= min"):
+        knn_search(f[:10], 11)
+    knn_search(f, 64, "ip")
+    assert kernels.launch_counts()["knn_topk"] == 1
