@@ -21,7 +21,11 @@ the script exits non-zero without printing a result:
    rows (700 live) and 30,720 rows (30,000 live); K7 ``bank_fold``, plain
    and hard, on a 16 x 16 P×K batch; K8 ``knn_topk`` at Market-1501's train
    shape (12,936 x 2048), L2 with k 30 and inner product with k 15, once
-   more with exact ties, and timed alone at MSMT17's 32,621 rows;
+   more with exact ties, and timed alone at MSMT17's 32,621 rows; K9
+   ``gan_input`` at 256 x 128x64; K10 ``pose_maps`` at (256, 18, 128, 64)
+   with missing joints, an image without joints and joints on the frame's
+   corners; K11 ``gan_feat_l2n`` at (256, 2048, 16, 8), beside
+   ``F.normalize`` as its library time;
 3. the eval main path: ``Evaluator(FeatureExtractor(resnet50)).evaluate``
    (the call ``cli/test.py`` makes) on an in-memory uint8 eval set made with
    numpy from a seed (1,024 queries + 3,072 gallery, 256x128, batch 256;
@@ -53,8 +57,25 @@ the script exits non-zero without printing a result:
    the labels run() made through K8 (under 1% of the points moved where the
    two kNN tables differ), and Infomap runs once on K8's inner-product
    graph;
-6. a JSON line with every kernel's launches, error, times and bound;
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. the joint main path: ``ClusterContrastWithGANTrainer.run_epoch`` in
+   ``train_all`` mode at the recipe's width (a random ResNet-50, norm on, at
+   256x128; the pose generator and the discriminator at 128x64; seed 0) for
+   20 steps of batch 256 on phase 4's set with keypoints from a seed (a
+   keypoint CSV) and GAN images at 128x64. One step is first held against
+   the same step through the plain versions (losses, the ``feat``, a G and
+   a D gradient, the folded bank). Launch counts are zeroed just before the
+   20 steps and read just after: K4-K7 (K5's and K6's backward too) and
+   K9-K11 once a step. Every encoder, G and D parameter must have moved, G's
+   running stats and D's ``u`` changed, the losses finite; then the peak
+   device memory, 10 warm steps timed, 3 traced with the profiler and split
+   into the step's phases by CUDA events;
+7. the whole joint loop: one epoch of ``cli/train_gan_usl.run`` on phase
+   5's set with keypoints, Infomap (eps 0.5, k1 15) and 20 steps. Launch
+   counts are zeroed just before and read just after: K1-K11 must all have
+   launched; they are the kernels line's launches. It writes the
+   checkpoints and the GAN nets' files, and prints the epoch's split;
+8. a JSON line with every kernel's launches, error, times and bound;
+9. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 import importlib
@@ -507,6 +528,105 @@ def check_k8(report):
                               bound_by=by)
 
 
+def check_k9(report):
+    from reid_gan_torch.ops.transforms import (
+        gan_input_transform,
+        gan_input_transform_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    n, h, w = 256, 128, 64
+    u8 = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8, device="cuda",
+                       generator=g)
+    out = gan_input_transform(u8, h, w)
+    ref = gan_input_transform_plain(u8)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.stride() == ref.stride(),
+          "K9 layout differs from the plain version")
+    err = float((out - ref).abs().max())
+    tol = 1e-6   # IEEE division in both; torch's CUDA scalar division may
+    #              multiply by the reciprocal (1 ulp)
+    print(f"[K9] gan_input {n}x{h}x{w}: max_abs_err {err:.3g} (tol {tol:.3g})")
+    check(err <= tol, f"K9 error {err} > {tol}")
+    ms = device_ms(lambda: gan_input_transform(u8, h, w))
+    plain = device_ms(lambda: gan_input_transform_plain(u8))
+    b, by = bound_ms(u8.numel() * (1 + 4), 2 * u8.numel())
+    print(f"[K9] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
+    report["gan_input"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                               bound_by=by)
+
+
+def _keypoints(rng, n, old):
+    """(n, 18, 2) float32 keypoints uniform in each image's original frame
+    ``old`` (n, 2), a fifth of the joints missing in y, in x or in both."""
+    kp = rng.uniform(0, 1, (n, 18, 2)) * old[:, None, :]
+    miss = rng.integers(0, 15, (n, 18))
+    kp[miss == 0, 0] = -1
+    kp[miss == 1, 1] = -1
+    kp[miss == 2] = -1
+    return kp.astype(np.float32)
+
+
+def check_k10(report):
+    from reid_gan_torch.ops.pose import batch_cords_to_map, batch_cords_to_map_plain
+
+    rng = np.random.default_rng(10)
+    n, k, h, w = 256, 18, 128, 64
+    old = np.where(np.arange(n)[:, None] % 2, (256.0, 128.0), (311.0, 97.0))
+    kp = _keypoints(rng, n, old)
+    kp[1, :4] = ((0, 0), (old[1, 0] - 1e-3, old[1, 1] - 1e-3), (0, old[1, 1] - 1e-3),
+                 (old[1, 0] - 1e-3, 0))              # the frame's corners
+    kp[2] = -1                                       # every joint missing
+    cords = torch.from_numpy(kp).cuda()
+    old_size = torch.from_numpy(old.astype(np.float32)).cuda()
+    out = batch_cords_to_map(cords, old_size, h, w)
+    ref = batch_cords_to_map_plain(cords, old_size, h, w)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    missing = int(((cords[..., 0] == -1) | (cords[..., 1] == -1)).sum())
+    zeros = bool((out[2] == 0).all())
+    corners = [float(out[1, j, r, c]) for j, (r, c) in
+               enumerate(((0, 0), (h - 1, w - 1), (0, w - 1), (h - 1, 0)))]
+    tol = 1e-6   # expf against torch.exp: an ulp or two of values <= 1
+    print(f"[K10] pose_maps {n}x{k}x{h}x{w}: max_abs_err {err:.3g} (tol {tol:.3g}); "
+          f"{missing} missing joints, all-missing image zero: {zeros}, corner "
+          f"peaks {corners}")
+    check(err <= tol and zeros and corners == [1.0] * 4, "K10 differs from plain")
+    ms = device_ms(lambda: batch_cords_to_map(cords, old_size, h, w))
+    plain = device_ms(lambda: batch_cords_to_map_plain(cords, old_size, h, w))
+    b, by = bound_ms(4 * (out.numel() + cords.numel() + old_size.numel()),
+                     10 * out.numel())
+    print(f"[K10] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
+    report["pose_maps"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                               bound_by=by)
+
+
+def check_k11(report):
+    from reid_gan_torch.models.resnet import gan_feat, gan_feat_plain
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    n, c, h, w = 256, 2048, 16, 8
+    fmap = torch.relu(torch.randn((n, c, h, w), device="cuda", generator=g))
+    fmap = fmap.contiguous(memory_format=torch.channels_last)
+    out = gan_feat(fmap)
+    ref = gan_feat_plain(fmap)
+    torch.cuda.synchronize()
+    check(out.stride() == ref.stride(), "K11 layout differs from the plain version")
+    err = float((out - ref).abs().max())
+    tol = 1e-6   # unit columns; fp32 sums of 2048 squares in another order
+    print(f"[K11] gan_feat_l2n ({n}, {c}, {h}, {w}) channels_last: max_abs_err "
+          f"{err:.3g} (tol {tol:.3g})")
+    check(err <= tol, f"K11 error {err} > {tol}")
+    ms = device_ms(lambda: gan_feat(fmap))
+    plain = device_ms(lambda: gan_feat_plain(fmap))
+    lib = device_ms(lambda: torch.nn.functional.normalize(fmap, dim=1))
+    b, by = bound_ms(4 * 2 * fmap.numel(), 4 * fmap.numel())
+    print(f"[K11] ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+          f"(F.normalize(dim=1)) bound_ms {b:.4f} ({by})")
+    report["gan_feat_l2n"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                                  bound_by=by, library_ms=lib)
+
+
 def _eval_set(seed=0, n_ids=256, n_query=1024, n_gallery=3072, h=256, w=128,
               batch=256):
     """In-memory uint8 eval set: per-identity base colour plus noise, ids
@@ -554,11 +674,15 @@ PROFILE_GROUPS = (
     ("K6 infonce", ("l2n_rows_kernel", "logits_kernel", "lse_loss_kernel",
                     "dxh_kernel", "l2n_backward_kernel")),
     ("K7 bank_fold", ("bank_fold_kernel",)),
+    ("K9 gan_input", ("gan_input_kernel",)),
+    ("K10 pose_maps", ("pose_maps_kernel",)),
+    ("K11 gan_feat_l2n", ("gan_feat_l2n_kernel",)),
     ("batchnorm", ("bn_fw", "bn_bw", "batchnorm", "batch_norm")),
     ("host-to-device copy", ("Memcpy HtoD",)),
     ("Adam (multi-tensor)", ("multi_tensor_apply",)),
-    ("convolution", ("xmma", "gemm", "conv", "implicit", "dgrad", "wgrad",
-                     "cutlass", "sm90")),
+    ("attention softmax", ("softmax",)),
+    ("convolution and matmul", ("xmma", "gemm", "conv", "implicit", "dgrad", "wgrad",
+                                "cutlass", "sm90")),
     ("max pool", ("max_pool",)),
     ("reduction", ("reduce_kernel",)),
     ("elementwise (ReLU, add, casts)", ("elementwise_kernel",)),
@@ -678,14 +802,19 @@ def phase_main_path(counts):
 
 class _InMemoryImages:
     """Stands in for the loader's decode cache: file name → a staged uint8
-    image of a numpy array. Budget 0, so the loader gathers per item."""
+    image of a numpy array (``imgs`` at the re-ID size, ``gan_imgs`` at the
+    GAN size) and the original size ``old_size``. The index is the name's
+    last ``_`` field. Budget 0, so the loader gathers per item."""
     budget = 0
 
-    def __init__(self, imgs):
-        self.imgs = imgs
+    def __init__(self, imgs, gan_imgs=None, old_size=(256.0, 128.0)):
+        self.imgs, self.gan_imgs = imgs, gan_imgs
+        self.old_size = np.asarray(old_size, np.float32)
 
     def get(self, fpath, height, width):
-        return self.imgs[int(fpath.split(".")[0])]
+        i = int(os.path.basename(fpath).split(".")[0].rsplit("_", 1)[-1])
+        src = self.imgs if height == self.imgs.shape[1] else self.gan_imgs
+        return src[i], self.old_size
 
 
 def _pseudo_set(seed=0, n_ids=700, per_id=18, h=256, w=128):
@@ -701,7 +830,8 @@ def _pseudo_set(seed=0, n_ids=700, per_id=18, h=256, w=128):
     for s in range(0, n, 64):
         e = min(s + 64, n)
         imgs[s:e] = np.clip(base[pids[s:e]][:, None, None] + noise[:e - s], 0, 255)
-    items = [(f"{i:06d}.jpg", int(pids[i]), int(cams[i])) for i in range(n)]
+    items = [(f"{pids[i]:04d}_c{cams[i] + 1}_{i:06d}.jpg", int(pids[i]), int(cams[i]))
+             for i in range(n)]
     return items, imgs
 
 
@@ -858,7 +988,8 @@ def _usl_set(seed=0, n_train=12936, ids=751, n_query=1024, n_gallery=3072,
         block[:e - s, :h // 2] = colours[pids[s:e], 0][:, None, None]
         block[:e - s, h // 2:] = colours[pids[s:e], 1][:, None, None]
         np.clip(block[:e - s] + noise[:e - s], 0, 255, out=imgs[s:e], casting="unsafe")
-    items = [(f"{i:06d}.jpg", int(pids[i]), int(cams[i])) for i in range(n)]
+    items = [(f"{pids[i]:04d}_c{cams[i] + 1}_{i:06d}.jpg", int(pids[i]), int(cams[i]))
+             for i in range(n)]
     return SimpleNamespace(train=items[:n_train], query=items[n_train:n_train + n_query],
                            gallery=items[n_train + n_query:]), imgs
 
@@ -974,6 +1105,268 @@ def phase_usl(counts):
     print(f"[usl] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+def _write_pose_csv(items, path, seed):
+    """The keypoint CSV of the ``with_gan`` loader for ``items``, keypoints
+    from a seed in the 256x128 original frame, a fifth of them missing."""
+    rng = np.random.default_rng(seed)
+    kp = _keypoints(rng, len(items), np.tile([[256.0, 128.0]], (len(items), 1)))
+    with open(path, "w") as f:
+        f.write("name:keypoints_y:keypoints_x\n")
+        for (fname, _, _), k in zip(items, kp):
+            f.write(f"{os.path.basename(fname)}:{json.dumps(k[:, 0].tolist())}:"
+                    f"{json.dumps(k[:, 1].tolist())}\n")
+    return path
+
+
+def _compare_joint_step(trainer, state, batch):
+    """One joint step's losses, ``feat`` gradient, a G and a D parameter
+    gradient and folded bank through the kernels (K4-K7, K9-K11) and through
+    the plain versions, from the same weights, buffers, bank and draws, with
+    cuDNN's TF32 off on both sides; the weights and buffers are restored
+    after."""
+    import copy
+
+    from reid_gan_torch.models.pooling import gem_pool_plain, l2n
+    from reid_gan_torch.models.resnet import ResNetBackbone, gan_feat_plain
+    from reid_gan_torch.ops.cluster_memory import (
+        memory_loss,
+        memory_loss_plain,
+        update_memory,
+        update_memory_plain,
+    )
+    from reid_gan_torch.ops.pose import batch_cords_to_map, batch_cords_to_map_plain
+    from reid_gan_torch.ops.transforms import (
+        gan_input_transform,
+        gan_input_transform_plain,
+        sample_augment_params,
+        train_augment,
+        train_augment_plain,
+    )
+
+    model, gan, dev = trainer.model, trainer.gan, trainer.device
+    G, D = gan.net_G, gan.net_D
+    h, w, gh, gw = trainer.height, trainer.width, gan.h, gan.w
+    d = trainer._to_device(batch, "train_all")
+    y = d["pid"]
+    conf = (torch.arange(y.shape[0], device=dev) % 8 != 0).float()
+    params = sample_augment_params(y.shape[0], h, w,
+                                   torch.Generator(device=dev).manual_seed(99))
+    nets = (model, G, D)
+    snap = [copy.deepcopy(m.state_dict()) for m in nets]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    results = []
+    try:
+        for plain in (False, True):
+            for m, sd in zip(nets, snap):
+                m.load_state_dict(sd)
+            mem = state.memory._replace(features=state.memory.features.clone())
+            model.train()
+            if plain:
+                x = train_augment_plain(d["img"], params)
+                xs = gan_input_transform_plain(d["Xs"])
+                ps = batch_cords_to_map_plain(d["keypoints"], d["old_size"], gh, gw)
+                fmap = ResNetBackbone.forward(model, x)
+                feat = l2n(model.feat_bn(gem_pool_plain(fmap, model.gap.p)))
+                f_gan = gan_feat_plain(fmap.detach())
+            else:
+                x = train_augment(d["img"], params, h, w)
+                xs = gan_input_transform(d["Xs"], gh, gw)
+                ps = batch_cords_to_map(d["keypoints"], d["old_size"], gh, gw)
+                out = model(x)
+                feat, f_gan = out["feat"], out["gan_feat"]
+            feat.retain_grad()
+            fake = gan.synthesize_p(f_gan, ps, train=True)
+            loss_G = gan.get_loss_G_train(fake, xs)
+            loss_cl = ((memory_loss_plain if plain else memory_loss)(feat, y, mem)[0]
+                       * conf).mean()
+            for m in nets:
+                m.zero_grad(set_to_none=True)
+            (loss_cl + loss_G).backward()
+            loss_D = gan.d_loss(xs, fake)
+            loss_D.backward()
+            (update_memory_plain if plain else update_memory)(mem, feat.detach(), y)
+            results.append((loss_cl.item(), loss_G.item(), loss_D.item(), feat.grad,
+                            G.outconv.conv1.conv.weight.grad.clone(),
+                            D.conv.conv.weight.grad.clone(), mem.features))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        for m, sd in zip(nets, snap):
+            m.load_state_dict(sd)
+            m.zero_grad(set_to_none=True)
+    (ck, gk, dk, fk, ggk, dgk, bk), (cp, gp, dp, fp, ggp, dgp, bp) = results
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    e_loss = max(abs(ck - cp) / abs(cp), abs(gk - gp) / abs(gp), abs(dk - dp) / abs(dp))
+    e_grad = max(rel(fk, fp), rel(ggk, ggp), rel(dgk, dgp))
+    e_bank = float((bk - bp).abs().max())
+    # fp32 ResNet-50, G and D on inputs that differ by the kernels' rounding
+    tol_loss, tol_grad, tol_bank = 1e-3, 1e-3, 1e-4
+    print(f"[joint] one step, kernels vs plain versions (TF32 off): loss_cl {ck:.6f} vs "
+          f"{cp:.6f}, G {gk:.6f} vs {gp:.6f}, D {dk:.6f} vs {dp:.6f} (max rel err "
+          f"{e_loss:.3g}, tol {tol_loss:.3g}); feat / G outconv / D conv grad max rel "
+          f"err {rel(fk, fp):.3g} / {rel(ggk, ggp):.3g} / {rel(dgk, dgp):.3g} (tol "
+          f"{tol_grad:.3g}); folded bank max_abs_err {e_bank:.3g} (tol {tol_bank:.3g})")
+    check(e_loss <= tol_loss and e_grad <= tol_grad and e_bank <= tol_bank,
+          "the joint step through the kernels differs from the plain versions")
+
+
+def phase_joint(counts):
+    """The joint main path: ``ClusterContrastWithGANTrainer.run_epoch`` in
+    ``train_all`` mode on ResNet-50, the pose generator and the
+    discriminator."""
+    import tempfile
+
+    from reid_gan_torch import kernels
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.engine.gan_trainers import ClusterContrastWithGANTrainer
+    from reid_gan_torch.engine.usl import bank_rows, make_train_loader
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.dual_gan.models import create_model as create_gan
+    from reid_gan_torch.ops.cluster_memory import init_memory
+
+    t0 = time.perf_counter()
+    items, imgs = _pseudo_set()
+    n_ids = 700
+    g = torch.Generator(device="cuda").manual_seed(0)
+    centers = torch.nn.functional.normalize(
+        torch.randn((n_ids, 2048), device="cuda", generator=g), dim=1)
+    memory = init_memory(centers, k_pad=bank_rows(n_ids), device="cuda")
+    # the recipe's width: a random ResNet-50 (GeM, last stride 1, norm on), the
+    # pose generator and the discriminator, from seed 0
+    torch.manual_seed(0)
+    gan = create_gan(GANConfig(model="AE", model_gen="Pose"), gan_height=128,
+                     gan_width=64, reid_feat_dim=2048, device="cuda")
+    model = create("resnet50", norm=True)
+    trainer = ClusterContrastWithGANTrainer(model, gan, height=256, width=128,
+                                            num_instances=16, device="cuda")
+    state = trainer.init_state(memory, gan.init_state())
+    with tempfile.TemporaryDirectory() as tmp:   # the loader reads the CSV at once
+        loader = make_train_loader(
+            items, 256, 128, 256, 16, workers=4, iters=400, seed=1,
+            cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]), mode="with_gan",
+            gan_height=128, gan_width=64, flip_all=True,
+            pose_file=_write_pose_csv(items, os.path.join(tmp, "poses.csv"), 12))
+    print(f"[joint] set-up ({len(items)} images at 256x128 and 128x64 with keypoints, "
+          f"bank {tuple(memory.features.shape)}): {time.perf_counter() - t0:.1f} s")
+
+    _compare_joint_step(trainer, state, loader.next())
+
+    nets = {"encoder": model, "G": gan.net_G, "D": gan.net_D}
+    before = {(k, n): p.detach().clone() for k, m in nets.items()
+              for n, p in m.named_parameters() if p.requires_grad}
+    g_stats = {n: b.clone() for n, b in gan.net_G.named_buffers() if "running" in n}
+    d_u = {n: b.clone() for n, b in gan.net_D.named_buffers() if n.endswith(".u")}
+    steps = 20
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, errs = trainer.run_epoch(state, 0, loader, mode="train_all",
+                                    train_iters=steps, print_freq=10, base_seed=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts.update(kernels.launch_counts())
+    phases = kernels.phase_launch_counts()
+    print(f"[joint] {steps} train_all steps (1st, cuDNN cold): {wall:.2f} s; mean "
+          + ", ".join(f"{k} {v:.4f}" for k, v in errs.items()))
+    print(f"[joint] launches: {phases}")
+    for name in ("train_augment.forward", "gem_pool.forward", "gem_pool.backward",
+                 "infonce.forward", "infonce.backward", "bank_fold.forward",
+                 "gan_input.forward", "pose_maps.forward", "gan_feat_l2n.forward"):
+        check(phases[name] == steps, f"{name} launched {phases[name]} times, "
+                                     f"not once per step")
+    check(all(np.isfinite(v) for v in errs.values()), f"losses not finite: {errs}")
+    still = [k for k, m in nets.items() for n, p in m.named_parameters()
+             if p.requires_grad and torch.equal(p.detach(), before[(k, n)])]
+    check(not still, f"parameters that did not move: {still[:5]}")
+    stats_same = [n for n, b in gan.net_G.named_buffers() if n in g_stats
+                  and torch.equal(b, g_stats[n])]
+    u_same = [n for n, b in gan.net_D.named_buffers() if n in d_u and torch.equal(b, d_u[n])]
+    print(f"[joint] {len(before)} parameter tensors all moved (encoder, G, D); G running "
+          f"stats changed: {len(g_stats) - len(stats_same)} of {len(g_stats)}; D u "
+          f"changed: {len(d_u) - len(u_same)} of {len(d_u)}")
+    check(not stats_same and not u_same, "G's running stats or D's u did not change")
+    print(f"[joint] peak device memory (20 steps): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    warm = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = trainer.run_epoch(state, 1, loader, train_iters=warm, print_freq=warm,
+                                 base_seed=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[joint] warm: {warm / dt:.3f} steps/s, {warm * 256 / dt:.1f} img/s (batch "
+          f"256, ResNet-50 at 256x128 + pose G and D at 128x64, fp32 weights, TF32 "
+          f"convolutions)")
+    trainer.marks = []
+    profile_device("joint (3 warm steps)", lambda: trainer.run_epoch(
+        state, 2, loader, train_iters=3, print_freq=3, base_seed=1))
+    marks, trainer.marks = trainer.marks, None
+    split, total = {}, 0.0
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        if name != "start":
+            ms = a.elapsed_time(b)
+            split[name] = split.get(name, 0.0) + ms / 3
+            total += ms / 3
+    print("[joint] device time by phase (CUDA events, mean of 3 steps, ms): "
+          + ", ".join(f"{k} {v:.3f} ({v / total:.1%})" for k, v in split.items()))
+    loader.close()
+
+
+def phase_joint_run(counts):
+    """One epoch of ``cli/train_gan_usl.run`` on the ``[usl]`` set with
+    keypoints: extraction (K1, K2), Infomap on K8's inner-product kNN, the
+    bank, 20 joint steps (K4-K7, K9-K11), eval (K1-K3), the checkpoints and
+    the GAN nets' files."""
+    import tempfile
+
+    from reid_gan_torch import kernels
+    from reid_gan_torch.cli.train_gan_usl import run
+    from reid_gan_torch.config import Config
+    from reid_gan_torch.utils import Timer
+
+    t_phase = time.perf_counter()
+    dataset, imgs = _usl_set()
+    cfg = Config()
+    cfg.data.workers = 4
+    cfg.train.epochs, cfg.train.iters, cfg.train.eval_step = 1, 20, 1
+    cfg.cluster.cluster_backend, cfg.cluster.eps = "infomap", 0.5
+    cfg.cluster.k1, cfg.cluster.k2 = 15, 4
+    cfg.gan.model, cfg.gan.model_gen = "AE", "Pose"
+    with tempfile.TemporaryDirectory() as tmp:
+        dataset.train_pose_dir = _write_pose_csv(dataset.train,
+                                                 os.path.join(tmp, "poses.csv"), 13)
+        cfg.train.logs_dir = os.path.join(tmp, "logs")
+        cfg.gan.save_dir = os.path.join(tmp, "ckpt")
+        print(f"[joint] run(): data {len(dataset.train)} train images of 751 ids with "
+              f"keypoints, {len(dataset.query)} + {len(dataset.gallery)} eval; Infomap "
+              f"(eps 0.5, k1 15); depth cut: 1 epoch of {cfg.train.iters} steps")
+        Timer.spans.clear()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = run(cfg, dataset, device="cuda",
+                   image_cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        secs = dict(Timer.spans)
+        saved = sorted(os.listdir(cfg.train.logs_dir)) + sorted(
+            os.listdir(os.path.join(cfg.gan.save_dir, "experiment")))
+    counts.clear()
+    counts.update(launches)          # the line's launches: this epoch's
+    print(f"[joint] run(): {wall:.2f} s, best mAP {best:.4f}; wrote {saved}")
+    print(f"[joint] run() launches: {kernels.phase_launch_counts()}")
+    check(all(v > 0 for v in launches.values()), f"a kernel did not launch: {launches}")
+    check(np.isfinite(best) and {"checkpoint.pth.tar", "latest_net_G.pth",
+                                 "latest_net_D.pth", "iter.txt"} <= set(saved),
+          "no finite mAP or a missing checkpoint")
+    print("[joint] run() epoch split (s, host clock, Timer.spans): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    print(f"[joint] run() phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -992,18 +1385,25 @@ def main():
     check_k6(report)
     check_k7(report)
     check_k8(report)
+    check_k9(report)
+    check_k10(report)
+    check_k11(report)
     torch.cuda.synchronize()
     counts = {}
     phase_main_path(counts)
     torch.cuda.synchronize()
     phase_train(counts)
     torch.cuda.synchronize()
-    phase_usl(counts)       # the whole loop: its counts are the line's launches
+    phase_usl(counts)
+    torch.cuda.synchronize()
+    phase_joint(counts)
+    torch.cuda.synchronize()
+    phase_joint_run(counts)  # the whole joint loop: its counts are the line's launches
     torch.cuda.synchronize()
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": counts[k.name],
-         **report[k.name], "library_ms": None}
+         "replaces": k.replaces, "launches": counts[k.name], "library_ms": None,
+         **report[k.name]}
         for k in kernels.KERNELS]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))

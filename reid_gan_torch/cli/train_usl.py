@@ -32,6 +32,8 @@ from ..models import create as create_model
 from ..utils import Logger, Timer
 from ..utils.serialization import load_checkpoint, save_checkpoint
 
+SECTIONS = ("data", "model", "optim", "cluster", "train")
+
 
 def main(argv=None):
     """Parse the flags (JAX's, plus ``--device``), tee stdout to
@@ -43,7 +45,7 @@ def main(argv=None):
                        help="torch device; 'cpu' runs the plain versions of "
                             "the kernels")
     ns, rest = extra.parse_known_args(argv)
-    cfg = parse_config(rest, sections=("data", "model", "optim", "cluster", "train"))
+    cfg = parse_config(rest, sections=SECTIONS)
     device = resolve_device(ns.device)
     if cfg.train.fp16:
         raise NotImplementedError(
@@ -55,7 +57,7 @@ def main(argv=None):
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
     sys.stdout = logger
     try:
-        dump_config(cfg, cfg.train.logs_dir)
+        dump_config(cfg, cfg.train.logs_dir, sections=SECTIONS)
         print("==> Config written; starting USL training")
         dataset = create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True)
         return run(cfg, dataset, device)

@@ -1,6 +1,6 @@
 """Config system: a dataclass tree with argparse adapters preserving the
 reference's flag names (copy of ``reid_gan_tpu/config.py``, the sections the
-eval and USL CLIs parse: data, model, optim, cluster, train).
+eval, USL and joint GAN CLIs parse: data, model, optim, cluster, train, gan).
 """
 
 import argparse
@@ -74,6 +74,55 @@ class TrainConfig:
 
 
 @dataclass
+class GANConfig:
+    """dual_gan flags (CC/examples/options/{base,train}_options.py, and the
+    AEModel plugin options CC/dual_gan/models/AE_model.py:19-46)."""
+    model: str = "AE"            # dual_gan engine: AE | DPTN
+    model_gen: str = "AE"        # generator flavor: AE|DEC|FD|Pose|PoseAE
+    gan_mode: str = "lsgan"      # lsgan | vanilla (bce) | hinge | wgangp
+    gan_lr: float = 1e-3
+    ratio_g2d: float = 0.1       # D lr = gan_lr * ratio_g2d
+    lambda_rec: float = 10.0
+    lambda_g: float = 1.0
+    lambda_style: float = 0.0
+    lambda_content: float = 0.0
+    use_vgg: bool = False
+    vgg_weights: str = ""        # path to a torchvision vgg19 .pth state
+    #                              dict; empty → LOUD random-tap warning
+    ngf: int = 64
+    ndf: int = 64
+    # NOTE: the reference's --z_dim flag is parsed but never consumed by any
+    # dual_gan model (grep over CC/dual_gan/) — not reproduced here.
+    pose_channels: int = 18
+    save_dir: str = "./checkpoints"
+    name: str = "experiment"
+    continue_train: bool = False
+    which_epoch: str = "latest"
+    display_freq: int = 100      # iters between visual dumps (FD/train.py:81)
+    # joint-training flags (TrainOptions:57-78)
+    #
+    # Gating semantics chosen here (the reference never defined the
+    # warmup_epo x cluster_with_gan_features interaction — its conf-weight
+    # call is commented out, ...infomap.py:431-436): epochs < warmup_epo
+    # run encoder-only `train_reid` with the plain reid loader; the GAN
+    # joins at epoch >= warmup_epo ((epoch+1) > warmup_epo in the
+    # cli/train_gan_usl.py mode dispatch), and the pose-conditioned
+    # confidence weights of compute_conf_weight join ONE epoch later
+    # (epoch > warmup_epo) — deliberately offset so weights are never
+    # computed from a generator that has not yet taken a training step.
+    warmup_epo: int = 0
+    gan_train: bool = True
+    bipath: bool = False
+    learnable_memory: bool = False
+    cluster_with_gan_features: bool = False
+    cluster_lr: float = 0.1
+    cf_temp: float = 0.05
+    # NOTE: the reference's --lambda_nl flag drives nothing in any shipped
+    # trainer (CC/examples/options/train_options.py:64) — not reproduced.
+    t_s_ratio: float = 0.5       # DPTN source/target loss balance
+
+
+@dataclass
 class Config:
     """Top-level config tree."""
     data: DataConfig = field(default_factory=DataConfig)
@@ -81,6 +130,7 @@ class Config:
     optim: OptimConfig = field(default_factory=OptimConfig)
     cluster: ClusterConfig = field(default_factory=ClusterConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    gan: GANConfig = field(default_factory=GANConfig)
 
 
 # short aliases used throughout the reference CLIs
@@ -109,7 +159,7 @@ def add_dataclass_args(parser, dc_cls, prefix=""):
             parser.add_argument(*opts, dest=prefix + f.name, type=ftype, default=None)
 
 
-def parse_config(argv=None, sections=("data", "model", "optim", "cluster", "train")):
+def parse_config(argv=None, sections=("data", "model", "optim", "cluster", "train", "gan")):
     """Build a Config from CLI args. Later sections win on duplicate flag
     names (none currently collide across the enabled sections)."""
     cfg = Config()
@@ -125,12 +175,15 @@ def parse_config(argv=None, sections=("data", "model", "optim", "cluster", "trai
     return cfg
 
 
-def dump_config(cfg, out_dir, fname="train_opt.txt"):
+def dump_config(cfg, out_dir, fname="train_opt.txt", sections=None):
     """Write the resolved options, one ``section.field: value`` line each
-    (config.py:222-235; parity: CC/examples/options/base_options.py:148-159)."""
+    (config.py:222-235; parity: CC/examples/options/base_options.py:148-159).
+    ``sections``: the sections to write (default: all)."""
     mkdir_if_missing(out_dir)
     lines = ["------------ Options -------------"]
     for sec_field in fields(cfg):
+        if sections is not None and sec_field.name not in sections:
+            continue
         sec = getattr(cfg, sec_field.name)
         for f in fields(sec):
             lines.append(f"{sec_field.name}.{f.name}: {getattr(sec, f.name)}")

@@ -1,14 +1,21 @@
-"""Host-side data loading for re-ID: decode + resize on CPU threads;
-normalisation and augmentation run on the card (``ops/transforms.py``,
-kernels K1 and K4).
+"""Host-side data loading: decode + resize on CPU threads; normalisation,
+augmentation and pose rendering run on the card (``ops/transforms.py``,
+``ops/pose.py``: kernels K1, K4, K9, K10).
 
-Copy of the ``reid`` mode of ``reid_gan_tpu/data/loader.py``: items are
-``(img, fname, pid, camid, index)`` with ``img`` a uint8 HWC array already at
-the target size (CC/clustercontrast/utils/data/preprocessor.py:108-122).
+Copy of the ``reid`` and ``with_gan`` modes of ``reid_gan_tpu/data/loader.py``
+(CC/clustercontrast/utils/data/preprocessor.py:108-137,145-191):
+- ``reid``: ``(img, fname, pid, camid, index)`` with ``img`` a uint8 HWC
+  array already at the target size;
+- ``with_gan``: the reid item plus the GAN image ``Xs`` staged at the GAN
+  size, its original ``old_size`` (height, width), the 18 pose keypoints of
+  the annotation CSV (−1 where missing), ``gt_label``, ``Xs_path`` and the
+  flip draws ``flip``/``gan_flip``, which are carried and never applied, as
+  in the JAX step (engine/gan_trainers.py:512-520).
 Pillow is imported inside the decode function, so a caller that feeds
 in-memory uint8 batches never needs it.
 """
 
+import json
 import os
 import os.path as osp
 import queue
@@ -17,24 +24,30 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+NUM_KEYPOINTS = 18
+
 
 def _decode(fpath, height, width):
-    """Decode to RGB uint8 HWC with a bilinear resize (RectScale)."""
+    """Decode to RGB uint8 HWC with a bilinear resize (RectScale); also the
+    original (H, W), which the GAN path needs to rescale the keypoints
+    (loader.py:42-52)."""
     from PIL import Image
 
     with Image.open(fpath) as im:
+        old_size = (im.height, im.width)
         rgb = im.convert("RGB")
         if height is not None:
             rgb = rgb.resize((width, height), Image.BILINEAR)
         arr = np.asarray(rgb, np.uint8)
     arr.setflags(write=False)
-    return arr
+    return arr, np.asarray(old_size, np.float32)
 
 
 class ImageCache:
     """Decoded-uint8 RAM cache: each JPEG is decoded + resized once per run.
-    Insertions stop at ``budget_bytes``; lookups stay O(1) either way. A
-    racing double-decode is benign, the budget counter is lock-guarded."""
+    ``get`` returns ``(image, old_size)``. Insertions stop at
+    ``budget_bytes``; lookups stay O(1) either way. A racing double-decode is
+    benign, the budget counter is lock-guarded."""
 
     def __init__(self, budget_bytes=4 << 30):
         self.budget = int(budget_bytes)
@@ -51,7 +64,7 @@ class ImageCache:
         if hit is not None:
             return hit
         val = _decode(fpath, height, width)
-        nbytes = val.nbytes + 64
+        nbytes = val[0].nbytes + val[1].nbytes + 64
         with self._lock:
             if self.used + nbytes <= self.budget:
                 self._table[key] = val
@@ -87,20 +100,57 @@ def default_image_cache():
         return _default_cache
 
 
+class PoseAnnotations:
+    """Keypoint CSV (``name:keypoints_y:keypoints_x`` with json-list columns)
+    → dict name → (K, 2) float32 array of (y, x), −1 = missing
+    (loader.py:114-138; CC/clustercontrast/utils/data/preprocessor.py:77-78,
+    193-199)."""
+
+    def __init__(self, csv_path):
+        self.table = {}
+        with open(csv_path) as f:
+            header = f.readline().strip().split(":")
+            iy, ix = header.index("keypoints_y"), header.index("keypoints_x")
+            iname = header.index("name")
+            for line in f:
+                parts = line.strip().split(":")
+                if len(parts) < 3:
+                    continue
+                ys = json.loads(parts[iy])
+                xs = json.loads(parts[ix])
+                self.table[parts[iname]] = np.stack(
+                    [np.asarray(ys, np.float32), np.asarray(xs, np.float32)], axis=1)
+
+    def __contains__(self, name):
+        return name in self.table
+
+    def __getitem__(self, name):
+        return self.table[name]
+
+
 class Preprocessor:
-    """Per-index item factory returning plain numpy dicts (``reid`` mode).
-    ``cache``: ``"default"`` (the shared ``default_image_cache()``), None (no
-    caching) or an object with ``get(fpath, height, width)`` and ``budget``."""
+    """Per-index item factory returning plain numpy dicts (``reid`` and
+    ``with_gan`` modes). ``cache``: ``"default"`` (the shared
+    ``default_image_cache()``), None (no caching) or an object with
+    ``get(fpath, height, width)`` → ``(image, old_size)`` and ``budget``.
+    ``pose_file``: the keypoint CSV of the ``with_gan`` mode (without it
+    every joint is missing). ``flip_all``: draw a flip per item from
+    ``seed``'s stream, carried in the batch and never applied."""
 
     def __init__(self, dataset, root=None, mode="reid", height=256, width=128,
-                 cache="default"):
-        if mode != "reid":
-            raise ValueError(f"unsupported mode {mode!r}: the port's loader "
-                             "serves the eval path ('reid') only")
+                 gan_height=128, gan_width=64, pose_file=None, flip_all=False,
+                 seed=None, cache="default"):
+        if mode not in ("reid", "with_gan"):
+            raise ValueError(f"unsupported mode {mode!r}: the port's loader serves "
+                             "'reid' and 'with_gan'")
         self.dataset = dataset
         self.root = root
         self.mode = mode
         self.height, self.width = height, width
+        self.gan_height, self.gan_width = gan_height, gan_width
+        self.annotations = PoseAnnotations(pose_file) if pose_file else None
+        self.flip_all = flip_all
+        self.rng = np.random.RandomState(seed)
         self.cache = default_image_cache() if cache == "default" else \
             (cache if cache is not None else _NullCache())
         self._packed = None
@@ -112,12 +162,22 @@ class Preprocessor:
         return osp.join(self.root, fname) if self.root is not None else fname
 
     def _read(self, fname):
-        return self.cache.get(self._path(fname), self.height, self.width)
+        return self.cache.get(self._path(fname), self.height, self.width)[0]
+
+    def _read_gan(self, fname):
+        return self.cache.get(self._path(fname), self.gan_height, self.gan_width)
+
+    def _keypoints(self, base):
+        if self.annotations is not None and base in self.annotations:
+            return self.annotations[base]
+        return np.full((NUM_KEYPOINTS, 2), -1, np.float32)
 
     def batchable(self):
         """True when the decoded set fits the cache budget twice (the cache
         and the packed copy are both resident), so a batch is one gather."""
         need = len(self.dataset) * self.height * self.width * 3
+        if self.mode == "with_gan":
+            need += len(self.dataset) * self.gan_height * self.gan_width * 3
         return 2 * need <= getattr(self.cache, "budget", 0)
 
     def _pack(self):
@@ -125,12 +185,22 @@ class Preprocessor:
         fnames = [self.dataset[i][0] for i in range(n)]
         with ThreadPoolExecutor(max_workers=8) as pool:   # PIL drops the GIL
             imgs = list(pool.map(self._read, fnames))
+            gan = list(pool.map(self._read_gan, fnames)) \
+                if self.mode == "with_gan" else None
         self._packed = {
             "fname": fnames,
             "pid": np.asarray([self.dataset[i][1] for i in range(n)]),
             "camid": np.asarray([self.dataset[i][2] for i in range(n)]),
             "img": np.stack(imgs),
         }
+        if gan is not None:
+            bases = [osp.basename(f) for f in fnames]
+            self._packed.update(
+                Xs=np.stack([a for a, _ in gan]),
+                old_size=np.stack([o for _, o in gan]),
+                Xs_path=bases,
+                gt_label=np.asarray([int(b.split("_", 1)[0]) for b in bases]),
+                keypoints=np.stack([self._keypoints(b) for b in bases]))
 
     def get_batch(self, indices):
         """Collated batch via vectorised gathers; field-for-field identical
@@ -139,13 +209,28 @@ class Preprocessor:
             self._pack()
         p = self._packed
         idx = np.asarray(indices)
-        return {"img": p["img"][idx], "fname": [p["fname"][i] for i in idx],
-                "pid": p["pid"][idx], "camid": p["camid"][idx], "index": idx}
+        out = {"img": p["img"][idx], "fname": [p["fname"][i] for i in idx],
+               "pid": p["pid"][idx], "camid": p["camid"][idx], "index": idx}
+        if self.mode == "with_gan":
+            flips = self.rng.rand(len(idx)) < 0.5 if self.flip_all \
+                else np.zeros(len(idx), bool)
+            out.update(flip=flips, Xs=p["Xs"][idx], old_size=p["old_size"][idx],
+                       keypoints=p["keypoints"][idx], gt_label=p["gt_label"][idx],
+                       gan_flip=flips, Xs_path=[p["Xs_path"][i] for i in idx])
+        return out
 
     def __getitem__(self, index):
         fname, pid, camid = self.dataset[index]
-        return {"img": self._read(fname), "fname": fname, "pid": pid,
+        item = {"img": self._read(fname), "fname": fname, "pid": pid,
                 "camid": camid, "index": index}
+        if self.mode == "with_gan":
+            base = osp.basename(fname)
+            flip = bool(self.rng.rand() < 0.5) if self.flip_all else False
+            xs, old_size = self._read_gan(fname)
+            item.update(flip=flip, Xs=xs, Xs_path=base,
+                        gt_label=int(base.split("_", 1)[0]), gan_flip=flip,
+                        old_size=old_size, keypoints=self._keypoints(base))
+        return item
 
 
 def _collate(items):

@@ -239,8 +239,24 @@ KNN_TOPK = CudaKernel(
     replaces="reid_gan_tpu/ops/distance.py:118",
     scratch="reid_knn_topk_scratch")
 
+GAN_INPUT = CudaKernel(
+    "gan_input", "reid_gan_input",
+    [_P, _P, _L, _L],
+    source="reid_gan_torch/csrc/gan_input.cu",
+    replaces="reid_gan_tpu/ops/transforms.py:161")
+POSE_MAPS = CudaKernel(
+    "pose_maps", "reid_pose_maps",
+    [_P, _P, _P, _I, _I, _I, _I, _F],
+    source="reid_gan_torch/csrc/pose_maps.cu",
+    replaces="reid_gan_tpu/ops/pose.py:42")
+GAN_FEAT_L2N = CudaKernel(
+    "gan_feat_l2n", "reid_gan_feat_l2n",
+    [_P, _P, _L, _I, _I],
+    source="reid_gan_torch/csrc/gan_feat_l2n.cu",
+    replaces="reid_gan_tpu/models/resnet.py:186")
+
 KERNELS = (EVAL_TRANSFORM, GEM_BN_L2N, RANK_STATS, TRAIN_AUGMENT, GEM_POOL,
-           INFONCE, BANK_FOLD, KNN_TOPK)
+           INFONCE, BANK_FOLD, KNN_TOPK, GAN_INPUT, POSE_MAPS, GAN_FEAT_L2N)
 
 
 def reset_launch_counts():

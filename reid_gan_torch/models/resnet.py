@@ -17,12 +17,14 @@ feature; with GeM and no embedding layer (the recipe's default) the whole
 eval head is kernel K2 (``pooling.gem_bn_l2n``). Train
 (``resnet.py:177-219``): GeM with its gradient (kernel K5,
 ``pooling.gem_pool``) → ``feat`` → ``feat_bn`` on batch stats → L2 (``norm``)
-or ReLU → dropout → ``prob``.
+or ReLU → dropout → ``prob``; beside it the detached ``gan_feat`` map that
+conditions the pose generator (kernel K11, ``gan_feat``).
 """
 
 import torch
 from torch import nn
 
+from ..kernels import GAN_FEAT_L2N
 from .pooling import GeneralizedMeanPooling, build_pooling_layer, gem_bn_l2n, l2n
 
 
@@ -158,7 +160,7 @@ class ReIDResNet(ResNetBackbone):
             return l2n(self.feat_bn(z))
         out = {"feat": self._train_head(fmap)}
         if with_gan_feat:
-            out["gan_feat"] = _gan_feat(fmap)
+            out["gan_feat"] = gan_feat(fmap)
         if self.classifier is not None:
             out["prob"] = self.classifier(out["feat"])
         return out
@@ -177,17 +179,37 @@ class ReIDResNet(ResNetBackbone):
         return z
 
 
-def _gan_feat(fmap):
-    """The GAN branch's per-position channel-L2 map (resnet.py:186-187),
-    NCHW. On the card it waits for the joint slice, which ports it with its
-    backward as the second half of ROADMAP B8."""
-    if fmap.is_cuda:
-        raise NotImplementedError(
-            "the train-mode gan_feat map is not ported to the card yet: it "
-            "comes with its backward in the joint slice (ROADMAP B8); call "
-            "the model with with_gan_feat=False")
+def gan_feat_plain(fmap):
+    """Plain PyTorch version of K11: the per-position channel-L2 map of an
+    (N, C, H, W) map, ``x / (sqrt(sum_c x²) + 1e-12)`` (resnet.py:186-187)."""
     return fmap * torch.reciprocal(
         torch.sqrt(torch.sum(fmap * fmap, dim=1, keepdim=True)) + 1e-12)
+
+
+def _gan_feat_cuda(fmap):
+    if fmap.dtype != torch.float32 or fmap.dim() != 4 or \
+            not fmap.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"gan_feat takes a channels_last (N, C, H, W) float32 map, "
+                         f"got {tuple(fmap.shape)} {fmap.dtype}")
+    n, c, h, w = fmap.shape
+    out = torch.empty_like(fmap, memory_format=torch.channels_last)
+    vec = int(c % 4 == 0 and fmap.data_ptr() % 16 == 0)
+    GAN_FEAT_L2N(fmap.data_ptr(), out.data_ptr(), n * h * w, c, vec,
+                 device=fmap.device)
+    return out
+
+
+def gan_feat(fmap):
+    """The GAN branch's conditioning map (resnet.py:186-187), NCHW, detached
+    (kernel K11 on the card, forward only). No mode of the joint trainer
+    differentiates it: ``train_all`` detaches it before the generator and
+    pulls back zeros (gan_trainers.py:181,233), the other modes discard it."""
+    fmap = fmap.detach()
+    if fmap.is_cuda:
+        return _gan_feat_cuda(fmap)
+    if fmap.device.type != "cpu":
+        raise ValueError(f"gan_feat: unsupported device {fmap.device}")
+    return gan_feat_plain(fmap)
 
 
 def resnet18(**kw):

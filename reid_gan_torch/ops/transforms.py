@@ -1,5 +1,6 @@
-"""Image transforms: the eval transform (kernel K1) and the train
-augmentation (kernel K4), uint8 NHWC staging batch → normalised NCHW batch.
+"""Image transforms: the eval transform (kernel K1), the train
+augmentation (kernel K4) and the GAN input transform (kernel K9), uint8 NHWC
+staging batch → normalised NCHW batch.
 
 Port of ``reid_gan_tpu/ops/transforms.py::reid_augment``. The eval branch
 (``train=False``: to_float → resize → normalize) comes with the cast to the
@@ -16,16 +17,18 @@ eval resize is a no-op and the crop always upsamples; a batch at any other
 size raises.
 
 On a CUDA tensor ``eval_transform`` launches kernel K1
-(``csrc/eval_transform.cu``) and ``train_augment`` kernel K4
-(``csrc/train_augment.cu``); on a CPU tensor each runs its plain PyTorch
-version, the same arithmetic.
+(``csrc/eval_transform.cu``), ``train_augment`` kernel K4
+(``csrc/train_augment.cu``) and ``gan_input_transform`` kernel K9
+(``csrc/gan_input.cu``); on a CPU tensor each runs its plain PyTorch
+version, the same arithmetic. ``diff_transform`` (the AE hard-mix mode's
+differentiable re-encode) is not ported yet (ROADMAP B6).
 """
 
 import math
 
 import torch
 
-from ..kernels import EVAL_TRANSFORM, TRAIN_AUGMENT
+from ..kernels import EVAL_TRANSFORM, GAN_INPUT, TRAIN_AUGMENT
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -222,3 +225,45 @@ def train_augment(img_u8, params, height=256, width=128):
         raise ValueError(f"train_augment: unsupported device {img_u8.device}")
     _check_params(img_u8, params)
     return train_augment_plain(img_u8, params)
+
+
+# ---------------------------------------------------------------------------
+# GAN input transform (kernel K9)
+# ---------------------------------------------------------------------------
+
+GAN_MEAN = 0.5
+GAN_STD = 0.5
+
+
+def gan_input_transform_plain(img_u8):
+    """Plain PyTorch version of K9: (N, H, W, 3) uint8 → (N, 3, H, W)
+    float32 in [-1, 1], ``(x / 255 - 0.5) / 0.5``, contiguous NCHW."""
+    x = to_float(img_u8.permute(0, 3, 1, 2))
+    return ((x - GAN_MEAN) / GAN_STD).contiguous()
+
+
+def _gan_input_cuda(img_u8):
+    if img_u8.dtype != torch.uint8 or img_u8.dim() != 4 or img_u8.shape[-1] != 3 \
+            or not img_u8.is_contiguous():
+        raise ValueError(f"gan_input_transform takes a contiguous (N, H, W, 3) "
+                         f"uint8 batch, got {tuple(img_u8.shape)} {img_u8.dtype}")
+    n, h, w, c = img_u8.shape
+    out = torch.empty((n, c, h, w), dtype=torch.float32, device=img_u8.device)
+    GAN_INPUT(img_u8.data_ptr(), out.data_ptr(), n * h * w, h * w,
+              device=img_u8.device)
+    return out
+
+
+def gan_input_transform(img_u8, height=128, width=64):
+    """The GAN branch's input (``ops/transforms.py:160-168``): to_float →
+    resize (a no-op: the loader stages the GAN image at its size) → the
+    (0.5, 0.5, 0.5) normalisation, as NCHW float32 (kernel K9 on the card)."""
+    if tuple(img_u8.shape[1:3]) != (height, width):
+        raise ValueError(
+            f"staged GAN batch is {tuple(img_u8.shape[1:3])}, expected "
+            f"{(height, width)}: the GAN path takes batches staged at the GAN size")
+    if img_u8.is_cuda:
+        return _gan_input_cuda(img_u8)
+    if img_u8.device.type != "cpu":
+        raise ValueError(f"gan_input_transform: unsupported device {img_u8.device}")
+    return gan_input_transform_plain(img_u8)

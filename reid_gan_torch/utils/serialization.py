@@ -1,10 +1,11 @@
 """Checkpoints in the CC reference layout (parity:
 CC/clustercontrast/utils/serialization.py:24-49): ``{"state_dict", "epoch",
 "best_mAP"}`` saved with ``torch.save`` as ``checkpoint.pth.tar`` and copied
-to ``model_best.pth.tar``, the file ``cli/test.py --resume-torch`` reads.
-The JAX package writes flax msgpack instead
-(``reid_gan_tpu/utils/serialization.py:31-60``); reading one here is not
-ported (ROADMAP A8).
+to ``model_best.pth.tar``, the file ``cli/test.py --resume-torch`` reads;
+and the GAN nets' per-net layout ``{which_epoch}_net_{name}.pth`` (parity:
+CC/dual_gan/models/base_model.py:94-161). The JAX package writes flax
+msgpack instead (``reid_gan_tpu/utils/serialization.py:31-60,94-115``);
+reading one here is not ported (ROADMAP A8).
 """
 
 import os
@@ -34,3 +35,25 @@ def load_checkpoint(fpath):
     state = torch.load(fpath, map_location="cpu", weights_only=True)
     print(f"=> Loaded checkpoint '{fpath}'")
     return state
+
+
+def save_networks(nets, save_dir, which_epoch):
+    """Each net's ``state_dict`` (on the CPU) to
+    ``<save_dir>/{which_epoch}_net_{name}.pth`` (serialization.py:94-100)."""
+    mkdir_if_missing(save_dir)
+    for name, net in nets.items():
+        sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+        save_checkpoint(sd, fpath=os.path.join(save_dir, f"{which_epoch}_net_{name}.pth"))
+
+
+def load_networks(nets, save_dir, which_epoch):
+    """Load each net's file into it in place; a missing file is skipped with
+    a message and the net keeps its weights (serialization.py:103-114)."""
+    for name, net in nets.items():
+        fpath = os.path.join(save_dir, f"{which_epoch}_net_{name}.pth")
+        if not os.path.isfile(fpath):
+            print(f"load_networks: no checkpoint for net '{name}' at {fpath}; "
+                  "keeping init")
+            continue
+        net.load_state_dict(load_checkpoint(fpath))
+    return nets

@@ -185,7 +185,7 @@ def test_kernel_bindings_match_the_c_signatures():
             for ret, name, params in re.findall(
                     r'extern "C" (int|long long) (\w+)\(([^)]*)\)', src):
                 sigs[name] = (ret, [_c_kind(p) for p in params.split(",")])
-    assert len(kernels.KERNELS) == 8
+    assert len(kernels.KERNELS) == 11
     scratch = []
     for k in kernels.KERNELS:
         entries = list(k.entries.values())
@@ -200,7 +200,7 @@ def test_kernel_bindings_match_the_c_signatures():
     assert kernels.launch_counts() == {
         "eval_transform": 0, "gem_bn_l2n": 0, "rank_stats": 0,
         "train_augment": 0, "gem_pool": 0, "infonce": 0, "bank_fold": 0,
-        "knn_topk": 0}
+        "knn_topk": 0, "gan_input": 0, "pose_maps": 0, "gan_feat_l2n": 0}
     assert set(kernels.phase_launch_counts()) >= {"gem_pool.backward",
                                                   "infonce.backward"}
 
@@ -210,13 +210,18 @@ def test_cpu_paths_launch_no_kernel():
     from reid_gan_torch import kernels
     from reid_gan_torch.engine.metrics import rank_metrics_features
     from reid_gan_torch.models import create
-    from reid_gan_torch.ops.transforms import eval_transform
+    from reid_gan_torch.ops.pose import batch_cords_to_map
+    from reid_gan_torch.ops.transforms import eval_transform, gan_input_transform
 
     kernels.reset_launch_counts()
     rng = np.random.RandomState(0)
-    x = eval_transform(torch.from_numpy(
-        rng.randint(0, 256, (2, 32, 16, 3)).astype(np.uint8)), 32, 16)
+    u8 = torch.from_numpy(rng.randint(0, 256, (2, 32, 16, 3)).astype(np.uint8))
+    x = eval_transform(u8, 32, 16)
     with torch.no_grad():
-        f = create("resnet18").eval()(x.float()).numpy()
+        model = create("resnet18")
+        f = model.eval()(x.float()).numpy()
+        assert model.train()(x.float())["gan_feat"].shape == (2, 512, 2, 1)
     rank_metrics_features(f, f, [0, 1], [0, 1], [0, 0], [1, 1], device="cpu")
+    gan_input_transform(u8, 32, 16)
+    batch_cords_to_map(torch.ones((2, 18, 2)), torch.full((2, 2), 8.0), 32, 16)
     assert set(kernels.launch_counts().values()) == {0}

@@ -6,8 +6,10 @@ rectangles at the borders (K4); p other than 3, maps of zeros and odd
 sizes (K5); one live bank row, a full bank and banks off the column tile
 (K6); one label for the whole batch, all labels distinct and exact ties in
 the hard fold (K7); sets smaller than a tile, D off the stage and off the
-vector width, k of 1 and 64, exact ties and the inner product (K8); and the
-raise on inputs a kernel does not take.
+vector width, k of 1 and 64, exact ties and the inner product (K8); odd
+batches and frames (K9, K10), missing joints and joints on the frame's
+corners (K10), channel counts off the warp stride and the vector width
+(K11); and the raise on inputs a kernel does not take.
 
 Needs a CUDA card; skips without one. This file imports no JAX, so it runs
 on a machine without it, with the JAX test harness left out:
@@ -387,3 +389,80 @@ def test_knn_search_rejects_k_above_64(card):
         knn_search(f[:10], 11)
     knn_search(f, 64, "ip")
     assert kernels.launch_counts()["knn_topk"] == 1
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 64, 3), (3, 5, 7, 3), (257, 16, 8, 3)])
+def test_gan_input_matches_plain(card, shape):
+    """K9 at an odd batch, an odd frame and one image: NCHW float32 within
+    one ulp of values in [-1, 1] (torch's CUDA scalar division may multiply
+    by the reciprocal)."""
+    from reid_gan_torch.ops.transforms import gan_input_transform, gan_input_transform_plain
+
+    g = torch.Generator(device=card).manual_seed(sum(shape))
+    u8 = torch.randint(0, 256, shape, dtype=torch.uint8, device=card, generator=g)
+    out = gan_input_transform(u8, shape[1], shape[2])
+    ref = gan_input_transform_plain(u8)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.stride() == ref.stride()
+    assert float((out - ref).abs().max()) <= 1e-6
+
+
+def test_gan_input_rejects_a_batch_off_the_gan_size(card):
+    from reid_gan_torch.ops.transforms import gan_input_transform
+
+    with pytest.raises(ValueError, match="GAN size"):
+        gan_input_transform(torch.zeros((2, 64, 32, 3), dtype=torch.uint8,
+                                        device=card), 128, 64)
+
+
+@pytest.mark.parametrize("n,k,h,w", [(3, 18, 128, 64), (1, 5, 7, 3), (33, 18, 16, 8)])
+def test_pose_maps_match_plain(card, n, k, h, w):
+    """K10 at an odd batch and frames: joints missing in y, in x and in both,
+    one image with every joint missing (all-zero maps), joints at the
+    frame's corners (a peak of 1 there); within 1e-6."""
+    from reid_gan_torch.ops.pose import batch_cords_to_map, batch_cords_to_map_plain
+
+    g = torch.Generator(device=card).manual_seed(n * k + h)
+    old = torch.tensor([[256.0, 128.0], [300.0, 97.0]], device=card)[
+        torch.arange(n, device=card) % 2]
+    cords = torch.rand((n, k, 2), device=card, generator=g) * old[:, None, :]
+    cords[0, 0, 0] = -1
+    cords[0, 1 % k, 1] = -1
+    cords[0, 2 % k] = -1
+    if n > 1:
+        cords[1] = -1
+    cords[-1, -1] = torch.tensor([0.0, 0.0], device=card)
+    cords[-1, 0] = old[-1] - 1e-3
+    out = batch_cords_to_map(cords.contiguous(), old.contiguous(), h, w)
+    ref = batch_cords_to_map_plain(cords, old, h, w)
+    torch.cuda.synchronize()
+    assert out.shape == (n, k, h, w)
+    assert float((out - ref).abs().max()) <= 1e-6
+    if n > 1:
+        assert not out[1].any()
+    assert float(out[-1, -1, 0, 0]) == 1.0 and float(out[-1, 0, h - 1, w - 1]) == 1.0
+
+
+@pytest.mark.parametrize("n,c,h,w", [(3, 516, 5, 3), (1, 12, 1, 1), (5, 7, 4, 2),
+                                     (2, 2048, 16, 8)])
+def test_gan_feat_l2n_matches_plain(card, n, c, h, w):
+    """K11 with channel counts off the 128-float warp stride (516, 12), off
+    the vector width (7: the scalar loop), one position, and the main path's
+    2048: unit columns within 1e-6; detached, channels_last."""
+    from reid_gan_torch.models.resnet import gan_feat, gan_feat_plain
+
+    g = torch.Generator(device=card).manual_seed(n * c)
+    fmap = torch.randn((n, c, h, w), device=card, generator=g, requires_grad=True)
+    x = fmap.contiguous(memory_format=torch.channels_last)
+    out = gan_feat(x)
+    ref = gan_feat_plain(x.detach())
+    torch.cuda.synchronize()
+    assert not out.requires_grad and out.is_contiguous(memory_format=torch.channels_last)
+    assert float((out - ref).abs().max()) <= 1e-6
+
+
+def test_gan_feat_l2n_rejects_an_nchw_map(card):
+    from reid_gan_torch.models.resnet import gan_feat
+
+    with pytest.raises(ValueError, match="channels_last"):
+        gan_feat(torch.zeros((2, 8, 3, 3), device=card))
