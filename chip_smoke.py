@@ -25,7 +25,10 @@ the script exits non-zero without printing a result:
    ``gan_input`` at 256 x 128x64; K10 ``pose_maps`` at (256, 18, 128, 64)
    with missing joints, an image without joints and joints on the frame's
    corners; K11 ``gan_feat_l2n`` at (256, 2048, 16, 8), beside
-   ``F.normalize`` as its library time;
+   ``F.normalize`` as its library time; K6 once more with the hard-mix
+   step's 16 extra negatives (groups of 16) against the 768-row bank; K12
+   ``diff_transform`` at (16, 3, 128, 64) -> 256x128, one image of -1/+1
+   extremes so the renormalised edge taps see full swings;
 3. the eval main path: ``Evaluator(FeatureExtractor(resnet50)).evaluate``
    (the call ``cli/test.py`` makes) on an in-memory uint8 eval set made with
    numpy from a seed (1,024 queries + 3,072 gallery, 256x128, batch 256;
@@ -69,13 +72,39 @@ the script exits non-zero without printing a result:
    running stats and D's ``u`` changed, the losses finite; then the peak
    device memory, 10 warm steps timed, 3 traced with the profiler and split
    into the step's phases by CUDA events;
-7. the whole joint loop: one epoch of ``cli/train_gan_usl.run`` on phase
+7. the AE hard-mix main path: ``ClusterContrastWithGANTrainer.run_epoch``
+   in ``train`` mode at the recipe's width (a random ResNet-50, norm on, at
+   256x128; the AE generator, ngf 64, img_f 256, 3 layers, 3 blocks, and
+   the discriminator at 128x64; seed 0) for 20 steps of batch 256 on phase
+   4's set with GAN images at 128x64. One step is first held against the
+   same step through the plain versions (loss, three encoder gradients,
+   the folded bank, G's running stats). Launch counts are zeroed just
+   before the 20 steps and read just after: K2, K4-K7 (K5's and K6's
+   backward too), K9 and K12 once a step, K10 and K11 never. Every encoder
+   parameter must have moved, G's running stats all changed, G's
+   parameters and D unchanged; then peak memory, 10 warm steps timed, 3
+   traced and split into the step's phases by CUDA events;
+8. the GAN warm-up's main path: ``GANTrainer.train_gan`` with the AE
+   generator and the discriminator at 128x64 for 20 iterations of batch 256
+   on an ``only_gan`` loader of phase 4's GAN images. One step is first
+   held against the same step through K9's plain version. Launch counts are
+   zeroed just before and read just after: K9 once an iteration, nothing
+   else. Then peak memory, 10 warm iterations timed, 3 traced;
+9. the whole joint loop: one epoch of ``cli/train_gan_usl.run`` on phase
    5's set with keypoints, Infomap (eps 0.5, k1 15) and 20 steps. Launch
    counts are zeroed just before and read just after: K1-K11 must all have
-   launched; they are the kernels line's launches. It writes the
-   checkpoints and the GAN nets' files, and prints the epoch's split;
-8. a JSON line with every kernel's launches, error, times and bound;
-9. the last line: ``{"ok": true, "device": {...}}``.
+   launched, K12 not. It writes the checkpoints and the GAN nets' files, and
+   prints the epoch's split;
+10. the whole hard-mix loop: ``cli/train_gan_warmup.run`` for 4 iterations
+   (1 epoch, ``--debug``) writes the nets, then one epoch of
+   ``cli/train_gan_usl.run`` with ``--model-gen AE --no-gan-train
+   --continue-train`` loads them and runs on phase 5's set with the DBSCAN
+   recipe and 20 steps. Launch counts are zeroed just before the epoch and
+   read just after: K1-K9 and K12 must have launched, K10 and K11 not;
+11. a JSON line with every kernel's launches (the sum over the two whole
+   joint loops, phases 9 and 10), error, times and bound; K6's entry also
+   carries its time with the extra negatives (``ex_f_ms``);
+12. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 import importlib
@@ -396,7 +425,65 @@ def check_k6(report):
               f"{fwd:.4f}) plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
         if timed is None:
             timed = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
-    report["infonce"] = dict(max_abs_err=worst, **timed)
+    ex_err, ex_times = _check_k6_extra_negatives()
+    report["infonce"] = dict(max_abs_err=max(worst, ex_err), **timed, **ex_times)
+
+
+def _check_k6_extra_negatives():
+    """K6 with the hard-mix step's 16 extra negatives (groups of 16) at B
+    256, D 2048, K_pad 768, num_valid 700: loss, logits and dx against the
+    plain version, and forward + backward ms."""
+    from reid_gan_torch.ops.cluster_memory import (
+        init_memory,
+        memory_loss,
+        memory_loss_plain,
+    )
+
+    b, d, k_pad, nv, t, group = 256, 2048, 768, 700, 16, 16
+    g = torch.Generator(device="cuda").manual_seed(6)
+    centers = torch.nn.functional.normalize(
+        torch.randn((nv, d), device="cuda", generator=g), dim=1)
+    state = init_memory(centers, k_pad=k_pad, device="cuda")
+    y = torch.randint(0, nv, (b,), device="cuda", generator=g, dtype=torch.int32)
+    x0 = centers[y.long()] + 0.05 * torch.randn((b, d), device="cuda", generator=g)
+    ex = centers[y[::group].long()] + 0.05 * torch.randn((t, d), device="cuda", generator=g)
+
+    def run(fn):
+        x = x0.detach().requires_grad_(True)
+        loss, logits = fn(x, y, state, ex_f=ex, group_size=group)
+        loss.mean().backward()
+        return loss, logits, x.grad
+
+    loss, logits, dx = run(memory_loss)
+    loss_r, logits_r, dx_r = run(memory_loss_plain)
+    torch.cuda.synchronize()
+    masked = (torch.arange(b, device="cuda")[:, None] // group ==
+              torch.arange(t, device="cuda")[None])
+    lex, lex_r = logits[:, k_pad:], logits_r[:, k_pad:]
+    e_l = max(float((logits[:, :nv] - logits_r[:, :nv]).abs().max()),
+              float(torch.where(masked, 0.0, (lex - lex_r).abs()).max()))
+    e_mask = float(torch.where(masked, (lex - lex_r).abs() / lex_r.abs(), 0.0).max())
+    e_loss = float((loss - loss_r).abs().max())
+    e_dx = float((dx - dx_r).abs().max())
+    # as without ex_f; the masked columns sit near -2e5, where an fp32 ulp is 0.016
+    tol, tol_dx, tol_mask = 1e-4, 1e-6, 1e-6
+    print(f"[K6] ex_f B {b} D {d} K_pad {k_pad} num_valid {nv} T {t} group {group}: "
+          f"max_abs_err logits {e_l:.3g}, loss {e_loss:.3g} (tol {tol:.3g}), dx "
+          f"{e_dx:.3g} (tol {tol_dx:.3g}); self-masked columns rel err {e_mask:.3g} "
+          f"(tol {tol_mask:.3g})")
+    check(e_l <= tol and e_loss <= tol and e_dx <= tol_dx and e_mask <= tol_mask
+          and tuple(logits.shape) == (b, k_pad + t), "K6 with ex_f differs from plain")
+    x = x0.detach().requires_grad_(True)
+    fwd = device_ms(lambda: memory_loss(x, y, state, ex_f=ex, group_size=group))
+    ms = device_ms(lambda: memory_loss(x, y, state, ex_f=ex, group_size=group)[0]
+                   .mean().backward())
+    plain = device_ms(lambda: memory_loss_plain(x, y, state, ex_f=ex, group_size=group)[0]
+                      .mean().backward())
+    bnd, by = bound_ms(4 * (2 * b * d + (nv + t) * d + b * (k_pad + t) + 2 * b * d),
+                       2 * (2 * b * (nv + t) * d))
+    print(f"[K6] ex_f: forward+backward ms {ms:.4f} (forward {fwd:.4f}) plain_ms "
+          f"{plain:.4f} bound_ms {bnd:.4f} ({by})")
+    return max(e_loss, e_l), dict(ex_f_ms=ms, ex_f_plain_ms=plain, ex_f_bound_ms=bnd)
 
 
 def check_k7(report):
@@ -627,6 +714,35 @@ def check_k11(report):
                                   bound_by=by, library_ms=lib)
 
 
+def check_k12(report):
+    from reid_gan_torch.ops.transforms import diff_transform, diff_transform_plain
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    n, h, w = 16, 128, 64
+    img = torch.tanh(2 * torch.randn((n, 3, h, w), device="cuda", generator=g))
+    # one image of extremes: -1 and +1 alternating, so the renormalised taps
+    # of the edge rows and columns see full swings
+    img[0] = ((torch.arange(h, device="cuda")[:, None] +
+               torch.arange(w, device="cuda")[None]) % 2).float() * 2 - 1
+    out = diff_transform(img, 2 * h, 2 * w)
+    ref = diff_transform_plain(img, 2 * h, 2 * w)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.stride() == ref.stride(),
+          "K12 layout differs from the plain version")
+    err = float((out - ref).abs().max())
+    edge = float((out - ref)[:, :, [0, 1, 2, -3, -2, -1]].abs().max())
+    tol = 5e-6   # ~20 fp32 ulps of the outputs: 16 taps in another order, then / std
+    print(f"[K12] diff_transform ({n}, 3, {h}, {w}) -> ({2 * h}, {2 * w}) channels_last: "
+          f"max_abs_err {err:.3g}, edge rows {edge:.3g} (tol {tol:.3g})")
+    check(err <= tol, f"K12 error {err} > {tol}")
+    ms = device_ms(lambda: diff_transform(img, 2 * h, 2 * w))
+    plain = device_ms(lambda: diff_transform_plain(img, 2 * h, 2 * w))
+    b, by = bound_ms(4 * (img.numel() + out.numel()), 75 * out.numel())
+    print(f"[K12] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
+    report["diff_transform"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                                    bound_by=by)
+
+
 def _eval_set(seed=0, n_ids=256, n_query=1024, n_gallery=3072, h=256, w=128,
               batch=256):
     """In-memory uint8 eval set: per-identity base colour plus noise, ids
@@ -677,6 +793,7 @@ PROFILE_GROUPS = (
     ("K9 gan_input", ("gan_input_kernel",)),
     ("K10 pose_maps", ("pose_maps_kernel",)),
     ("K11 gan_feat_l2n", ("gan_feat_l2n_kernel",)),
+    ("K12 diff_transform", ("diff_transform_kernel",)),
     ("batchnorm", ("bn_fw", "bn_bw", "batchnorm", "batch_norm")),
     ("host-to-device copy", ("Memcpy HtoD",)),
     ("Adam (multi-tensor)", ("multi_tensor_apply",)),
@@ -722,6 +839,18 @@ def profile_device(label, fn):
         print(f"[profile] {label} group {group}: {us / busy:.2%} ({us / 1e3:.3f} ms)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[profile] {label} {us / busy:7.2%} {us / 1e3:9.3f} ms  {name[:110]}")
+
+
+def _split_by_marks(marks, steps):
+    """Device ms per phase, each step's (phase, CUDA event) marks in order
+    (``trainer.marks``), averaged over ``steps``."""
+    split, total = {}, 0.0
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        if name != "start":
+            ms = a.elapsed_time(b)
+            split[name] = split.get(name, 0.0) + ms / steps
+            total += ms / steps
+    return ", ".join(f"{k} {v:.3f} ({v / total:.1%})" for k, v in split.items())
 
 
 def phase_main_path(counts):
@@ -1303,14 +1432,8 @@ def phase_joint(counts):
     profile_device("joint (3 warm steps)", lambda: trainer.run_epoch(
         state, 2, loader, train_iters=3, print_freq=3, base_seed=1))
     marks, trainer.marks = trainer.marks, None
-    split, total = {}, 0.0
-    for (_, a), (name, b) in zip(marks, marks[1:]):
-        if name != "start":
-            ms = a.elapsed_time(b)
-            split[name] = split.get(name, 0.0) + ms / 3
-            total += ms / 3
     print("[joint] device time by phase (CUDA events, mean of 3 steps, ms): "
-          + ", ".join(f"{k} {v:.3f} ({v / total:.1%})" for k, v in split.items()))
+          + _split_by_marks(marks, 3))
     loader.close()
 
 
@@ -1354,17 +1477,406 @@ def phase_joint_run(counts):
         secs = dict(Timer.spans)
         saved = sorted(os.listdir(cfg.train.logs_dir)) + sorted(
             os.listdir(os.path.join(cfg.gan.save_dir, "experiment")))
-    counts.clear()
-    counts.update(launches)          # the line's launches: this epoch's
+    counts.update(launches)
     print(f"[joint] run(): {wall:.2f} s, best mAP {best:.4f}; wrote {saved}")
     print(f"[joint] run() launches: {kernels.phase_launch_counts()}")
-    check(all(v > 0 for v in launches.values()), f"a kernel did not launch: {launches}")
+    check(all(v > 0 for k, v in launches.items() if k != "diff_transform")
+          and launches["diff_transform"] == 0, f"K1-K11 must launch, K12 not: {launches}")
     check(np.isfinite(best) and {"checkpoint.pth.tar", "latest_net_G.pth",
                                  "latest_net_D.pth", "iter.txt"} <= set(saved),
           "no finite mAP or a missing checkpoint")
     print("[joint] run() epoch split (s, host clock, Timer.spans): "
           + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     print(f"[joint] run() phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def _hardmix_trainer(items, imgs):
+    """The hard-mix step at the recipe's width: a random ResNet-50 (GeM, last
+    stride 1, norm on) at 256x128 and the AE generator (ngf 64, img_f 256, 3
+    layers, 3 blocks) with the discriminator at 128x64, seed 0; the bank of
+    phase 4 and a ``with_gan`` loader (no keypoints: the AE generator reads
+    none) of batch 256 as 16 ids x 16."""
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.engine.gan_trainers import ClusterContrastWithGANTrainer
+    from reid_gan_torch.engine.usl import bank_rows, make_train_loader
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.dual_gan.models import create_model as create_gan
+    from reid_gan_torch.ops.cluster_memory import init_memory
+
+    n_ids = 700
+    g = torch.Generator(device="cuda").manual_seed(0)
+    centers = torch.nn.functional.normalize(
+        torch.randn((n_ids, 2048), device="cuda", generator=g), dim=1)
+    memory = init_memory(centers, k_pad=bank_rows(n_ids), device="cuda")
+    torch.manual_seed(0)
+    gan = create_gan(GANConfig(model="AE", model_gen="AE"), gan_height=128,
+                     gan_width=64, device="cuda")
+    model = create("resnet50", norm=True)
+    trainer = ClusterContrastWithGANTrainer(model, gan, height=256, width=128,
+                                            num_instances=16, device="cuda")
+    loader = make_train_loader(items, 256, 128, 256, 16, workers=4, iters=400, seed=1,
+                               cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]),
+                               mode="with_gan", gan_height=128, gan_width=64,
+                               flip_all=True)
+    return trainer, trainer.init_state(memory, gan.init_state()), loader
+
+
+def _compare_hardmix_step(trainer, state, batch, seed=99):
+    """One hard-mix step through the kernels (``train_step`` itself: K4, K9,
+    K5, K12, K2, K6, K7) and the same step composed from the plain versions,
+    from the same weights, buffers, bank and draws, with cuDNN's TF32 off:
+    the loss, the gradient at ``feat_bn``'s output (the head's, as
+    ``feat``'s in the joint check), the gradients of ``gap.p`` and
+    ``layer4.2.conv3.weight`` (both behind K5's backward), the folded bank
+    and G's running stats after its two folds are held. Two more plain
+    steps place the gradients' limit: it must lie above a plain repeat's
+    spread (the card's own summation order) and below the reading of a
+    plain step whose augmented input is multiplied by (1 + 1e-6 noise).
+    ``conv1.weight``'s gradient is printed only: in a random ResNet-50 that
+    noise moves it by percents. Weights and buffers are restored after; the
+    step's Adam is a throwaway one."""
+    import copy
+
+    from reid_gan_torch.models.pooling import gem_bn_l2n_plain, gem_pool_plain, l2n
+    from reid_gan_torch.models.resnet import ResNetBackbone
+    from reid_gan_torch.ops.cluster_memory import memory_loss_plain, update_memory_plain
+    from reid_gan_torch.ops.transforms import (
+        diff_transform_plain,
+        gan_input_transform_plain,
+        sample_augment_params,
+        train_augment_plain,
+    )
+
+    model, gan, dev = trainer.model, trainer.gan, trainer.device
+    G = gan.net_G
+    d = trainer._to_device(batch, "train")
+    y = d["pid"]
+    nets = (model, G)
+    snap = [copy.deepcopy(m.state_dict()) for m in nets]
+    grad_names = ("gap.p", "layer4.2.conv3.weight", "conv1.weight")
+    named = dict(model.named_parameters())
+    head = []
+
+    def keep_head(module, inputs, out):   # the train forward's feat_bn output
+        if out.requires_grad:
+            out.retain_grad()
+            head.append(out)
+
+    hook = model.feat_bn.register_forward_hook(keep_head)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    results = []
+    try:
+        for plain, jitter in ((False, 0.0), (True, 0.0), (True, 0.0), (True, 1e-6)):
+            for m, sd in zip(nets, snap):
+                m.load_state_dict(sd)
+            mem = state.memory._replace(features=state.memory.features.clone())
+            st = trainer.init_state(mem, state.gan)
+            model.zero_grad(set_to_none=True)
+            head.clear()
+            if not plain:
+                st, errs = trainer.train_step(st, d, seed)
+                loss = float(errs["loss"])
+            else:
+                params = sample_augment_params(
+                    y.shape[0], trainer.height, trainer.width,
+                    torch.Generator(device=dev).manual_seed(seed))
+                x = train_augment_plain(d["img"], params)
+                if jitter:
+                    x = x * (1 + jitter * torch.randn(
+                        x.shape, device=dev, generator=torch.Generator(device=dev)
+                        .manual_seed(1)).contiguous(memory_format=torch.channels_last))
+                xs = gan_input_transform_plain(d["Xs"])
+                model.train()
+                fmap = ResNetBackbone.forward(model, x)
+                feat = l2n(model.feat_bn(gem_pool_plain(fmap, model.gap.p)))
+                with torch.no_grad():
+                    fc = gan.synthesize_fc(xs, feat.detach(), trainer.num_instances,
+                                           train=True)
+                    model.eval()
+                    fmap_e = ResNetBackbone.forward(
+                        model, diff_transform_plain(fc, trainer.height, trainer.width))
+                    bn = model.feat_bn
+                    f_ex = gem_bn_l2n_plain(fmap_e, model.gap.p, bn.weight,
+                                            bn.running_mean, bn.running_var)
+                    model.train()
+                loss_t = memory_loss_plain(feat, y, mem, ex_f=f_ex,
+                                           group_size=trainer.num_instances)[0].mean()
+                loss_t.backward()
+                update_memory_plain(mem, feat.detach(), y)
+                loss = float(loss_t.detach())
+            (bn_out,) = head
+            grads = [named[n].grad.clone() for n in grad_names]
+            stats = torch.cat([b.flatten() for n, b in G.named_buffers() if "running" in n])
+            results.append((loss, bn_out.grad, grads, mem.features, stats))
+    finally:
+        hook.remove()
+        torch.backends.cudnn.allow_tf32 = tf32
+        for m, sd in zip(nets, snap):
+            m.load_state_dict(sd)
+            m.zero_grad(set_to_none=True)
+    (lk, hk, gk, bk, sk), (lp, hp, gp, bp, sp), (_, _, g_rep, _, _), \
+        (_, _, g_jit, _, _) = results
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    e_loss = abs(lk - lp) / abs(lp)
+    e_head = rel(hk, hp)
+    e_grads, e_rep, e_jit = ([rel(a, b) for a, b in zip(g, gp)] for g in (gk, g_rep, g_jit))
+    e_bank = float((bk - bp).abs().max())
+    e_stats = rel(sk, sp)
+    # fp32 ResNet-50 and G on inputs that differ by the kernels' rounding; the
+    # extra negatives enter at 1/temp = 20x
+    tol_loss, tol_head, tol_grad, tol_bank, tol_stats = 1e-3, 1e-3, 1e-4, 1e-4, 1e-4
+    print(f"[hardmix] one step, kernels vs plain versions (TF32 off): loss {lk:.6f} vs "
+          f"{lp:.6f} (rel err {e_loss:.3g}, tol {tol_loss:.3g}); feat_bn output grad "
+          f"max rel err {e_head:.3g} (tol {tol_head:.3g}); folded bank max_abs_err "
+          f"{e_bank:.3g} (tol {tol_bank:.3g}); G running stats rel err {e_stats:.3g} "
+          f"(tol {tol_stats:.3g})")
+    print(f"[hardmix] parameter grads, max rel err kernels vs plain (plain repeat; "
+          f"plain with the input x(1 + 1e-6 noise)), tol {tol_grad:.3g} on gap.p and "
+          f"layer4.2.conv3.weight, conv1.weight printed only: " + ", ".join(
+              f"{n} {a:.3g} ({b:.3g}; {c:.3g})"
+              for n, a, b, c in zip(grad_names, e_grads, e_rep, e_jit)))
+    check(e_loss <= tol_loss and e_head <= tol_head and e_bank <= tol_bank
+          and e_stats <= tol_stats and max(e_grads[:2]) <= tol_grad,
+          "the hard-mix step through the kernels differs from the plain versions")
+    check(max(e_rep[:2]) < tol_grad < min(e_jit[:2]),
+          f"the gradients' limit {tol_grad:.3g} no longer lies between the plain "
+          f"repeat's spread and the 1e-6 input noise's reading")
+
+
+def phase_hardmix():
+    """The AE hard-mix main path: ``ClusterContrastWithGANTrainer.run_epoch``
+    in ``train`` mode on ResNet-50 and the AE generator."""
+    from reid_gan_torch import kernels
+
+    t0 = time.perf_counter()
+    items, imgs = _pseudo_set()
+    trainer, state, loader = _hardmix_trainer(items, imgs)
+    model, G = trainer.model, trainer.gan.net_G
+    print(f"[hardmix] set-up ({len(items)} images at 256x128 and 128x64, bank "
+          f"{tuple(state.memory.features.shape)}): {time.perf_counter() - t0:.1f} s")
+    _compare_hardmix_step(trainer, state, loader.next())
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    g_before = {n: b.clone() for n, b in G.state_dict().items()}
+    d_before = {n: b.clone() for n, b in trainer.gan.net_D.state_dict().items()}
+    steps = 20
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, errs = trainer.run_epoch(state, 0, loader, mode="train", train_iters=steps,
+                                    print_freq=10, base_seed=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    phases = kernels.phase_launch_counts()
+    print(f"[hardmix] {steps} train steps (1st, cuDNN cold): {wall:.2f} s; mean loss "
+          f"{errs['loss']:.4f}")
+    print(f"[hardmix] launches: {phases}")
+    for name in ("train_augment.forward", "gem_pool.forward", "gem_pool.backward",
+                 "infonce.forward", "infonce.backward", "bank_fold.forward",
+                 "gan_input.forward", "gem_bn_l2n.forward", "diff_transform.forward"):
+        check(phases[name] == steps, f"{name} launched {phases[name]} times, "
+                                     f"not once per step")
+    for name in ("pose_maps.forward", "gan_feat_l2n.forward"):
+        check(phases[name] == 0, f"{name} launched on the hard-mix path")
+    check(np.isfinite(errs["loss"]), f"loss not finite: {errs}")
+    still = [n for n, p in model.named_parameters() if p.requires_grad
+             and torch.equal(p.detach(), before[n])]
+    check(not still, f"encoder parameters that did not move: {still[:5]}")
+    g_after, d_after = G.state_dict(), trainer.gan.net_D.state_dict()
+    stats_moved = sum(not torch.equal(g_after[n], v) for n, v in g_before.items()
+                      if "running" in n)
+    frozen = all(torch.equal(g_after[n], v) for n, v in g_before.items()
+                 if "running" not in n and "num_batches" not in n) and \
+        all(torch.equal(d_after[n], v) for n, v in d_before.items())
+    n_stats = sum("running" in n for n in g_before)
+    print(f"[hardmix] {len(before)} encoder parameter tensors all moved; G's running "
+          f"stats changed: {stats_moved} of {n_stats}; G's parameters and D unchanged: "
+          f"{frozen}")
+    check(stats_moved == n_stats and frozen, "G's stats did not move or G/D changed")
+    print(f"[hardmix] peak device memory (20 steps): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    warm = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = trainer.run_epoch(state, 1, loader, mode="train", train_iters=warm,
+                                 print_freq=warm, base_seed=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[hardmix] warm: {warm / dt:.3f} steps/s, {warm * 256 / dt:.1f} img/s (batch "
+          f"256, ResNet-50 at 256x128 + AE G at 128x64 under no gradient + 16 "
+          f"re-encoded images, fp32 weights, TF32 convolutions)")
+    trainer.marks = []
+    profile_device("hardmix (3 warm steps)", lambda: trainer.run_epoch(
+        state, 2, loader, mode="train", train_iters=3, print_freq=3, base_seed=1))
+    marks, trainer.marks = trainer.marks, None
+    print("[hardmix] device time by phase (CUDA events, mean of 3 steps, ms): "
+          + _split_by_marks(marks, 3))
+    loader.close()
+
+
+def phase_warmup():
+    """The GAN warm-up's main path: ``GANTrainer.train_gan`` with the AE
+    generator and the discriminator at 128x64, batch 256, on an ``only_gan``
+    loader of phase 4's set."""
+    import copy
+
+    from reid_gan_torch import kernels
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.data import IterLoader
+    from reid_gan_torch.data.loader import DataLoader, Preprocessor
+    from reid_gan_torch.engine.gan_trainers import GANTrainer
+    from reid_gan_torch.models.dual_gan.models import create_model as create_gan
+    from reid_gan_torch.ops.transforms import gan_input_transform_plain
+
+    t0 = time.perf_counter()
+    items, imgs = _pseudo_set()
+    torch.manual_seed(0)
+    gan = create_gan(GANConfig(model="AE", model_gen="AE"), gan_height=128, gan_width=64,
+                     device="cuda")
+    pre = Preprocessor(items, mode="only_gan", gan_height=128, gan_width=64,
+                       cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+    it = IterLoader(DataLoader(pre, batch_size=256, shuffle=True, num_workers=4,
+                               drop_last=True, seed=1))
+    it.new_epoch()
+    trainer = GANTrainer(gan, print_freq=10, device="cuda")
+    state = gan.init_state()
+    print(f"[warmup] set-up ({len(items)} GAN images at 128x64): "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # one step through K9 and through its plain version, TF32 off
+    xs_u8 = torch.from_numpy(np.ascontiguousarray(it.next()["Xs"])).cuda()
+    nets = (gan.net_G, gan.net_D)
+    snap = [copy.deepcopy(m.state_dict()) for m in nets]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    results = []
+    try:
+        for plain in (False, True):
+            for m, sd in zip(nets, snap):
+                m.load_state_dict(sd)
+            st = gan.init_state()
+            if plain:
+                _, errs, fake = gan.step(st, gan_input_transform_plain(xs_u8))
+            else:
+                _, errs, fake = gan.optimize_parameters(st, xs_u8)
+            results.append((float(errs["G"]), float(errs["D"]), fake,
+                            gan.net_G.decoder.outconv.conv1.conv.weight.grad.clone(),
+                            gan.net_D.conv.conv.weight.grad.clone()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        for m, sd in zip(nets, snap):
+            m.load_state_dict(sd)
+            m.zero_grad(set_to_none=True)
+    (gk, dk, fk, ggk, dgk), (gp, dp, fp, ggp, dgp) = results
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    e_loss = max(abs(gk - gp) / abs(gp), abs(dk - dp) / abs(dp))
+    e_grad = max(rel(ggk, ggp), rel(dgk, dgp))
+    e_fake = float((fk - fp).abs().max())
+    tol_loss, tol_grad, tol_fake = 1e-4, 1e-3, 1e-4   # K9's ulp through fp32 G and D
+    print(f"[warmup] one step, K9 vs its plain version (TF32 off): G {gk:.6f} vs {gp:.6f}, "
+          f"D {dk:.6f} vs {dp:.6f} (max rel err {e_loss:.3g}, tol {tol_loss:.3g}); fake "
+          f"max_abs_err {e_fake:.3g} (tol {tol_fake:.3g}); G outconv / D conv grad max "
+          f"rel err {rel(ggk, ggp):.3g} / {rel(dgk, dgp):.3g} (tol {tol_grad:.3g})")
+    check(e_loss <= tol_loss and e_grad <= tol_grad and e_fake <= tol_fake,
+          "the standalone GAN step through K9 differs from the plain version")
+
+    before = {(k, n): p.detach().clone() for k, m in (("G", gan.net_G), ("D", gan.net_D))
+              for n, p in m.named_parameters()}
+    iters = 20
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, errs = trainer.train_gan(state, 0, it, train_iters=iters, base_seed=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    print(f"[warmup] {iters} D->G iterations (1st, cuDNN cold): {wall:.2f} s; mean "
+          + ", ".join(f"{k} {v:.4f}" for k, v in errs.items()))
+    print(f"[warmup] launches: {kernels.phase_launch_counts()}")
+    check(launches["gan_input"] == iters and
+          all(v == 0 for k, v in launches.items() if k != "gan_input"),
+          f"the warm-up launched other than K9 once an iteration: {launches}")
+    check(all(np.isfinite(v) for v in errs.values()), f"losses not finite: {errs}")
+    still = [k for k, m in (("G", gan.net_G), ("D", gan.net_D))
+             for n, p in m.named_parameters() if torch.equal(p.detach(), before[(k, n)])]
+    check(not still and state.step == iters, f"parameters that did not move: {still[:5]}")
+    print(f"[warmup] {len(before)} G and D parameter tensors all moved; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    warm = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = trainer.train_gan(state, 1, it, train_iters=warm, base_seed=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[warmup] warm: {warm / dt:.3f} iterations/s, {warm * 256 / dt:.1f} img/s "
+          f"(batch 256, AE G and D at 128x64, fp32 weights, TF32 convolutions)")
+    profile_device("warmup (3 warm iterations)", lambda: trainer.train_gan(
+        state, 2, it, train_iters=3, base_seed=1))
+    it.close()
+
+
+def phase_hardmix_run(counts):
+    """One epoch of ``cli/train_gan_usl.run`` in the hard-mix mode
+    (``--model-gen AE --no-gan-train --continue-train``) on the ``[usl]``
+    set, from the nets a 4-iteration ``cli/train_gan_warmup.run`` saved:
+    extraction (K1, K2), DBSCAN on K8's kNN, the bank, 20 hard-mix steps
+    (K4-K7, K9, K12, K2), eval (K1-K3)."""
+    import tempfile
+
+    from reid_gan_torch import kernels
+    from reid_gan_torch.cli import train_gan_usl, train_gan_warmup
+    from reid_gan_torch.config import Config
+    from reid_gan_torch.utils import Timer
+
+    t_phase = time.perf_counter()
+    dataset, imgs = _usl_set()
+    cache = _InMemoryImages(imgs, imgs[:, ::2, ::2])
+    cfg = Config()                   # the DBSCAN recipe: eps 0.4, min_samples 4, k1 30, k2 6
+    cfg.data.workers = 4
+    cfg.gan.model, cfg.gan.model_gen, cfg.gan.gan_train = "AE", "AE", False
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.train.logs_dir = os.path.join(tmp, "warmup")
+        cfg.gan.save_dir = os.path.join(tmp, "ckpt")
+        cfg.train.debug = True       # the warm-up: 1 epoch of 4 iterations
+        t0 = time.perf_counter()
+        train_gan_warmup.run(cfg, dataset, device="cuda", image_cache=cache)
+        torch.cuda.synchronize()
+        nets = sorted(os.listdir(os.path.join(cfg.gan.save_dir, "experiment")))
+        print(f"[hardmix] run(): cli/train_gan_warmup.run (4 iterations) in "
+              f"{time.perf_counter() - t0:.2f} s wrote {nets}")
+        cfg.train.debug, cfg.gan.continue_train = False, True
+        cfg.train.epochs, cfg.train.iters, cfg.train.eval_step = 1, 20, 1
+        cfg.train.logs_dir = os.path.join(tmp, "logs")
+        print(f"[hardmix] run(): data {len(dataset.train)} train images of 751 ids, "
+              f"{len(dataset.query)} + {len(dataset.gallery)} eval; DBSCAN; depth cut: "
+              f"1 epoch of {cfg.train.iters} steps")
+        Timer.spans.clear()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = train_gan_usl.run(cfg, dataset, device="cuda", image_cache=cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        secs = dict(Timer.spans)
+        saved = sorted(os.listdir(cfg.train.logs_dir))
+    counts.update(launches)
+    print(f"[hardmix] run(): {wall:.2f} s, best mAP {best:.4f}; wrote {saved}")
+    print(f"[hardmix] run() launches: {kernels.phase_launch_counts()}")
+    off = ("pose_maps", "gan_feat_l2n")
+    check(all(v > 0 for k, v in launches.items() if k not in off) and
+          all(launches[k] == 0 for k in off),
+          f"K1-K9 and K12 must launch, K10 and K11 not: {launches}")
+    check(launches["diff_transform"] == cfg.train.iters, "K12 not once a step")
+    check(np.isfinite(best) and {"checkpoint.pth.tar", "model_best.pth.tar"} <= set(saved),
+          "no finite mAP or a missing checkpoint")
+    print("[hardmix] run() epoch split (s, host clock, Timer.spans): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    print(f"[hardmix] run() phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -1388,6 +1900,7 @@ def main():
     check_k9(report)
     check_k10(report)
     check_k11(report)
+    check_k12(report)
     torch.cuda.synchronize()
     counts = {}
     phase_main_path(counts)
@@ -1398,11 +1911,19 @@ def main():
     torch.cuda.synchronize()
     phase_joint(counts)
     torch.cuda.synchronize()
-    phase_joint_run(counts)  # the whole joint loop: its counts are the line's launches
+    phase_hardmix()
+    torch.cuda.synchronize()
+    phase_warmup()
+    torch.cuda.synchronize()
+    joint_counts, hardmix_counts = {}, {}
+    phase_joint_run(joint_counts)       # the two whole joint loops: their
+    torch.cuda.synchronize()            # counts, summed, are the line's launches
+    phase_hardmix_run(hardmix_counts)
     torch.cuda.synchronize()
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": counts[k.name], "library_ms": None,
+         "replaces": k.replaces,
+         "launches": joint_counts[k.name] + hardmix_counts[k.name], "library_ms": None,
          **report[k.name]}
         for k in kernels.KERNELS]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,26 +1,32 @@
 """Joint GAN + unsupervised re-ID training CLI (port of
 ``reid_gan_tpu/cli/train_gan_usl.py``; parity: CC/examples/
-cluster_contrast_gan_train_usl_infomap.py), the recipe's live joint command
-``--model AE --model-gen Pose``:
+cluster_contrast_gan_train_usl_infomap.py). Two recipes: the live joint
+command ``--model AE --model-gen Pose``, and the AE hard-mix command
+``--model AE --model-gen AE --no-gan-train``, usually after the GAN warm-up
+(``cli/train_gan_warmup``) with ``--continue-train``:
 
     python -m reid_gan_torch.cli.train_gan_usl --dataset market1501 \\
         --data-dir ./data --model AE --model-gen Pose --cluster-backend infomap \\
         [--device cuda]
+    python -m reid_gan_torch.cli.train_gan_usl --dataset market1501 \\
+        --data-dir ./data --model AE --model-gen AE --no-gan-train --continue-train
 
 Per epoch: re-clustering and the bank (as ``cli/train_usl``), then the
 mode: ``train_reid`` (the USL step) for the first ``--warmup-epo`` epochs,
-``train_all`` (the joint step, ``engine/gan_trainers.py``) after; every
-``--eval-step`` epochs eval and ``checkpoint.pth.tar``; after a joint epoch
-the GAN nets' ``latest_net_{G,D}.pth`` and ``iter.txt`` under
-``<save-dir>/<name>``, the linear learning-rate decay of G and D, and the
-epoch's losses in ``loss_log.txt``. ``--continue-train`` reloads the nets and
-the epoch counter. Runs on the card unless ``--device cpu`` is given.
+then ``train_all`` (the joint step, ``engine/gan_trainers.py``), or with
+``--no-gan-train`` ``train`` (the hard-mix step, G frozen); every
+``--eval-step`` epochs eval and ``checkpoint.pth.tar``; after a joint
+``train_all`` epoch the GAN nets' ``latest_net_{G,D}.pth`` and ``iter.txt``
+under ``<save-dir>/<name>``, the linear learning-rate decay of G and D, and
+the epoch's losses in ``loss_log.txt``. ``--continue-train`` reloads the nets
+and the epoch counter. Runs on the card unless ``--device cpu`` is given.
+``train_all`` needs the pose generator and ``train`` the AE generator;
+another pairing raises ``ValueError``.
 
 Not ported yet, and raising with their ROADMAP items:
 ``--cluster-with-gan-features`` (the confidence weights and the GAN-feature
-clustering, A6), ``--bipath`` and ``--learnable-memory`` (A6), ``--no-gan-train``
-(the AE hard-mix ``train`` mode, A6), ``--fp16`` (A9) and ``--resume`` of a
-flax msgpack checkpoint (A8).
+clustering, A6), ``--bipath`` and ``--learnable-memory`` (A6), ``--fp16`` (A9)
+and ``--resume`` of a flax msgpack checkpoint (A8).
 """
 
 import argparse
@@ -62,8 +68,6 @@ def _refuse_unported(cfg):
                          "(ROADMAP A6)"),
         (cfg.gan.learnable_memory, "--learnable-memory (the train_all_with_memory "
                                    "mode) is not ported yet (ROADMAP A6)"),
-        (not cfg.gan.gan_train, "--no-gan-train (the AE hard-mix 'train' mode) is "
-                                "not ported yet (ROADMAP A6)"),
         (cfg.train.fp16, "--fp16 is not ported yet: bf16 parameters wait for "
                          "ROADMAP A9"),
         (cfg.train.resume.endswith(".msgpack"),
@@ -73,6 +77,23 @@ def _refuse_unported(cfg):
     for bad, msg in unported:
         if bad:
             raise NotImplementedError(msg)
+
+
+def _check_generator(cfg):
+    """The joint modes' generators: ``train_all`` renders from the encoder's
+    GAN map and pose maps (the pose generator), ``train`` encodes and decodes
+    the GAN images (the AE generator). The JAX step fails on the other
+    pairings too (in ``synthesize_p`` and ``synthesize_fc``)."""
+    gen = cfg.gan.model_gen
+    if cfg.gan.gan_train and gen == "AE":
+        raise ValueError("--model-gen AE with the GAN trained jointly: the "
+                         "'train_all' mode renders from pose maps and needs "
+                         "--model-gen Pose; the AE generator runs the hard-mix "
+                         "'train' mode (--no-gan-train)")
+    if not cfg.gan.gan_train and gen != "AE":
+        raise ValueError(f"--no-gan-train runs the hard-mix 'train' mode, which "
+                         f"encodes and decodes the GAN images: it needs "
+                         f"--model-gen AE, not {gen}")
 
 
 def main(argv=None):
@@ -88,6 +109,7 @@ def main(argv=None):
     cfg = parse_config(rest, sections=SECTIONS)
     device = resolve_device(ns.device)
     _refuse_unported(cfg)
+    _check_generator(cfg)
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
     sys.stdout = logger
     try:
@@ -107,6 +129,7 @@ def run(cfg, dataset, device=None, image_cache=None):
     every ``Preprocessor`` the loop builds (default: the shared decode
     cache). Returns the best mAP."""
     _refuse_unported(cfg)
+    _check_generator(cfg)
     device = resolve_device(device)
     start = time.monotonic()
     cache = "default" if image_cache is None else image_cache
@@ -169,9 +192,10 @@ def run(cfg, dataset, device=None, image_cache=None):
             trainer.set_memory(state, memory)
 
         # the mode (...infomap.py:450-466): the USL step while warming up,
-        # then the joint step on the with_gan loader
+        # then the joint or the hard-mix step on the with_gan loader
         joint = (epoch + 1) > cfg.gan.warmup_epo
-        mode = "train_all" if joint else "train_reid"
+        mode = ("train_all" if cfg.gan.gan_train else "train") if joint \
+            else "train_reid"
         pre_kw = dict(mode="with_gan", gan_height=cfg.data.gan_height,
                       gan_width=cfg.data.gan_width, pose_file=pose_file,
                       flip_all=True) if joint else {}
@@ -197,7 +221,7 @@ def run(cfg, dataset, device=None, image_cache=None):
             print(f"\n * Finished epoch {epoch:3d}  model mAP: {mAP:5.1%} "
                   f" best: {best_map:5.1%}{' *' if is_best else ''}\n")
 
-        if joint:
+        if mode == "train_all":
             save_networks({"G": gan.net_G, "D": gan.net_D}, save_dir, "latest")
             np.savetxt(iter_path, [(epoch + 1, 0)], delimiter=",", fmt="%d")
             # LambdaLR linear decay after niter epochs (train_gan_usl.py:253-257)

@@ -2,15 +2,19 @@
 augmentation and pose rendering run on the card (``ops/transforms.py``,
 ``ops/pose.py``: kernels K1, K4, K9, K10).
 
-Copy of the ``reid`` and ``with_gan`` modes of ``reid_gan_tpu/data/loader.py``
-(CC/clustercontrast/utils/data/preprocessor.py:108-137,145-191):
+Copy of the ``reid``, ``with_gan`` and ``only_gan`` modes of
+``reid_gan_tpu/data/loader.py`` (CC/clustercontrast/utils/data/
+preprocessor.py:108-191):
 - ``reid``: ``(img, fname, pid, camid, index)`` with ``img`` a uint8 HWC
   array already at the target size;
 - ``with_gan``: the reid item plus the GAN image ``Xs`` staged at the GAN
   size, its original ``old_size`` (height, width), the 18 pose keypoints of
-  the annotation CSV (−1 where missing), ``gt_label``, ``Xs_path`` and the
-  flip draws ``flip``/``gan_flip``, which are carried and never applied, as
-  in the JAX step (engine/gan_trainers.py:512-520).
+  the annotation CSV (−1 where missing; all missing without a CSV, which
+  the AE generator does not read), ``gt_label``, ``Xs_path`` and the flip
+  draws ``flip``/``gan_flip``, which are carried and never applied, as in
+  the JAX step (engine/gan_trainers.py:512-520);
+- ``only_gan``: the GAN fields alone, with ``pid`` and ``index`` and
+  ``gan_flip`` False (the GAN warm-up's loader).
 Pillow is imported inside the decode function, so a caller that feeds
 in-memory uint8 batches never needs it.
 """
@@ -129,8 +133,8 @@ class PoseAnnotations:
 
 
 class Preprocessor:
-    """Per-index item factory returning plain numpy dicts (``reid`` and
-    ``with_gan`` modes). ``cache``: ``"default"`` (the shared
+    """Per-index item factory returning plain numpy dicts (``reid``,
+    ``with_gan`` and ``only_gan`` modes). ``cache``: ``"default"`` (the shared
     ``default_image_cache()``), None (no caching) or an object with
     ``get(fpath, height, width)`` → ``(image, old_size)`` and ``budget``.
     ``pose_file``: the keypoint CSV of the ``with_gan`` mode (without it
@@ -140,9 +144,9 @@ class Preprocessor:
     def __init__(self, dataset, root=None, mode="reid", height=256, width=128,
                  gan_height=128, gan_width=64, pose_file=None, flip_all=False,
                  seed=None, cache="default"):
-        if mode not in ("reid", "with_gan"):
+        if mode not in ("reid", "with_gan", "only_gan"):
             raise ValueError(f"unsupported mode {mode!r}: the port's loader serves "
-                             "'reid' and 'with_gan'")
+                             "'reid', 'with_gan' and 'only_gan'")
         self.dataset = dataset
         self.root = root
         self.mode = mode
@@ -175,8 +179,10 @@ class Preprocessor:
     def batchable(self):
         """True when the decoded set fits the cache budget twice (the cache
         and the packed copy are both resident), so a batch is one gather."""
-        need = len(self.dataset) * self.height * self.width * 3
-        if self.mode == "with_gan":
+        need = 0
+        if self.mode != "only_gan":
+            need += len(self.dataset) * self.height * self.width * 3
+        if self.mode != "reid":
             need += len(self.dataset) * self.gan_height * self.gan_width * 3
         return 2 * need <= getattr(self.cache, "budget", 0)
 
@@ -184,15 +190,17 @@ class Preprocessor:
         n = len(self.dataset)
         fnames = [self.dataset[i][0] for i in range(n)]
         with ThreadPoolExecutor(max_workers=8) as pool:   # PIL drops the GIL
-            imgs = list(pool.map(self._read, fnames))
+            imgs = list(pool.map(self._read, fnames)) \
+                if self.mode != "only_gan" else None
             gan = list(pool.map(self._read_gan, fnames)) \
-                if self.mode == "with_gan" else None
+                if self.mode != "reid" else None
         self._packed = {
             "fname": fnames,
             "pid": np.asarray([self.dataset[i][1] for i in range(n)]),
             "camid": np.asarray([self.dataset[i][2] for i in range(n)]),
-            "img": np.stack(imgs),
         }
+        if imgs is not None:
+            self._packed["img"] = np.stack(imgs)
         if gan is not None:
             bases = [osp.basename(f) for f in fnames]
             self._packed.update(
@@ -209,27 +217,41 @@ class Preprocessor:
             self._pack()
         p = self._packed
         idx = np.asarray(indices)
-        out = {"img": p["img"][idx], "fname": [p["fname"][i] for i in idx],
-               "pid": p["pid"][idx], "camid": p["camid"][idx], "index": idx}
-        if self.mode == "with_gan":
-            flips = self.rng.rand(len(idx)) < 0.5 if self.flip_all \
-                else np.zeros(len(idx), bool)
-            out.update(flip=flips, Xs=p["Xs"][idx], old_size=p["old_size"][idx],
+        if self.mode == "only_gan":
+            out = {"pid": p["pid"][idx], "index": idx}
+            flips = np.zeros(len(idx), bool)
+        else:
+            out = {"img": p["img"][idx], "fname": [p["fname"][i] for i in idx],
+                   "pid": p["pid"][idx], "camid": p["camid"][idx], "index": idx}
+            flips = self.rng.rand(len(idx)) < 0.5 if \
+                self.mode == "with_gan" and self.flip_all else np.zeros(len(idx), bool)
+            if self.mode == "with_gan":
+                out["flip"] = flips
+        if self.mode != "reid":
+            out.update(Xs=p["Xs"][idx], old_size=p["old_size"][idx],
                        keypoints=p["keypoints"][idx], gt_label=p["gt_label"][idx],
                        gan_flip=flips, Xs_path=[p["Xs_path"][i] for i in idx])
         return out
 
+    def _gan_item(self, fname, flip):
+        base = osp.basename(fname)
+        xs, old_size = self._read_gan(fname)
+        return {"Xs": xs, "Xs_path": base, "gt_label": int(base.split("_", 1)[0]),
+                "gan_flip": flip, "old_size": old_size,
+                "keypoints": self._keypoints(base)}
+
     def __getitem__(self, index):
         fname, pid, camid = self.dataset[index]
+        if self.mode == "only_gan":
+            item = self._gan_item(fname, False)
+            item.update(pid=pid, index=index)
+            return item
         item = {"img": self._read(fname), "fname": fname, "pid": pid,
                 "camid": camid, "index": index}
         if self.mode == "with_gan":
-            base = osp.basename(fname)
             flip = bool(self.rng.rand() < 0.5) if self.flip_all else False
-            xs, old_size = self._read_gan(fname)
-            item.update(flip=flip, Xs=xs, Xs_path=base,
-                        gt_label=int(base.split("_", 1)[0]), gan_flip=flip,
-                        old_size=old_size, keypoints=self._keypoints(base))
+            item["flip"] = flip
+            item.update(self._gan_item(fname, flip))
         return item
 
 
@@ -257,7 +279,8 @@ class _WorkerFailure:
 class DataLoader:
     """Threaded prefetching batch loader over the indices of ``sampler``
     (e.g. ``sampler.RandomMultipleGallerySampler``), or over the dataset in
-    order when there is none, as ``reid_gan_tpu/data/loader.py:366-400``.
+    order when there is none, or shuffled anew each pass from ``seed``'s
+    stream with ``shuffle``, as ``reid_gan_tpu/data/loader.py:366-400``.
 
     Decodes items with a thread pool and keeps ``prefetch`` collated batches
     ready. Decode errors are re-raised in the consumer; abandoning the
@@ -265,18 +288,23 @@ class DataLoader:
     """
 
     def __init__(self, preprocessor, sampler=None, batch_size=64, num_workers=4,
-                 drop_last=True, prefetch=2):
+                 drop_last=True, shuffle=False, prefetch=2, seed=None):
         self.pre = preprocessor
         self.sampler = sampler
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
+        self.shuffle = shuffle
         self.prefetch = prefetch
+        self.rng = np.random.RandomState(seed)
 
     def _indices(self):
         if self.sampler is not None:
             return list(self.sampler)
-        return list(range(len(self.pre)))
+        idx = np.arange(len(self.pre))
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        return idx.tolist()
 
     def __len__(self):
         n = len(self._indices()) if self.sampler is not None else len(self.pre)

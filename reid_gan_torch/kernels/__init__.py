@@ -220,11 +220,11 @@ GEM_POOL = CudaKernel(
     scratch="reid_gem_pool_backward_scratch")
 INFONCE = CudaKernel(
     "infonce", "reid_infonce_forward",
-    [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     source="reid_gan_torch/csrc/infonce.cu",
     replaces="reid_gan_tpu/ops/cluster_memory.py:58",
     backward=("reid_infonce_backward",
-              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P]),
+              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P]),
     scratch="reid_infonce_forward_scratch")
 BANK_FOLD = CudaKernel(
     "bank_fold", "reid_bank_fold",
@@ -255,8 +255,15 @@ GAN_FEAT_L2N = CudaKernel(
     source="reid_gan_torch/csrc/gan_feat_l2n.cu",
     replaces="reid_gan_tpu/models/resnet.py:186")
 
+DIFF_TRANSFORM = CudaKernel(
+    "diff_transform", "reid_diff_transform",
+    [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F],
+    source="reid_gan_torch/csrc/diff_transform.cu",
+    replaces="reid_gan_tpu/ops/transforms.py:171")
+
 KERNELS = (EVAL_TRANSFORM, GEM_BN_L2N, RANK_STATS, TRAIN_AUGMENT, GEM_POOL,
-           INFONCE, BANK_FOLD, KNN_TOPK, GAN_INPUT, POSE_MAPS, GAN_FEAT_L2N)
+           INFONCE, BANK_FOLD, KNN_TOPK, GAN_INPUT, POSE_MAPS, GAN_FEAT_L2N,
+           DIFF_TRANSFORM)
 
 
 def reset_launch_counts():

@@ -1,3 +1,3 @@
-"""dual_gan: the pose generator, the spectral-norm discriminator and the AE
-engine of the joint GAN + re-ID loop (port of ``reid_gan_tpu/models/dual_gan``;
-parity: CC/dual_gan/models)."""
+"""dual_gan: the pose and AE generators, the spectral-norm discriminator and
+the AE engine of the joint GAN + re-ID loop and the GAN warm-up (port of
+``reid_gan_tpu/models/dual_gan``; parity: CC/dual_gan/models)."""

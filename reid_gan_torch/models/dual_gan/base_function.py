@@ -19,9 +19,9 @@ differ:
 - BatchNorm is torch's (flax momentum 0.9 = torch momentum 0.1; the
   unbiased running variance, as the JAX package's ``TorchBatchNorm``).
 
-Only what ``PoseGenerator1`` and ``ResDiscriminator`` use is here;
-``ResBlock``, ``ResUP12Block``, ``FeatureAdaptBlock`` and ``AutoAttn`` are
-not ported yet (ROADMAP A5).
+Only what ``PoseGenerator1``, ``AEGenerator`` and ``ResDiscriminator`` use
+is here; ``ResUP12Block``, ``FeatureAdaptBlock`` and ``AutoAttn`` are not
+ported yet (ROADMAP A5).
 """
 
 import torch
@@ -131,6 +131,49 @@ def make_norm(norm, c):
 
 def _apply(norm, x):
     return x if norm is None else norm(x)
+
+
+def pixel_shuffle(x, factor=2):
+    """The JAX package's NHWC pixel shuffle (base_function.py:134-140) on an
+    NCHW tensor: input channel ``(i · factor + j) · C + c`` lands on output
+    channel ``c`` at offset (i, j). Not ``F.pixel_shuffle``, whose channel
+    order is ``c · factor² + i · factor + j``."""
+    n, c, h, w = x.shape
+    out_c = c // (factor * factor)
+    x = x.reshape(n, factor, factor, out_c, h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, out_c, h * factor, w * factor)
+
+
+class ResBlock(nn.Module):
+    """Pre-activation residual with a 1×1 bypass, and ``sample_type`` "up"
+    (``pixel_shuffle`` ×2 of both branches, which then carry 4 × ``out_c``
+    channels) or "down" (2×2 average pool of both) (base_function.py:
+    143-184)."""
+
+    def __init__(self, in_c, out_c, hidden_c=None, norm="batch",
+                 activation="LeakyReLU", sample_type="none", use_spect=False):
+        super().__init__()
+        if sample_type not in ("none", "up", "down"):
+            raise ValueError(f"sample_type {sample_type!r}")
+        hidden_c = hidden_c or out_c
+        conv_c = out_c * 4 if sample_type == "up" else out_c
+        self.act = get_nonlinearity(activation)
+        self.sample_type = sample_type
+        self.norm1 = make_norm(norm, in_c)
+        self.conv1 = SpectralConv(in_c, hidden_c, 3, 1, 1, use_spect=use_spect)
+        self.norm2 = make_norm(norm, hidden_c)
+        self.conv2 = SpectralConv(hidden_c, conv_c, 3, 1, 1, use_spect=use_spect)
+        self.bypass = SpectralConv(in_c, conv_c, 1, 1, 0, use_spect=use_spect)
+
+    def forward(self, x):
+        y = self.conv1(self.act(_apply(self.norm1, x)))
+        y = self.conv2(self.act(_apply(self.norm2, y)))
+        short = self.bypass(x)
+        if self.sample_type == "up":
+            return pixel_shuffle(y, 2) + pixel_shuffle(short, 2)
+        if self.sample_type == "down":
+            return F.avg_pool2d(y, 2, 2) + F.avg_pool2d(short, 2, 2)
+        return y + short
 
 
 class EncoderBlockOptimized(nn.Module):

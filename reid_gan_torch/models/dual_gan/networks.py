@@ -1,12 +1,13 @@
-"""The pose generator and the discriminator of the joint recipe (port of
+"""The generators and the discriminator of the joint recipe (port of
 ``reid_gan_tpu/models/dual_gan/networks.py`` ``PoseGenerator1``,
-``ResDiscriminator``, ``define_G`` and ``define_D``; parity:
-CC/dual_gan/models/networks.py:639-738,917-956).
+``AEGenerator``, ``ResDiscriminator``, ``define_G`` and ``define_D``;
+parity: CC/dual_gan/models/networks.py:278-355,639-738,917-956).
 
 NCHW in and out. Module names follow the flax modules (``block0``,
 ``encoder{i}``, ``feature_block``, ``PCTM``, ``decoder{i}``, ``outconv``;
-``block0``, ``encoder{i}``, ``conv``), so ``convert.py`` maps a JAX tree onto
-a ``state_dict`` path by path.
+``block0``, ``encoders_{i}``, ``mblocks_{i}``, ``decoder.decoder{i}``,
+``decoder.outconv``; ``block0``, ``encoder{i}``, ``conv``), so ``convert.py``
+maps a JAX tree onto a ``state_dict`` path by path.
 """
 
 from torch import nn
@@ -16,6 +17,7 @@ from .base_function import (
     EncoderBlockOptimized,
     FeatureAdaptBlock1,
     Output,
+    ResBlock,
     ResBlockDecoder,
     ResBlockEncoder,
     ResBlockEncoderOptimized,
@@ -78,6 +80,67 @@ class PoseGenerator1(nn.Module):
         return self.outconv(f_g)
 
 
+class _Decoder(nn.Module):
+    """The shared decoder stack: ``layers`` ResBlockDecoders (×2 each) and
+    the Output block (networks.py:101-125, without skip adds)."""
+
+    def __init__(self, ngf=64, img_f=256, layers=3, output_nc=3, norm="batch",
+                 activation="LeakyReLU", use_spect=False):
+        super().__init__()
+        cin = ngf * min(2 ** (layers - 1), img_f // ngf)
+        for i, m in enumerate(_dec_mults(ngf, img_f, layers)):
+            self.add_module(f"decoder{i}", ResBlockDecoder(
+                cin, ngf * m, ngf * m, norm, activation, use_spect))
+            cin = ngf * m
+        self.outconv = Output(cin, output_nc, 3, "none", activation, use_spect)
+        self.layers = layers
+
+    def forward(self, feature):
+        for i in range(self.layers):
+            feature = getattr(self, f"decoder{i}")(feature)
+        return self.outconv(feature)
+
+
+class AEGenerator(nn.Module):
+    """The autoencoder generator of the AE hard-mix mode and the GAN
+    warm-up, with the encoder and the decoder callable apart
+    (networks.py:128-173): ``forward_enc`` (N, 3, H, W) → (N, ngf·4, H/8,
+    W/8) features, ``forward_dec`` back to (N, 3, H, W) in [-1, 1]. The
+    decoder starts with the recipe's 3 mid ResBlocks (ae_model.py:63-85)."""
+
+    num_blocks = 3
+
+    def __init__(self, image_nc=3, ngf=64, img_f=256, layers=3, norm="batch",
+                 activation="LeakyReLU", use_spect=False, output_nc=3):
+        super().__init__()
+        mults = _enc_mults(ngf, img_f, layers)
+        self.block0 = EncoderBlockOptimized(image_nc, ngf, norm, activation, use_spect)
+        for i, m in enumerate(mults[1:]):
+            self.add_module(f"encoders_{i}", EncoderBlock(
+                ngf * mults[i], ngf * m, norm, activation, use_spect))
+        for i in range(self.num_blocks):
+            self.add_module(f"mblocks_{i}", ResBlock(
+                ngf * mults[-1], ngf * mults[-1], norm=norm, activation=activation,
+                use_spect=use_spect))
+        self.decoder = _Decoder(ngf, img_f, layers, output_nc, norm, activation,
+                                use_spect)
+        self.num_encoders = layers - 1
+
+    def forward(self, inputs):
+        return self.forward_dec(self.forward_enc(inputs))
+
+    def forward_enc(self, source):
+        f = self.block0(source)
+        for i in range(self.num_encoders):
+            f = getattr(self, f"encoders_{i}")(f)
+        return f
+
+    def forward_dec(self, feature):
+        for i in range(self.num_blocks):
+            feature = getattr(self, f"mblocks_{i}")(feature)
+        return self.decoder(feature)
+
+
 class ResDiscriminator(nn.Module):
     """Spectral-norm residual discriminator (networks.py:432-461): (N, 3, H,
     W) → (N, 1, H/2^layers, W/2^layers) scores."""
@@ -105,20 +168,23 @@ class ResDiscriminator(nn.Module):
         return self.conv(self.act(out))
 
 
-def define_G(model_gen="Pose", pose_nc=18, ngf=64, img_f=256,
+def define_G(model_gen="Pose", image_nc=3, pose_nc=18, ngf=64, img_f=256,
              encoder_layer=3, norm="batch", activation="LeakyReLU",
-             use_spect=False, output_nc=3, affine=True, nhead=2, num_CABs=2,
-             num_TTBs=2, reid_nc=2048):
-    """Generator factory (networks.py:464-495). Only the pose generator of
-    the joint recipe is ported."""
+             use_spect=False, output_nc=3, affine=True, nhead=2,
+             num_CABs=2, num_TTBs=2, reid_nc=2048):
+    """Generator factory (networks.py:464-495). The pose generator of the
+    joint recipe and the AE generator are ported."""
     if model_gen == "Pose":
         return PoseGenerator1(ngf, pose_nc, img_f, encoder_layer, norm, activation,
                               use_spect, output_nc, affine, nhead, num_CABs,
                               num_TTBs, reid_nc)
-    if model_gen in ("AE", "DEC", "FD", "PoseAE", "DPTN"):
+    if model_gen == "AE":
+        return AEGenerator(image_nc, ngf, img_f, encoder_layer, norm, activation,
+                           use_spect, output_nc)
+    if model_gen in ("DEC", "FD", "PoseAE", "DPTN"):
         raise NotImplementedError(
             f"generator {model_gen!r} is not ported yet (ROADMAP A5); the port "
-            "runs --model-gen Pose")
+            "runs --model-gen Pose and AE")
     raise ValueError(f"generator {model_gen} not implemented")
 
 

@@ -15,8 +15,8 @@ device, so no call waits on the card.
 
 Unlike the JAX function, ``update_memory`` updates the bank in place (the
 JAX function returns a new state): that saves a copy of the bank per step.
-The gradient-memory functions (cm.py:140-193) and the extra negatives
-``ex_f`` of ``memory_loss`` on the card come with the joint GAN slice.
+The gradient-memory functions (cm.py:140-193) are not ported yet (ROADMAP
+A6).
 """
 
 from typing import NamedTuple
@@ -104,7 +104,7 @@ def _check_ids(t, name, n, device):
         raise ValueError(f"{name} must be ({n},) contiguous int32 on {device}")
 
 
-def _infonce_forward_cuda(x, bank, num_valid, targets, temp):
+def _infonce_forward_cuda(x, bank, num_valid, targets, temp, ex, group_size):
     dev = x.device
     _check_rows(x, "memory_loss: x", dev)
     _check_rows(bank, "memory_loss: the bank", dev, x.shape[1])
@@ -114,24 +114,33 @@ def _infonce_forward_cuda(x, bank, num_valid, targets, temp):
         raise ValueError(f"memory_loss: num_valid must be one int32 on {dev}")
     b, d = x.shape
     k = bank.shape[0]
+    t = 0 if ex is None else ex.shape[0]
+    if ex is not None:
+        _check_rows(ex, "memory_loss: ex_f", dev, d)
+        if t == 0 or group_size < 1:
+            raise ValueError("memory_loss: ex_f needs at least one row and "
+                             "group_size >= 1")
     xh = torch.empty_like(x)
     rnorm = torch.empty(b, dtype=torch.float32, device=dev)
-    logits = torch.empty((b, k), dtype=torch.float32, device=dev)
-    part_m = torch.empty(INFONCE.scratch_size(b, k), dtype=torch.float32,
-                         device=dev)
+    exh = torch.empty((t, d), dtype=torch.float32, device=dev)
+    logits = torch.empty((b, k + t), dtype=torch.float32, device=dev)
+    scratch = INFONCE.scratch_size(b, k) + (INFONCE.scratch_size(b, t) if t else 0)
+    part_m = torch.empty(scratch, dtype=torch.float32, device=dev)
     part_s = torch.empty_like(part_m)
     lse = torch.empty(b, dtype=torch.float32, device=dev)
     loss = torch.empty(b, dtype=torch.float32, device=dev)
     INFONCE(x.data_ptr(), bank.data_ptr(), num_valid.data_ptr(),
-            targets.data_ptr(), b, k, d, temp, xh.data_ptr(), rnorm.data_ptr(),
-            logits.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
-            lse.data_ptr(), loss.data_ptr(), device=dev)
-    return loss, logits, xh, rnorm, lse
+            targets.data_ptr(), b, k, d, temp, ex.data_ptr() if t else None, t,
+            int(group_size), xh.data_ptr(), rnorm.data_ptr(),
+            exh.data_ptr() if t else None, logits.data_ptr(), part_m.data_ptr(),
+            part_s.data_ptr(), lse.data_ptr(), loss.data_ptr(), device=dev)
+    return loss, logits, xh, rnorm, exh, lse
 
 
 def _infonce_backward_cuda(xh, rnorm, bank, num_valid, targets, logits, lse,
-                           grad, temp):
+                           exh, grad, temp):
     b, d = xh.shape
+    t = exh.shape[0]
     grad = grad.contiguous()
     if grad.dtype != torch.float32 or grad.shape != (b,):
         raise ValueError(f"memory_loss: the loss gradient must be ({b},) float32")
@@ -140,48 +149,49 @@ def _infonce_backward_cuda(xh, rnorm, bank, num_valid, targets, logits, lse,
     INFONCE.backward(xh.data_ptr(), rnorm.data_ptr(), bank.data_ptr(),
                      num_valid.data_ptr(), targets.data_ptr(), logits.data_ptr(),
                      lse.data_ptr(), grad.data_ptr(), b, bank.shape[0], d, temp,
-                     dxh.data_ptr(), dx.data_ptr(), device=xh.device)
+                     exh.data_ptr() if t else None, t, dxh.data_ptr(),
+                     dx.data_ptr(), device=xh.device)
     return dx
 
 
 class _InfoNCE(torch.autograd.Function):
-    """K6 on the card: the forward kernel keeps x̂, 1/|x|, the logits and
-    the row LSE for the backward kernel."""
+    """K6 on the card: the forward kernel keeps x̂, 1/|x|, the normalised
+    extra negatives, the logits and the row LSE for the backward kernel.
+    ``ex`` (or None) gets no gradient."""
 
     @staticmethod
-    def forward(ctx, x, bank, num_valid, targets, temp):
-        loss, logits, xh, rnorm, lse = _infonce_forward_cuda(
-            x, bank, num_valid, targets, temp)
+    def forward(ctx, x, bank, num_valid, targets, temp, ex, group_size):
+        loss, logits, xh, rnorm, exh, lse = _infonce_forward_cuda(
+            x, bank, num_valid, targets, temp, ex, group_size)
         ctx.temp = temp
-        ctx.save_for_backward(xh, rnorm, bank, num_valid, targets, logits, lse)
+        ctx.save_for_backward(xh, rnorm, bank, num_valid, targets, logits, lse, exh)
         ctx.mark_non_differentiable(logits)
         return loss, logits
 
     @staticmethod
     def backward(ctx, grad, _grad_logits):
-        xh, rnorm, bank, num_valid, targets, logits, lse = ctx.saved_tensors
+        xh, rnorm, bank, num_valid, targets, logits, lse, exh = ctx.saved_tensors
         dx = _infonce_backward_cuda(xh, rnorm, bank, num_valid, targets,
-                                    logits, lse, grad, ctx.temp)
-        return dx, None, None, None, None
+                                    logits, lse, exh, grad, ctx.temp)
+        return dx, None, None, None, None, None, None
 
 
 def memory_loss(x, targets, state, temp=0.05, ex_f=None, group_size=1):
     """Per-sample InfoNCE against the bank (cm.py:123-137; kernel K6 forward
-    and backward on the card). The gradient flows to ``x`` only; the logits
-    carry none (no caller of the JAX function differentiates them). Returns
-    (per-sample loss (B,), logits (B, K_pad)), columns >= num_valid at −inf.
-    On the CPU the plain version runs, differentiated by autograd; ``ex_f``
-    runs on the CPU only for now."""
+    and backward on the card), with optional extra negatives ``ex_f`` (T, D)
+    appended after the bank's columns, each masked by −10000 for its own
+    group of ``group_size`` rows (cm.py:158-182). The gradient flows to ``x``
+    only: the logits carry none (no caller of the JAX function
+    differentiates them), nor does ``ex_f`` (the JAX step stops it). Returns
+    (per-sample loss (B,), logits (B, K_pad[+T])), columns >= num_valid at
+    −inf. On the CPU the plain version runs, differentiated by autograd."""
+    ex = None if ex_f is None else ex_f.detach()
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"memory_loss: unsupported device {x.device}")
-        return memory_loss_plain(x, targets, state, temp, ex_f, group_size)
-    if ex_f is not None:
-        raise NotImplementedError(
-            "memory_loss(ex_f=...) on the card is not ported yet: the "
-            "extended negatives come with K6's joint half (ROADMAP B1)")
+        return memory_loss_plain(x, targets, state, temp, ex, group_size)
     return _InfoNCE.apply(x, state.features.detach(), state.num_valid,
-                          targets.to(torch.int32), temp)
+                          targets.to(torch.int32), temp, ex, group_size)
 
 
 # ---------------------------------------------------------------------------

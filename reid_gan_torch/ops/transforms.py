@@ -1,6 +1,7 @@
 """Image transforms: the eval transform (kernel K1), the train
 augmentation (kernel K4) and the GAN input transform (kernel K9), uint8 NHWC
-staging batch → normalised NCHW batch.
+staging batch → normalised NCHW batch; and the re-encode transform of
+generated images (kernel K12).
 
 Port of ``reid_gan_tpu/ops/transforms.py::reid_augment``. The eval branch
 (``train=False``: to_float → resize → normalize) comes with the cast to the
@@ -18,17 +19,18 @@ size raises.
 
 On a CUDA tensor ``eval_transform`` launches kernel K1
 (``csrc/eval_transform.cu``), ``train_augment`` kernel K4
-(``csrc/train_augment.cu``) and ``gan_input_transform`` kernel K9
-(``csrc/gan_input.cu``); on a CPU tensor each runs its plain PyTorch
-version, the same arithmetic. ``diff_transform`` (the AE hard-mix mode's
-differentiable re-encode) is not ported yet (ROADMAP B6).
+(``csrc/train_augment.cu``), ``gan_input_transform`` kernel K9
+(``csrc/gan_input.cu``) and ``diff_transform`` kernel K12
+(``csrc/diff_transform.cu``); on a CPU tensor each runs its plain PyTorch
+version, the same arithmetic.
 """
 
 import math
 
+import numpy as np
 import torch
 
-from ..kernels import EVAL_TRANSFORM, GAN_INPUT, TRAIN_AUGMENT
+from ..kernels import DIFF_TRANSFORM, EVAL_TRANSFORM, GAN_INPUT, TRAIN_AUGMENT
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -267,3 +269,87 @@ def gan_input_transform(img_u8, height=128, width=64):
     if img_u8.device.type != "cpu":
         raise ValueError(f"gan_input_transform: unsupported device {img_u8.device}")
     return gan_input_transform_plain(img_u8)
+
+
+# ---------------------------------------------------------------------------
+# Re-encode transform of generated images (kernel K12)
+# ---------------------------------------------------------------------------
+
+# The JAX package's ImageNet constants are float32 arrays
+# (``ops/transforms.py:26-27``): a float64 batch is normalised by their
+# float32 values, which the plain K12 keeps.
+_MEAN_F32 = tuple(float(v) for v in np.float32(IMAGENET_MEAN))
+_STD_F32 = tuple(float(v) for v in np.float32(IMAGENET_STD))
+
+
+def _inv_scale(size, out_size, dtype=torch.float32):
+    """``1 / (out_size / size)``, rounded to float32 unless ``dtype`` is
+    float64, as the JAX resize's Python-float scale enters its weight
+    computation in the weights' dtype."""
+    inv = 1.0 / (out_size / size)
+    return inv if dtype == torch.float64 else float(np.float32(inv))
+
+
+def cubic_resize_weights(size, out_size, dtype=torch.float32, device=None):
+    """The (size, out_size) weight matrix of ``jax.image.resize(method=
+    "bicubic")`` along one axis of an upsample (jax/_src/image/scale.py
+    ``compute_weight_mat``): the Keys cubic kernel with a = −0.5 at
+    ``|f − i|`` for the sample point ``f = (o + 0.5) / scale − 0.5``, each
+    column divided by the sum of its in-image taps. Not ``F.interpolate``'s
+    bicubic (a = −0.75, clamped indices)."""
+    inv = _inv_scale(size, out_size, dtype)
+    f = (torch.arange(out_size, dtype=dtype, device=device) + 0.5) * inv - 0.5
+    x = torch.abs(f[None] - torch.arange(size, dtype=dtype, device=device)[:, None])
+    w = ((1.5 * x - 2.5) * x) * x + 1.0
+    w = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, w)
+    w = torch.where(x >= 2.0, 0.0, w)
+    total = torch.sum(w, dim=0, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (f >= -0.5) & (f <= size - 0.5)
+    return torch.where(inside[None], w, 0.0)
+
+
+def diff_transform_plain(gen_img, height=256, width=128):
+    """Plain PyTorch version of K12, differentiable: (N, 3, H, W) generated
+    images in [-1, 1] → ``(x + 1) / 2`` → the JAX bicubic resize to
+    (height, width), along H, then W → ImageNet normalise; NCHW in
+    channels_last memory."""
+    x = (gen_img + 1.0) / 2.0
+    wh = cubic_resize_weights(x.shape[2], height, x.dtype, x.device)
+    ww = cubic_resize_weights(x.shape[3], width, x.dtype, x.device)
+    x = torch.einsum("nchw,hk->nckw", x, wh)
+    x = torch.einsum("nckw,wl->nckl", x, ww)
+    return normalize(x, _MEAN_F32, _STD_F32).contiguous(memory_format=torch.channels_last)
+
+
+def _diff_transform_cuda(gen_img, height, width):
+    n, c, h, w = gen_img.shape
+    if gen_img.dtype != torch.float32 or c != 3 or not gen_img.is_contiguous():
+        raise ValueError(f"diff_transform takes a contiguous NCHW (N, 3, H, W) "
+                         f"float32 batch, got {tuple(gen_img.shape)} {gen_img.dtype}")
+    if height < h or width < w:
+        raise ValueError(f"diff_transform upsamples: ({h}, {w}) → ({height}, {width})")
+    out = torch.empty((n, c, height, width), dtype=torch.float32,
+                      device=gen_img.device, memory_format=torch.channels_last)
+    DIFF_TRANSFORM(gen_img.data_ptr(), out.data_ptr(), n, h, w, height, width,
+                   _inv_scale(h, height), _inv_scale(w, width), *IMAGENET_MEAN,
+                   *IMAGENET_STD, device=gen_img.device)
+    return out
+
+
+def diff_transform(gen_img, height=256, width=128):
+    """The re-encode transform of generated images (``ops/transforms.py:
+    171-180``): [-1, 1] → [0, 1] → bicubic upsample to (height, width) →
+    ImageNet normalise, NCHW in channels_last memory (kernel K12 on the
+    card, forward only: the hard-mix step runs it under no gradient and
+    stops the gradient of its features; a CUDA input that requires a
+    gradient raises). The plain version on the CPU is differentiable."""
+    if gen_img.is_cuda:
+        if gen_img.requires_grad:
+            raise ValueError("diff_transform on the card is forward only: its "
+                             "input must not require a gradient")
+        return _diff_transform_cuda(gen_img, height, width)
+    if gen_img.device.type != "cpu":
+        raise ValueError(f"diff_transform: unsupported device {gen_img.device}")
+    return diff_transform_plain(gen_img, height, width)

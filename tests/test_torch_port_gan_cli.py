@@ -94,9 +94,10 @@ def test_save_and_load_networks_round_trip(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--cluster-with-gan-features"], "ROADMAP A6"), (["--bipath"], "ROADMAP A6"),
-    (["--learnable-memory"], "ROADMAP A6"), (["--no-gan-train"], "ROADMAP A6"),
+    (["--learnable-memory"], "ROADMAP A6"),
+    (["--no-gan-train", "--cluster-with-gan-features"], "ROADMAP A6"),
     (["--fp16"], "ROADMAP A9"), (["--resume", "logs/checkpoint.msgpack"], "ROADMAP A8"),
-    (["--model-gen", "AE", "--dataset", "synthetic"], "ROADMAP A5")])
+    (["--model-gen", "DEC", "--dataset", "synthetic"], "ROADMAP A5")])
 def test_unported_options_raise(tmp_path, flag, item):
     from reid_gan_torch.cli.train_gan_usl import main
 

@@ -210,7 +210,7 @@ def test_engine_defaults_and_unported_options():
     """The AE defaults override only fields left at the dataclass default,
     as JAX's option setter; G and D Adam with β1 0.5 at gan_lr and
     gan_lr·ratio_g2d; ``set_epoch_lr``; the generators and options that wait
-    raise."""
+    raise, and the AE generator builds."""
     from reid_gan_tpu.config import GANConfig as JaxGANConfig
     from reid_gan_tpu.models.dual_gan.models import get_option_setter as jax_setter
     from reid_gan_torch.config import GANConfig
@@ -228,8 +228,11 @@ def test_engine_defaults_and_unported_options():
     assert state.opt_D.defaults["lr"] == pytest.approx(cfg.gan_lr * 0.1)
     gan.set_epoch_lr(state, 0.5)
     assert state.opt_D.param_groups[0]["lr"] == pytest.approx(cfg.gan_lr * 0.05)
-    for bad in (GANConfig(model_gen="AE"), GANConfig(model_gen="Pose", use_vgg=True)):
+    for bad in (GANConfig(model_gen="DEC"), GANConfig(model_gen="Pose", use_vgg=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP A5"):
             create_model(bad, device="cpu")
+    assert type(create_model(GANConfig(model_gen="AE"), gan_height=GH, gan_width=GW,
+                             num_feats=32, ngf=8, device="cpu").net_G).__name__ == \
+        "AEGenerator"
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         create_model(GANConfig(model="DPTN"), device="cpu")

@@ -3,13 +3,15 @@ edges that ``chip_smoke.py`` does not reach: element counts off the vector
 width, narrow and odd maps, galleries smaller than a block, queries with no
 match, rows with more matches than K3 stages in one round; crops and erase
 rectangles at the borders (K4); p other than 3, maps of zeros and odd
-sizes (K5); one live bank row, a full bank and banks off the column tile
-(K6); one label for the whole batch, all labels distinct and exact ties in
+sizes (K5); one live bank row, a full bank and banks off the column tile,
+and extra negatives (``ex_f``) of 1, 16 and 33 rows in groups of 1 and of
+the whole batch, against banks of 768 and 30,720 rows (K6); one label for the whole batch, all labels distinct and exact ties in
 the hard fold (K7); sets smaller than a tile, D off the stage and off the
 vector width, k of 1 and 64, exact ties and the inner product (K8); odd
 batches and frames (K9, K10), missing joints and joints on the frame's
 corners (K10), channel counts off the warp stride and the vector width
-(K11); and the raise on inputs a kernel does not take.
+(K11), odd batches, frames and the rows next to the edge, whose taps are
+renormalised (K12); and the raise on inputs a kernel does not take.
 
 Needs a CUDA card; skips without one. This file imports no JAX, so it runs
 on a machine without it, with the JAX test harness left out:
@@ -258,9 +260,109 @@ def test_memory_loss_rejects_bad_inputs(card):
         memory_loss(torch.ones((2, 8), device=card, dtype=torch.float64), y, state)
     with pytest.raises(ValueError, match="D % 4"):
         memory_loss(torch.ones((2, 10), device=card)[:, :6], y, state)
-    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+    with pytest.raises(ValueError, match="ex_f"):
         memory_loss(torch.ones((2, 8), device=card), y, state,
-                    ex_f=torch.ones((2, 8), device=card))
+                    ex_f=torch.ones((2, 4), device=card))
+
+
+@pytest.mark.parametrize("b,d,k_pad,nv,t,group", [
+    (256, 2048, 768, 700, 16, 16),        # the hard-mix step's shapes
+    (16, 64, 100, 37, 1, 16),             # one extra column, one group of the batch
+    (16, 64, 100, 37, 16, 1),             # a group per row
+    (33, 512, 64, 64, 33, 1),             # T off the column tile
+    (20, 64, 128, 5, 33, 20),             # T off the tile, one group
+    (256, 2048, 30720, 30000, 16, 16),    # a large bank
+])
+def test_memory_loss_extra_negatives_match_plain(card, b, d, k_pad, nv, t, group):
+    """K6 with ``ex_f``: the loss within 1e-4 and dL/dx within 1e-6 of the
+    plain version's autograd in fp64 on the same fp32 inputs; the bank's
+    logits within 1e-4 and bit-equal to K6's without ``ex_f``; the extra
+    columns within 1e-4, or 1e-6 relative where the −10000 self-mask puts
+    them near −2e5 (an fp32 ulp there is 0.016); no gradient to ``ex_f``."""
+    from reid_gan_torch.ops.cluster_memory import (
+        init_memory,
+        memory_loss,
+        memory_loss_plain,
+    )
+
+    g = torch.Generator(device=card).manual_seed(b + k_pad + t + group)
+    centers = torch.nn.functional.normalize(
+        torch.randn((nv, d), device=card, generator=g), dim=1)
+    state = init_memory(centers, k_pad=k_pad, device=card)
+    y = torch.randint(0, nv, (b,), device=card, generator=g, dtype=torch.int32)
+    x = (centers[y.long()] + 0.5 * torch.randn((b, d), device=card, generator=g))
+    x = x.contiguous().requires_grad_(True)
+    ex = (centers[torch.randint(0, nv, (t,), device=card, generator=g)] +
+          0.3 * torch.randn((t, d), device=card, generator=g)).requires_grad_(True)
+    loss, logits = memory_loss(x, y, state, ex_f=ex, group_size=group)
+    loss.mean().backward()
+    _, bank_logits = memory_loss(x.detach(), y, state)
+    x64 = x.detach().double().requires_grad_(True)
+    s64 = state._replace(features=state.features.double())
+    ref, ref_logits = memory_loss_plain(x64, y, s64, ex_f=ex.detach().double(),
+                                        group_size=group)
+    ref.mean().backward()
+    torch.cuda.synchronize()
+    assert logits.shape == (b, k_pad + t) and ex.grad is None
+    assert torch.equal(logits[:, :k_pad], bank_logits)
+    assert torch.isneginf(logits[:, nv:k_pad]).all()
+    assert float((logits[:, :nv].double() - ref_logits[:, :nv]).abs().max()) <= 1e-4
+    lex, rex = logits[:, k_pad:].double(), ref_logits[:, k_pad:]
+    masked = (torch.arange(b, device=card)[:, None] // group ==
+              torch.arange(t, device=card)[None])
+    err = (lex - rex).abs()
+    assert masked.any()
+    assert float(torch.where(masked, 0.0, err).max()) <= 1e-4
+    assert float(torch.where(masked, err / rex.abs(), 0.0).max()) <= 1e-6
+    assert float((loss.double() - ref).abs().max()) <= 1e-4
+    assert float((x.grad.double() - x64.grad).abs().max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# K12 diff_transform
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,h,w", [(16, 128, 64), (1, 128, 64), (3, 5, 7), (17, 16, 8)])
+def test_diff_transform_matches_plain(card, n, h, w):
+    """K12 (2x bicubic upsample) at odd batches and frames, on images whose
+    first and last two rows and columns alternate −1 and +1, so the
+    renormalised taps of the first and last three output rows and columns
+    see full swings: every pixel within 5e-6 of the plain version in fp32
+    and of its fp64 arithmetic on the same inputs (about 20 fp32 ulps of
+    the outputs' magnitude: 16 taps summed in another order, then ÷ std);
+    NCHW in channels_last memory."""
+    from reid_gan_torch.ops.transforms import diff_transform, diff_transform_plain
+
+    g = torch.Generator(device=card).manual_seed(n * h + w)
+    img = torch.tanh(2 * torch.randn((n, 3, h, w), device=card, generator=g))
+    alt = (torch.arange(h, device=card)[:, None] + torch.arange(w, device=card)[None]) % 2
+    alt = alt.float() * 2 - 1
+    for rows in (slice(0, 2), slice(h - 2, h)):
+        img[:, :, rows] = alt[rows]
+    for cols in (slice(0, 2), slice(w - 2, w)):
+        img[:, :, :, cols] = alt[:, cols]
+    img = img.contiguous()
+    out = diff_transform(img, 2 * h, 2 * w)
+    ref = diff_transform_plain(img, 2 * h, 2 * w)
+    ref64 = diff_transform_plain(img.double(), 2 * h, 2 * w)
+    torch.cuda.synchronize()
+    assert out.shape == (n, 3, 2 * h, 2 * w) and out.stride() == ref.stride()
+    assert float((out - ref).abs().max()) <= 5e-6
+    assert float((out.double() - ref64).abs().max()) <= 5e-6
+    edge = (out.double() - ref64)[:, :, [0, 1, 2, -3, -2, -1]]
+    assert float(edge.abs().max()) <= 5e-6
+
+
+def test_diff_transform_rejects_bad_inputs(card):
+    from reid_gan_torch.ops.transforms import diff_transform
+
+    x = torch.zeros((2, 3, 8, 4), device=card)
+    with pytest.raises(ValueError, match="forward only"):
+        diff_transform(x.clone().requires_grad_(True), 16, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        diff_transform(x.transpose(2, 3), 16, 8)
+    with pytest.raises(ValueError, match="upsamples"):
+        diff_transform(x, 4, 2)
 
 
 # ---------------------------------------------------------------------------
