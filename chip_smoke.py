@@ -28,7 +28,13 @@ the script exits non-zero without printing a result:
    ``F.normalize`` as its library time; K6 once more with the hard-mix
    step's 16 extra negatives (groups of 16) against the 768-row bank; K12
    ``diff_transform`` at (16, 3, 128, 64) -> 256x128, one image of -1/+1
-   extremes so the renormalised edge taps see full swings;
+   extremes so the renormalised edge taps see full swings; K3's all-shots
+   rows and separate camera set at Market-1501's eval shape (a 1,024-query
+   chunk, distinct and with exact ties); K8 above its register lists (k 65,
+   128, 256 and 300 at 2,048 rows, L2 and inner product, with exact ties)
+   and k 128 timed at 12,936 rows; K13 ``pose_peaks`` at (512, 18, 256,
+   128) with σ 4, 5 and 6, erased channels, missing and corner joints and
+   flips; K14 ``fd_augment`` at 512 x 256x128;
 3. the eval main path: ``Evaluator(FeatureExtractor(resnet50)).evaluate``
    (the call ``cli/test.py`` makes) on an in-memory uint8 eval set made with
    numpy from a seed (1,024 queries + 3,072 gallery, 256x128, batch 256;
@@ -93,18 +99,51 @@ the script exits non-zero without printing a result:
 9. the whole joint loop: one epoch of ``cli/train_gan_usl.run`` on phase
    5's set with keypoints, Infomap (eps 0.5, k1 15) and 20 steps. Launch
    counts are zeroed just before and read just after: K1-K11 must all have
-   launched, K12 not. It writes the checkpoints and the GAN nets' files, and
+   launched, K12-K14 not. It writes the checkpoints and the GAN nets' files, and
    prints the epoch's split;
 10. the whole hard-mix loop: ``cli/train_gan_warmup.run`` for 4 iterations
    (1 epoch, ``--debug``) writes the nets, then one epoch of
    ``cli/train_gan_usl.run`` with ``--model-gen AE --no-gan-train
    --continue-train`` loads them and runs on phase 5's set with the DBSCAN
    recipe and 20 steps. Launch counts are zeroed just before the epoch and
-   read just after: K1-K9 and K12 must have launched, K10 and K11 not;
-11. a JSON line with every kernel's launches (the sum over the two whole
-   joint loops, phases 9 and 10), error, times and bound; K6's entry also
-   carries its time with the extra negatives (``ex_f_ms``);
-12. the last line: ``{"ok": true, "device": {...}}``.
+   read just after: K1-K9 and K12 must have launched, K10, K11, K13 and
+   K14 not;
+11. FD-GAN stage I (``[fd_stage1]``): ``SiameseTrainer`` on a random
+   ResNet-50 Siamese net (last stride 2, average pool, the square-difference
+   head) at 256x128, batches of 256 pairs from ``RandomPairSampler`` over an
+   in-memory set of 128 ids x 8 images with landmark files on disk. One
+   step is first held against the same step through K14's plain version
+   (loss, logits; the layer4 and classifier gradients gated between the
+   plain repeat's spread and a reading with the input jittered by 1e-6).
+   Launch counts are zeroed just before 20 steps and read just after: K14
+   twice a step, nothing else. Then peak memory, 10 warm steps timed, 3
+   traced, and ``CascadeEvaluator.evaluate`` on phase 3's eval set with the
+   top 100 re-scored and ``dataset=None``: K1 once a batch and K3 six times
+   (the mAP, all-shots and market1501 passes of both stages). The net is
+   saved as the next phase's stage-I checkpoint;
+12. FD-GAN stages II and III (``[fd_stage2]``, ``[fd_stage3]``):
+   ``FDGANModel`` at full width (E and Di ResNet-50 Siamese nets, G with ngf
+   64, Dp with ndf 64, at 256x128), batches of 256 pairs from the
+   ``fdgan_pose`` loader; stage II starts from phase 11's checkpoint (Di
+   from E), stage III from the nets stage II saved. One step each is held
+   against the same step through K13's and K14's plain versions (the
+   losses, the fake, a G, a Dp, two Di and in stage III an E gradient);
+   then 3 steps with launch counts (K13 once and K14 twice a step, nothing
+   else; the nets of the stage move), peak memory, 2 warm steps timed and
+   1 traced, split into the input, E and G forward, Di, Dp and G phases by
+   CUDA events;
+13. the FD-GAN chain (``[fd_chain]``): ``cli/fdgan_baseline.run`` →
+   ``cli/fdgan_train.run`` stage II from its checkpoint → stage III from
+   the stage-II nets, one epoch each at full width, on 64 ids x 8 train
+   images and 128 + 384 eval images in memory with landmark files on disk.
+   Launch counts are zeroed just before and read just after: K1, K3, K13
+   and K14 must have launched;
+14. a JSON line with every kernel's launches (the sum over the two whole
+   joint loops, phases 9 and 10, and the FD-GAN chain, phase 13), error,
+   times and bound; K6's entry also carries its time with the extra
+   negatives (``ex_f_ms``), K3's its variants' (``variant_ms``), K8's its k
+   128 time (``k128_ms``);
+15. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 import importlib
@@ -1480,8 +1519,10 @@ def phase_joint_run(counts):
     counts.update(launches)
     print(f"[joint] run(): {wall:.2f} s, best mAP {best:.4f}; wrote {saved}")
     print(f"[joint] run() launches: {kernels.phase_launch_counts()}")
-    check(all(v > 0 for k, v in launches.items() if k != "diff_transform")
-          and launches["diff_transform"] == 0, f"K1-K11 must launch, K12 not: {launches}")
+    off = ("diff_transform", "pose_peaks", "fd_augment")
+    check(all(v > 0 for k, v in launches.items() if k not in off)
+          and all(launches[k] == 0 for k in off),
+          f"K1-K11 must launch, K12-K14 not: {launches}")
     check(np.isfinite(best) and {"checkpoint.pth.tar", "latest_net_G.pth",
                                  "latest_net_D.pth", "iter.txt"} <= set(saved),
           "no finite mAP or a missing checkpoint")
@@ -1867,16 +1908,604 @@ def phase_hardmix_run(counts):
     counts.update(launches)
     print(f"[hardmix] run(): {wall:.2f} s, best mAP {best:.4f}; wrote {saved}")
     print(f"[hardmix] run() launches: {kernels.phase_launch_counts()}")
-    off = ("pose_maps", "gan_feat_l2n")
+    off = ("pose_maps", "gan_feat_l2n", "pose_peaks", "fd_augment")
     check(all(v > 0 for k, v in launches.items() if k not in off) and
           all(launches[k] == 0 for k in off),
-          f"K1-K9 and K12 must launch, K10 and K11 not: {launches}")
+          f"K1-K9 and K12 must launch, K10, K11, K13 and K14 not: {launches}")
     check(launches["diff_transform"] == cfg.train.iters, "K12 not once a step")
     check(np.isfinite(best) and {"checkpoint.pth.tar", "model_best.pth.tar"} <= set(saved),
           "no finite mAP or a missing checkpoint")
     print("[hardmix] run() epoch split (s, host clock, Timer.spans): "
           + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     print(f"[hardmix] run() phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+
+# ---------------------------------------------------------------------------
+# FD-GAN: K3's variants, K8 for any k, K13, K14, the three stages, the chain
+# ---------------------------------------------------------------------------
+
+def check_k3_variants(report):
+    """K3's all-shots rows and separate camera set against the plain pass at
+    Market-1501's eval shape, distinct and with exact ties."""
+    from reid_gan_torch.engine.metrics import rank_stats, rank_stats_plain
+    from reid_gan_torch.ops.distance import squared_euclidean
+
+    g = torch.Generator(device="cuda").manual_seed(33)
+    chunk, topk, tol = 1024, 100, 1e-5   # fp32 AP and row sums in another order
+    worst, timed = 0.0, None
+    for ties in (False, True):
+        qf, gf, qid, qcam, gid, gcam = _market_block(g, ties)
+        d = squared_euclidean(qf[:chunk], gf)
+        if ties:
+            n = gf.shape[0]
+            d[:, 1::2] = d[:, 0::2][:, :n // 2]
+        args = (d, qid[:chunk].contiguous(), qcam[:chunk].contiguous(), gid, gcam)
+        for sep in (False, True):
+            ap, fb, nm, hist = rank_stats(*args, separate_camera_set=sep, allshots_topk=topk)
+            ap_r, fb_r, nm_r, hist_r = rank_stats_plain(*args, separate_camera_set=sep,
+                                                        allshots_topk=topk)
+            torch.cuda.synchronize()
+            check(torch.equal(nm, nm_r) and torch.equal(fb, fb_r),
+                  f"K3 variant (sep {sep}, ties {ties}) counts or bins differ")
+            e_ap = float((ap - ap_r).abs().max())
+            e_h = float((hist - hist_r).abs().max())
+            print(f"[K3] all-shots, separate camera set {sep}, "
+                  f"{'exact ties' if ties else 'distinct'}: counts and first bins equal; "
+                  f"AP max_abs_err {e_ap:.3g}, all-shots rows max_abs_err {e_h:.3g} "
+                  f"(tol {tol:.3g}); all-shots top-1 {float(hist[nm > 0, 0].mean()):.4f}")
+            check(max(e_ap, e_h) <= tol, f"K3 variant error {max(e_ap, e_h)} > {tol}")
+            worst = max(worst, e_ap, e_h)
+        if not ties:
+            timed = args
+    ms = device_ms(lambda: rank_stats(*timed, separate_camera_set=True, allshots_topk=topk))
+    plain = device_ms(lambda: rank_stats_plain(*timed, separate_camera_set=True,
+                                               allshots_topk=topk), reps=3)
+    q_, n_ = timed[0].shape
+    b, by = bound_ms(4 * (q_ * n_ + 2 * q_ + 2 * n_ + 3 * q_ + q_ * topk), 3 * q_ * n_)
+    print(f"[K3] all-shots + separate cameras per {q_}-query chunk: ms {ms:.4f} plain_ms "
+          f"{plain:.4f} bound_ms {b:.4f} ({by})")
+    report["rank_stats"].update(variant_ms=ms, variant_plain_ms=plain, variant_bound_ms=b,
+                                variant_max_abs_err=worst)
+
+
+def check_k8_k_range(report):
+    """K8 above the register lists (k 65, 128, 256, 300 at N 2,048, L2 and
+    inner product, distinct and with exact ties) against the plain kNN, and
+    k 128 timed at Market-1501's 12,936 rows."""
+    from reid_gan_torch.ops.distance import knn_search_plain, knn_topk_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(81)
+    n, tol = 2048, 2e-5
+    f = _train_features(g, n)
+    fq = _train_features(g, n, quantize=True)
+    for k, metric in ((65, "l2"), (128, "ip"), (256, "l2"), (300, "ip")):
+        vals, idx = (t.cpu().numpy() for t in knn_topk_cuda(f, k, metric))
+        pv, pi = knn_search_plain(f, k, metric)
+        err = float(np.abs(vals - pv).max())
+        rows, gap = _swap_gap(f, idx, pv, pi, metric)
+        tv, ti = (t.cpu().numpy() for t in knn_topk_cuda(fq, k, metric))
+        qv, qi = knn_search_plain(fq, k, metric)
+        ties = int((qv[:, 1:] == qv[:, :-1]).sum())
+        same = bool(np.array_equal(ti, qi) and np.array_equal(tv, qv))
+        print(f"[K8] k {k} {metric} N {n}: vals max_abs_err {err:.3g} (tol {tol:.3g}), "
+              f"{rows.size} swapped entries, largest plain-side gap {gap:.3g}; exact ties: "
+              f"{ties} tied pairs, indices and values identical: {same}")
+        check(err <= tol and gap <= tol and ties > 0 and same,
+              f"K8 k {k} {metric} differs from the plain version")
+    fm = _train_features(g, 12936)
+    ms = device_ms(lambda: knn_topk_cuda(fm, 128, "l2"), reps=3)
+    plain = device_ms(lambda: knn_search_plain(fm, 128, "l2"), reps=3)
+    vals, idx = (t.cpu().numpy() for t in knn_topk_cuda(fm, 128, "l2"))
+    pv, pi = knn_search_plain(fm, 128, "l2")
+    err = float(np.abs(vals - pv).max())
+    check(err <= tol, f"K8 k 128 at N 12936: error {err}")
+    b, by = bound_ms(4 * (fm.numel() + 2 * 12936 * 128), 12936 * 12937 * 2048)
+    print(f"[K8] k 128 L2 at N 12936: vals max_abs_err {err:.3g}; ms {ms:.4f} plain_ms "
+          f"{plain:.4f} bound_ms {b:.4f} ({by})")
+    report["knn_topk"].update(k128_ms=ms, k128_plain_ms=plain, k128_bound_ms=b)
+
+
+def _landmarks(rng, n, h=256, w=128):
+    """(n, 18, 2) landmarks in the 256x128 frame, a sixth missing in y, in x
+    or in both, the first image's joints on the corners and edges."""
+    lm = np.stack([rng.integers(0, h, (n, 18)), rng.integers(0, w, (n, 18))], -1)
+    miss = rng.integers(0, 18, (n, 18))
+    lm[miss == 0, 0] = -1
+    lm[miss == 1, 1] = -1
+    lm[miss == 2] = -1
+    lm[0, :6] = [(0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1), (h // 2, 0), (0, w // 2)]
+    return lm.astype(np.float32)
+
+
+def check_k13(report):
+    """K13 at the recipe's (512, 18, 256, 128): σ 4, 5 and 6, erased
+    channels, missing and corner joints, flips."""
+    from reid_gan_torch.ops.pose import render_pose_peaks, render_pose_peaks_plain
+
+    n, k, h, w = 512, 18, 256, 128
+    rng = np.random.default_rng(13)
+    lm = torch.from_numpy(_landmarks(rng, n)).cuda()
+    sigma = torch.tensor([4.0, 5.0, 6.0], device="cuda")[torch.arange(n, device="cuda") % 3]
+    erase = torch.from_numpy(np.where(rng.random(n) < 0.5, rng.integers(0, k, n), -1)
+                             .astype(np.int32)).cuda()
+    flip = torch.from_numpy((rng.random(n) < 0.5).astype(np.int32)).cuda()
+    args = (lm, sigma.contiguous(), erase, flip, h, w)
+    out = render_pose_peaks(*args)
+    ref = render_pose_peaks_plain(*args)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    tol = 1e-6   # expf against torch.exp: an ulp or two of values <= 1
+    corner = float(out[0, 0, 0, w - 1 if flip[0] else 0])
+    print(f"[K13] pose_peaks ({n}, {k}, {h}, {w}), sigma 4/5/6, {int((erase >= 0).sum())} "
+          f"erased channels, {int(((lm[..., 0] == -1) | (lm[..., 1] == -1)).sum())} missing "
+          f"joints, {int(flip.sum())} flips: max_abs_err {err:.3g} (tol {tol:.3g}); corner "
+          f"peak {corner}")
+    check(err <= tol and corner == 1.0, f"K13 error {err} > {tol}")
+    ms = device_ms(lambda: render_pose_peaks(*args))
+    plain = device_ms(lambda: render_pose_peaks_plain(*args))
+    b, by = bound_ms(4 * (out.numel() + lm.numel() + 3 * n), 8 * out.numel())
+    print(f"[K13] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
+    report["pose_peaks"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                                bound_by=by)
+
+
+def check_k14(report):
+    """K14 at 512 x 256x128 with the port's draws (about half erased, half
+    flipped)."""
+    from reid_gan_torch.ops.transforms import (
+        fd_augment,
+        fd_augment_plain,
+        sample_fd_augment_params,
+    )
+
+    n, h, w = 512, 256, 128
+    g = torch.Generator(device="cuda").manual_seed(14)
+    u8 = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8, device="cuda", generator=g)
+    params = sample_fd_augment_params(n, h, w, g)
+    out = fd_augment(u8, params)
+    ref = fd_augment_plain(u8, params)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.stride() == ref.contiguous(
+        memory_format=torch.channels_last).stride(), "K14 layout is not channels_last")
+    err = float((out - ref).abs().max())
+    tol = 1e-6   # IEEE divisions and the same order in both
+    print(f"[K14] fd_augment {n}x{h}x{w}, {int(params[:, 0].sum())} erased, "
+          f"{int(params[:, 5].sum())} flipped: max_abs_err {err:.3g} (tol {tol:.3g})")
+    check(err <= tol, f"K14 error {err} > {tol}")
+    ms = device_ms(lambda: fd_augment(u8, params))
+    plain = device_ms(lambda: fd_augment_plain(u8, params))
+    b, by = bound_ms(u8.numel() * (1 + 4) + 4 * params.numel(), 3 * u8.numel())
+    print(f"[K14] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
+    report["fd_augment"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                                bound_by=by)
+
+
+def _fd_set(root, seed=0, n_ids=128, per_id=8, n_query=256, n_gallery=768, h=256, w=128):
+    """An FD-GAN set in memory (images) and on disk (landmark files under
+    ``root/poses``): ``n_ids`` x ``per_id`` train images and an eval split
+    of other ids, 6 cameras, two colour blocks an id plus noise, staged at
+    256x128, landmarks from a seed in the 256x128 frame."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    n_train = n_ids * per_id
+    n = n_train + n_query + n_gallery
+    eval_ids = (n_query + n_gallery) // 4
+    pids = np.concatenate([np.arange(n_train) // per_id,
+                           n_ids + np.arange(n_query + n_gallery) % eval_ids])
+    cams = rng.integers(0, 6, n)
+    colours = rng.integers(0, 256, (n_ids + eval_ids, 2, 3)).astype(np.int16)
+    noise = rng.integers(-40, 40, (64, h, w, 3), dtype=np.int16)
+    imgs = np.empty((n, h, w, 3), np.uint8)
+    block = np.empty((64, h, 1, 3), np.int16)
+    for s in range(0, n, 64):
+        e = min(s + 64, n)
+        block[:e - s, :h // 2] = colours[pids[s:e], 0][:, None, None]
+        block[:e - s, h // 2:] = colours[pids[s:e], 1][:, None, None]
+        np.clip(block[:e - s] + noise[:e - s], 0, 255, out=imgs[s:e], casting="unsafe")
+    names = [f"{pids[i]:04d}_c{cams[i] + 1}_{i:06d}.jpg" for i in range(n)]
+    items = [(names[i], int(pids[i]), int(cams[i])) for i in range(n)]
+    poses = os.path.join(root, "poses")
+    os.makedirs(poses, exist_ok=True)
+    lm = _landmarks(rng, n_train, h, w).astype(int)
+    for name, pts in zip(names[:n_train], lm):
+        with open(os.path.join(poses, name[:-4] + ".txt"), "w") as f:
+            f.write("".join(f"{y} {x}\n" for y, x in pts))
+    pid_imgs = {}
+    for name, pid, _ in items[:n_train]:
+        pid_imgs.setdefault(pid, set()).add(name)
+    return SimpleNamespace(train=items[:n_train], query=items[n_train:n_train + n_query],
+                           gallery=items[n_train + n_query:], pid_imgs=pid_imgs,
+                           poses_dir=poses), imgs
+
+
+class _PlainFD:
+    """Within the block, the FD-GAN step's K13 and K14 run as their plain
+    versions (the names the engines call are rebound), with the augmented
+    images multiplied by (1 + ``jitter`` noise) when ``jitter``."""
+
+    def __init__(self, jitter=0.0):
+        self.jitter = jitter
+
+    def __enter__(self):
+        from reid_gan_torch.engine import fdgan
+        from reid_gan_torch.models.fdgan import model
+        from reid_gan_torch.ops.pose import render_pose_peaks_plain
+        from reid_gan_torch.ops.transforms import fd_augment_plain
+
+        jitter = self.jitter
+
+        def aug(img, params):
+            x = fd_augment_plain(img, params).contiguous(memory_format=torch.channels_last)
+            if jitter:
+                x = x * (1 + jitter * torch.randn(
+                    x.shape, device=x.device, generator=torch.Generator(
+                        device=x.device).manual_seed(1)))
+            return x.contiguous(memory_format=torch.channels_last)
+
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (fdgan, "fd_augment"), (model, "fd_augment"), (model, "render_pose_peaks"))]
+        fdgan.fd_augment = model.fd_augment = aug
+        model.render_pose_peaks = render_pose_peaks_plain
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, v in self.saved:
+            setattr(m, n, v)
+        return False
+
+
+def _held_against_plain(label, nets, opts, run, grad_names, gated, tol_loss=1e-3,
+                        tol_out=1e-4, late_losses=(), tol_late=1e-2, limits=None):
+    """One step through the kernels and the same step through the plain
+    versions (with ``gated`` limits also a plain repeat, the card's spread,
+    and a plain step with the augmented inputs jittered by 1e-6), from the
+    same weights, buffers and draws, TF32 off and cuDNN's
+    deterministic algorithms on (its split weight-gradient sums otherwise
+    move a GAN step's gradients by up to 1% between identical runs). ``run()``
+    returns (losses dict, output tensor); ``grad_names``: (net, parameter)
+    pairs whose gradients are read after the step. The losses and the output
+    are held at ``tol_loss`` (relative; ``tol_late`` for the ``late_losses``,
+    which follow a discriminator's update) and ``tol_out``; ``gated`` maps the
+    index of a gradient to its limit (max relative error), which must lie
+    between the plain repeat's spread and the jittered reading; ``limits``
+    maps the index of a gradient to a limit alone; the other gradients are
+    printed. Weights, buffers and optimiser states are restored after."""
+    import copy
+
+    snap = [copy.deepcopy(m.state_dict()) for m in nets.values()]
+    tf32, det = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+    named = {n: dict(m.named_parameters()) for n, m in nets.items()}
+    results = []
+    try:
+        # the repeat and the jittered step place the gated limits; without
+        # gated limits only the kernels' and the plain step run
+        runs = ((False, 0.0), (True, 0.0), (True, 0.0), (True, 1e-6))
+        for plain, jitter in runs if gated else runs[:2]:
+            for m, sd in zip(nets.values(), snap):
+                m.load_state_dict(sd)
+            for opt in opts:
+                opt.state.clear()
+            if plain:
+                with _PlainFD(jitter):
+                    losses, out = run()
+            else:
+                losses, out = run()
+            grads = [named[n][p].grad.detach().clone() for n, p in grad_names]
+            results.append(({k: float(v) for k, v in losses.items()}, out.detach().clone(),
+                            grads))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = tf32, det
+        for m, sd in zip(nets.values(), snap):
+            m.load_state_dict(sd)
+            m.zero_grad(set_to_none=True)
+        for opt in opts:
+            opt.state.clear()
+    limits = limits or {}
+    (lk, ok, gk), (lp, op, gp) = results[:2]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    e_l = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp}
+    e_loss = max([e_l[k] for k in lp if k not in late_losses] or [0.0])
+    e_late = max([e_l[k] for k in late_losses] or [0.0])
+    e_out = float((ok - op).abs().max())
+    e_g = [rel(a, b) for a, b in zip(gk, gp)]
+    if gated:
+        (lr, _, g_rep), (_, _, g_jit) = results[2:]
+        e_lr = max(abs(lr[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp)
+        e_rep, e_jit = ([rel(a, b) for a, b in zip(g, gp)] for g in (g_rep, g_jit))
+    print(f"[{label}] one step, kernels vs plain versions (TF32 off): losses "
+          + ", ".join(f"{k} {lk[k]:.6f}/{lp[k]:.6f}" for k in lp)
+          + f" (max rel err {e_loss:.3g}, tol {tol_loss:.3g}"
+          + (f"; after the D updates, {', '.join(late_losses)}: {e_late:.3g}, tol "
+             f"{tol_late:.3g}" if late_losses else "")
+          + (f"; plain repeat {e_lr:.3g}" if gated else "")
+          + f"); output max_abs_err {e_out:.3g} (tol {tol_out:.3g})")
+    print(f"[{label}] parameter grads, max rel err kernels vs plain"
+          + (" (plain repeat; plain with the input x(1 + 1e-6 noise))" if gated else "")
+          + " [limit]: " + ", ".join(
+              f"{'.'.join(n)} {e_g[i]:.3g}"
+              + (f" ({e_rep[i]:.3g}; {e_jit[i]:.3g}) [{gated[i]:.3g}]" if i in gated else "")
+              + (f" [{limits[i]:.3g}]" if i in limits else "")
+              for i, n in enumerate(grad_names)))
+    check(e_loss <= tol_loss and e_late <= tol_late and e_out <= tol_out
+          and all(e_g[i] <= t for i, t in {**gated, **limits}.items()),
+          f"the {label} step through the kernels differs from the plain versions")
+    check(all(e_rep[i] < t < e_jit[i] for i, t in gated.items()),
+          f"[{label}] a gradient's limit no longer lies between the plain repeat's "
+          "spread and the 1e-6 input noise's reading")
+
+
+def phase_fd_stage1(counts, fd_set, root, batch=256):
+    """FD-GAN stage I at full width: ``SiameseTrainer`` (ResNet-50, last
+    stride 2, average pool, the square-difference head) on ``pair`` batches
+    of ``batch`` pairs from ``RandomPairSampler``; then the two-stage
+    ``CascadeEvaluator`` on ``[main]``'s eval set, ``dataset=None``. The
+    trained net goes to ``root/stage1.pth.tar``, which ``[fd_stage2]``
+    starts from, as the recipe's stage II does."""
+    from reid_gan_torch import kernels
+    from reid_gan_torch.cli.fdgan_baseline import _limit, make_cascade_evaluator
+    from reid_gan_torch.config import Config
+    from reid_gan_torch.data.loader import DataLoader, Preprocessor
+    from reid_gan_torch.data.sampler import RandomPairSampler
+    from reid_gan_torch.engine.fdgan import SiameseTrainer
+    from reid_gan_torch.models import siamese_baseline
+    from reid_gan_torch.ops.transforms import sample_fd_augment_params
+    from reid_gan_torch.utils.serialization import save_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = True
+    ds, imgs = fd_set
+    torch.manual_seed(0)
+    model = siamese_baseline(50)
+    trainer = SiameseTrainer(model, lr=0.01, step_size=40, device="cuda", seed=0)
+    cache = _InMemoryImages(imgs)
+
+    def loader(epoch):
+        pre = Preprocessor(ds.train, mode="pair", seed=epoch, cache=cache)
+        return DataLoader(pre, sampler=RandomPairSampler(ds.train, seed=epoch),
+                          batch_size=batch, num_workers=4, drop_last=True)
+
+    b1, b2 = next(iter(loader(99)))
+    i1, i2 = (torch.from_numpy(b["img"]).cuda() for b in (b1, b2))
+    tgt = torch.from_numpy((b1["pid"] == b2["pid"]).astype(np.int64)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    p1, p2 = (sample_fd_augment_params(batch, 256, 128, g) for _ in range(2))
+
+    def run():
+        loss, logits = trainer.step(i1, i2, tgt, p1, p2)
+        return {"loss": loss}, logits
+
+    # at random init the Siamese gradients are ill-conditioned: 1e-6 noise on
+    # the input moves layer4's by about 0.8% and the classifier's by 2.4e-4
+    _held_against_plain("fd_stage1", {"siamese": model}, [trainer.optimizer], run,
+                        [("siamese", "base_model.layer4.2.conv3.weight"),
+                         ("siamese", "embed_model.classifier.weight"),
+                         ("siamese", "base_model.conv1.weight")], gated={0: 6e-3, 1: 1.5e-4})
+
+    steps = 20
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = 0
+    for epoch in range(3):
+        left = steps - batches
+        if left <= 0:
+            break
+        trainer.train(epoch, _limit(loader(epoch), left), print_freq=10)
+        batches += min(left, 2 * len(ds.train) // batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    phases = kernels.phase_launch_counts()
+    print(f"[fd_stage1] {steps} Siamese steps of {batch} pairs (1st, cuDNN cold): "
+          f"{wall:.2f} s; launches: {phases}")
+    check(phases["fd_augment.forward"] == 2 * steps,
+          f"fd_augment launched {phases['fd_augment.forward']} times, not twice a step")
+    check(sum(v for k, v in phases.items() if not k.startswith("fd_augment")) == 0,
+          "a kernel other than K14 launched on the Siamese step")
+    still = [n for n, p in model.named_parameters() if torch.equal(p.detach(), before[n])]
+    check(not still, f"Siamese parameters that did not move: {still[:5]}")
+    print(f"[fd_stage1] peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    warm = 10
+    it = _limit(loader(7), warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(7, it, print_freq=warm)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[fd_stage1] warm: {warm / dt:.3f} steps/s, {warm * 2 * batch / dt:.1f} img/s "
+          f"({batch} pairs, ResNet-50 at 256x128, fp32 weights, TF32 convolutions)")
+    profile_device("fd_stage1 (3 warm steps)",
+                   lambda: trainer.train(8, _limit(loader(8), 3), print_freq=3))
+
+    batches_e, query, gallery = _eval_set()
+    cfg = Config()
+    evaluator = make_cascade_evaluator(model, cfg, "cuda")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    top1 = evaluator.evaluate(batches_e, query, gallery, rerank_topk=100, dataset=None)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"[fd_stage1] CascadeEvaluator.evaluate ({len(query)} + {len(gallery)}, top 100 "
+          f"re-scored, dataset=None): {time.perf_counter() - t0:.2f} s, allshots top-1 "
+          f"{top1:.4f}; launches {launches}")
+    # per stage: the mAP pass, the allshots pass (all-shots rows), the
+    # market1501 pass, one 1,024-query chunk each
+    check(launches["eval_transform"] == len(batches_e) and launches["rank_stats"] == 6
+          and 0.0 <= top1 <= 1.0, "the cascade evaluation did not run K1 and K3's variants")
+    counts.update({k: v for k, v in launches.items() if v})
+    save_checkpoint({"state_dict": model.state_dict()}, False,
+                    os.path.join(root, "stage1.pth.tar"))
+
+
+def _fd_pair_loader(ds, imgs, batch, seed):
+    from reid_gan_torch.data import IterLoader
+    from reid_gan_torch.data.loader import DataLoader, Preprocessor
+    from reid_gan_torch.data.sampler import RandomPairSampler
+
+    pre = Preprocessor(ds.train, mode="fdgan_pose", pid_imgs=ds.pid_imgs,
+                       pose_root=ds.poses_dir, seed=seed, cache=_InMemoryImages(imgs))
+    it = IterLoader(DataLoader(pre, sampler=RandomPairSampler(ds.train, seed=seed),
+                               batch_size=batch, num_workers=4, drop_last=True))
+    it.new_epoch()
+    return it
+
+
+def phase_fd_gan(stage, fd_set, root, batch=256, steps=3, warm=2):
+    """One FD-GAN stage at full width: ``FDGANModel`` (E and Di ResNet-50
+    Siamese nets at 256x128, G with ngf 64, Dp with ndf 64) on ``fdgan_pose``
+    batches of ``batch`` pairs. ``stage`` 1 is paper stage II, from
+    ``[fd_stage1]``'s checkpoint (E, and Di from it); 2 is paper stage III,
+    from the nets stage II wrote under ``root/s1``."""
+    from reid_gan_torch import kernels
+    from reid_gan_torch.config import FDGANConfig
+    from reid_gan_torch.models.fdgan.model import FDGANModel
+    from reid_gan_torch.utils.serialization import save_networks
+
+    label = f"fd_stage{stage + 1}"
+    torch.backends.cudnn.allow_tf32 = True
+    ds, imgs = fd_set
+    torch.manual_seed(stage)
+    cfg = FDGANConfig(stage=stage, pose_aug="gauss" if stage == 1 else "erase",
+                      lambda_veri=10.0, lambda_sp=10.0)
+    if stage == 1:
+        cfg.netE_pretrain = os.path.join(root, "stage1.pth.tar")
+    else:
+        cfg.netE_pretrain, cfg.netG_pretrain, cfg.netDi_pretrain, cfg.netDp_pretrain = (
+            os.path.join(root, "s1", f"latest_net_{n}.pth") for n in ("E", "G", "Di", "Dp"))
+    model = FDGANModel(cfg, device="cuda", seed=stage)
+    it = _fd_pair_loader(ds, imgs, batch, seed=stage)
+    b1, b2 = it.next()
+    draws = model.sample_draws(batch)
+    g_state = model.generator.get_state()
+
+    def run():
+        model.generator.set_state(g_state)     # the same dropout masks
+        return model.optimize_step(b1, b2, draws)
+
+    grads = [("G", "de_conv1_conv.weight"), ("Dp", "conv_out.weight"),
+             ("Di", "base_model.layer4.2.conv3.weight"), ("Di", "embed_model.classifier.weight")]
+    if stage == 2:
+        grads.append(("E", "base_model.layer4.2.conv3.weight"))
+    # K13 and K14 divide as their plain versions do (IEEE), so with cuDNN
+    # deterministic the two steps should agree bit for bit. Each gradient
+    # still has a limit: the readings of earlier chip runs, whose plain K14
+    # divided by 255 through the reciprocal (an ulp off on most pixels),
+    # which Di's update amplified into G's gradient (up to 4.7e-2) and less
+    # elsewhere (Dp 7.8e-7, Di layer4 1.1e-3, classifier 1.1e-5, E 3.4e-4).
+    limits = {0: 1e-1, 1: 1e-5, 2: 1e-2, 3: 1e-4, 4: 3e-3}
+    _held_against_plain(label, model.nets(), [model.opt_G, model.opt_Di, model.opt_Dp], run,
+                        grads, gated={}, tol_loss=1e-4,
+                        late_losses=("G", "G_gan_Di", "G_gan_Dp"),
+                        limits={i: t for i, t in limits.items() if i < len(grads)})
+
+    nets = model.nets()
+    before = {(k, n): p.detach().clone() for k, m in nets.items()
+              for n, p in m.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        errs, fake = model.optimize_step(*it.next())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    phases = kernels.phase_launch_counts()
+    print(f"[{label}] {steps} steps of {batch} pairs (1st, cuDNN cold): {wall:.2f} s; "
+          f"last losses " + ", ".join(f"{k} {float(v):.4f}" for k, v in errs.items()))
+    print(f"[{label}] launches: {phases}")
+    check(phases["pose_peaks.forward"] == steps and phases["fd_augment.forward"] == 2 * steps,
+          "K13 must launch once a step and K14 twice")
+    check(sum(v for k, v in phases.items()
+              if not k.startswith(("pose_peaks", "fd_augment"))) == 0,
+          "a kernel other than K13 and K14 launched on the GAN step")
+    check(all(np.isfinite(float(v)) for v in errs.values()) and bool(torch.isfinite(fake).all())
+          and fake.shape == (2 * batch, 3, 256, 128), "losses or the fake not finite")
+    moved = {k: any(not torch.equal(p.detach(), before[(k, n)])
+                    for n, p in m.named_parameters()) for k, m in nets.items()}
+    print(f"[{label}] nets whose parameters moved: {moved}")
+    check(moved == {"E": stage == 2, "G": True, "Di": True, "Dp": True},
+          "the nets that train are not the stage's")
+    print(f"[{label}] peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warm):
+        model.optimize_step(*it.next())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[{label}] warm: {warm / dt:.3f} steps/s, {warm * 2 * batch / dt:.1f} img/s "
+          f"({batch} pairs at 256x128)")
+    model.marks = []
+    profile_device(f"{label} (1 warm step)", lambda: model.optimize_step(*it.next()))
+    marks, model.marks = model.marks, None
+    print(f"[{label}] device time by phase (CUDA events, 1 step, ms): "
+          + _split_by_marks(marks, 1))
+    it.close()
+    if stage == 1:
+        save_networks(model.nets(), os.path.join(root, "s1"), "latest")
+
+
+def phase_fd_chain(counts, root, batch=256):
+    """FD-GAN's three stages through their CLIs' ``run``: ``cli/fdgan_baseline``
+    → ``cli/fdgan_train --stage 1`` from its checkpoint → ``--stage 2`` from
+    the stage-1 nets, one epoch each at full width, on a set with landmark
+    files on disk and images in memory."""
+    import copy
+
+    from reid_gan_torch import kernels
+    from reid_gan_torch.cli import fdgan_baseline, fdgan_train
+    from reid_gan_torch.config import Config
+
+    t_phase = time.perf_counter()
+    ds, imgs = _fd_set(root, seed=5, n_ids=64, per_id=8, n_query=128, n_gallery=384)
+    cache = _InMemoryImages(imgs)
+    cfg = Config()
+    cfg.data.workers, cfg.data.batch_size = 4, batch
+    cfg.optim.lr, cfg.optim.step_size = 0.01, 40
+    cfg.train.epochs, cfg.train.eval_step = 1, 1
+    cfg.train.logs_dir = os.path.join(root, "base")
+    cfg.fdgan.niter, cfg.fdgan.niter_decay, cfg.fdgan.eval_step = 1, 0, 1
+    cfg.gan.save_dir = os.path.join(root, "ckpt")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = fdgan_baseline.run(cfg, ds, "cuda", image_cache=cache)
+    t_base = time.perf_counter() - t0
+    c1 = copy.deepcopy(cfg)
+    c1.fdgan.stage, c1.fdgan.pose_aug = 1, "gauss"
+    c1.fdgan.netE_pretrain = os.path.join(root, "base", "model_best.pth.tar")
+    c1.train.logs_dir, c1.gan.name = os.path.join(root, "s1"), "s1"
+    t0 = time.perf_counter()
+    fdgan_train.run(c1, ds, "cuda", image_cache=cache)
+    t_s1 = time.perf_counter() - t0
+    s1 = os.path.join(root, "ckpt", "s1")
+    c2 = copy.deepcopy(cfg)
+    c2.fdgan.stage, c2.fdgan.pose_aug = 2, "erase"
+    c2.fdgan.netE_pretrain, c2.fdgan.netG_pretrain, c2.fdgan.netDi_pretrain, \
+        c2.fdgan.netDp_pretrain = (os.path.join(s1, f"latest_net_{n}.pth")
+                                   for n in ("E", "G", "Di", "Dp"))
+    c2.train.logs_dir, c2.gan.name = os.path.join(root, "s2"), "s2"
+    t0 = time.perf_counter()
+    m2 = fdgan_train.run(c2, ds, "cuda", image_cache=cache)
+    t_s2 = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    counts.update(launches)
+    saved = sorted(os.listdir(os.path.join(root, "ckpt", "s2")))
+    print(f"[fd_chain] baseline {t_base:.2f} s (best mAP {best:.4f}), stage II "
+          f"{t_s1:.2f} s, stage III {t_s2:.2f} s; {len(ds.train)} train images of "
+          f"{len(ds.pid_imgs)} ids, {len(ds.query)} + {len(ds.gallery)} eval; stage III "
+          f"wrote {saved}")
+    print(f"[fd_chain] launches: {kernels.phase_launch_counts()}")
+    check(all(launches[k] > 0 for k in ("eval_transform", "rank_stats", "pose_peaks",
+                                         "fd_augment")),
+          f"K1, K3, K13 and K14 must launch in the chain: {launches}")
+    check(np.isfinite(best) and {"best_net_E.pth", "latest_net_Dp.pth"} <= set(saved)
+          and m2.stage == 2, "the chain did not write its checkpoints")
+    print(f"[fd_chain] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -1901,6 +2530,10 @@ def main():
     check_k10(report)
     check_k11(report)
     check_k12(report)
+    check_k3_variants(report)
+    check_k8_k_range(report)
+    check_k13(report)
+    check_k14(report)
     torch.cuda.synchronize()
     counts = {}
     phase_main_path(counts)
@@ -1920,11 +2553,24 @@ def main():
     torch.cuda.synchronize()            # counts, summed, are the line's launches
     phase_hardmix_run(hardmix_counts)
     torch.cuda.synchronize()
+    import tempfile
+
+    fd_counts, chain_counts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fd_set = _fd_set(os.path.join(tmp, "set"))
+        phase_fd_stage1(fd_counts, fd_set, tmp)
+        torch.cuda.synchronize()
+        phase_fd_gan(1, fd_set, tmp)
+        torch.cuda.synchronize()
+        phase_fd_gan(2, fd_set, tmp)
+        torch.cuda.synchronize()
+        phase_fd_chain(chain_counts, os.path.join(tmp, "chain"))
+        torch.cuda.synchronize()
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces,
-         "launches": joint_counts[k.name] + hardmix_counts[k.name], "library_ms": None,
-         **report[k.name]}
+         "launches": joint_counts[k.name] + hardmix_counts[k.name] + chain_counts[k.name],
+         "library_ms": None, **report[k.name]}
         for k in kernels.KERNELS]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))

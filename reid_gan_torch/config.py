@@ -1,6 +1,7 @@
 """Config system: a dataclass tree with argparse adapters preserving the
 reference's flag names (copy of ``reid_gan_tpu/config.py``, the sections the
-eval, USL and joint GAN CLIs parse: data, model, optim, cluster, train, gan).
+eval, USL, joint GAN and FD-GAN CLIs parse: data, model, optim, cluster,
+train, gan, fdgan).
 """
 
 import argparse
@@ -123,6 +124,32 @@ class GANConfig:
 
 
 @dataclass
+class FDGANConfig:
+    """FD-GAN stage II/III flags (FD/fdgan/options.py:8-58)."""
+    stage: int = 1               # 1 = E frozen (stage II), 2 = joint (stage III)
+    lr: float = 1e-3
+    netE_pretrain: str = ""
+    netG_pretrain: str = ""
+    netDi_pretrain: str = ""
+    netDp_pretrain: str = ""
+    lambda_recon: float = 100.0
+    lambda_veri: float = 0.0
+    lambda_sp: float = 0.0
+    smooth_label: bool = True
+    pose_aug: str = "no"         # no|erase|gauss (FD/train.py:48 →
+    #                              FD/reid/utils/data/preprocessor.py:114-131)
+    noise_size: int = 56
+    pose_feature_size: int = 128
+    drop: float = 0.2
+    connect_layers: int = 0
+    fuse_mode: str = "cat"
+    niter: int = 50
+    niter_decay: int = 50
+    eval_step: int = 5
+    save_step: int = 10
+
+
+@dataclass
 class Config:
     """Top-level config tree."""
     data: DataConfig = field(default_factory=DataConfig)
@@ -131,6 +158,7 @@ class Config:
     cluster: ClusterConfig = field(default_factory=ClusterConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     gan: GANConfig = field(default_factory=GANConfig)
+    fdgan: FDGANConfig = field(default_factory=FDGANConfig)
 
 
 # short aliases used throughout the reference CLIs

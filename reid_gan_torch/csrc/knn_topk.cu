@@ -31,6 +31,15 @@
 // candidate equal to a listed key always goes after it, which is the tie
 // order. The gallery is split over blockIdx.y so that enough blocks fill the
 // card at Market-1501's N; a last pass merges each row's per-split lists.
+//
+// k above 64 (up to N): the row's list no longer fits two register slots a
+// lane, so it lives in the split's own output rows of the scratch
+// (part_key/part_idx, k entries a row, L1/L2 resident), kept sorted by its
+// warp: the position is a ballot count over the list's 32-entry chunks, and
+// the entries behind it shift one place up, chunk by chunk from the end.
+// The same filter (a candidate must beat the k-th key) keeps the inserts
+// few after the first tiles, and the same ascending walk keeps the tie
+// order, so the merge pass is unchanged.
 #include <math.h>
 #include <stdint.h>
 
@@ -43,7 +52,7 @@ constexpr int kDepth = 32;     // D per shared-memory stage
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kWarps = kThreads / reid::kWarp;
 constexpr int kRowsPerWarp = kTile / kWarps;  // 8
-constexpr int kMaxK = 2 * reid::kWarp;        // two list slots a lane
+constexpr int kRegK = 2 * reid::kWarp;        // two list slots a lane
 constexpr int kTargetBlocks = 528;            // 4 a streaming multiprocessor
 constexpr int kMaxSplits = 8;
 constexpr int kMergeThreads = 128;
@@ -126,6 +135,43 @@ __device__ __forceinline__ void insert(RowList& l, float v, int gi, int k, int l
   }
 }
 
+// The list of k > kRegK entries in global scratch (lk, li), sorted by
+// (key, index): insert (v, gi), known to beat lk[k - 1] and to have a higher
+// index than every listed entry, after every key <= v. Every lane of the
+// warp calls it with the same arguments.
+__device__ __forceinline__ void insert_global(float* lk, int* li, float v, int gi, int k,
+                                              int lane) {
+  int pos = 0;
+  for (int c = 0; c < k; c += reid::kWarp) {
+    const int i = c + lane;
+    pos += __popc(__ballot_sync(kFull, i < k && lk[i] <= v));
+  }
+  // entries pos .. k - 2 move one place up, the highest chunk first, so a
+  // chunk's writes land on entries that were already read
+  for (int c = ((k - 2) / reid::kWarp) * reid::kWarp; c >= 0 && c + reid::kWarp > pos;
+       c -= reid::kWarp) {
+    const int i = c + lane;
+    const bool mv = i >= pos && i < k - 1;
+    float kv = 0.0f;
+    int iv = 0;
+    if (mv) {
+      kv = lk[i];
+      iv = li[i];
+    }
+    __syncwarp();
+    if (mv) {
+      lk[i + 1] = kv;
+      li[i + 1] = iv;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    lk[pos] = v;
+    li[pos] = gi;
+  }
+  __syncwarp();
+}
+
 // Stage a (kTile x kDepth) slice of rows [r0, r_end) starting at column d0,
 // transposed into s[depth][row]; rows and columns past the ends read zero.
 __device__ __forceinline__ void stage(float (*s)[kTile + 4], const float* __restrict__ x,
@@ -146,10 +192,13 @@ __device__ __forceinline__ void stage(float (*s)[kTile + 4], const float* __rest
 
 // grid (query tiles, splits). Writes each query row's sorted k keys and
 // indices over gallery split blockIdx.y to part_*[(split * n + q) * k + s].
+// kGlobal: the lists live there during the walk (k > kRegK), else in
+// registers until the end.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 knn_tile_kernel(const float* __restrict__ x, const float* __restrict__ norms, int n,
-                int d, int k, int l2, int tiles_per_split, float* __restrict__ part_key,
-                int* __restrict__ part_idx) {
+                int d, int k, int l2, int tiles_per_split, float* part_key,
+                int* part_idx) {
   __shared__ __align__(16) float As[kDepth][kTile + 4];
   __shared__ __align__(16) float Bs[kDepth][kTile + 4];
   __shared__ float keys[kTile][kTile + 1];
@@ -159,9 +208,22 @@ knn_tile_kernel(const float* __restrict__ x, const float* __restrict__ norms, in
   const int g_begin = blockIdx.y * tiles_per_split * kTile;
   const int g_end = min(n, g_begin + tiles_per_split * kTile);
 
-  RowList lists[kRowsPerWarp];
+  RowList lists[kGlobal ? 1 : kRowsPerWarp];
+  if constexpr (kGlobal) {
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int q = q0 + warp * kRowsPerWarp + r;
+      if (q >= n) continue;
+      const size_t base = (static_cast<size_t>(blockIdx.y) * n + q) * k;
+      for (int s = lane; s < k; s += reid::kWarp) {
+        part_key[base + s] = INFINITY;
+        part_idx[base + s] = INT32_MAX;
+      }
+    }
+    __syncwarp();
+  } else {
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) lists[r] = {INFINITY, INFINITY, INT32_MAX, INT32_MAX};
+    for (int r = 0; r < kRowsPerWarp; ++r) lists[r] = {INFINITY, INFINITY, INT32_MAX, INT32_MAX};
+  }
 
   float qn[4];
 #pragma unroll
@@ -211,7 +273,18 @@ knn_tile_kernel(const float* __restrict__ x, const float* __restrict__ norms, in
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int row = warp * kRowsPerWarp + r;
-      float thr = kth_key(lists[r], k);
+      float* lk = nullptr;
+      int* li = nullptr;
+      float thr;
+      if constexpr (kGlobal) {
+        if (q0 + row >= n) continue;  // the whole warp skips the row
+        const size_t base = (static_cast<size_t>(blockIdx.y) * n + q0 + row) * k;
+        lk = part_key + base;
+        li = part_idx + base;
+        thr = lk[k - 1];
+      } else {
+        thr = kth_key(lists[r], k);
+      }
       unsigned m0 = __ballot_sync(kFull, keys[row][lane] < thr);
       unsigned m1 = __ballot_sync(kFull, keys[row][lane + reid::kWarp] < thr);
       while (m0 | m1) {  // the same masks in every lane: the loop is uniform
@@ -225,14 +298,20 @@ knn_tile_kernel(const float* __restrict__ x, const float* __restrict__ norms, in
         }
         const float v = keys[row][c];
         if (v < thr) {
-          insert(lists[r], v, g0 + c, k, lane);
-          thr = kth_key(lists[r], k);
+          if constexpr (kGlobal) {
+            insert_global(lk, li, v, g0 + c, k, lane);
+            thr = lk[k - 1];
+          } else {
+            insert(lists[r], v, g0 + c, k, lane);
+            thr = kth_key(lists[r], k);
+          }
         }
       }
     }
     __syncthreads();  // keys is rewritten by the next tile
   }
 
+  if constexpr (kGlobal) return;  // the lists are already in place
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int q = q0 + warp * kRowsPerWarp + r;
@@ -290,12 +369,12 @@ extern "C" long long reid_knn_topk_scratch(int n, int k) {
 
 // x: (n, d) fp32 row-major, d % 4 == 0, 16-byte aligned. norms: (n,) fp32
 // scratch (written when l2). part_key / part_idx: reid_knn_topk_scratch(n, k)
-// elements each. vals (n, k) fp32 and idx (n, k) int32 out. 1 <= k <= 64,
-// k <= n. l2: 1 for squared L2 distance, 0 for inner product.
+// elements each. vals (n, k) fp32 and idx (n, k) int32 out. 1 <= k <= n.
+// l2: 1 for squared L2 distance, 0 for inner product.
 extern "C" int reid_knn_topk(const void* x, int n, int d, int k, int l2, void* norms,
                              void* part_key, void* part_idx, void* vals, void* idx,
                              void* stream) {
-  if (n < 1 || k < 1 || k > kMaxK || k > n || d < 1 || d % 4)
+  if (n < 1 || k < 1 || k > n || d < 1 || d % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
@@ -304,9 +383,14 @@ extern "C" int reid_knn_topk(const void* x, int n, int d, int k, int l2, void* n
   int per, splits;
   split_geometry(n, &per, &splits);
   const dim3 grid(ceil_div(n, kTile), splits);
-  knn_tile_kernel<<<grid, kThreads, 0, st>>>(xf, nf, n, d, k, l2, per,
-                                             static_cast<float*>(part_key),
-                                             static_cast<int*>(part_idx));
+  if (k <= kRegK)
+    knn_tile_kernel<false><<<grid, kThreads, 0, st>>>(xf, nf, n, d, k, l2, per,
+                                                      static_cast<float*>(part_key),
+                                                      static_cast<int*>(part_idx));
+  else
+    knn_tile_kernel<true><<<grid, kThreads, 0, st>>>(xf, nf, n, d, k, l2, per,
+                                                     static_cast<float*>(part_key),
+                                                     static_cast<int*>(part_idx));
   knn_merge_kernel<<<ceil_div(n, kMergeThreads), kMergeThreads, 0, st>>>(
       static_cast<const float*>(part_key), static_cast<const int*>(part_idx), n, k,
       splits, l2, static_cast<float*>(vals), static_cast<int*>(idx));

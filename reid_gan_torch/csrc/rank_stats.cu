@@ -17,6 +17,21 @@
 //               smallest valid match (the stable argsort's first match)
 // so it equals the JAX backend, ties included, at any gallery size.
 //
+// The variants of fd_evaluate_all (reid_gan_tpu/engine/fdgan.py:155-205,
+// through _rank_metrics_jax, metrics.py:355-392):
+//   separate camera set: V also drops every entry of the query's camera
+//               (g_cam != q_cam), which changes AP, the first bin and M;
+//   all shots (first_match_break=False): each valid match m adds 1 / |M|
+//               to bin #{v in V \ M : (d_v, v) < (d_m, m)}, the number of
+//               valid non-matches ranked before it, which is JAX's
+//               valid_rank - (matches before it) (metrics.py:250-256).
+// The all-shots bins go to a (q, topk) row of the query's own block,
+// written by its thread 0 alone (1 / |M| added to one bin in any order is
+// the same float), and the caller sums the rows in a fixed order, so the
+// histogram does not depend on atomics. Staging then keeps each match's
+// gallery index beside its distance, and a row pass keeps a third counter
+// per staged match.
+//
 // Bound: bytes. The block is read once from device memory (q x n fp32; 214 MB
 // at Market-1501's 3,368 x 15,913, ~64 us at 3.35 TB/s); ids and cameras are
 // shared by all queries and stay in L2. Design: one block per query row.
@@ -45,16 +60,20 @@ __device__ __forceinline__ bool lex_less(float da, int ja, float db, int jb) {
   return da < db || (da == db && ja < jb);
 }
 
+// kAllShots: also write the query's all-shots row hist[row, 0 .. topk).
+template <bool kAllShots>
 __global__ void __launch_bounds__(kThreads)
 rank_stats_kernel(const float* __restrict__ d, const int* __restrict__ qid,
                   const int* __restrict__ qcam, const int* __restrict__ gid,
-                  const int* __restrict__ gcam, int n,
+                  const int* __restrict__ gcam, int n, int sep,
                   float* __restrict__ ap_out, int* __restrict__ first_out,
-                  int* __restrict__ nm_out) {
+                  int* __restrict__ nm_out, float* __restrict__ hist, int topk) {
+  constexpr int kCounters = (kAllShots ? 3 : 2) * kGroup + 1;
   __shared__ float md[kCap];
+  __shared__ int mj[kAllShots ? kCap : 1];
   __shared__ int s_slot;
   __shared__ int iscratch[kThreads / reid::kWarp];
-  __shared__ int red[2 * kGroup + 1][kThreads / reid::kWarp];
+  __shared__ int red[kCounters][kThreads / reid::kWarp];
   __shared__ float best_d_w[kThreads / reid::kWarp];
   __shared__ int best_j_w[kThreads / reid::kWarp];
 
@@ -64,6 +83,11 @@ rank_stats_kernel(const float* __restrict__ d, const int* __restrict__ qid,
   const int nwarps = kThreads / reid::kWarp;
   const float* dr = d + static_cast<size_t>(row) * n;
   const int qi = qid[row], qc = qcam[row];
+  float* hrow = kAllShots ? hist + static_cast<size_t>(row) * topk : nullptr;
+  if constexpr (kAllShots) {
+    for (int b = tid; b < topk; b += kThreads) hrow[b] = 0.0f;
+    __syncthreads();  // thread 0 adds to the row below
+  }
 
   // ---- pass 0: number of valid matches and the first one in (d, j) order
   int nm = 0;
@@ -110,7 +134,11 @@ rank_stats_kernel(const float* __restrict__ d, const int* __restrict__ qid,
       const bool is_m = j < n && gid[j] == qi && gcam[j] != qc;
       const int cnt = __syncthreads_count(is_m);
       if (staged + cnt > kCap) break;
-      if (is_m) md[atomicAdd(&s_slot, 1)] = dr[j];
+      if (is_m) {
+        const int slot = atomicAdd(&s_slot, 1);
+        md[slot] = dr[j];
+        if constexpr (kAllShots) mj[slot] = j;
+      }
       staged += cnt;
     }
     __syncthreads();
@@ -118,22 +146,27 @@ rank_stats_kernel(const float* __restrict__ d, const int* __restrict__ qid,
     for (int g0 = 0; g0 < staged; g0 += kGroup) {
       const int kn = min(kGroup, staged - g0);
       float dm[kGroup];
+      int jm[kGroup];
 #pragma unroll
-      for (int k = 0; k < kGroup; ++k) dm[k] = k < kn ? md[g0 + k] : -FLT_MAX;
-      int cv[kGroup], cm[kGroup];
+      for (int k = 0; k < kGroup; ++k) {
+        dm[k] = k < kn ? md[g0 + k] : -FLT_MAX;
+        jm[k] = kAllShots && k < kn ? mj[g0 + k] : -1;
+      }
+      int cv[kGroup], cm[kGroup], cn[kGroup];
 #pragma unroll
-      for (int k = 0; k < kGroup; ++k) { cv[k] = 0; cm[k] = 0; }
+      for (int k = 0; k < kGroup; ++k) { cv[k] = 0; cm[k] = 0; cn[k] = 0; }
       int cb = 0;
       for (int j = tid; j < n; j += kThreads) {
         const int gj = gid[j], cj = gcam[j];
         const float dj = dr[j];
-        const bool valid = gj != qi || cj != qc;
+        const bool valid = (gj != qi || cj != qc) && (!sep || cj != qc);
         const bool vmatch = gj == qi && cj != qc;
 #pragma unroll
         for (int k = 0; k < kGroup; ++k) {
           const bool le = valid && dj <= dm[k];
           cv[k] += le;
           cm[k] += le && vmatch;
+          if constexpr (kAllShots) cn[k] += valid && !vmatch && lex_less(dj, j, dm[k], jm[k]);
         }
         if (first_pass) cb += valid && lex_less(dj, j, bd, bj);
       }
@@ -142,11 +175,16 @@ rank_stats_kernel(const float* __restrict__ d, const int* __restrict__ qid,
       for (int k = 0; k < kGroup; ++k) {
         cv[k] = reid::warp_sum(cv[k]);
         cm[k] = reid::warp_sum(cm[k]);
+        if constexpr (kAllShots) cn[k] = reid::warp_sum(cn[k]);
       }
       cb = reid::warp_sum(cb);
       if (lane == 0) {
 #pragma unroll
-        for (int k = 0; k < kGroup; ++k) { red[k][warp] = cv[k]; red[kGroup + k][warp] = cm[k]; }
+        for (int k = 0; k < kGroup; ++k) {
+          red[k][warp] = cv[k];
+          red[kGroup + k][warp] = cm[k];
+          if constexpr (kAllShots) red[2 * kGroup + 1 + k][warp] = cn[k];
+        }
         red[2 * kGroup][warp] = cb;
       }
       __syncthreads();
@@ -155,6 +193,11 @@ rank_stats_kernel(const float* __restrict__ d, const int* __restrict__ qid,
           int v = 0, m = 0;
           for (int w = 0; w < nwarps; ++w) { v += red[k][w]; m += red[kGroup + k][w]; }
           ap_acc += static_cast<double>(m) / static_cast<double>(v);
+          if constexpr (kAllShots) {
+            int b = 0;
+            for (int w = 0; w < nwarps; ++w) b += red[2 * kGroup + 1 + k][w];
+            if (b < topk) hrow[b] += 1.0f / static_cast<float>(nm);
+          }
         }
         if (first_pass) {
           int b = 0;
@@ -176,15 +219,26 @@ rank_stats_kernel(const float* __restrict__ d, const int* __restrict__ qid,
 }  // namespace
 
 // d: (q, n) fp32 contiguous. qid/qcam: q int32. gid/gcam: n int32.
-// Outputs, q each: ap (fp32), first_bin (int32), num_matches (int32).
+// sep: 1 drops the query's camera from the valid set.
+// Outputs, q each: ap (fp32), first_bin (int32), num_matches (int32); with
+// topk > 0 also hist, (q, topk) fp32, each query's all-shots row.
 extern "C" int reid_rank_stats(const void* d, const void* qid, const void* qcam,
-                               const void* gid, const void* gcam, int q, int n,
-                               void* ap, void* first_bin, void* num_matches,
-                               void* stream) {
-  rank_stats_kernel<<<q, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(d), static_cast<const int*>(qid),
-      static_cast<const int*>(qcam), static_cast<const int*>(gid),
-      static_cast<const int*>(gcam), n, static_cast<float*>(ap),
-      static_cast<int*>(first_bin), static_cast<int*>(num_matches));
+                               const void* gid, const void* gcam, int q, int n, int sep,
+                               void* ap, void* first_bin, void* num_matches, void* hist,
+                               int topk, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (topk > 0)
+    rank_stats_kernel<true><<<q, kThreads, 0, st>>>(
+        static_cast<const float*>(d), static_cast<const int*>(qid),
+        static_cast<const int*>(qcam), static_cast<const int*>(gid),
+        static_cast<const int*>(gcam), n, sep, static_cast<float*>(ap),
+        static_cast<int*>(first_bin), static_cast<int*>(num_matches),
+        static_cast<float*>(hist), topk);
+  else
+    rank_stats_kernel<false><<<q, kThreads, 0, st>>>(
+        static_cast<const float*>(d), static_cast<const int*>(qid),
+        static_cast<const int*>(qcam), static_cast<const int*>(gid),
+        static_cast<const int*>(gcam), n, sep, static_cast<float*>(ap),
+        static_cast<int*>(first_bin), static_cast<int*>(num_matches), nullptr, 0);
   return reid::launch_status();
 }

@@ -14,7 +14,14 @@ preprocessor.py:108-191):
   draws ``flip``/``gan_flip``, which are carried and never applied, as in
   the JAX step (engine/gan_trainers.py:512-520);
 - ``only_gan``: the GAN fields alone, with ``pid`` and ``index`` and
-  ``gan_flip`` False (the GAN warm-up's loader).
+  ``gan_flip`` False (the GAN warm-up's loader);
+- ``pair`` and ``fdgan_pose`` (loader.py:275-279,316-342; FD/reid/utils/
+  data/preprocessor.py:63-131): an index pair from ``RandomPairSampler``
+  gives two items, collated into two batches. A ``pair`` item is the reid
+  item; an ``fdgan_pose`` item is ``img``, ``pid``, ``camid``, ``fname``
+  and a random other image of the same pid as ``target``, its landmarks
+  (``load_landmark_txt``, scaled to the frame) and a ``flip`` draw, from
+  ``seed``'s stream in the JAX loader's order.
 Pillow is imported inside the decode function, so a caller that feeds
 in-memory uint8 batches never needs it.
 """
@@ -132,9 +139,31 @@ class PoseAnnotations:
         return self.table[name]
 
 
+def load_landmark_txt(path, scale_h=1.0, scale_w=1.0):
+    """FD-GAN landmark file: one ``y x`` pair a line, scaled and truncated to
+    int, negatives → −1 (loader.py:141-155)."""
+    pts = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            h0, w0 = line.split()[:2]
+            h0 = int(float(h0) * scale_h)
+            w0 = int(float(w0) * scale_w)
+            pts.append([h0 if h0 >= 0 else -1, w0 if w0 >= 0 else -1])
+    return np.asarray(pts, np.float32)
+
+
+_MODES = ("reid", "with_gan", "only_gan", "pair", "fdgan_pose")
+
+
 class Preprocessor:
     """Per-index item factory returning plain numpy dicts (``reid``,
-    ``with_gan`` and ``only_gan`` modes). ``cache``: ``"default"`` (the shared
+    ``with_gan``, ``only_gan``, ``pair`` and ``fdgan_pose`` modes; the two
+    pair modes take an index pair). ``pid_imgs``: pid → image basenames and
+    ``pose_root``: the landmark directory, of ``fdgan_pose``.
+    ``cache``: ``"default"`` (the shared
     ``default_image_cache()``), None (no caching) or an object with
     ``get(fpath, height, width)`` → ``(image, old_size)`` and ``budget``.
     ``pose_file``: the keypoint CSV of the ``with_gan`` mode (without it
@@ -143,16 +172,18 @@ class Preprocessor:
 
     def __init__(self, dataset, root=None, mode="reid", height=256, width=128,
                  gan_height=128, gan_width=64, pose_file=None, flip_all=False,
-                 seed=None, cache="default"):
-        if mode not in ("reid", "with_gan", "only_gan"):
+                 seed=None, cache="default", pose_root=None, pid_imgs=None):
+        if mode not in _MODES:
             raise ValueError(f"unsupported mode {mode!r}: the port's loader serves "
-                             "'reid', 'with_gan' and 'only_gan'")
+                             f"{', '.join(_MODES)}")
         self.dataset = dataset
         self.root = root
         self.mode = mode
         self.height, self.width = height, width
         self.gan_height, self.gan_width = gan_height, gan_width
         self.annotations = PoseAnnotations(pose_file) if pose_file else None
+        self.pose_root = pose_root
+        self.pid_imgs = pid_imgs
         self.flip_all = flip_all
         self.rng = np.random.RandomState(seed)
         self.cache = default_image_cache() if cache == "default" else \
@@ -178,7 +209,10 @@ class Preprocessor:
 
     def batchable(self):
         """True when the decoded set fits the cache budget twice (the cache
-        and the packed copy are both resident), so a batch is one gather."""
+        and the packed copy are both resident), so a batch is one gather.
+        The pair modes are served item by item."""
+        if self.mode in ("pair", "fdgan_pose"):
+            return False
         need = 0
         if self.mode != "only_gan":
             need += len(self.dataset) * self.height * self.width * 3
@@ -240,7 +274,40 @@ class Preprocessor:
                 "gan_flip": flip, "old_size": old_size,
                 "keypoints": self._keypoints(base)}
 
+    def _fdgan_pair_item(self, pair):
+        """Each index of the pair → its image, a random other image of its
+        pid as the target (itself when it is the pid's only one), that
+        image's landmarks scaled to the frame, and a flip draw
+        (loader.py:316-342)."""
+        items = []
+        for index in pair:
+            fname, pid, camid = self.dataset[index]
+            bundle = {"img": self._read(fname), "pid": pid, "camid": camid,
+                      "fname": fname}
+            pid_query = list(self.pid_imgs[pid])
+            base = osp.basename(fname)
+            if base in pid_query and len(pid_query) > 1:
+                pid_query.remove(base)
+            pname = osp.splitext(pid_query[self.rng.randint(len(pid_query))])[0]
+            gt = osp.join(osp.dirname(fname), pname + ".jpg") if osp.dirname(fname) \
+                else pname + ".jpg"
+            target, gt_size = self.cache.get(self._path(gt), self.height, self.width)
+            landmark = load_landmark_txt(osp.join(self.pose_root, pname + ".txt"),
+                                         self.height / float(gt_size[0]),
+                                         self.width / float(gt_size[1]))
+            bundle.update(target=target, landmark=landmark,
+                          flip=bool(self.rng.rand() < 0.5))
+            items.append(bundle)
+        return items
+
     def __getitem__(self, index):
+        if self.mode == "fdgan_pose":
+            return self._fdgan_pair_item(index)
+        if self.mode == "pair":
+            return [self._item(i) for i in index]
+        return self._item(index)
+
+    def _item(self, index):
         fname, pid, camid = self.dataset[index]
         if self.mode == "only_gan":
             item = self._gan_item(fname, False)
@@ -256,7 +323,10 @@ class Preprocessor:
 
 
 def _collate(items):
-    """Stack a list of dicts into a dict of arrays (lists for strings)."""
+    """Stack a list of dicts into a dict of arrays (lists for strings); a
+    list of pairs into a pair of batches."""
+    if isinstance(items[0], list):
+        return [_collate([it[k] for it in items]) for k in range(len(items[0]))]
     out = {}
     for key in items[0]:
         vals = [it[key] for it in items]

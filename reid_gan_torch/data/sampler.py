@@ -1,8 +1,9 @@
-"""P×K batch sampler (copy of ``reid_gan_tpu/data/sampler.py``'s
-``RandomMultipleGallerySampler``, :46-93; parity: CC/clustercontrast/utils/
-data/sampler.py:47-107). Host-side index generation from a numpy
-``RandomState``, drawn in the same order as the JAX package's sampler, so the
-same seed gives the same index stream."""
+"""Batch samplers (copies of ``reid_gan_tpu/data/sampler.py``'s
+``RandomMultipleGallerySampler``, :46-93, parity: CC/clustercontrast/utils/
+data/sampler.py:47-107; and ``RandomPairSampler``, :132-163, parity:
+FD/reid/utils/data/sampler.py:24-54). Host-side index generation from a
+numpy ``RandomState``, drawn in the same order as the JAX package's
+samplers, so the same seed gives the same index stream."""
 
 from collections import defaultdict
 
@@ -60,3 +61,32 @@ class RandomMultipleGallerySampler:
                                               replace=replace)
                 ret.extend(index[kk] for kk in ind_indexes)
         return iter(ret)
+
+
+class RandomPairSampler:
+    """FD-GAN pair sampler: for each anchor, in a random order, one
+    (anchor, positive) pair (another image of its pid, or itself for a
+    singleton) and ``neg_pos_ratio`` (anchor, negative) pairs."""
+
+    def __init__(self, data_source, neg_pos_ratio=1, seed=None):
+        self.num_samples = len(data_source)
+        self.neg_pos_ratio = neg_pos_ratio
+        self.index_map = {i: pid for i, (_, pid, _) in enumerate(data_source)}
+        self.pid_index = defaultdict(list)
+        for i, (_, pid, _) in enumerate(data_source):
+            self.pid_index[pid].append(i)
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return self.num_samples * (1 + self.neg_pos_ratio)
+
+    def __iter__(self):
+        for anchor in self.rng.permutation(self.num_samples):
+            anchor = int(anchor)
+            pid = self.index_map[anchor]
+            yield (anchor, int(self.rng.choice(self.pid_index[pid])))
+            for _ in range(self.neg_pos_ratio):
+                neg = int(self.rng.randint(self.num_samples))
+                while self.index_map[neg] == pid:
+                    neg = int(self.rng.randint(self.num_samples))
+                yield (anchor, neg)

@@ -201,7 +201,7 @@ GEM_BN_L2N = CudaKernel(
     replaces="reid_gan_tpu/models/pooling.py:18")
 RANK_STATS = CudaKernel(
     "rank_stats", "reid_rank_stats",
-    [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I],
     source="reid_gan_torch/csrc/rank_stats.cu",
     replaces="reid_gan_tpu/engine/metrics.py:213")
 TRAIN_AUGMENT = CudaKernel(
@@ -261,9 +261,20 @@ DIFF_TRANSFORM = CudaKernel(
     source="reid_gan_torch/csrc/diff_transform.cu",
     replaces="reid_gan_tpu/ops/transforms.py:171")
 
+POSE_PEAKS = CudaKernel(
+    "pose_peaks", "reid_pose_peaks",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I],
+    source="reid_gan_torch/csrc/pose_peaks.cu",
+    replaces="reid_gan_tpu/ops/pose.py:63")
+FD_AUGMENT = CudaKernel(
+    "fd_augment", "reid_fd_augment",
+    [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F],
+    source="reid_gan_torch/csrc/fd_augment.cu",
+    replaces="reid_gan_tpu/engine/fdgan.py:37")
+
 KERNELS = (EVAL_TRANSFORM, GEM_BN_L2N, RANK_STATS, TRAIN_AUGMENT, GEM_POOL,
            INFONCE, BANK_FOLD, KNN_TOPK, GAN_INPUT, POSE_MAPS, GAN_FEAT_L2N,
-           DIFF_TRANSFORM)
+           DIFF_TRANSFORM, POSE_PEAKS, FD_AUGMENT)
 
 
 def reset_launch_counts():

@@ -1,6 +1,10 @@
-"""Model registry (parity: CC/clustercontrast/models/__init__.py)."""
+"""Model registry (parity: CC/clustercontrast/models/__init__.py and
+FD/reid/models/__init__.py:19-52)."""
 
+from .embedding import EltwiseSubEmbed
+from .multi_branch import SiameseNet, siamese_baseline
 from .resnet import (
+    FDResNet,
     ReIDResNet,
     ResNetBackbone,
     resnet18,
@@ -30,4 +34,5 @@ def create(name, *args, **kwargs):
     return __factory[name](*args, **kwargs)
 
 
-__all__ = ["ReIDResNet", "ResNetBackbone", "create", "names"]
+__all__ = ["EltwiseSubEmbed", "FDResNet", "ReIDResNet", "ResNetBackbone", "SiameseNet",
+           "create", "names", "siamese_baseline"]

@@ -62,9 +62,40 @@ def resnet_state_dict_from_jax(params, batch_stats):
     if "feat" in params:
         sd["feat.weight"] = _t(np.asarray(params["feat"]["kernel"]).T)
         sd["feat.bias"] = _t(params["feat"]["bias"])
-    bn("feat_bn", params["feat_bn"], batch_stats["feat_bn"])
+    if "feat_bn" in params:
+        bn("feat_bn", params["feat_bn"], batch_stats["feat_bn"])
     if "classifier" in params:
         sd["classifier.weight"] = _t(np.asarray(params["classifier"]["kernel"]).T)
+        if "bias" in params["classifier"]:
+            sd["classifier.bias"] = _t(params["classifier"]["bias"])
+    return sd
+
+
+def _prefixed(prefix, sd):
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def siamese_state_dict_from_jax(params, batch_stats):
+    """A JAX ``SiameseNet(FDResNet(cut_at_pooling), EltwiseSubEmbed)``
+    (params, batch_stats) → the port's ``SiameseNet`` ``state_dict``:
+    ``base_model`` through ``resnet_state_dict_from_jax`` (an FDResNet has
+    the backbone under ``base`` and no head), ``embed_model``'s BatchNorm
+    ``bn`` and Dense ``classifier`` ((in, out) kernel → (out, in) weight).
+    The inverse of ``tests/test_fdgan_parity_oracle.py::_import_fd_siamese``.
+    A gradient tree converts the same way (pass it as ``params``, with any
+    ``batch_stats``)."""
+    sd = _prefixed("base_model", resnet_state_dict_from_jax(
+        params["base_model"], batch_stats["base_model"]))
+    em_p, em_s = params["embed_model"], batch_stats.get("embed_model", {})
+    if "bn" in em_p:
+        sd["embed_model.bn.weight"] = _t(em_p["bn"]["scale"])
+        sd["embed_model.bn.bias"] = _t(em_p["bn"]["bias"])
+        sd["embed_model.bn.running_mean"] = _t(em_s["bn"]["mean"])
+        sd["embed_model.bn.running_var"] = _t(em_s["bn"]["var"])
+        sd["embed_model.bn.num_batches_tracked"] = torch.tensor(0)
+    if "classifier" in em_p:
+        sd["embed_model.classifier.weight"] = _t(np.asarray(em_p["classifier"]["kernel"]).T)
+        sd["embed_model.classifier.bias"] = _t(em_p["classifier"]["bias"])
     return sd
 
 

@@ -56,8 +56,10 @@ _NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
 
 
 def state_dict_from_jax(net, params, batch_stats=None):
-    """The ``state_dict`` entries of ``net`` (a ``PoseGenerator1`` or a
-    ``ResDiscriminator``) for the JAX ``params`` and ``batch_stats`` trees.
+    """The ``state_dict`` entries of ``net`` (a ``PoseGenerator1``, an
+    ``AEGenerator``, a ``ResDiscriminator``, or FD-GAN's
+    ``CustomPoseGenerator`` or ``NLayerDiscriminator``) for the JAX
+    ``params`` and ``batch_stats`` trees.
     BatchNorm modules also get a zero ``num_batches_tracked``."""
     sd = {}
     for path, a in _leaves(params):

@@ -179,6 +179,51 @@ class ReIDResNet(ResNetBackbone):
         return z
 
 
+class FDResNet(ResNetBackbone):
+    """FD-GAN's backbone head (``reid_gan_tpu/models/resnet.py:222-254``;
+    parity: FD/reid/models/resnet.py:65-88): ResNet with last stride 2, the
+    spatial mean of layer4 (a plain ``torch.mean``, as the JAX package
+    leaves it to XLA); ``cut_at_pooling`` returns the pooled vector, else
+    the optional ``feat`` → ``feat_bn`` → L2 (``norm``) or ReLU → dropout →
+    ``classifier`` head. (N, 3, H, W) → (N, D)."""
+
+    def __init__(self, depth=50, num_features=0, norm=False, dropout=0.0,
+                 num_classes=0, cut_at_pooling=False):
+        super().__init__(depth, last_stride=2)
+        self.cut_at_pooling = cut_at_pooling
+        self.norm = norm
+        self.num_features = num_features
+        dim = self.out_channels
+        if not cut_at_pooling and num_features > 0:
+            self.feat = nn.Linear(dim, num_features)
+            nn.init.kaiming_normal_(self.feat.weight, mode="fan_out", nonlinearity="relu")
+            nn.init.zeros_(self.feat.bias)
+            self.feat_bn = nn.BatchNorm1d(num_features)
+            dim = num_features
+        self.drop = nn.Dropout(dropout) if not cut_at_pooling and dropout > 0 else None
+        self.classifier = None
+        if not cut_at_pooling and num_classes > 0:
+            self.classifier = nn.Linear(dim, num_classes)
+            nn.init.normal_(self.classifier.weight, std=0.001)
+            nn.init.zeros_(self.classifier.bias)
+
+    def forward(self, x):
+        y = torch.mean(super().forward(x), dim=(2, 3))
+        if self.cut_at_pooling:
+            return y
+        if self.num_features > 0:
+            y = self.feat_bn(self.feat(y))
+        if self.norm:
+            y = l2n(y)
+        elif self.num_features > 0:
+            y = torch.relu(y)
+        if self.drop is not None:
+            y = self.drop(y)
+        if self.classifier is not None:
+            y = self.classifier(y)
+        return y
+
+
 def gan_feat_plain(fmap):
     """Plain PyTorch version of K11: the per-position channel-L2 map of an
     (N, C, H, W) map, ``x / (sqrt(sum_c x²) + 1e-12)`` (resnet.py:186-187)."""

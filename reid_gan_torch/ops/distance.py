@@ -15,9 +15,6 @@ import torch
 from ..device import resolve_device
 from ..kernels import KNN_TOPK
 
-KNN_MAX_K = 64     # K8 keeps a row's list in two slots per lane of a warp
-
-
 def matmul_fp32(x, y_t):
     """``x @ y_t`` with TF32 off; the flag is restored afterwards, so
     callers' own matmuls keep their setting."""
@@ -86,11 +83,11 @@ def knn_search_plain(features, k, metric="l2", block_rows=4096):
 
 
 def knn_topk_cuda(f, k, metric="l2"):
-    """K8 on a CUDA (N, D) float32 tensor: device (vals, idx)."""
+    """K8 on a CUDA (N, D) float32 tensor, any 1 <= k <= N: device (vals,
+    idx)."""
     n, d = f.shape
-    if not 1 <= k <= min(n, KNN_MAX_K):
-        raise ValueError(f"knn_search on the card takes 1 <= k <= min(N, "
-                         f"{KNN_MAX_K}); got k = {k}, N = {n}")
+    if not 1 <= k <= n:
+        raise ValueError(f"knn_search takes 1 <= k <= N; got k = {k}, N = {n}")
     if d % 4:      # zero columns change no norm and no product
         f = torch.nn.functional.pad(f, (0, 4 - d % 4))
     f = f.contiguous()
@@ -118,8 +115,9 @@ def knn_search(features, k, metric="l2", device=None):
 
     ``features``: an (N, D) tensor, searched where it lies, or a host array,
     moved to ``device`` (default: the card; raises if there is none). On the
-    card this is kernel K8 (k <= 64, else ``ValueError``); on the CPU its
-    plain version. Returns host (vals (N, k) float32, idx (N, k) int32)."""
+    card this is kernel K8, for any 1 <= k <= N (else ``ValueError``); on the
+    CPU its plain version. Returns host (vals (N, k) float32, idx (N, k)
+    int32)."""
     if metric not in ("l2", "ip"):
         raise ValueError(f"knn_search: unknown metric {metric!r}")
     f = _as_features(features, device)

@@ -1,7 +1,7 @@
 """Image transforms: the eval transform (kernel K1), the train
-augmentation (kernel K4) and the GAN input transform (kernel K9), uint8 NHWC
-staging batch → normalised NCHW batch; and the re-encode transform of
-generated images (kernel K12).
+augmentation (kernel K4), FD-GAN's train transform (kernel K14) and the GAN
+input transform (kernel K9), uint8 NHWC staging batch → normalised NCHW
+batch; and the re-encode transform of generated images (kernel K12).
 
 Port of ``reid_gan_tpu/ops/transforms.py::reid_augment``. The eval branch
 (``train=False``: to_float → resize → normalize) comes with the cast to the
@@ -19,7 +19,8 @@ size raises.
 
 On a CUDA tensor ``eval_transform`` launches kernel K1
 (``csrc/eval_transform.cu``), ``train_augment`` kernel K4
-(``csrc/train_augment.cu``), ``gan_input_transform`` kernel K9
+(``csrc/train_augment.cu``), ``fd_augment`` kernel K14
+(``csrc/fd_augment.cu``), ``gan_input_transform`` kernel K9
 (``csrc/gan_input.cu``) and ``diff_transform`` kernel K12
 (``csrc/diff_transform.cu``); on a CPU tensor each runs its plain PyTorch
 version, the same arithmetic.
@@ -30,10 +31,15 @@ import math
 import numpy as np
 import torch
 
-from ..kernels import DIFF_TRANSFORM, EVAL_TRANSFORM, GAN_INPUT, TRAIN_AUGMENT
+from ..kernels import DIFF_TRANSFORM, EVAL_TRANSFORM, FD_AUGMENT, GAN_INPUT, TRAIN_AUGMENT
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+# The JAX package's ImageNet constants are float32 arrays
+# (``ops/transforms.py:26-27``): a float64 batch is normalised by their
+# float32 values, which the plain K12 and K14 keep.
+_MEAN_F32 = tuple(float(v) for v in np.float32(IMAGENET_MEAN))
+_STD_F32 = tuple(float(v) for v in np.float32(IMAGENET_STD))
 
 
 def to_float(img_u8):
@@ -230,6 +236,98 @@ def train_augment(img_u8, params, height=256, width=128):
 
 
 # ---------------------------------------------------------------------------
+# FD-GAN train transform (kernel K14)
+# ---------------------------------------------------------------------------
+
+# Columns of the (N, 9) parameter tensor, one row per image
+FD_ERASE, FD_TOP, FD_LEFT, FD_EH, FD_EW, FD_FLIP, FD_FILL = 0, 1, 2, 3, 4, 5, 6
+FD_PARAMS = 9
+
+
+def sample_fd_augment_params(n, h, w, generator):
+    """Per-image draws of FD-GAN's train transform on ``generator``'s device,
+    over the ranges of the JAX function (``engine/fdgan.py:37-45`` through
+    ``random_erasing``, ``ops/transforms.py:107-134``): erase with p 0.5,
+    area in [0.02, 0.2]·HW, log-aspect in [ln 0.3, ln(1/0.3)], sides rounded
+    half to even and clipped, corner floored; a flip with p 0.5; a fill RGB
+    in [0, 1). Returns (n, 9) float32 in the column order above."""
+    dev = generator.device
+
+    def u(lo=0.0, hi=1.0, size=(n,)):
+        return torch.rand(size, generator=generator, device=dev) * (hi - lo) + lo
+
+    do = (u() < 0.5).float()
+    area = h * w * u(0.02, 0.2)
+    aspect = torch.exp(u(math.log(0.3), math.log(1.0 / 0.3)))
+    eh = torch.clamp(torch.round(torch.sqrt(area * aspect)), 1.0, float(h))
+    ew = torch.clamp(torch.round(torch.sqrt(area / aspect)), 1.0, float(w))
+    top = torch.floor(u() * (h - eh + 1))
+    left = torch.floor(u() * (w - ew + 1))
+    flip = (u() < 0.5).float()
+    fill = u(size=(n, 3))
+    return torch.cat([torch.stack([do, top, left, eh, ew, flip], dim=1), fill],
+                     dim=1).float().contiguous()
+
+
+def fd_augment_plain(img_u8, params):
+    """Plain PyTorch version of K14: (N, H, W, 3) uint8 and (N, 9) draws →
+    ``normalize(flip(erase(x / 255, fill)))``, (N, 3, H, W) in channels_last
+    memory, in the draws' dtype. float64 draws give the JAX function's
+    result under x64: the pixels ``to_float`` in float32, the fill and the
+    normalisation in float64, with the float32 ImageNet constants."""
+    n, h, w, _ = img_u8.shape
+    dt = params.dtype
+    # a 0-d tensor on the batch's device, not a Python scalar: CUDA divides
+    # by a host scalar as a product with its reciprocal, an ulp off JAX's
+    # (and K14's) IEEE division
+    x = (img_u8.to(torch.float32) /
+         torch.full((), 255.0, device=img_u8.device)).to(dt)   # (N, H, W, 3)
+    p = params[:, :, None, None]
+    yy = torch.arange(h, dtype=dt, device=x.device)[None, :, None]
+    xx = torch.arange(w, dtype=dt, device=x.device)[None, None, :]
+    inside = ((p[:, FD_ERASE] != 0) & (yy >= p[:, FD_TOP]) &
+              (yy < p[:, FD_TOP] + p[:, FD_EH]) & (xx >= p[:, FD_LEFT]) &
+              (xx < p[:, FD_LEFT] + p[:, FD_EW]))
+    x = torch.where(inside[..., None], params[:, None, None, FD_FILL:], x)
+    x = torch.where((params[:, FD_FLIP] != 0)[:, None, None, None], torch.flip(x, [2]), x)
+    mean = torch.tensor(_MEAN_F32, dtype=dt, device=x.device)
+    std = torch.tensor(_STD_F32, dtype=dt, device=x.device)
+    return ((x - mean) / std).permute(0, 3, 1, 2)
+
+
+def _fd_augment_cuda(img_u8, params):
+    if img_u8.dtype != torch.uint8 or img_u8.dim() != 4 or img_u8.shape[-1] != 3 \
+            or not img_u8.is_contiguous():
+        raise ValueError(f"fd_augment takes a contiguous (N, H, W, 3) uint8 batch, "
+                         f"got {tuple(img_u8.shape)} {img_u8.dtype}")
+    n, h, w, c = img_u8.shape
+    if params.shape != (n, FD_PARAMS) or params.dtype != torch.float32 or \
+            params.device != img_u8.device or not params.is_contiguous():
+        raise ValueError(f"fd_augment: params must be ({n}, {FD_PARAMS}) contiguous "
+                         f"float32 on {img_u8.device}")
+    out = torch.empty((n, c, h, w), dtype=torch.float32, device=img_u8.device,
+                      memory_format=torch.channels_last)
+    FD_AUGMENT(img_u8.data_ptr(), params.data_ptr(), out.data_ptr(), n, h, w,
+               *IMAGENET_MEAN, *IMAGENET_STD, device=img_u8.device)
+    return out
+
+
+def fd_augment(img_u8, params):
+    """FD-GAN's train transform of a uint8 batch with given draws (kernel K14
+    on the card): erase on [0, 1] values with the drawn fill, then flip, then
+    ImageNet normalise; no crop (``engine/fdgan.py:37-45``). With the erase
+    flags 0 it is the target transform of the GAN stages. float32 NCHW in
+    channels_last memory on the card; on the CPU in the draws' dtype."""
+    if img_u8.is_cuda:
+        return _fd_augment_cuda(img_u8, params)
+    if img_u8.device.type != "cpu":
+        raise ValueError(f"fd_augment: unsupported device {img_u8.device}")
+    if params.shape != (img_u8.shape[0], FD_PARAMS):
+        raise ValueError(f"fd_augment: params must be ({img_u8.shape[0]}, {FD_PARAMS})")
+    return fd_augment_plain(img_u8, params)
+
+
+# ---------------------------------------------------------------------------
 # GAN input transform (kernel K9)
 # ---------------------------------------------------------------------------
 
@@ -275,11 +373,6 @@ def gan_input_transform(img_u8, height=128, width=64):
 # Re-encode transform of generated images (kernel K12)
 # ---------------------------------------------------------------------------
 
-# The JAX package's ImageNet constants are float32 arrays
-# (``ops/transforms.py:26-27``): a float64 batch is normalised by their
-# float32 values, which the plain K12 keeps.
-_MEAN_F32 = tuple(float(v) for v in np.float32(IMAGENET_MEAN))
-_STD_F32 = tuple(float(v) for v in np.float32(IMAGENET_STD))
 
 
 def _inv_scale(size, out_size, dtype=torch.float32):

@@ -185,7 +185,7 @@ def test_kernel_bindings_match_the_c_signatures():
             for ret, name, params in re.findall(
                     r'extern "C" (int|long long) (\w+)\(([^)]*)\)', src):
                 sigs[name] = (ret, [_c_kind(p) for p in params.split(",")])
-    assert len(kernels.KERNELS) == 12
+    assert len(kernels.KERNELS) == 14
     scratch = []
     for k in kernels.KERNELS:
         entries = list(k.entries.values())
@@ -201,7 +201,7 @@ def test_kernel_bindings_match_the_c_signatures():
         "eval_transform": 0, "gem_bn_l2n": 0, "rank_stats": 0,
         "train_augment": 0, "gem_pool": 0, "infonce": 0, "bank_fold": 0,
         "knn_topk": 0, "gan_input": 0, "pose_maps": 0, "gan_feat_l2n": 0,
-        "diff_transform": 0}
+        "diff_transform": 0, "pose_peaks": 0, "fd_augment": 0}
     assert set(kernels.phase_launch_counts()) >= {"gem_pool.backward",
                                                   "infonce.backward"}
 
@@ -211,10 +211,11 @@ def test_cpu_paths_launch_no_kernel():
     from reid_gan_torch import kernels
     from reid_gan_torch.engine.metrics import rank_metrics_features
     from reid_gan_torch.models import create
-    from reid_gan_torch.ops.pose import batch_cords_to_map
+    from reid_gan_torch.ops.pose import batch_cords_to_map, render_pose_peaks
     from reid_gan_torch.ops.transforms import (
         diff_transform,
         eval_transform,
+        fd_augment,
         gan_input_transform,
     )
 
@@ -230,4 +231,8 @@ def test_cpu_paths_launch_no_kernel():
     gan_input_transform(u8, 32, 16)
     batch_cords_to_map(torch.ones((2, 18, 2)), torch.full((2, 2), 8.0), 32, 16)
     diff_transform(torch.zeros((2, 3, 16, 8)), 32, 16)
+    render_pose_peaks(torch.ones((2, 18, 2)), torch.full((2,), 5.0),
+                      torch.full((2,), -1, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
+                      32, 16)
+    fd_augment(u8, torch.zeros((2, 9)))
     assert set(kernels.launch_counts().values()) == {0}

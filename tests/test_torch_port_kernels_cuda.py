@@ -7,11 +7,15 @@ sizes (K5); one live bank row, a full bank and banks off the column tile,
 and extra negatives (``ex_f``) of 1, 16 and 33 rows in groups of 1 and of
 the whole batch, against banks of 768 and 30,720 rows (K6); one label for the whole batch, all labels distinct and exact ties in
 the hard fold (K7); sets smaller than a tile, D off the stage and off the
-vector width, k of 1 and 64, exact ties and the inner product (K8); odd
+vector width, k of 1, 64, 65, 128, 256 and 300 (the register lists and the
+lists in scratch), exact ties and the inner product (K8); odd
 batches and frames (K9, K10), missing joints and joints on the frame's
 corners (K10), channel counts off the warp stride and the vector width
 (K11), odd batches, frames and the rows next to the edge, whose taps are
-renormalised (K12); and the raise on inputs a kernel does not take.
+renormalised (K12); the all-shots rows and the separate camera set (K3);
+every σ, erased channels, missing and corner joints and flips on odd
+frames (K13); erase rectangles at the borders with flips, one image and
+odd frames (K14); and the raise on inputs a kernel does not take.
 
 Needs a CUDA card; skips without one. This file imports no JAX, so it runs
 on a machine without it, with the JAX test harness left out:
@@ -121,6 +125,30 @@ def test_rank_stats_matches_plain(card, q, n, num_ids, ties, rounds):
     if rounds:
         assert int(nm[1:].min()) > 1024    # more than one staging round
     assert float((ap - ap_r).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("sep", [False, True], ids=["same_cams", "separate_cams"])
+@pytest.mark.parametrize("q,n,num_ids,ties,topk", [
+    (5, 7, 2, True, 4),            # gallery narrower than a warp, bins past topk
+    (9, 1000, 10, True, 100),      # many exact ties in every row
+    (4, 6000, 2, True, 100),       # two staging rounds, ties across them
+])
+def test_rank_stats_variants_match_plain(card, sep, q, n, num_ids, ties, topk):
+    """K3's all-shots rows and separate camera set: match counts and first
+    bins exactly, AP within 1e-6, each query's (topk,) all-shots row within
+    1e-6 (sums of 1 / |M|)."""
+    from reid_gan_torch.engine.metrics import rank_stats, rank_stats_plain
+
+    args = _rank_case(card, q, n, num_ids, ties, seed=q * n + sep)
+    ap, first, nm, hist = rank_stats(*args, separate_camera_set=sep, allshots_topk=topk)
+    ap_r, first_r, nm_r, hist_r = rank_stats_plain(*args, separate_camera_set=sep,
+                                                   allshots_topk=topk)
+    torch.cuda.synchronize()
+    assert torch.equal(nm, nm_r) and torch.equal(first, first_r)
+    assert nm[0] == 0 and not hist[0].any()
+    assert float((ap - ap_r).abs().max()) <= 1e-6
+    assert hist.shape == (q, topk) and float((hist - hist_r).abs().max()) <= 1e-6
+    assert float(hist[nm > 0].sum(dim=1).max()) <= 1.0 + 1e-6
 
 
 # ---------------------------------------------------------------------------
@@ -448,6 +476,13 @@ def _knn_features(card, n, d, seed, ties=False):
     (4100, 36, 30, "l2", True),     # exact ties, several gallery splits
     (4100, 36, 15, "ip", True),
     (129, 10, 7, "l2", False),      # D not a multiple of 4: zero columns added
+    (2048, 64, 65, "l2", False),    # k above the register lists: lists in scratch
+    (2048, 64, 128, "ip", False),
+    (2048, 64, 256, "l2", False),
+    (2048, 64, 300, "ip", False),
+    (2048, 36, 128, "l2", True),    # exact ties with the lists in scratch
+    (4100, 36, 300, "ip", True),
+    (300, 16, 300, "l2", False),    # k = N
 ])
 def test_knn_search_matches_plain(card, n, d, k, metric, ties):
     """Values within 2e-5 of the plain version; where an index differs, the
@@ -480,17 +515,20 @@ def test_knn_search_matches_plain(card, n, d, k, metric, ties):
 
 
 def test_knn_search_rejects_k_above_64(card):
+    """K8 serves every k up to N (65, above the register lists, launches);
+    k above N and k below 1 raise."""
     from reid_gan_torch import kernels
     from reid_gan_torch.ops.distance import knn_search
 
     f = _knn_features(card, 100, 8, seed=0)
     kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match="k <= min"):
-        knn_search(f, 65)
-    with pytest.raises(ValueError, match="k <= min"):
+    with pytest.raises(ValueError, match="k <= N"):
         knn_search(f[:10], 11)
+    with pytest.raises(ValueError, match="k <= N"):
+        knn_search(f, 0)
     knn_search(f, 64, "ip")
-    assert kernels.launch_counts()["knn_topk"] == 1
+    knn_search(f, 65, "l2")
+    assert kernels.launch_counts()["knn_topk"] == 2
 
 
 @pytest.mark.parametrize("shape", [(1, 128, 64, 3), (3, 5, 7, 3), (257, 16, 8, 3)])
@@ -568,3 +606,89 @@ def test_gan_feat_l2n_rejects_an_nchw_map(card):
 
     with pytest.raises(ValueError, match="channels_last"):
         gan_feat(torch.zeros((2, 8, 3, 3), device=card))
+
+
+# ---------------------------------------------------------------------------
+# K13 pose_peaks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,h,w", [(7, 256, 128), (1, 64, 32), (5, 9, 7), (3, 33, 20)])
+def test_pose_peaks_match_plain(card, n, h, w):
+    """K13 with σ 4, 5 and 6, erased channels, joints missing in y, in x and
+    in both, joints on the frame's corners and edges, and flips, at odd
+    frames (the scalar path) and frames of a multiple of 4 (float4 stores):
+    within 1e-6 (expf against torch.exp)."""
+    from reid_gan_torch.ops.pose import render_pose_peaks, render_pose_peaks_plain
+
+    g = torch.Generator(device=card).manual_seed(n * h + w)
+    lm = torch.stack([torch.randint(0, h, (n, 18), device=card, generator=g),
+                      torch.randint(0, w, (n, 18), device=card, generator=g)], -1).float()
+    lm[0, 0, 0], lm[0, 1, 1], lm[0, 2] = -1, -1, -1
+    lm[-1, 3] = torch.tensor([0.0, 0.0], device=card)
+    lm[-1, 4] = torch.tensor([h - 1.0, w - 1.0], device=card)
+    lm[-1, 5] = torch.tensor([h / 2.0, 0.0], device=card)
+    sigma = torch.tensor([4.0, 5.0, 6.0], device=card)[torch.arange(n, device=card) % 3]
+    erase = torch.where(torch.arange(n, device=card) % 2 == 0,
+                        torch.randint(0, 18, (n,), device=card, generator=g), -1)
+    erase[-1] = -1
+    flip = (torch.arange(n, device=card) % 2).to(torch.int32)
+    args = (lm.contiguous(), sigma.contiguous(), erase.to(torch.int32).contiguous(),
+            flip.contiguous())
+    out = render_pose_peaks(*args, h, w)
+    ref = render_pose_peaks_plain(*args, h, w)
+    torch.cuda.synchronize()
+    assert out.shape == (n, 18, h, w)
+    assert float((out - ref).abs().max()) <= 1e-6
+    assert not out[0, :3].any()
+    c = w - 1 if flip[-1] else 0
+    assert float(out[-1, 3, 0, c]) == 1.0
+
+
+def test_pose_peaks_reject_bad_inputs(card):
+    from reid_gan_torch.ops.pose import render_pose_peaks
+
+    lm = torch.zeros((2, 18, 2), device=card)
+    s = torch.full((2,), 5.0, device=card)
+    e = torch.full((2,), -1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="sigma"):
+        render_pose_peaks(lm, s.double(), e, e, 16, 8)
+    with pytest.raises(ValueError, match="float32"):
+        render_pose_peaks(lm.double(), s, e, e, 16, 8)
+
+
+# ---------------------------------------------------------------------------
+# K14 fd_augment
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,h,w", [(9, 256, 128), (1, 64, 32), (4, 7, 5)])
+def test_fd_augment_matches_plain(card, n, h, w):
+    """K14 with the port's draws plus rectangles on the four borders and the
+    whole frame, each flipped and not: within 1e-6 (IEEE divisions in the
+    same order on both sides); channels_last float32."""
+    from reid_gan_torch.ops.transforms import (
+        fd_augment,
+        fd_augment_plain,
+        sample_fd_augment_params,
+    )
+
+    g = torch.Generator(device=card).manual_seed(n * h + w)
+    img = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8, device=card, generator=g)
+    p = sample_fd_augment_params(n, h, w, g)
+    edges = [(0, 0, h, 2), (0, w - 2, h, 2), (0, 0, 1, w), (h - 1, 0, 1, w), (0, 0, h, w)]
+    for i, (t, l, eh, ew) in enumerate(edges[:n]):
+        p[i, :6] = torch.tensor([1.0, t, l, eh, ew, i % 2], device=card)
+    out = fd_augment(img, p)
+    ref = fd_augment_plain(img, p)
+    torch.cuda.synchronize()
+    assert out.shape == (n, 3, h, w) and out.is_contiguous(memory_format=torch.channels_last)
+    assert float((out - ref).abs().max()) <= 1e-6
+
+
+def test_fd_augment_rejects_bad_inputs(card):
+    from reid_gan_torch.ops.transforms import fd_augment
+
+    img = torch.zeros((2, 8, 4, 3), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="params"):
+        fd_augment(img, torch.zeros((2, 10), device=card))
+    with pytest.raises(ValueError, match="uint8"):
+        fd_augment(img.float(), torch.zeros((2, 9), device=card))
