@@ -1,6 +1,7 @@
 """On-card smoke run of the PyTorch/CUDA port (``reid_gan_torch``).
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
+    python3 chip_smoke.py --k5-k6 ROOT   # K5 and K6 alone, of the package under ROOT
 
 Phases, each ended by ``torch.cuda.synchronize()``; any failure raises and
 the script exits non-zero without printing a result:
@@ -18,7 +19,11 @@ the script exits non-zero without printing a result:
    with exact ties; K4 ``train_augment`` at 256 x 256x128; K5 ``gem_pool``
    forward and backward (d map and dp) at (256, 2048, 16, 8); K6
    ``infonce`` forward and backward at B 256 x D 2048 against banks of 768
-   rows (700 live) and 30,720 rows (30,000 live); K7 ``bank_fold``, plain
+   rows (700 live) and 30,720 rows (30,000 live) (K5's and K6's forward and
+   backward timed apart through their autograd functions, each beside its
+   bound share; K6's bound takes its products at the 3xTF32 rate of the
+   tensor cores, and K6 stands beside cuBLAS's two fp32 products); K7
+   ``bank_fold``, plain
    and hard, on a 16 x 16 P×K batch; K8 ``knn_topk`` at Market-1501's train
    shape (12,936 x 2048), L2 with k 30 and inner product with k 15, once
    more with exact ties, and timed alone at MSMT17's 32,621 rows; K9
@@ -140,9 +145,13 @@ the script exits non-zero without printing a result:
    and K14 must have launched;
 14. a JSON line with every kernel's launches (the sum over the two whole
    joint loops, phases 9 and 10, and the FD-GAN chain, phase 13), error,
-   times and bound; K6's entry also carries its time with the extra
-   negatives (``ex_f_ms``), K3's its variants' (``variant_ms``), K8's its k
-   128 time (``k128_ms``);
+   times and bound; K5's and K6's entries carry ``forward_ms``,
+   ``backward_ms`` and ``autograd_ms`` (``ms`` is forward + backward;
+   ``autograd_ms`` adds autograd's accumulation into ``x.grad``), K6's
+   ``library_ms`` is cuBLAS's two fp32 products, and
+   K6's entry also carries its times with the extra negatives
+   (``ex_f_*``) and at 30,720 bank rows (``bank_30720_*``), K3's its
+   variants' (``variant_ms``), K8's its k 128 time (``k128_ms``);
 15. the last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -158,6 +167,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12         # H100 SXM dense TF32 on the tensor cores
 
 
 def device_ms(fn, reps=10, lead_cycles=20_000_000):
@@ -179,9 +189,9 @@ def device_ms(fn, reps=10, lead_cycles=20_000_000):
     return total / reps
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -396,40 +406,107 @@ def check_k5(report):
     e_out = float((out - ref).abs().max() / ref.abs().max())
     e_dx = float((dx - dx_r).abs().max() / dx_r.abs().max())
     e_dp = abs(float(dp) - float(dp_r)) / abs(float(dp_r))
-    # relative: powf against torch.pow and the sum order; dp: the kernel sums
-    # 524,288 terms in double, the plain autograd in fp32
+    # relative: lg2/ex2 against torch.pow and the sum order; dp: the kernel
+    # sums 524,288 terms in double, the plain autograd in fp32
     tol, tol_dp = 1e-5, 1e-3
     print(f"[K5] gem_pool: rel err forward {e_out:.3g}, d map {e_dx:.3g} "
           f"(tol {tol:.3g}), dp {e_dp:.3g} (tol {tol_dp:.3g}; dp {float(dp):.6g})")
     check(e_out <= tol and e_dx <= tol and e_dp <= tol_dp, "K5 differs from plain")
     x = fmap.detach().requires_grad_(True)
-    p = torch.tensor([3.0], device="cuda", requires_grad=True)
-    fwd = device_ms(lambda: gem_pool(x, p))
-    ms = device_ms(lambda: gem_pool(x, p).backward(gout))
-    plain = device_ms(lambda: gem_pool_plain(x, p).backward(gout))
-    b, by = bound_ms(4 * (3 * fmap.numel() + 4 * n * c), 8 * fmap.numel())
-    print(f"[K5] forward+backward ms {ms:.4f} (forward {fwd:.4f}) plain_ms "
-          f"{plain:.4f} bound_ms {b:.4f} ({by})")
-    report["gem_pool"] = dict(max_abs_err=float((dx - dx_r).abs().max()), ms=ms,
-                              plain_ms=plain, bound_ms=b, bound_by=by)
+    pp = torch.tensor([3.0], device="cuda", requires_grad=True)
+    t = _time_phases(lambda: gem_pool(x, pp), (x, pp), gout)
+    plain = device_ms(lambda: torch.autograd.grad(gem_pool_plain(x, pp), (x, pp), gout))
+    bf, _ = bound_ms(4 * (fmap.numel() + 2 * n * c), 4 * fmap.numel())
+    bb, _ = bound_ms(4 * (2 * fmap.numel() + 3 * n * c), 4 * fmap.numel())
+    fwd, bwd = t["forward_ms"], t["backward_ms"]
+    print(f"[K5] forward ms {fwd:.4f} bound_ms {bf:.4f} (bytes, {bf / fwd:.1%}); "
+          f"backward ms {bwd:.4f} bound_ms {bb:.4f} (bytes, {bb / bwd:.1%}); "
+          f"together {t['ms']:.4f} against {bf + bb:.4f} ({(bf + bb) / t['ms']:.1%}); "
+          f"autograd_ms (+ the x.grad accumulation) {t['autograd_ms']:.4f}; plain_ms "
+          f"{plain:.4f}; library: none (no PyTorch call computes GeM with a learned p)")
+    report["gem_pool"] = dict(max_abs_err=float((dx - dx_r).abs().max()), **t,
+                              plain_ms=plain, bound_ms=bf + bb, bound_by="bytes",
+                              library_ms=None)
+
+
+def _time_phases(fn, inputs, grad, reps=10):
+    """The forward and the backward of the autograd op ``fn()`` apart:
+    ``forward_ms`` is ``fn()`` on leaves that require a gradient,
+    ``backward_ms`` is ``torch.autograd.grad`` of its output on the saved
+    graph (no leaf's ``.grad`` is touched), ``ms`` their sum. ``autograd_ms``
+    is ``fn().backward(grad)`` on leaves that already hold a gradient, as a
+    training step runs it: it adds the accumulation into each ``.grad``."""
+    out = fn()
+    fwd = device_ms(fn, reps)
+    bwd = device_ms(lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True), reps)
+    auto = device_ms(lambda: fn().backward(grad), reps)
+    return dict(ms=fwd + bwd, forward_ms=fwd, backward_ms=bwd, autograd_ms=auto)
+
+
+def _k6_inputs(k_pad, nv, seed, t=0, group=16, b=256, d=2048):
+    from reid_gan_torch.ops.cluster_memory import init_memory
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.nn.functional.normalize(
+        torch.randn((nv, d), device="cuda", generator=g), dim=1)
+    state = init_memory(centers, k_pad=k_pad, device="cuda")
+    y = torch.randint(0, nv, (b,), device="cuda", generator=g, dtype=torch.int32)
+    x0 = centers[y.long()] + 0.05 * torch.randn((b, d), device="cuda", generator=g)
+    ex = (centers[y[::group].long()] + 0.05 * torch.randn((t, d), device="cuda", generator=g)
+          if t else None)
+    return state, y, x0, ex
+
+
+def _time_k6(label, state, y, x0, ex=None, group=16, reps=10):
+    """K6's forward and backward apart (``_time_phases``), its plain version
+    (forward + backward) and cuBLAS's two fp32 products alone
+    (``torch.matmul``, TF32 off, on the padded bank as the plain version
+    takes it). The bound of each phase: its bytes, or its product as the
+    kernel does it at fp32 accuracy, three TF32 products (3xTF32) on the
+    tensor cores; ``fp32_simt_bound_ms`` is the two products at the fp32
+    rate outside the tensor cores."""
+    from reid_gan_torch.ops.cluster_memory import memory_loss, memory_loss_plain
+
+    b, d = x0.shape
+    k_pad, nv = state.features.shape[0], int(state.num_valid)
+    t = 0 if ex is None else ex.shape[0]
+    gl = torch.full((b,), 1.0 / b, device="cuda")
+    x = x0.detach().requires_grad_(True)
+    times = _time_phases(lambda: memory_loss(x, y, state, ex_f=ex, group_size=group)[0],
+                         (x,), gl, reps)
+    plain = device_ms(lambda: torch.autograd.grad(
+        memory_loss_plain(x, y, state, ex_f=ex, group_size=group)[0], x, gl), reps)
+    rows = state.features if ex is None else torch.cat([state.features, ex])
+    dl = torch.randn((b, rows.shape[0]), device="cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cublas = device_ms(lambda: (torch.matmul(x0, rows.T), torch.matmul(dl, rows)), reps)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    flops = 2 * b * (nv + t) * d
+    io = (nv + t) * d + b * (k_pad + t)   # the live rows and the logits
+    bf, byf = bound_ms(4 * (b * d + io), 3 * flops, TF32_OPS_PER_S)
+    bb, byb = bound_ms(4 * (2 * b * d + io), 3 * flops, TF32_OPS_PER_S)
+    simt = 2 * flops / FP32_OPS_PER_S * 1e3
+    fwd, bwd, ms = times["forward_ms"], times["backward_ms"], times["ms"]
+    print(f"[K6] {label}: forward ms {fwd:.4f} bound_ms {bf:.4f} ({byf}, {bf / fwd:.1%}); "
+          f"backward ms {bwd:.4f} bound_ms {bb:.4f} ({byb}, {bb / bwd:.1%}); together "
+          f"{ms:.4f} against {bf + bb:.4f} ({(bf + bb) / ms:.1%}; fp32 SIMT bound "
+          f"{simt:.4f}, {simt / ms:.1%}); autograd_ms (+ the x.grad accumulation) "
+          f"{times['autograd_ms']:.4f}; plain_ms {plain:.4f}; cuBLAS's two fp32 "
+          f"products {cublas:.4f}")
+    return dict(**times, plain_ms=plain, bound_ms=bf + bb, bound_by=byf, library_ms=cublas,
+                fp32_simt_bound_ms=simt)
 
 
 def check_k6(report):
-    from reid_gan_torch.ops.cluster_memory import (
-        init_memory,
-        memory_loss,
-        memory_loss_plain,
-    )
+    from reid_gan_torch.ops.cluster_memory import memory_loss, memory_loss_plain
 
     b, d = 256, 2048
-    worst, timed = 0.0, None
+    worst, timed = 0.0, {}
     for k_pad, nv in ((768, 700), (30720, 30000)):
-        g = torch.Generator(device="cuda").manual_seed(k_pad)
-        centers = torch.nn.functional.normalize(
-            torch.randn((nv, d), device="cuda", generator=g), dim=1)
-        state = init_memory(centers, k_pad=k_pad, device="cuda")
-        y = torch.randint(0, nv, (b,), device="cuda", generator=g, dtype=torch.int32)
-        x0 = centers[y.long()] + 0.05 * torch.randn((b, d), device="cuda", generator=g)
+        state, y, x0, _ = _k6_inputs(k_pad, nv, k_pad)
 
         def run(fn, x0=x0, y=y, state=state):
             x = x0.detach().requires_grad_(True)
@@ -452,40 +529,22 @@ def check_k6(report):
         check(masked and e_l <= tol and e_loss <= tol and e_dx <= tol_dx,
               "K6 differs from plain")
         worst = max(worst, e_loss)
-        x = x0.detach().requires_grad_(True)
-        fwd = device_ms(lambda x=x, y=y, state=state: memory_loss(x, y, state))
-        ms = device_ms(lambda x=x, y=y, state=state:
-                       memory_loss(x, y, state)[0].mean().backward())
-        plain = device_ms(lambda x=x, y=y, state=state:
-                          memory_loss_plain(x, y, state)[0].mean().backward())
-        bnd, by = bound_ms(4 * (2 * b * d + nv * d + b * k_pad + 2 * b * d),
-                           2 * (2 * b * nv * d))
-        print(f"[K6] K_pad {k_pad}: forward+backward ms {ms:.4f} (forward "
-              f"{fwd:.4f}) plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
-        if timed is None:
-            timed = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+        timed[k_pad] = _time_k6(f"K_pad {k_pad}", state, y, x0,
+                                reps=10 if k_pad == 768 else 3)
     ex_err, ex_times = _check_k6_extra_negatives()
-    report["infonce"] = dict(max_abs_err=max(worst, ex_err), **timed, **ex_times)
+    report["infonce"] = dict(max_abs_err=max(worst, ex_err), **timed[768],
+                             **{f"ex_f_{k}": v for k, v in ex_times.items()},
+                             **{f"bank_30720_{k}": v for k, v in timed[30720].items()})
 
 
 def _check_k6_extra_negatives():
     """K6 with the hard-mix step's 16 extra negatives (groups of 16) at B
     256, D 2048, K_pad 768, num_valid 700: loss, logits and dx against the
-    plain version, and forward + backward ms."""
-    from reid_gan_torch.ops.cluster_memory import (
-        init_memory,
-        memory_loss,
-        memory_loss_plain,
-    )
+    plain version, and forward and backward ms."""
+    from reid_gan_torch.ops.cluster_memory import memory_loss, memory_loss_plain
 
     b, d, k_pad, nv, t, group = 256, 2048, 768, 700, 16, 16
-    g = torch.Generator(device="cuda").manual_seed(6)
-    centers = torch.nn.functional.normalize(
-        torch.randn((nv, d), device="cuda", generator=g), dim=1)
-    state = init_memory(centers, k_pad=k_pad, device="cuda")
-    y = torch.randint(0, nv, (b,), device="cuda", generator=g, dtype=torch.int32)
-    x0 = centers[y.long()] + 0.05 * torch.randn((b, d), device="cuda", generator=g)
-    ex = centers[y[::group].long()] + 0.05 * torch.randn((t, d), device="cuda", generator=g)
+    state, y, x0, ex = _k6_inputs(k_pad, nv, 6, t=t, group=group)
 
     def run(fn):
         x = x0.detach().requires_grad_(True)
@@ -512,17 +571,7 @@ def _check_k6_extra_negatives():
           f"(tol {tol_mask:.3g})")
     check(e_l <= tol and e_loss <= tol and e_dx <= tol_dx and e_mask <= tol_mask
           and tuple(logits.shape) == (b, k_pad + t), "K6 with ex_f differs from plain")
-    x = x0.detach().requires_grad_(True)
-    fwd = device_ms(lambda: memory_loss(x, y, state, ex_f=ex, group_size=group))
-    ms = device_ms(lambda: memory_loss(x, y, state, ex_f=ex, group_size=group)[0]
-                   .mean().backward())
-    plain = device_ms(lambda: memory_loss_plain(x, y, state, ex_f=ex, group_size=group)[0]
-                      .mean().backward())
-    bnd, by = bound_ms(4 * (2 * b * d + (nv + t) * d + b * (k_pad + t) + 2 * b * d),
-                       2 * (2 * b * (nv + t) * d))
-    print(f"[K6] ex_f: forward+backward ms {ms:.4f} (forward {fwd:.4f}) plain_ms "
-          f"{plain:.4f} bound_ms {bnd:.4f} ({by})")
-    return max(e_loss, e_l), dict(ex_f_ms=ms, ex_f_plain_ms=plain, ex_f_bound_ms=bnd)
+    return max(e_loss, e_l), _time_k6(f"ex_f T {t}", state, y, x0, ex, group)
 
 
 def check_k7(report):
@@ -824,10 +873,10 @@ PROFILE_GROUPS = (
     ("K1 eval_transform", ("eval_transform_kernel",)),
     ("K2 gem_bn_l2n", ("gem_bn_l2n_kernel",)),
     ("K4 train_augment", ("train_augment_kernel", "erase_fill_kernel")),
-    ("K5 gem_pool", ("gem_forward_kernel", "gem_backward_kernel",
-                     "sum_partials_kernel")),
-    ("K6 infonce", ("l2n_rows_kernel", "logits_kernel", "lse_loss_kernel",
-                    "dxh_kernel", "l2n_backward_kernel")),
+    ("K5 gem_pool", ("gem_pool_forward_kernel", "gem_pool_backward_kernel",
+                     "gem_pool_dp_kernel")),
+    ("K6 infonce", ("infonce_logits_kernel", "infonce_lse_kernel", "infonce_dl_kernel",
+                    "infonce_dxh_kernel", "infonce_l2n_backward_kernel")),
     ("K7 bank_fold", ("bank_fold_kernel",)),
     ("K9 gan_input", ("gan_input_kernel",)),
     ("K10 pose_maps", ("pose_maps_kernel",)),
@@ -2508,11 +2557,40 @@ def phase_fd_chain(counts, root, batch=256):
     print(f"[fd_chain] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
-def main():
+def time_k5_k6(root):
+    """``--k5-k6 ROOT``: phases 1 and 2's K5 and K6 only (checks and times),
+    on the ``reid_gan_torch`` package under ROOT, built from its sources.
+    ROOT may hold another commit (``git archive``), so that two commits run
+    in turns on one card, each in its own process, and are timed alike:
+    their public autograd functions, forward and backward apart. Prints one
+    JSON line of the two kernels' entries; no result line."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import reid_gan_torch
+
+    check(os.path.abspath(reid_gan_torch.__file__).startswith(root + os.sep),
+          f"imported {reid_gan_torch.__file__}, not the package under {root}")
+    phase_device()
+    report = {}
+    check_k5(report)
+    check_k6(report)
+    print(json.dumps({"root": root, **report}))
+    return 0
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k5-k6", metavar="ROOT",
+                    help="only check and time K5 and K6 of the package under ROOT")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    if args.k5_k6:
+        return time_k5_k6(args.k5_k6)
     from reid_gan_torch import kernels
 
     t_start = time.perf_counter()

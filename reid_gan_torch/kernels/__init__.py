@@ -158,10 +158,10 @@ class CudaKernel:
     and, for a kernel with a gradient, its backward entry
     (``kernel.backward(*args, device=)``). ``launches`` counts the calls of
     each phase that reached the card. ``scratch``: the symbol of the C query
-    that sizes the kernel's scratch, from int arguments."""
+    that sizes the kernel's scratch, from ``scratch_args`` int arguments."""
 
     def __init__(self, name, symbol, argtypes, source, replaces, backward=None,
-                 scratch=None):
+                 scratch=None, scratch_args=2):
         self.name = name
         self.source = source
         self.replaces = replaces
@@ -170,7 +170,7 @@ class CudaKernel:
             self.entries["backward"] = _Entry(*backward)
         self.launches = dict.fromkeys(self.entries, 0)
         self.scratch = None if scratch is None else _Entry(
-            scratch, [ctypes.c_int, ctypes.c_int], ctypes.c_longlong, stream=False)
+            scratch, [ctypes.c_int] * scratch_args, ctypes.c_longlong, stream=False)
 
     def scratch_size(self, *args):
         """Elements of scratch the C entry needs for these sizes."""
@@ -220,12 +220,12 @@ GEM_POOL = CudaKernel(
     scratch="reid_gem_pool_backward_scratch")
 INFONCE = CudaKernel(
     "infonce", "reid_infonce_forward",
-    [_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     source="reid_gan_torch/csrc/infonce.cu",
     replaces="reid_gan_tpu/ops/cluster_memory.py:58",
     backward=("reid_infonce_backward",
-              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P]),
-    scratch="reid_infonce_forward_scratch")
+              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _I, _P, _P]),
+    scratch="reid_infonce_scratch", scratch_args=5)
 BANK_FOLD = CudaKernel(
     "bank_fold", "reid_bank_fold",
     [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I],

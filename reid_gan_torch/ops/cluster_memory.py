@@ -120,59 +120,66 @@ def _infonce_forward_cuda(x, bank, num_valid, targets, temp, ex, group_size):
         if t == 0 or group_size < 1:
             raise ValueError("memory_loss: ex_f needs at least one row and "
                              "group_size >= 1")
-    xh = torch.empty_like(x)
+    if b == 0 or k + t == 0:
+        raise ValueError(f"memory_loss: needs at least one row of x and one "
+                         f"column of logits, got B {b}, K {k}, T {t}")
     rnorm = torch.empty(b, dtype=torch.float32, device=dev)
-    exh = torch.empty((t, d), dtype=torch.float32, device=dev)
+    rexn = torch.empty(t, dtype=torch.float32, device=dev)
     logits = torch.empty((b, k + t), dtype=torch.float32, device=dev)
-    scratch = INFONCE.scratch_size(b, k) + (INFONCE.scratch_size(b, t) if t else 0)
-    part_m = torch.empty(scratch, dtype=torch.float32, device=dev)
-    part_s = torch.empty_like(part_m)
+    part = torch.empty(INFONCE.scratch_size(b, k, t, d, 0), dtype=torch.float32,
+                       device=dev)
     lse = torch.empty(b, dtype=torch.float32, device=dev)
     loss = torch.empty(b, dtype=torch.float32, device=dev)
     INFONCE(x.data_ptr(), bank.data_ptr(), num_valid.data_ptr(),
             targets.data_ptr(), b, k, d, temp, ex.data_ptr() if t else None, t,
-            int(group_size), xh.data_ptr(), rnorm.data_ptr(),
-            exh.data_ptr() if t else None, logits.data_ptr(), part_m.data_ptr(),
-            part_s.data_ptr(), lse.data_ptr(), loss.data_ptr(), device=dev)
-    return loss, logits, xh, rnorm, exh, lse
+            int(group_size), rnorm.data_ptr(), rexn.data_ptr() if t else None,
+            logits.data_ptr(), part.data_ptr(), lse.data_ptr(), loss.data_ptr(),
+            device=dev)
+    if ex is None:
+        ex = x.new_empty((0, d))
+    return loss, logits, (x, rnorm, ex, rexn, lse)
 
 
-def _infonce_backward_cuda(xh, rnorm, bank, num_valid, targets, logits, lse,
-                           exh, grad, temp):
-    b, d = xh.shape
-    t = exh.shape[0]
+def _infonce_backward_cuda(saved, bank, num_valid, targets, logits, grad, temp):
+    """dL/dx from the forward's ``saved`` tensors (x, 1/|x|, the extra
+    negatives and their 1/|ex|, the row LSE)."""
+    x, rnorm, ex, rexn, lse = saved
+    b, d = x.shape
+    t = ex.shape[0]
     grad = grad.contiguous()
     if grad.dtype != torch.float32 or grad.shape != (b,):
         raise ValueError(f"memory_loss: the loss gradient must be ({b},) float32")
-    dxh = torch.empty_like(xh)
-    dx = torch.empty_like(xh)
-    INFONCE.backward(xh.data_ptr(), rnorm.data_ptr(), bank.data_ptr(),
+    k = bank.shape[0]
+    scratch = torch.empty(INFONCE.scratch_size(b, k, t, d, 1), dtype=torch.float32,
+                          device=x.device)
+    dx = torch.empty_like(x)
+    INFONCE.backward(x.data_ptr(), rnorm.data_ptr(), bank.data_ptr(),
                      num_valid.data_ptr(), targets.data_ptr(), logits.data_ptr(),
-                     lse.data_ptr(), grad.data_ptr(), b, bank.shape[0], d, temp,
-                     exh.data_ptr() if t else None, t, dxh.data_ptr(),
-                     dx.data_ptr(), device=xh.device)
+                     lse.data_ptr(), grad.data_ptr(), b, k, d, temp,
+                     ex.data_ptr() if t else None, rexn.data_ptr() if t else None, t,
+                     scratch.data_ptr(), dx.data_ptr(), device=x.device)
     return dx
 
 
 class _InfoNCE(torch.autograd.Function):
-    """K6 on the card: the forward kernel keeps x̂, 1/|x|, the normalised
-    extra negatives, the logits and the row LSE for the backward kernel.
-    ``ex`` (or None) gets no gradient."""
+    """K6 on the card: the forward kernel keeps 1/|x|, the extra negatives'
+    1/|ex|, the logits and the row LSE for the backward kernel, which takes
+    x and ex as they are. ``ex`` (or None) gets no gradient."""
 
     @staticmethod
     def forward(ctx, x, bank, num_valid, targets, temp, ex, group_size):
-        loss, logits, xh, rnorm, exh, lse = _infonce_forward_cuda(
+        loss, logits, saved = _infonce_forward_cuda(
             x, bank, num_valid, targets, temp, ex, group_size)
         ctx.temp = temp
-        ctx.save_for_backward(xh, rnorm, bank, num_valid, targets, logits, lse, exh)
+        ctx.save_for_backward(bank, num_valid, targets, logits, *saved)
         ctx.mark_non_differentiable(logits)
         return loss, logits
 
     @staticmethod
     def backward(ctx, grad, _grad_logits):
-        xh, rnorm, bank, num_valid, targets, logits, lse, exh = ctx.saved_tensors
-        dx = _infonce_backward_cuda(xh, rnorm, bank, num_valid, targets,
-                                    logits, lse, exh, grad, ctx.temp)
+        bank, num_valid, targets, logits, *saved = ctx.saved_tensors
+        dx = _infonce_backward_cuda(saved, bank, num_valid, targets, logits, grad,
+                                    ctx.temp)
         return dx, None, None, None, None, None, None
 
 

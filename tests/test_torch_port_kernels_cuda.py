@@ -3,9 +3,14 @@ edges that ``chip_smoke.py`` does not reach: element counts off the vector
 width, narrow and odd maps, galleries smaller than a block, queries with no
 match, rows with more matches than K3 stages in one round; crops and erase
 rectangles at the borders (K4); p other than 3, maps of zeros and odd
-sizes (K5); one live bank row, a full bank and banks off the column tile,
-and extra negatives (``ex_f``) of 1, 16 and 33 rows in groups of 1 and of
-the whole batch, against banks of 768 and 30,720 rows (K6); one label for the whole batch, all labels distinct and exact ties in
+sizes, one image, one position and positions and channels off the block's
+split (K5); one live bank row, a full bank and banks off the column tile,
+D under the tensor cores' depth and off the stage and the D slice,
+num_valid on and one past a tile, stage and slice edge, a bank of 30,720
+rows, and extra negatives (``ex_f``) of 1, 16 and 33 rows in groups of 1
+and of the whole batch, against banks of 768 and 30,720 rows (K6); the
+same bits on a second run (K5, K6); one label for the whole batch, all
+labels distinct and exact ties in
 the hard fold (K7); sets smaller than a tile, D off the stage and off the
 vector width, k of 1, 64, 65, 128, 256 and 300 (the register lists and the
 lists in scratch), exact ties and the inner product (K8); odd
@@ -201,12 +206,18 @@ def test_train_augment_rejects_bad_inputs(card):
     (3, 12, 3, 5, 2.5, False),       # odd map, C off the 512-channel block
     (2, 516, 7, 1, 4.0, False),      # one column, a second channel block
     (2, 64, 4, 4, 3.0, True),        # all zeros: every value clamps to eps
+    (1, 2048, 16, 8, 3.0, False),    # one image
+    (3, 132, 1, 1, 3.0, False),      # one position: one warp of the 8 works
+    (2, 260, 127, 1, 3.5, False),    # S off the 8-warp position split, C off 128
 ])
 def test_gem_pool_forward_backward_match_plain(card, n, c, h, w, p, zeros):
     """Forward, d map and dp against the plain version's autograd in fp64 on
-    the same fp32 inputs: pooled and d map within 1e-5 relative (powf and
-    the sum order), dp within 1e-4 relative (a sum of N*C differences of
-    terms of the size of ln eps, in double in the kernel)."""
+    the same fp32 inputs: pooled and d map within 1e-5 relative (lg2/ex2
+    and the sum order), dp within 1e-4 relative (a sum of N*C differences of
+    terms of the size of ln eps, in double in the kernel). With one
+    position GeM is the identity for every p, so dp is 0 and its two terms
+    cancel: there dp is held within 1e-6 of the size of the cancelled terms,
+    sum |g * out * ln(out) / p|."""
     from reid_gan_torch.models.pooling import gem_pool, gem_pool_plain
 
     gen = torch.Generator(device=card).manual_seed(c + h)
@@ -232,10 +243,37 @@ def test_gem_pool_forward_backward_match_plain(card, n, c, h, w, p, zeros):
     if zeros:
         assert float(fmap.grad.abs().max()) == 0.0
         assert abs(float(pp.grad) - float(p64.grad)) <= 1e-9
+    elif h * w == 1:
+        assert rel(fmap.grad, f64.grad) <= 1e-5
+        cancelled = float((gout.double() * ref * ref.log()).abs().sum()) / p
+        assert abs(float(pp.grad) - float(p64.grad)) <= 1e-6 * cancelled
     else:
         assert rel(fmap.grad, f64.grad) <= 1e-5
         assert abs(float(pp.grad) - float(p64.grad)) <= 1e-4 * abs(float(p64.grad))
     assert fmap.grad.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_gem_pool_gives_the_same_bits_run_to_run(card):
+    """K5 at the main path's shape twice: the pooled features, d map and dp
+    bit-equal (fixed-order sums, no atomics)."""
+    from reid_gan_torch.models.pooling import gem_pool
+
+    gen = torch.Generator(device=card).manual_seed(55)
+    fmap = torch.relu(torch.rand((256, 2048, 16, 8), device=card, generator=gen) * 2 - 0.6)
+    fmap = fmap.contiguous(memory_format=torch.channels_last)
+    gout = torch.randn((256, 2048), device=card, generator=gen) / 256
+
+    def run():
+        x = fmap.detach().requires_grad_(True)
+        p = torch.tensor([3.0], device=card, requires_grad=True)
+        out = gem_pool(x, p)
+        out.backward(gout)
+        return out.detach(), x.grad, p.grad
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +285,14 @@ def test_gem_pool_forward_backward_match_plain(card, n, c, h, w, p, zeros):
     (256, 2048, 768, 768),     # a full bank
     (20, 64, 100, 37),         # batch and bank off the tiles
     (33, 512, 64, 64),         # one column tile, a batch one past a row tile
+    (20, 4, 100, 37),          # D 4: under the tensor cores' depth of 8
+    (65, 36, 100, 64),         # D off the stage of 32; num_valid on a tile edge
+    (100, 512, 256, 65),       # num_valid one past a tile edge; two D slices
+    (33, 512, 64, 33),         # num_valid one past the backward's 32-row stage
+    (64, 1028, 128, 100),      # D off the forward's slice of 288
+    (256, 2048, 768, 192),     # num_valid on the backward's slice of 6 stages
+    (256, 2048, 768, 193),     # one past it
+    (256, 2048, 30720, 30000), # a large bank
 ])
 def test_memory_loss_matches_plain(card, b, d, k_pad, nv):
     """Loss, logits (−inf past num_valid) and dL/dx of the mean loss against
@@ -291,6 +337,12 @@ def test_memory_loss_rejects_bad_inputs(card):
     with pytest.raises(ValueError, match="ex_f"):
         memory_loss(torch.ones((2, 8), device=card), y, state,
                     ex_f=torch.ones((2, 4), device=card))
+    # no row of x, or no column of logits: the kernel would have an empty grid
+    with pytest.raises(ValueError, match="at least one row"):
+        memory_loss(torch.ones((0, 8), device=card), y[:0], state)
+    with pytest.raises(ValueError, match="at least one row"):
+        memory_loss(torch.ones((2, 8), device=card), y,
+                    state._replace(features=torch.zeros((0, 8), device=card)))
 
 
 @pytest.mark.parametrize("b,d,k_pad,nv,t,group", [
@@ -344,6 +396,36 @@ def test_memory_loss_extra_negatives_match_plain(card, b, d, k_pad, nv, t, group
     assert float(torch.where(masked, err / rex.abs(), 0.0).max()) <= 1e-6
     assert float((loss.double() - ref).abs().max()) <= 1e-4
     assert float((x.grad.double() - x64.grad).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("t", [0, 16])
+def test_memory_loss_gives_the_same_bits_run_to_run(card, t):
+    """K6 at the main path's shape (B 256, D 2048, 768 bank rows, 700 live),
+    without and with 16 extra negatives, twice: loss, logits and dL/dx
+    bit-equal (the D slices and the reduction slices are added in a fixed
+    order, no atomics)."""
+    from reid_gan_torch.ops.cluster_memory import init_memory, memory_loss
+
+    b, d, k_pad, nv = 256, 2048, 768, 700
+    g = torch.Generator(device=card).manual_seed(66)
+    centers = torch.nn.functional.normalize(
+        torch.randn((nv, d), device=card, generator=g), dim=1)
+    state = init_memory(centers, k_pad=k_pad, device=card)
+    y = torch.randint(0, nv, (b,), device=card, generator=g, dtype=torch.int32)
+    x0 = centers[y.long()] + 0.05 * torch.randn((b, d), device=card, generator=g)
+    ex = (centers[:t] + 0.05 * torch.randn((t, d), device=card, generator=g)
+          if t else None)
+
+    def run():
+        x = x0.detach().requires_grad_(True)
+        loss, logits = memory_loss(x, y, state, ex_f=ex, group_size=16)
+        loss.mean().backward()
+        return loss.detach(), logits, x.grad
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 # ---------------------------------------------------------------------------
