@@ -1,7 +1,9 @@
 """On-card smoke run of the PyTorch/CUDA port (``reid_gan_torch``).
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
-    python3 chip_smoke.py --k5-k6 ROOT   # K5 and K6 alone, of the package under ROOT
+    python3 chip_smoke.py --kernels K4,K14 ROOT   # the named kernels alone, of the
+                                                  # package under ROOT
+    python3 chip_smoke.py --k5-k6 ROOT   # the same as --kernels K5,K6 ROOT
 
 Phases, each ended by ``torch.cuda.synchronize()``; any failure raises and
 the script exits non-zero without printing a result:
@@ -16,7 +18,8 @@ the script exits non-zero without printing a result:
    device time, and the bound: K1 ``eval_transform`` and K2 ``gem_bn_l2n``
    at batch 256 of 256x128; K3 ``rank_stats`` at Market-1501's eval shape
    (3,368 queries x 15,913 gallery, 751 ids, 6 cameras, 2048-d), once more
-   with exact ties; K4 ``train_augment`` at 256 x 256x128; K5 ``gem_pool``
+   with exact ties; K4 ``train_augment`` at 256 x 256x128 (once more with
+   the erase flags zeroed, and the same bits on a second launch); K5 ``gem_pool``
    forward and backward (d map and dp) at (256, 2048, 16, 8); K6
    ``infonce`` forward and backward at B 256 x D 2048 against banks of 768
    rows (700 live) and 30,720 rows (30,000 live) (K5's and K6's forward and
@@ -39,7 +42,9 @@ the script exits non-zero without printing a result:
    128, 256 and 300 at 2,048 rows, L2 and inner product, with exact ties)
    and k 128 timed at 12,936 rows; K13 ``pose_peaks`` at (512, 18, 256,
    128) with σ 4, 5 and 6, erased channels, missing and corner joints and
-   flips; K14 ``fd_augment`` at 512 x 256x128;
+   flips; K14 ``fd_augment`` at 512 x 256x128 (the same bits on a second
+   launch). K4's and K14's lines carry a digest of the output bits, so that a
+   commit and its parent, run in turns by ``--kernels``, show equal bits;
 3. the eval main path: ``Evaluator(FeatureExtractor(resnet50)).evaluate``
    (the call ``cli/test.py`` makes) on an in-memory uint8 eval set made with
    numpy from a seed (1,024 queries + 3,072 gallery, 256x128, batch 256;
@@ -354,8 +359,28 @@ def check_k3(report):
                                 bound_ms=b, bound_by=by)
 
 
+def _digest(t):
+    """A short hash of a tensor's bytes, so that two processes (a commit and
+    its parent) can show that they wrote the same bits."""
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _same_bits(fn, out):
+    """``fn()`` once more on the same inputs writes the same bytes as ``out``."""
+    again = fn()
+    torch.cuda.synchronize()
+    return bool(torch.equal(again.view(torch.int32), out.view(torch.int32)))
+
+
 def check_k4(report):
+    """K4 at 256 x 256x128 with the port's draws: against the plain version,
+    once more with the erase flags zeroed (the weights and texels alone,
+    which the digest lets a parent's run match bit for bit), the same bits
+    on a second launch, then timed."""
     from reid_gan_torch.ops.transforms import (
+        ERASE,
         sample_augment_params,
         train_augment,
         train_augment_plain,
@@ -372,15 +397,23 @@ def check_k4(report):
     check(out.stride() == ref.stride(), "K4 layout differs from the plain version")
     err = float((out - ref).abs().max())
     tol = 1e-5   # the same fp32 arithmetic; the erase fill sums in another order
+    same = _same_bits(lambda: train_augment(u8, params, h, w), out)
+    no_erase = params.clone()
+    no_erase[:, ERASE] = 0
+    out0 = train_augment(u8, no_erase, h, w)
+    err0 = float((out0 - train_augment_plain(u8, no_erase)).abs().max())
     print(f"[K4] train_augment: max_abs_err {err:.3g} (tol {tol:.3g}); "
-          f"{int(params[:, 0].sum())} flips, {int(params[:, 5].sum())} erases")
-    check(err <= tol, f"K4 error {err} > {tol}")
+          f"{int(params[:, 0].sum())} flips, {int(params[:, 5].sum())} erases; "
+          f"erase off: max_abs_err {err0:.3g}, digest {_digest(out0)}; "
+          f"a second launch gives the same bits: {same}")
+    check(err <= tol and err0 <= tol, f"K4 error {err} / {err0} > {tol}")
+    check(same, "K4 wrote other bits on a second launch")
     ms = device_ms(lambda: train_augment(u8, params, h, w))
     plain = device_ms(lambda: train_augment_plain(u8, params))
     b, by = bound_ms(u8.numel() * (1 + 4) + params.numel() * 4, 20 * u8.numel())
-    print(f"[K4] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
-    report["train_augment"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                   bound_ms=b, bound_by=by)
+    print(f"[K4] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by}, {b / ms:.1%})")
+    report["train_augment"] = dict(max_abs_err=err, max_abs_err_erase_off=err0, ms=ms,
+                                   plain_ms=plain, bound_ms=b, bound_by=by)
 
 
 def check_k5(report):
@@ -882,6 +915,8 @@ PROFILE_GROUPS = (
     ("K10 pose_maps", ("pose_maps_kernel",)),
     ("K11 gan_feat_l2n", ("gan_feat_l2n_kernel",)),
     ("K12 diff_transform", ("diff_transform_kernel",)),
+    ("K13 pose_peaks", ("pose_peaks_kernel", "pose_peaks_vec_kernel")),
+    ("K14 fd_augment", ("fd_augment_kernel",)),
     ("batchnorm", ("bn_fw", "bn_bw", "batchnorm", "batch_norm")),
     ("host-to-device copy", ("Memcpy HtoD",)),
     ("Adam (multi-tensor)", ("multi_tensor_apply",)),
@@ -2101,7 +2136,8 @@ def check_k13(report):
 
 def check_k14(report):
     """K14 at 512 x 256x128 with the port's draws (about half erased, half
-    flipped)."""
+    flipped): against the plain version, the same bits on a second launch
+    (and, through the digest, as a parent's run), then timed."""
     from reid_gan_torch.ops.transforms import (
         fd_augment,
         fd_augment_plain,
@@ -2119,13 +2155,16 @@ def check_k14(report):
         memory_format=torch.channels_last).stride(), "K14 layout is not channels_last")
     err = float((out - ref).abs().max())
     tol = 1e-6   # IEEE divisions and the same order in both
+    same = _same_bits(lambda: fd_augment(u8, params), out)
     print(f"[K14] fd_augment {n}x{h}x{w}, {int(params[:, 0].sum())} erased, "
-          f"{int(params[:, 5].sum())} flipped: max_abs_err {err:.3g} (tol {tol:.3g})")
+          f"{int(params[:, 5].sum())} flipped: max_abs_err {err:.3g} (tol {tol:.3g}); "
+          f"digest {_digest(out)}; a second launch gives the same bits: {same}")
     check(err <= tol, f"K14 error {err} > {tol}")
+    check(same, "K14 wrote other bits on a second launch")
     ms = device_ms(lambda: fd_augment(u8, params))
     plain = device_ms(lambda: fd_augment_plain(u8, params))
     b, by = bound_ms(u8.numel() * (1 + 4) + 4 * params.numel(), 3 * u8.numel())
-    print(f"[K14] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
+    print(f"[K14] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by}, {b / ms:.1%})")
     report["fd_augment"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                                 bound_by=by)
 
@@ -2557,13 +2596,26 @@ def phase_fd_chain(counts, root, batch=256):
     print(f"[fd_chain] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
-def time_k5_k6(root):
-    """``--k5-k6 ROOT``: phases 1 and 2's K5 and K6 only (checks and times),
-    on the ``reid_gan_torch`` package under ROOT, built from its sources.
-    ROOT may hold another commit (``git archive``), so that two commits run
-    in turns on one card, each in its own process, and are timed alike:
-    their public autograd functions, forward and backward apart. Prints one
-    JSON line of the two kernels' entries; no result line."""
+# ``--kernels``: each kernel's checks, by its name in PERF.md
+KERNEL_CHECKS = {
+    "K1": (check_k1,), "K2": (check_k2,), "K3": (check_k3, check_k3_variants),
+    "K4": (check_k4,), "K5": (check_k5,), "K6": (check_k6,), "K7": (check_k7,),
+    "K8": (check_k8, check_k8_k_range), "K9": (check_k9,), "K10": (check_k10,),
+    "K11": (check_k11,), "K12": (check_k12,), "K13": (check_k13,), "K14": (check_k14,),
+}
+
+
+def time_kernels(names, root):
+    """``--kernels K4,K14 ROOT``: phases 1 and 2 for the named kernels only
+    (their checks against the plain versions and their times), on the
+    ``reid_gan_torch`` package under ROOT, built from its sources. ROOT may
+    hold another commit (``git archive``), so that two commits run in turns
+    on one card, each in its own process, and are timed alike through their
+    public wrappers. Prints one JSON line of the kernels' entries; no result
+    line."""
+    unknown = [k for k in names if k not in KERNEL_CHECKS]
+    check(names and not unknown, f"--kernels takes names among {', '.join(KERNEL_CHECKS)}; "
+          f"got {','.join(names)}")
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import reid_gan_torch
@@ -2572,8 +2624,9 @@ def time_k5_k6(root):
           f"imported {reid_gan_torch.__file__}, not the package under {root}")
     phase_device()
     report = {}
-    check_k5(report)
-    check_k6(report)
+    for name in names:
+        for fn in KERNEL_CHECKS[name]:
+            fn(report)
     print(json.dumps({"root": root, **report}))
     return 0
 
@@ -2582,15 +2635,19 @@ def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--k5-k6", metavar="ROOT",
-                    help="only check and time K5 and K6 of the package under ROOT")
+    ap.add_argument("--kernels", nargs=2, metavar=("NAMES", "ROOT"),
+                    help="only check and time the named kernels (e.g. K4,K14) of the "
+                         "package under ROOT")
+    ap.add_argument("--k5-k6", metavar="ROOT", help="the same as --kernels K5,K6 ROOT")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
     if args.k5_k6:
-        return time_k5_k6(args.k5_k6)
+        args.kernels = ("K5,K6", args.k5_k6)
+    if args.kernels:
+        return time_kernels(args.kernels[0].split(","), args.kernels[1])
     from reid_gan_torch import kernels
 
     t_start = time.perf_counter()

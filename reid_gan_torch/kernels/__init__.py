@@ -9,9 +9,11 @@ Nothing is built or imported from CUDA when this module is imported.
 
 Each kernel is a :class:`CudaKernel` with one C entry point, or two (forward
 and backward) for a kernel with a gradient: a call launches on the caller's
-stream, raises if the C function reports a CUDA error, and counts its
-launches per phase in plain integers (``launches``), so a run can show which
-kernels its path went through. A kernel that needs device scratch has a C
+stream, raises if the C function reports a CUDA error (a ValueError for
+``cudaErrorInvalidValue``, which a C entry returns for sizes it refuses, a
+RuntimeError for any other), and counts its launches per phase in plain
+integers (``launches``), so a run can show which kernels its path went
+through. A kernel that needs device scratch has a C
 query that returns its size (``scratch_size``), so its block geometry is
 stated in the source alone.
 """
@@ -30,6 +32,7 @@ _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC_DIR = osp.join(_PKG, "csrc")
 BUILD_DIR = osp.join(_PKG, "build")
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
+CUDA_ERROR_INVALID_VALUE = 1      # cudaErrorInvalidValue: sizes a C entry refuses
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas=-v")
 
@@ -149,8 +152,8 @@ class _Entry:
         with torch.cuda.device(device):
             rc = fn(*args, stream)
         if rc != 0:
-            raise RuntimeError(f"{self.symbol}: CUDA error {rc} "
-                               f"({lib.error_string(rc)})")
+            error = ValueError if rc == CUDA_ERROR_INVALID_VALUE else RuntimeError
+            raise error(f"{self.symbol}: CUDA error {rc} ({lib.error_string(rc)})")
 
 
 class CudaKernel:
@@ -209,7 +212,7 @@ TRAIN_AUGMENT = CudaKernel(
     [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F],
     source="reid_gan_torch/csrc/train_augment.cu",
     replaces="reid_gan_tpu/ops/transforms.py:152",
-    scratch="reid_train_augment_scratch")
+    scratch="reid_train_augment_scratch", scratch_args=1)
 GEM_POOL = CudaKernel(
     "gem_pool", "reid_gem_pool_forward",
     [_P, _P, _P, _P, _I, _I, _I, _F],

@@ -210,7 +210,7 @@ def _train_augment_cuda(img_u8, params):
     n, h, w, c = img_u8.shape
     out = torch.empty((n, c, h, w), dtype=torch.float32, device=img_u8.device,
                       memory_format=torch.channels_last)
-    partial = torch.empty(TRAIN_AUGMENT.scratch_size(n, h), dtype=torch.float32,
+    partial = torch.empty(TRAIN_AUGMENT.scratch_size(n), dtype=torch.float32,
                           device=img_u8.device)
     TRAIN_AUGMENT(img_u8.data_ptr(), params.data_ptr(), out.data_ptr(),
                   partial.data_ptr(), n, h, w, *IMAGENET_MEAN, *IMAGENET_STD,

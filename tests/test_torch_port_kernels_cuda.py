@@ -2,7 +2,9 @@
 edges that ``chip_smoke.py`` does not reach: element counts off the vector
 width, narrow and odd maps, galleries smaller than a block, queries with no
 match, rows with more matches than K3 stages in one round; crops and erase
-rectangles at the borders (K4); p other than 3, maps of zeros and odd
+rectangles at the borders, a 1 x 1 crop, every image flipped or none and
+erased or none, widths on and off the float4 and the 16-byte staging copy,
+one image and heights off the eight bands (K4); p other than 3, maps of zeros and odd
 sizes, one image, one position and positions and channels off the block's
 split (K5); one live bank row, a full bank and banks off the column tile,
 D under the tensor cores' depth and off the stage and the D slice,
@@ -19,8 +21,11 @@ corners (K10), channel counts off the warp stride and the vector width
 (K11), odd batches, frames and the rows next to the edge, whose taps are
 renormalised (K12); the all-shots rows and the separate camera set (K3);
 every σ, erased channels, missing and corner joints and flips on odd
-frames (K13); erase rectangles at the borders with flips, one image and
-odd frames (K14); and the raise on inputs a kernel does not take.
+frames (K13); erase rectangles at the borders with flips, every image
+flipped, none, or erased, widths on and off the float4 path, one image and
+odd frames (K14); the same bits on a second launch (K4, K14 as K5, K6); and
+the raise on inputs a kernel does not take, a C entry's size checks as a
+ValueError (K4, K14).
 
 Needs a CUDA card; skips without one. This file imports no JAX, so it runs
 on a machine without it, with the JAX test harness left out:
@@ -160,12 +165,33 @@ def test_rank_stats_variants_match_plain(card, sep, q, n, num_ids, ties, topk):
 # K4 train_augment
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,h,w", [(8, 32, 16), (3, 7, 5), (5, 256, 128)])
-def test_train_augment_matches_plain(card, n, h, w):
+def _set_draws(p, case, flip, erase):
+    """The draws of an augment case: as drawn, every image flipped or none,
+    every image erased or none (``flip`` and ``erase`` are the columns)."""
+    if case == "flip":
+        p[:, flip] = 1.0
+    elif case == "no_flip":
+        p[:, flip] = 0.0
+    elif case == "all_erased":
+        p[:, erase] = 1.0
+    elif case == "none_erased":
+        p[:, erase] = 0.0
+
+
+@pytest.mark.parametrize("case", ["drawn", "flip", "no_flip", "all_erased", "none_erased"])
+@pytest.mark.parametrize("n,h,w", [(8, 32, 16), (3, 7, 5), (5, 256, 128), (1, 40, 20),
+                                   (6, 9, 6)])
+def test_train_augment_matches_plain(card, n, h, w, case):
     """Random draws plus crops flush with the borders, the whole image, a
-    one-pixel erase and a whole-image erase: within 1e-5 (the same fp32
-    arithmetic; the fill mean sums in another order)."""
+    1 x 1 crop, a one-pixel erase and a whole-image erase, with every image
+    flipped or none and erased or none: within 1e-5 (the same fp32
+    arithmetic; the fill mean sums in another order), and the same bytes on
+    a second launch. Widths on and off the float4 (W % 4) and the 16-byte
+    staging copy (3W % 16), one image, and heights under, on and past the
+    eight bands an image and the chunk of 16 rows."""
     from reid_gan_torch.ops.transforms import (
+        ERASE,
+        FLIP,
         sample_augment_params,
         train_augment,
         train_augment_plain,
@@ -174,19 +200,29 @@ def test_train_augment_matches_plain(card, n, h, w):
     g = torch.Generator(device=card).manual_seed(n * h)
     u8 = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8, device=card, generator=g)
     p = sample_augment_params(n, h, w, g)
-    p[0, 1:5] = torch.tensor([0.0, 0.0, h * 0.7, w * 0.6])            # top-left
-    p[1, 1:5] = torch.tensor([h * 0.3, w * 0.4, h * 0.7, w * 0.6])    # bottom-right
-    p[2, 1:5] = torch.tensor([0.0, 0.0, float(h), float(w)])          # whole
+    crops = [[0.0, 0.0, h * 0.7, w * 0.6],                   # top-left
+             [h * 0.3, w * 0.4, h * 0.7, w * 0.6],           # bottom-right
+             [0.0, 0.0, float(h), float(w)],                  # whole
+             [h * 0.5, w * 0.5, 1.0, 1.0]]                    # 1 x 1
+    for i, crop in enumerate(crops[:n]):
+        p[i, 1:5] = torch.tensor(crop)
     p[0, 5:] = torch.tensor([1.0, h - 1.0, w - 1.0, 1.0, 1.0])        # one pixel
-    p[2, 5:] = torch.tensor([1.0, 0.0, 0.0, float(h), float(w)])      # whole image
+    if n > 2:
+        p[2, 5:] = torch.tensor([1.0, 0.0, 0.0, float(h), float(w)])  # whole image
+    _set_draws(p, case, FLIP, ERASE)
     out = train_augment(u8, p, h, w)
     ref = train_augment_plain(u8, p)
     torch.cuda.synchronize()
     assert out.shape == ref.shape and out.stride() == ref.stride()
     assert float((out - ref).abs().max()) <= 1e-5
+    again = train_augment(u8, p, h, w)
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
 
 
 def test_train_augment_rejects_bad_inputs(card):
+    """The wrapper's checks, and the C entry's size checks as a ValueError:
+    an empty batch, a width whose three staged rows do not fit in a block's
+    shared memory, and more images than the grid's y."""
     from reid_gan_torch.ops.transforms import train_augment
 
     u8 = torch.zeros((2, 8, 4, 3), dtype=torch.uint8, device=card)
@@ -195,6 +231,11 @@ def test_train_augment_rejects_bad_inputs(card):
         train_augment(u8.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3), p, 8, 4)
     with pytest.raises(ValueError, match="float32"):
         train_augment(u8, p.double(), 8, 4)
+    for n, h, w in [(0, 8, 4), (1, 8, 4096), (65536, 1, 1)]:
+        p = torch.zeros((n, 10), device=card)
+        p[:, 3:5] = torch.tensor([float(h), float(w)])
+        with pytest.raises(ValueError, match="reid_train_augment"):
+            train_augment(torch.zeros((n, h, w, 3), dtype=torch.uint8, device=card), p, h, w)
 
 
 # ---------------------------------------------------------------------------
@@ -742,12 +783,17 @@ def test_pose_peaks_reject_bad_inputs(card):
 # K14 fd_augment
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,h,w", [(9, 256, 128), (1, 64, 32), (4, 7, 5)])
-def test_fd_augment_matches_plain(card, n, h, w):
+@pytest.mark.parametrize("case", ["drawn", "flip", "no_flip", "all_erased"])
+@pytest.mark.parametrize("n,h,w", [(9, 256, 128), (1, 64, 32), (4, 7, 5), (5, 6, 8)])
+def test_fd_augment_matches_plain(card, n, h, w, case):
     """K14 with the port's draws plus rectangles on the four borders and the
-    whole frame, each flipped and not: within 1e-6 (IEEE divisions in the
-    same order on both sides); channels_last float32."""
+    whole frame, with every image flipped, none, or every image erased:
+    within 1e-6 (IEEE divisions in the same order on both sides; the table
+    holds the same quotients); channels_last float32; the same bytes on a
+    second launch. Widths on (the float4 path) and off W % 4, one image."""
     from reid_gan_torch.ops.transforms import (
+        FD_ERASE,
+        FD_FLIP,
         fd_augment,
         fd_augment_plain,
         sample_fd_augment_params,
@@ -759,14 +805,19 @@ def test_fd_augment_matches_plain(card, n, h, w):
     edges = [(0, 0, h, 2), (0, w - 2, h, 2), (0, 0, 1, w), (h - 1, 0, 1, w), (0, 0, h, w)]
     for i, (t, l, eh, ew) in enumerate(edges[:n]):
         p[i, :6] = torch.tensor([1.0, t, l, eh, ew, i % 2], device=card)
+    _set_draws(p, case, FD_FLIP, FD_ERASE)
     out = fd_augment(img, p)
     ref = fd_augment_plain(img, p)
     torch.cuda.synchronize()
     assert out.shape == (n, 3, h, w) and out.is_contiguous(memory_format=torch.channels_last)
     assert float((out - ref).abs().max()) <= 1e-6
+    again = fd_augment(img, p)
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
 
 
 def test_fd_augment_rejects_bad_inputs(card):
+    """The wrapper's checks, and the C entry's size check (an empty batch) as
+    a ValueError."""
     from reid_gan_torch.ops.transforms import fd_augment
 
     img = torch.zeros((2, 8, 4, 3), dtype=torch.uint8, device=card)
@@ -774,3 +825,5 @@ def test_fd_augment_rejects_bad_inputs(card):
         fd_augment(img, torch.zeros((2, 10), device=card))
     with pytest.raises(ValueError, match="uint8"):
         fd_augment(img.float(), torch.zeros((2, 9), device=card))
+    with pytest.raises(ValueError, match="reid_fd_augment"):
+        fd_augment(img[:0], torch.zeros((0, 9), device=card))
