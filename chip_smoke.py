@@ -29,10 +29,12 @@ the script exits non-zero without printing a result:
    ``bank_fold``, plain
    and hard, on a 16 x 16 P×K batch; K8 ``knn_topk`` at Market-1501's train
    shape (12,936 x 2048), L2 with k 30 and inner product with k 15, once
-   more with exact ties, and timed alone at MSMT17's 32,621 rows; K9
-   ``gan_input`` at 256 x 128x64; K10 ``pose_maps`` at (256, 18, 128, 64)
-   with missing joints, an image without joints and joints on the frame's
-   corners; K11 ``gan_feat_l2n`` at (256, 2048, 16, 8), beside
+   more with exact ties, and timed alone at MSMT17's 32,621 rows (its bound
+   both at the 3xTF32 rate of the tensor cores and as fp32 FMA, beside the
+   fp32 ``torch.matmul`` of the whole product as context, and its scratch
+   bytes); K9 ``gan_input`` at 256 x 128x64; K10 ``pose_maps`` at (256, 18,
+   128, 64) with missing joints, an image without joints and joints on the
+   frame's corners (the same bits on a second launch); K11 ``gan_feat_l2n`` at (256, 2048, 16, 8), beside
    ``F.normalize`` as its library time; K6 once more with the hard-mix
    step's 16 extra negatives (groups of 16) against the 768-row bank; K12
    ``diff_transform`` at (16, 3, 128, 64) -> 256x128, one image of -1/+1
@@ -43,8 +45,9 @@ the script exits non-zero without printing a result:
    and k 128 timed at 12,936 rows; K13 ``pose_peaks`` at (512, 18, 256,
    128) with σ 4, 5 and 6, erased channels, missing and corner joints and
    flips; K14 ``fd_augment`` at 512 x 256x128 (the same bits on a second
-   launch). K4's and K14's lines carry a digest of the output bits, so that a
-   commit and its parent, run in turns by ``--kernels``, show equal bits;
+   launch). K4's, K10's and K14's lines carry a digest of the output bits,
+   so that a commit and its parent, run in turns by ``--kernels``, show
+   equal bits;
 3. the eval main path: ``Evaluator(FeatureExtractor(resnet50)).evaluate``
    (the call ``cli/test.py`` makes) on an in-memory uint8 eval set made with
    numpy from a seed (1,024 queries + 3,072 gallery, 256x128, batch 256;
@@ -156,7 +159,10 @@ the script exits non-zero without printing a result:
    ``library_ms`` is cuBLAS's two fp32 products, and
    K6's entry also carries its times with the extra negatives
    (``ex_f_*``) and at 30,720 bank rows (``bank_30720_*``), K3's its
-   variants' (``variant_ms``), K8's its k 128 time (``k128_ms``);
+   variants' (``variant_ms``), K8's its k 128 time (``k128_ms``), its
+   time at 32,621 rows (``n32621_ms``), its fp32 FMA bound
+   (``bound_fp32_ms``) and the fp32 ``torch.matmul`` of the product alone
+   (``matmul_fp32_ms``, context, not a library version of K8);
 15. the last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -684,6 +690,24 @@ def _swap_gap(f, idx, pv, pi, metric):
     return rows, gap
 
 
+def _k8_bound(n, dim, k):
+    """K8's bound at N rows of D and k: the upper triangle's N (N + 1) / 2
+    products (the keys are symmetric: q.g = g.q, |q|^2 + |g|^2 = |g|^2 +
+    |q|^2), as 3xTF32 on the tensor cores (three products, as K6's), and the
+    same as fp32 FMA outside them. Returns (ms, bound_by, fp32 FMA ms)."""
+    nbytes, ops = 4 * (n * dim + 2 * n * k), n * (n + 1) * dim
+    b, by = bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S)
+    return b, by, bound_ms(nbytes, ops)[0]
+
+
+def _k8_scratch_bytes(n, k):
+    """The device scratch K8 allocates at N rows and k: the norms and its two
+    scratch buffers."""
+    from reid_gan_torch.kernels import KNN_TOPK
+
+    return 4 * (n + 2 * KNN_TOPK.scratch_size(n, k))
+
+
 def check_k8(report):
     """K8 against its plain version (row-blocked distances, stable sort) at
     Market-1501's train shape: L2 with k 30 (the Jaccard step) and inner
@@ -721,19 +745,20 @@ def check_k8(report):
     ms = device_ms(lambda: knn_topk_cuda(f, 30, "l2"))
     plain = device_ms(lambda: knn_search_plain(f, 30, "l2"))
     mm = device_ms(lambda: matmul_fp32(f, f.T), reps=3)
-    # the keys are symmetric (q.g = g.q, |q|^2 + |g|^2 = |g|^2 + |q|^2), so all
-    # N lists need only the N (N + 1) / 2 products of the upper triangle
-    b, by = bound_ms(4 * (n * dim + 2 * n * 30), n * (n + 1) * dim)
+    b, by, b_fp32 = _k8_bound(n, dim, 30)
     print(f"[K8] L2 k 30 at N {n}: ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} "
-          f"({by}); fp32 torch.matmul of the same product alone: {mm:.4f} ms "
-          f"(context, not a library version of K8)")
+          f"({by}, 3xTF32; {b_fp32:.4f} as fp32 FMA); fp32 torch.matmul of the same "
+          f"product alone: {mm:.4f} ms (context, not a library version of K8); "
+          f"scratch {_k8_scratch_bytes(n, 30)} bytes")
     n2 = 32621   # MSMT17's train set
     f2 = _train_features(g, n2)
     ms2 = device_ms(lambda: knn_topk_cuda(f2, 30, "l2"), reps=3)
-    b2, by2 = bound_ms(4 * (n2 * dim + 2 * n2 * 30), n2 * (n2 + 1) * dim)
-    print(f"[K8] L2 k 30 at N {n2}: ms {ms2:.4f} bound_ms {b2:.4f} ({by2})")
+    b2, by2, b2_fp32 = _k8_bound(n2, dim, 30)
+    print(f"[K8] L2 k 30 at N {n2}: ms {ms2:.4f} bound_ms {b2:.4f} ({by2}, 3xTF32; "
+          f"{b2_fp32:.4f} as fp32 FMA); scratch {_k8_scratch_bytes(n2, 30)} bytes")
     report["knn_topk"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b,
-                              bound_by=by)
+                              bound_by=by, bound_fp32_ms=b_fp32, matmul_fp32_ms=mm,
+                              n32621_ms=ms2, n32621_bound_ms=b2)
 
 
 def check_k9(report):
@@ -796,15 +821,18 @@ def check_k10(report):
     corners = [float(out[1, j, r, c]) for j, (r, c) in
                enumerate(((0, 0), (h - 1, w - 1), (0, w - 1), (h - 1, 0)))]
     tol = 1e-6   # expf against torch.exp: an ulp or two of values <= 1
+    same = _same_bits(lambda: batch_cords_to_map(cords, old_size, h, w), out)
     print(f"[K10] pose_maps {n}x{k}x{h}x{w}: max_abs_err {err:.3g} (tol {tol:.3g}); "
           f"{missing} missing joints, all-missing image zero: {zeros}, corner "
-          f"peaks {corners}")
+          f"peaks {corners}; digest {_digest(out)}, a second launch gives the same "
+          f"bits: {same}")
     check(err <= tol and zeros and corners == [1.0] * 4, "K10 differs from plain")
+    check(same, "K10 wrote other bits on a second launch")
     ms = device_ms(lambda: batch_cords_to_map(cords, old_size, h, w))
     plain = device_ms(lambda: batch_cords_to_map_plain(cords, old_size, h, w))
     b, by = bound_ms(4 * (out.numel() + cords.numel() + old_size.numel()),
                      10 * out.numel())
-    print(f"[K10] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
+    print(f"[K10] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by}, {b / ms:.1%})")
     report["pose_maps"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                                bound_by=by)
 
@@ -2084,9 +2112,11 @@ def check_k8_k_range(report):
     pv, pi = knn_search_plain(fm, 128, "l2")
     err = float(np.abs(vals - pv).max())
     check(err <= tol, f"K8 k 128 at N 12936: error {err}")
-    b, by = bound_ms(4 * (fm.numel() + 2 * 12936 * 128), 12936 * 12937 * 2048)
+    b, by, b_fp32 = _k8_bound(12936, 2048, 128)
     print(f"[K8] k 128 L2 at N 12936: vals max_abs_err {err:.3g}; ms {ms:.4f} plain_ms "
-          f"{plain:.4f} bound_ms {b:.4f} ({by})")
+          f"{plain:.4f} bound_ms {b:.4f} ({by}, 3xTF32; {b_fp32:.4f} as fp32 FMA); "
+          f"scratch {_k8_scratch_bytes(12936, 128)} bytes, at N 32621 k 300 "
+          f"{_k8_scratch_bytes(32621, 300)} bytes")
     report["knn_topk"].update(k128_ms=ms, k128_plain_ms=plain, k128_bound_ms=b)
 
 

@@ -25,9 +25,10 @@
 // ~4.5 us at 495 TFLOP/s, against ~9 MB of traffic (~3 us).
 //
 // Design. Both products run on the tensor cores with Hopper's wgmma
-// (m64n64k8, tf32) at fp32 accuracy by the 3xTF32 split: each operand a =
-// hi + lo with hi rounded to tf32, and a.b = lo.hi + hi.lo + hi.hi summed
-// in fp32 (the lo.lo term and lo's truncation are ~2^-21 of the product).
+// (m64n64k8, tf32) at fp32 accuracy by the 3xTF32 split (wgmma_tf32.cuh,
+// shared with K8): each operand a = hi + lo with hi rounded to tf32, and
+// a.b = lo.hi + hi.lo + hi.hi summed in fp32 (the lo.lo term and lo's
+// truncation are ~2^-21 of the product).
 // One tf32 pass would keep ~1e-3, which temp = 0.05 turns into logit errors
 // far above the 1e-4 that holds the kernel. A block is one warpgroup and
 // computes a 64x64 output tile. It walks the reduction in stages of 32
@@ -73,8 +74,17 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
+
+using reid::cp_async16;
+using reid::cp_async_commit;
+using reid::kCoreBytes;
+using reid::pin;
+using reid::smem_desc;
+using reid::split_tf32;
+using reid::wgmma_tf32;
 
 constexpr int kTile = 64;                  // output tile rows and columns
 constexpr int kBK = 32;                    // reduction depth of a stage
@@ -125,79 +135,11 @@ Plan make_plan(int B, int K, int T, int D) {
   return pl;
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 2));
-}
-
-// x = hi + lo: hi is x rounded to tf32 (half an ulp added to the 19 kept
-// bits, the low 13 cleared: two integer operations), lo = x - hi exactly;
-// the tensor cores read lo's top 19 bits, so lo keeps ~2^-21 of x.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// B's hi and lo parts of one stage in wgmma's no-swizzle K-major layout:
-// 8 x 8 core matrices of 8 rows (n) x 4 floats (k), each 128 contiguous
-// bytes, core (n / 8, k / 4) at ((n / 8) * 8 + k / 4) * 128 bytes.
-constexpr int kCoreBytes = 128;
+// B's hi and lo parts of one stage in wgmma's no-swizzle K-major layout
+// (wgmma_tf32.cuh): core (n / 8, k / 4) at ((n / 8) * 8 + k / 4) * 128 bytes.
 constexpr int kSplitFloats = kTile * kBK;                         // one part
 // ring of raw A and B tiles, then B's hi and lo parts
 constexpr int kSmemBytes = (kStages * 2 * kTile * kPadK + 2 * kSplitFloats) * 4;
-
-// wgmma's shared-memory matrix descriptor, no swizzle: the start address,
-// the byte step between core matrices along k (leading) and along n
-// (stride), each in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t k_step,
-                                              uint32_t n_step) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((k_step >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((n_step >> 4) & 0x3FFF) << 32);
-}
-
-// acc (the warpgroup's 64 x 64 tile) += A . B for k = 8: A's 16 x 8 slice of
-// this warp in registers (tf32 bits), B from shared memory.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// Keeps the compiler from moving or reusing these registers across the
-// asynchronous products that read and write them.
-__device__ __forceinline__ void pin(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
 
 // Splits one stage's raw B tile (K-major, n at Bs + n * kPadK) into its hi
 // and lo parts in the core-matrix layout. Eight neighbouring threads fill
@@ -257,7 +199,7 @@ __device__ __forceinline__ void ring_product(float (&acc)[32], SumSq& ss, float*
     cp_async_commit();
   }
   for (int j = 0; j < n; ++j) {
-    cp_async_wait_ring();
+    reid::cp_async_wait<kStages - 2>();
     __syncthreads();   // stage j has landed for all; slot (j - 1) is free
     const int next = j + kStages - 1, buf = j % kStages;
     if (next < n) {
@@ -266,7 +208,7 @@ __device__ __forceinline__ void ring_product(float (&acc)[32], SumSq& ss, float*
     }
     cp_async_commit();
     split_b((kTransposed ? first : second) + buf * kSlot, hi, lo, ss.b);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    reid::fence_proxy_async();
     __syncthreads();   // B's parts written and visible to the tensor cores
     uint32_t ah[4][4], al[4][4];
     const int m = warp * 16 + g;
@@ -287,7 +229,7 @@ __device__ __forceinline__ void ring_product(float (&acc)[32], SumSq& ss, float*
       for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[s][i], al[s][i]);
     }
     pin(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    reid::wgmma_fence();
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       // k = 8s .. 8s + 7 are the core matrices 2s and 2s + 1 of each n group
@@ -297,8 +239,8 @@ __device__ __forceinline__ void ring_product(float (&acc)[32], SumSq& ss, float*
       wgmma_tf32(acc, ah[s], bl);
       wgmma_tf32(acc, ah[s], bh);
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    reid::wgmma_commit();
+    reid::wgmma_wait<0>();
     pin(acc);
     pin(ah);
     pin(al);

@@ -1,12 +1,14 @@
 """Pairwise distances and the all-pairs kNN (port of
 ``reid_gan_tpu/ops/distance.py``).
 
-Every product runs in full fp32, as the JAX package's ``Precision.HIGHEST``:
+Every product is fp32-accurate, as the JAX package's ``Precision.HIGHEST``:
 TF32 keeps ~3 decimal digits and would reorder near-ties in the rankings
-that consume these blocks. ``knn_search`` is kernel K8 (``csrc/knn_topk.cu``)
-on a CUDA tensor: the product fused with a running top-k per row, so the
-N x N matrix never exists. Its plain version, ``knn_search_plain``, takes the
-row-blocked distance block and a stable sort; a CPU tensor takes it.
+that consume these blocks. The plain products run in full fp32 with TF32
+off (``matmul_fp32``). ``knn_search`` is kernel K8 (``csrc/knn_topk.cu``) on
+a CUDA tensor: the products of the upper triangle only, on the tensor cores
+at fp32 accuracy through 3xTF32, fused with a running top-k per row, so the
+N x N matrix never exists. Its plain version, ``knn_search_plain``, takes
+the row-blocked distance block and a stable sort; a CPU tensor takes it.
 """
 
 import numpy as np

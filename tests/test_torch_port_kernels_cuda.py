@@ -581,12 +581,16 @@ def test_update_memory_rejects_bad_inputs(card):
 # K8 knn_topk (knn_search)
 # ---------------------------------------------------------------------------
 
-def _knn_features(card, n, d, seed, ties=False):
+def _knn_features(card, n, d, seed, ties=False, first_copy=0):
+    """Unit rows from a seed; ``ties``: rounded to multiples of 2^-8, so every
+    key is exact on both sides (see chip_smoke._train_features), and every
+    row ``first_copy + 2 i + 1`` a copy of the row before it."""
     g = torch.Generator(device=card).manual_seed(seed)
     f = torch.nn.functional.normalize(torch.randn((n, d), device=card, generator=g), dim=1)
-    if ties:   # exact keys on both sides (see chip_smoke._train_features)
+    if ties:
         f = torch.round(f * 256) / 256
-        f[1::2] = f[0::2][:n // 2]
+        dst = f[first_copy + 1::2]
+        dst.copy_(f[first_copy::2][:dst.shape[0]])
     return f.contiguous()
 
 
@@ -606,6 +610,17 @@ def _knn_features(card, n, d, seed, ties=False):
     (2048, 36, 128, "l2", True),    # exact ties with the lists in scratch
     (4100, 36, 300, "ip", True),
     (300, 16, 300, "l2", False),    # k = N
+    (127, 64, 30, "l2", False),     # N about the 128-row tile: one tile,
+    (128, 64, 30, "ip", False),     # one whole tile, a tile and a row,
+    (129, 64, 30, "l2", False),     # three tiles (a mailbox step)
+    (129, 2048, 64, "ip", False),
+    (257, 64, 30, "ip", False),
+    (257, 2048, 100, "l2", False),
+    (1000, 12, 30, "l2", False),    # D a multiple of 4, not of 8
+    (1000, 20, 30, "ip", False),
+    (513, 132, 100, "l2", False),   # D off 8 with the lists in scratch
+    (257, 16, 257, "ip", False),    # k = N over three tiles
+    (640, 24, 640, "l2", False),    # k = N over five tiles: the pairs both ends compute
 ])
 def test_knn_search_matches_plain(card, n, d, k, metric, ties):
     """Values within 2e-5 of the plain version; where an index differs, the
@@ -637,9 +652,9 @@ def test_knn_search_matches_plain(card, n, d, k, metric, ties):
     assert (idx[:, 0] == range(n)).all()
 
 
-def test_knn_search_rejects_k_above_64(card):
-    """K8 serves every k up to N (65, above the register lists, launches);
-    k above N and k below 1 raise."""
+def test_knn_search_checks_k_bounds(card):
+    """K8 serves every k from 1 to N (64, the register lists, and 65, the
+    lists in scratch, launch); k above N and k below 1 raise."""
     from reid_gan_torch import kernels
     from reid_gan_torch.ops.distance import knn_search
 
@@ -652,6 +667,37 @@ def test_knn_search_rejects_k_above_64(card):
     knn_search(f, 64, "ip")
     knn_search(f, 65, "l2")
     assert kernels.launch_counts()["knn_topk"] == 2
+
+
+@pytest.mark.parametrize("n,k,metric", [(300, 30, "l2"), (300, 15, "ip"), (520, 100, "l2"),
+                                        (520, 130, "ip")])
+def test_knn_search_orders_ties_across_tiles(card, n, k, metric):
+    """Exact duplicates on both sides of every tile boundary (rows 127 and
+    128, 255 and 256, ...: every odd row copied to the even row after it), so
+    a tie reaches a row through the transposed side of a tile pair, after
+    the row's own tile: indices and values identical to the plain version,
+    the lower index first."""
+    from reid_gan_torch.ops.distance import knn_search, knn_search_plain
+
+    f = _knn_features(card, n, 36, seed=n + k, ties=True, first_copy=1)
+    assert torch.equal(f[127], f[128]) and torch.equal(f[255], f[256])
+    vals, idx = knn_search(f, k, metric)
+    pv, pi = knn_search_plain(f, k, metric)
+    assert (idx == pi).all() and (vals == pv).all()
+    assert list(idx[128, :2]) == [127, 128] and list(idx[127, :2]) == [127, 128]
+
+
+def test_knn_search_gives_the_same_bits_run_to_run(card):
+    """K8 at N 4,100 (33 tiles, 17 steps, mailboxes every step), D 2048 and
+    k 128 (the lists in scratch), twice: the same values and indices bit for
+    bit (the steps' order is fixed and no sum depends on timing)."""
+    from reid_gan_torch.ops.distance import knn_topk_cuda
+
+    f = _knn_features(card, 4100, 2048, seed=41)
+    first, second = knn_topk_cuda(f, 128, "l2"), knn_topk_cuda(f, 128, "l2")
+    torch.cuda.synchronize()
+    assert torch.equal(first[0].view(torch.int32), second[0].view(torch.int32))
+    assert torch.equal(first[1], second[1])
 
 
 @pytest.mark.parametrize("shape", [(1, 128, 64, 3), (3, 5, 7, 3), (257, 16, 8, 3)])
@@ -678,11 +724,13 @@ def test_gan_input_rejects_a_batch_off_the_gan_size(card):
                                         device=card), 128, 64)
 
 
-@pytest.mark.parametrize("n,k,h,w", [(3, 18, 128, 64), (1, 5, 7, 3), (33, 18, 16, 8)])
+@pytest.mark.parametrize("n,k,h,w", [(3, 18, 128, 64), (1, 5, 7, 3), (33, 18, 16, 8),
+                                     (3, 18, 9, 5), (3, 3, 3, 1100)])
 def test_pose_maps_match_plain(card, n, k, h, w):
-    """K10 at an odd batch and frames: joints missing in y, in x and in both,
-    one image with every joint missing (all-zero maps), joints at the
-    frame's corners (a peak of 1 there); within 1e-6."""
+    """K10 at an odd batch and frames (W off the float4 with H x W odd; a row
+    of more float4s than the block has threads): joints missing in y, in x
+    and in both, one image with every joint missing (all-zero maps), joints
+    at the frame's corners (a peak of 1 there); within 1e-6."""
     from reid_gan_torch.ops.pose import batch_cords_to_map, batch_cords_to_map_plain
 
     g = torch.Generator(device=card).manual_seed(n * k + h)
@@ -704,6 +752,21 @@ def test_pose_maps_match_plain(card, n, k, h, w):
     if n > 1:
         assert not out[1].any()
     assert float(out[-1, -1, 0, 0]) == 1.0 and float(out[-1, 0, h - 1, w - 1]) == 1.0
+
+
+@pytest.mark.parametrize("h,w", [(128, 64), (9, 5)])
+def test_pose_maps_give_the_same_bits_run_to_run(card, h, w):
+    """K10 twice on the same keypoints, on and off the float4 path: the same
+    bits."""
+    from reid_gan_torch.ops.pose import batch_cords_to_map
+
+    g = torch.Generator(device=card).manual_seed(h + w)
+    old = torch.tensor([[256.0, 128.0]], device=card).expand(16, 2).contiguous()
+    cords = (torch.rand((16, 18, 2), device=card, generator=g) * old[:, None, :]).contiguous()
+    cords[0, :3] = -1
+    first, second = (batch_cords_to_map(cords, old, h, w) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 @pytest.mark.parametrize("n,c,h,w", [(3, 516, 5, 3), (1, 12, 1, 1), (5, 7, 4, 2),
