@@ -15,8 +15,11 @@ the script exits non-zero without printing a result:
    ``scipy.sparse`` that the Jaccard step needs;
 2. every kernel against its plain PyTorch version at the main paths'
    shapes, with max error, tolerance, the kernel's and the plain version's
-   device time, and the bound: K1 ``eval_transform`` and K2 ``gem_bn_l2n``
-   at batch 256 of 256x128; K3 ``rank_stats`` at Market-1501's eval shape
+   device time, and the bound: K1 ``eval_transform`` at batch 256 of
+   256x128; K2 ``gem_bn_l2n`` at the extraction batch (256, 2048, 16, 8)
+   and the hard-mix re-encode's (16, 2048, 16, 8), the latter timed in L2
+   and after a flush of the L2, each with a digest and the same bits on a
+   second launch; K3 ``rank_stats`` at Market-1501's eval shape
    (3,368 queries x 15,913 gallery, 751 ids, 6 cameras, 2048-d), once more
    with exact ties; K4 ``train_augment`` at 256 x 256x128 (once more with
    the erase flags zeroed, and the same bits on a second launch); K5 ``gem_pool``
@@ -26,10 +29,12 @@ the script exits non-zero without printing a result:
    backward timed apart through their autograd functions, each beside its
    bound share; K6's bound takes its products at the 3xTF32 rate of the
    tensor cores, and K6 stands beside cuBLAS's two fp32 products); K7
-   ``bank_fold``, plain
-   and hard, on a 16 x 16 P×K batch; K8 ``knn_topk`` at Market-1501's train
-   shape (12,936 x 2048), L2 with k 30 and inner product with k 15, once
-   more with exact ties, and timed alone at MSMT17's 32,621 rows (its bound
+   ``bank_fold``, plain and hard, on a 16 x 16 P×K batch, the joint fold of
+   the feature and GAN banks in one launch, and one label 256 deep (each
+   run twice for the same bits; the main run checks the joint fold's one
+   launch); K8 ``knn_topk`` at Market-1501's train shape (12,936 x 2048),
+   L2 with k 30 and inner product with k 15, once more with exact ties,
+   and timed alone at MSMT17's 32,621 rows (its bound
    both at the 3xTF32 rate of the tensor cores and as fp32 FMA, beside the
    fp32 ``torch.matmul`` of the whole product as context, and its scratch
    bytes); K9 ``gan_input`` at 256 x 128x64; K10 ``pose_maps`` at (256, 18,
@@ -181,16 +186,19 @@ FP32_OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12         # H100 SXM dense TF32 on the tensor cores
 
 
-def device_ms(fn, reps=10, lead_cycles=20_000_000):
+def device_ms(fn, reps=10, lead_cycles=20_000_000, before=None):
     """Device time of ``fn`` per call, from CUDA events around each call.
     A sleep kernel ahead of each call keeps the card busy while the host
-    enqueues, so host launch overhead stays out of the measurement."""
+    enqueues, so host launch overhead stays out of the measurement.
+    ``before`` runs ahead of each call, outside the events (an L2 flush)."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
         torch.cuda._sleep(lead_cycles)
         start.record()
         fn()
@@ -267,29 +275,45 @@ def check_k1(report):
 
 
 def check_k2(report):
+    """K2 at the extraction batch (256 images) and at the hard-mix step's
+    re-encode of 16 images, both of 2048 x 16x8; the 16-image map timed in
+    L2 (its caller has just written it) and after a flush of the 50 MB L2."""
     from reid_gan_torch.models.pooling import gem_bn_l2n, gem_bn_l2n_plain
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    n, c, h, w = 256, 2048, 16, 8
-    fmap = torch.rand((n, c, h, w), device="cuda", generator=g) * 2.0
-    fmap = torch.relu(fmap - 0.3).contiguous(memory_format=torch.channels_last)
+    c, h, w = 2048, 16, 8
     p = torch.tensor([3.0], device="cuda")
     gamma = torch.rand(c, device="cuda", generator=g) + 0.5
     mean = torch.rand(c, device="cuda", generator=g) * 0.2
     var = torch.rand(c, device="cuda", generator=g) + 0.5
-    out = gem_bn_l2n(fmap, p, gamma, mean, var)
-    ref = gem_bn_l2n_plain(fmap, p, gamma, mean, var)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    tol = 1e-5   # unit vectors; powf vs torch.pow and the sum order
-    print(f"[K2] gem_bn_l2n: max_abs_err {err:.3g} (tol {tol:.3g})")
-    check(err <= tol, f"K2 error {err} > {tol}")
-    ms = device_ms(lambda: gem_bn_l2n(fmap, p, gamma, mean, var))
-    plain = device_ms(lambda: gem_bn_l2n_plain(fmap, p, gamma, mean, var))
-    b, by = bound_ms(4 * (fmap.numel() + 3 * c + 1 + n * c), 3 * fmap.numel())
-    print(f"[K2] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
-    report["gem_bn_l2n"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                bound_ms=b, bound_by=by)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    entry, worst = {}, 0.0
+    for n in (256, 16):
+        fmap = torch.rand((n, c, h, w), device="cuda", generator=g) * 2.0
+        fmap = torch.relu(fmap - 0.3).contiguous(memory_format=torch.channels_last)
+        run = lambda: gem_bn_l2n(fmap, p, gamma, mean, var)  # noqa: E731
+        out = run()
+        ref = gem_bn_l2n_plain(fmap, p, gamma, mean, var)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        tol = 1e-5   # unit vectors; lg2/ex2 against torch.pow and the sum order
+        same = _same_bits(run, out)
+        print(f"[K2] gem_bn_l2n N {n}: max_abs_err {err:.3g} (tol {tol:.3g}); the same "
+              f"bits on a second launch: {same}; digest {_digest(out)}")
+        check(err <= tol and same, f"K2 N {n}: error {err} > {tol} or bits differ")
+        worst = max(worst, err)
+        ms = device_ms(run)
+        plain = device_ms(lambda: gem_bn_l2n_plain(fmap, p, gamma, mean, var))
+        b, by = bound_ms(4 * (fmap.numel() + 3 * c + 1 + n * c), 3 * fmap.numel())
+        line = f"[K2] N {n}: ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})"
+        if n == 256:
+            entry.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+        else:
+            cold = device_ms(run, before=flush.zero_)
+            line += f"; after an L2 flush ms {cold:.4f}"
+            entry.update(n16_ms=ms, n16_flushed_ms=cold, n16_plain_ms=plain, n16_bound_ms=b)
+        print(line)
+    report["gem_bn_l2n"] = dict(max_abs_err=worst, **entry)
 
 
 def _market_block(g, ties):
@@ -614,6 +638,12 @@ def _check_k6_extra_negatives():
 
 
 def check_k7(report):
+    """K7 on a 16 x 16 P×K batch (plain, hard, and the joint fold of the
+    feature and GAN banks in one call) and on one label for the whole batch
+    (a 256-deep chain, more slots than the kernel stages at once), each
+    against the plain fold and run twice from the same bank for the same
+    bits; timed plain, joint and 256 deep."""
+    from reid_gan_torch import kernels
     from reid_gan_torch.ops.cluster_memory import (
         init_memory,
         update_memory,
@@ -624,30 +654,59 @@ def check_k7(report):
     b, d, nv, k_pad = 256, 2048, 700, 768
     centers = torch.nn.functional.normalize(
         torch.randn((nv, d), device="cuda", generator=g), dim=1)
+    gan_centers = torch.randn((nv, d), device="cuda", generator=g)
     ids = torch.randperm(nv, device="cuda", generator=g)[:16]
     y = ids.repeat_interleave(16)[torch.randperm(b, device="cuda", generator=g)]
     y = y.to(torch.int32).contiguous()
+    one = torch.full_like(y, int(ids[0]))
     x = centers[y.long()] + 0.3 * torch.randn((b, d), device="cuda", generator=g)
-    worst = 0.0
-    for hard in (False, True):
-        state = init_memory(centers, k_pad=k_pad, device="cuda")
-        ref = state._replace(features=state.features.clone())
-        update_memory(state, x, y, use_hard=hard, group_size=16)
-        update_memory_plain(ref, x, y, use_hard=hard)
+    gx = gan_centers[y.long()] + torch.randn((b, d), device="cuda", generator=g)
+    cases = {"plain (16 labels x 16)": (y, False, None),
+             "hard (16 labels x 16)": (y, True, None),
+             "joint, both banks (16 labels x 16)": (y, False, gx),
+             "one label, 256 deep": (one, False, None)}
+
+    def fresh(gan):
+        return init_memory(centers, k_pad=k_pad, device="cuda",
+                           gan_centroids=gan_centers if gan is not None else None)
+
+    worst, entry = 0.0, {}
+    for name, (yy, hard, gan) in cases.items():
+        state, ref, again = fresh(gan), fresh(gan), fresh(gan)
+        before = kernels.BANK_FOLD.launches["forward"]
+        update_memory(state, x, yy, use_hard=hard, gan_x=gan, group_size=16)
+        launches = kernels.BANK_FOLD.launches["forward"] - before
+        update_memory_plain(ref, x, yy, use_hard=hard, gan_x=gan)
+        update_memory(again, x, yy, use_hard=hard, gan_x=gan, group_size=16)
         torch.cuda.synchronize()
         err = float((state.features - ref.features).abs().max())
-        tol = 1e-6   # unit rows, fp32 sums in other orders
-        print(f"[K7] bank_fold {'hard' if hard else 'plain'} (16 labels x 16): "
-              f"max_abs_err {err:.3g} (tol {tol:.3g})")
-        check(err <= tol, f"K7 error {err} > {tol}")
+        gerr = float((state.gan_features - ref.gan_features).abs().max()) if gan is not None \
+            else 0.0
+        same = all(torch.equal(u.view(torch.int32), v.view(torch.int32))
+                   for u, v in zip(state, again) if u.dtype == torch.float32)
+        tol, gtol = 1e-6, 1e-5   # unit rows, fp32 sums in other orders
+        print(f"[K7] bank_fold {name}: max_abs_err {err:.3g} (tol {tol:.3g})"
+              + (f", GAN bank {gerr:.3g} (tol {gtol:.3g})" if gan is not None else "")
+              + f"; {launches} launch(es); the same bits on a second run: {same}")
+        check(err <= tol and gerr <= gtol and same, f"K7 {name}: error {err}, GAN bank "
+              f"{gerr} or bits differ")
         worst = max(worst, err)
-    state = init_memory(centers, k_pad=k_pad, device="cuda")
-    ms = device_ms(lambda: update_memory(state, x, y, group_size=16))
-    plain = device_ms(lambda: update_memory_plain(state, x, y), reps=3)
-    bnd, by = bound_ms(4 * (b * d + b + 2 * 16 * d), 10 * b * d)
-    print(f"[K7] plain fold ms {ms:.4f} plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by})")
-    report["bank_fold"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
-                               bound_ms=bnd, bound_by=by)
+        if gan is not None:
+            entry["joint_launches"] = launches
+    for key, (yy, gan, rows) in {"": (y, None, 1), "joint_": (y, gx, 2),
+                                 "deep256_": (one, None, 1)}.items():
+        state = fresh(gan)
+        ms = device_ms(lambda: update_memory(state, x, yy, gan_x=gan, group_size=16))
+        labels = len(torch.unique(yy))
+        bnd, by = bound_ms(4 * (rows * (b * d + 2 * labels * d) + b), 10 * rows * b * d)
+        entry.update({f"{key}ms": ms, f"{key}bound_ms": bnd})
+        if not key:
+            plain = device_ms(lambda: update_memory_plain(state, x, yy), reps=3)
+            entry.update(plain_ms=plain, bound_by=by)
+        print(f"[K7] {key or 'plain fold '}ms {ms:.4f}"
+              + (f" plain_ms {plain:.4f}" if not key else "")
+              + f" bound_ms {bnd:.4f} ({by})")
+    report["bank_fold"] = dict(max_abs_err=worst, **entry)
 
 
 def _train_features(g, n, ids=751, dim=2048, quantize=False):
@@ -2690,6 +2749,8 @@ def main(argv=None):
     check_k5(report)
     check_k6(report)
     check_k7(report)
+    check(report["bank_fold"]["joint_launches"] == 1,
+          "K7 did not fold both banks in one launch")
     check_k8(report)
     check_k9(report)
     check_k10(report)

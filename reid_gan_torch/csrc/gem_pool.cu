@@ -38,8 +38,12 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "sfu_math.cuh"
 
 namespace {
+
+using reid::ex2;
+using reid::lg2;
 
 constexpr int kGroups = 32;                  // float4 channel groups a block
 constexpr int kSplit = 8;                    // warps, each every 8th position
@@ -52,20 +56,6 @@ __device__ __forceinline__ float get(const float4& v, int k) {
 
 __device__ __forceinline__ void set(float4& v, int k, float f) {
   if (k == 0) v.x = f; else if (k == 1) v.y = f; else if (k == 2) v.z = f; else v.w = f;
-}
-
-// log2 and 2^x on the special-function unit (about 2 ulp; inputs here are
-// >= eps, so normal)
-__device__ __forceinline__ float lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Sums the kSplit warps' float4 of each lane in warp order; warp 0 gets it.

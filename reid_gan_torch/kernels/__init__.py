@@ -231,7 +231,7 @@ INFONCE = CudaKernel(
     scratch="reid_infonce_scratch", scratch_args=5)
 BANK_FOLD = CudaKernel(
     "bank_fold", "reid_bank_fold",
-    [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I],
     source="reid_gan_torch/csrc/bank_fold.cu",
     replaces="reid_gan_tpu/ops/cluster_memory.py:103")
 

@@ -245,16 +245,28 @@ def update_memory_plain(state, x, targets, momentum=0.2, use_hard=False,
     return state
 
 
-def _bank_fold_cuda(bank, x, targets, momentum, use_hard, normalize_x):
-    dev = bank.device
+def _bank_fold_cuda(state, x, targets, momentum, use_hard, gan_x):
+    bank, dev = state.features, state.features.device
     _check_rows(bank, "update_memory: the bank", dev)
     _check_rows(x, "update_memory: x", dev, bank.shape[1])
     _check_ids(targets, "update_memory: targets", x.shape[0], dev)
-    if bank.shape[1] > 4096:
-        raise ValueError(f"update_memory: D = {bank.shape[1]} > 4096")
-    BANK_FOLD(bank.data_ptr(), x.data_ptr(), targets.data_ptr(), x.shape[0],
-              bank.shape[0], bank.shape[1], float(momentum),
-              float(1.0 - momentum), int(use_hard), int(normalize_x), device=dev)
+    gan = None
+    if not use_hard and gan_x is not None and state.gan_features.shape[0] > 0:
+        gan = state.gan_features
+        _check_rows(gan, "update_memory: the GAN bank", dev)
+        _check_rows(gan_x, "update_memory: gan_x", dev, gan.shape[1])
+        if gan_x.shape[0] != x.shape[0]:
+            raise ValueError(f"update_memory: gan_x has {gan_x.shape[0]} rows, x "
+                             f"{x.shape[0]}")
+    for t in (bank, gan):
+        if t is not None and t.shape[1] > 4096:
+            raise ValueError(f"update_memory: D = {t.shape[1]} > 4096")
+    BANK_FOLD(bank.data_ptr(), x.data_ptr(),
+              None if gan is None else gan.data_ptr(),
+              None if gan is None else gan_x.data_ptr(), targets.data_ptr(),
+              x.shape[0], bank.shape[0], bank.shape[1],
+              0 if gan is None else gan.shape[0], 0 if gan is None else gan.shape[1],
+              float(momentum), float(1.0 - momentum), int(use_hard), device=dev)
 
 
 def update_memory(state, x, targets, momentum=0.2, use_hard=False, gan_x=None,
@@ -262,21 +274,18 @@ def update_memory(state, x, targets, momentum=0.2, use_hard=False, gan_x=None,
     """Momentum fold of the batch into the bank, in place, after the
     optimizer step (cm.py:29-31, CM_Hard cm.py:58-70, CM_gan cm.py:99-103;
     kernel K7 on the card). ``x`` is L2-normalised first, ``gan_x`` is
-    folded as it is. ``group_size`` (the sampler's instances per label)
-    is taken for the JAX signature's sake: the JAX function picks its order
-    of work by it, and the bank does not depend on it. The kernel walks each
-    label's slots in batch order. Returns ``state``."""
+    folded as it is, into the GAN bank in the same launch. ``group_size``
+    (the sampler's instances per label) is taken for the JAX signature's
+    sake: the JAX function picks its order of work by it, and the bank does
+    not depend on it. The kernel walks each label's slots in batch order.
+    Returns ``state``."""
     if not state.features.is_cuda:
         if state.features.device.type != "cpu":
             raise ValueError(f"update_memory: unsupported device "
                              f"{state.features.device}")
         return update_memory_plain(state, x, targets, momentum, use_hard, gan_x)
     with torch.no_grad():
-        targets = targets.to(torch.int32).contiguous()
-        _bank_fold_cuda(state.features, x.detach().contiguous(), targets,
-                        momentum, use_hard, normalize_x=True)
-        if not use_hard and gan_x is not None and state.gan_features.shape[0] > 0:
-            _bank_fold_cuda(state.gan_features, gan_x.detach().contiguous(),
-                            targets, momentum, use_hard=False,
-                            normalize_x=False)
+        _bank_fold_cuda(state, x.detach().contiguous(),
+                        targets.to(torch.int32).contiguous(), momentum, use_hard,
+                        None if gan_x is None else gan_x.detach().contiguous())
     return state

@@ -73,14 +73,7 @@ def test_eval_transform_rejects_a_misaligned_batch(card):
         eval_transform(flat[1:].view(2, 4, 2, 3), 4, 2)
 
 
-@pytest.mark.parametrize("n,c,h,w,p", [(3, 12, 5, 1, 3.2), (2, 2048, 16, 8, 1.0),
-                                       (5, 516, 3, 3, 4.5)])
-def test_gem_bn_l2n_matches_plain(card, n, c, h, w, p):
-    """Channel counts that leave threads idle or loop twice, a single
-    position column, and p = 1 (average pooling): unit vectors within 1e-5
-    (powf against torch.pow, and the sum order)."""
-    from reid_gan_torch.models.pooling import gem_bn_l2n, gem_bn_l2n_plain
-
+def _gem_bn_inputs(card, n, c, h, w, p):
     g = torch.Generator(device=card).manual_seed(c)
     fmap = torch.relu(torch.rand((n, c, h, w), device=card, generator=g) * 2 - 0.3)
     fmap = fmap.contiguous(memory_format=torch.channels_last)
@@ -88,10 +81,37 @@ def test_gem_bn_l2n_matches_plain(card, n, c, h, w, p):
     gamma = torch.rand(c, device=card, generator=g) + 0.5
     mean = torch.rand(c, device=card, generator=g) * 0.2
     var = torch.rand(c, device=card, generator=g) + 0.5
-    out = gem_bn_l2n(fmap, pp, gamma, mean, var)
-    ref = gem_bn_l2n_plain(fmap, pp, gamma, mean, var)
+    return fmap, pp, gamma, mean, var
+
+
+@pytest.mark.parametrize("n,c,h,w,p", [(3, 12, 5, 1, 3.2), (2, 2048, 16, 8, 1.0),
+                                       (5, 516, 3, 3, 4.5), (16, 2048, 16, 8, 3.0),
+                                       (1, 2048, 16, 8, 4.5), (2, 12288, 2, 2, 3.0)])
+def test_gem_bn_l2n_matches_plain(card, n, c, h, w, p):
+    """Channel counts under one chunk of 128 and with a partial last chunk
+    (C 12, 516), a single position column, p = 1 (average pooling) and 4.5,
+    the hard-mix step's 16 images and one image at full width, and the
+    widest C (96 chunks over a cluster of 16): unit vectors within 1e-5
+    (lg2/ex2 against torch.pow, and the sum order)."""
+    from reid_gan_torch.models.pooling import gem_bn_l2n, gem_bn_l2n_plain
+
+    args = _gem_bn_inputs(card, n, c, h, w, p)
+    out = gem_bn_l2n(*args)
+    ref = gem_bn_l2n_plain(*args)
     torch.cuda.synchronize()
     assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n,c,h,w", [(16, 2048, 16, 8), (5, 516, 3, 3)])
+def test_gem_bn_l2n_gives_the_same_bits_run_to_run(card, n, c, h, w):
+    """The cluster adds its blocks' partial norms in rank order: the same
+    bits on every launch."""
+    from reid_gan_torch.models.pooling import gem_bn_l2n
+
+    args = _gem_bn_inputs(card, n, c, h, w, 3.0)
+    first, second = gem_bn_l2n(*args), gem_bn_l2n(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 def test_gem_bn_l2n_rejects_an_nchw_map(card):
@@ -535,8 +555,10 @@ def _fold_inputs(card, b, d, k_pad, labels, seed):
 
 @pytest.mark.parametrize("case", ["one_label", "all_distinct", "pxk", "hard_tie"])
 def test_update_memory_matches_plain(card, case):
-    """Plain fold (feature and GAN banks) and hard fold against the plain
-    version on copies of the same bank: within 1e-6 on unit rows."""
+    """Plain fold (feature and GAN banks, in one launch) and hard fold
+    against the plain version on copies of the same bank: within 1e-6 on
+    unit rows."""
+    from reid_gan_torch import kernels
     from reid_gan_torch.ops.cluster_memory import update_memory, update_memory_plain
 
     b, d, k_pad = 256, 2048, 300
@@ -555,7 +577,9 @@ def test_update_memory_matches_plain(card, case):
         assert int(y[3]) == int(y[3 + 32])
     ref = state._replace(features=state.features.clone(),
                          gan_features=state.gan_features.clone())
+    before = kernels.BANK_FOLD.launches["forward"]
     update_memory(state, x, y, use_hard=hard, gan_x=None if hard else x * 3)
+    assert kernels.BANK_FOLD.launches["forward"] == before + 1
     update_memory_plain(ref, x, y, use_hard=hard, gan_x=None if hard else x * 3)
     torch.cuda.synchronize()
     assert float((state.features - ref.features).abs().max()) <= 1e-6
@@ -563,6 +587,47 @@ def test_update_memory_matches_plain(card, case):
     touched = torch.unique(y.long())
     norms = state.features[touched].norm(dim=1)
     assert float((norms - 1).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("d", [8, 2048, 4096])
+def test_update_memory_streams_a_label_past_the_staging(card, d):
+    """One label with 200 slots among others, more than the kernel stages at
+    once at any D (the rows stream in two alternating halves), and labels
+    outside the bank (-1 and K_pad + 5), which are skipped: against the
+    plain fold of the in-range slots, both banks."""
+    from reid_gan_torch.ops.cluster_memory import update_memory, update_memory_plain
+
+    b, k_pad = 256, 300
+    labels = [9 if i % 5 else (i * 7) % 40 for i in range(b)]
+    labels[3], labels[100], labels[201] = -1, k_pad + 5, -1
+    state, x, y = _fold_inputs(card, b, d, k_pad, labels, seed=d)
+    ref = state._replace(features=state.features.clone(),
+                         gan_features=state.gan_features.clone())
+    update_memory(state, x, y, gan_x=x * 3)
+    keep = (y >= 0) & (y < k_pad)
+    update_memory_plain(ref, x[keep], y[keep], gan_x=x[keep] * 3)
+    torch.cuda.synchronize()
+    assert float((state.features - ref.features).abs().max()) <= 1e-6
+    assert float((state.gan_features - ref.gan_features).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("hard", [False, True])
+def test_update_memory_gives_the_same_bits_run_to_run(card, hard):
+    """Two folds of the same batch from copies of the same banks write the
+    same bits (the sums are in a fixed order, no atomics)."""
+    from reid_gan_torch.ops.cluster_memory import update_memory
+
+    b, d, k_pad = 256, 2048, 300
+    labels = [(i * 37) % 16 * 17 for i in range(b)]
+    state, x, y = _fold_inputs(card, b, d, k_pad, labels, seed=5)
+    other = state._replace(features=state.features.clone(),
+                           gan_features=state.gan_features.clone())
+    gan_x = None if hard else x * 3
+    update_memory(state, x, y, use_hard=hard, gan_x=gan_x)
+    update_memory(other, x, y, use_hard=hard, gan_x=gan_x)
+    torch.cuda.synchronize()
+    for u, v in ((state.features, other.features), (state.gan_features, other.gan_features)):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
 
 
 def test_update_memory_rejects_bad_inputs(card):
