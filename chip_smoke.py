@@ -16,8 +16,11 @@ the script exits non-zero without printing a result:
 2. every kernel against its plain PyTorch version at the main paths'
    shapes, with max error, tolerance, the kernel's and the plain version's
    device time, and the bound: K1 ``eval_transform`` at batch 256 of
-   256x128; K2 ``gem_bn_l2n`` at the extraction batch (256, 2048, 16, 8)
-   and the hard-mix re-encode's (16, 2048, 16, 8), the latter timed in L2
+   256x128, to bf16 and to fp32, each timed beside its own bound, every
+   (channel, byte) value bit-equal to the float32 IEEE formula (bf16: its
+   rounding to nearest even) and the same bits on a second launch; K2
+   ``gem_bn_l2n`` at the extraction batch (256, 2048, 16, 8) and the
+   hard-mix re-encode's (16, 2048, 16, 8), the latter timed in L2
    and after a flush of the L2, each with a digest and the same bits on a
    second launch; K3 ``rank_stats`` at Market-1501's eval shape
    (3,368 queries x 15,913 gallery, 751 ids, 6 cameras, 2048-d), once more
@@ -43,16 +46,19 @@ the script exits non-zero without printing a result:
    ``F.normalize`` as its library time; K6 once more with the hard-mix
    step's 16 extra negatives (groups of 16) against the 768-row bank; K12
    ``diff_transform`` at (16, 3, 128, 64) -> 256x128, one image of -1/+1
-   extremes so the renormalised edge taps see full swings; K3's all-shots
-   rows and separate camera set at Market-1501's eval shape (a 1,024-query
-   chunk, distinct and with exact ties); K8 above its register lists (k 65,
+   extremes so the renormalised edge taps see full swings, against the
+   plain version and its fp64 arithmetic, edge rows and columns apart, and
+   the same bits on a second launch (K1 and K12 also time their wrappers'
+   host cost a call); K3's all-shots rows and separate camera set at
+   Market-1501's eval shape (a 1,024-query chunk, distinct and with exact
+   ties); K8 above its register lists (k 65,
    128, 256 and 300 at 2,048 rows, L2 and inner product, with exact ties)
    and k 128 timed at 12,936 rows; K13 ``pose_peaks`` at (512, 18, 256,
    128) with σ 4, 5 and 6, erased channels, missing and corner joints and
    flips; K14 ``fd_augment`` at 512 x 256x128 (the same bits on a second
-   launch). K4's, K10's and K14's lines carry a digest of the output bits,
-   so that a commit and its parent, run in turns by ``--kernels``, show
-   equal bits;
+   launch). K1's (each dtype), K4's, K10's, K12's and K14's lines carry a
+   digest of the output bits, so that a commit and its parent, run in turns
+   by ``--kernels``, show equal bits;
 3. the eval main path: ``Evaluator(FeatureExtractor(resnet50)).evaluate``
    (the call ``cli/test.py`` makes) on an in-memory uint8 eval set made with
    numpy from a seed (1,024 queries + 3,072 gallery, 256x128, batch 256;
@@ -208,6 +214,22 @@ def device_ms(fn, reps=10, lead_cycles=20_000_000, before=None):
     return total / reps
 
 
+def host_us(fn, reps=200, lead_cycles=200_000_000):
+    """Host time of one call of ``fn`` in microseconds: the calls are
+    enqueued behind a sleep kernel, so the card never waits for them and
+    their wall time is the host's alone (the wrapper, ctypes, the C entry,
+    the launch)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(lead_cycles)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
 def bound_ms(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
@@ -246,32 +268,78 @@ def phase_device():
             print(f"[ptxas] {line.strip()}")
 
 
+def k1_table(mean, std):
+    """numpy's float32 IEEE ``(b / 255 - mean[c]) / std[c]`` of every byte b
+    in every channel c, (3, 256), and its bf16 bits rounded to nearest even,
+    as int16."""
+    b = np.arange(256, dtype=np.float32)
+    table = np.stack([(b / np.float32(255) - np.float32(m)) / np.float32(s)
+                      for m, s in zip(mean, std)])
+    bits = table.view(np.uint32)
+    bf16 = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
+    return table, bf16.view(np.int16)
+
+
 def check_k1(report):
-    from reid_gan_torch.ops.transforms import eval_transform, eval_transform_plain
+    """K1 at batch 256 of 256x128 in both dtypes: against the plain version,
+    every (channel, byte) value bit-equal to the IEEE formula (the random
+    batch holds all 768), the same bits on a second launch, a digest of each
+    dtype's bits (equal between two versions that compute the same values),
+    then timed, each dtype beside its own bound."""
+    from reid_gan_torch.ops.transforms import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        eval_transform,
+        eval_transform_plain,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(1)
     u8 = torch.randint(0, 256, (256, 256, 128, 3), dtype=torch.uint8,
                        device="cuda", generator=g)
-    errs = {}
+    table, bf16_bits = k1_table(IMAGENET_MEAN, IMAGENET_STD)
+    chan = torch.arange(3, device="cuda").view(1, 1, 1, 3)
+    idx = u8.long()
+    want = {torch.float32: torch.from_numpy(table).cuda()[chan, idx].view(torch.int32),
+            torch.bfloat16: torch.from_numpy(bf16_bits).cuda()[chan, idx]}
+    del idx
+    errs, times = {}, {}
     for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2.0 ** -6)):
-        out = eval_transform(u8, 256, 128, dtype)
+        run = lambda dtype=dtype: eval_transform(u8, 256, 128, dtype)  # noqa: E731
+        out = run()
         ref = eval_transform_plain(u8, dtype)
         torch.cuda.synchronize()
         check(out.shape == ref.shape and out.stride() == ref.stride(),
               "K1 layout differs from the plain version")
         errs[dtype] = float((out.float() - ref.float()).abs().max())
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        exact = bool(torch.equal(out.permute(0, 2, 3, 1).view(bits), want[dtype]))
+        again = run()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(again.view(bits), out.view(bits)))
         # fp32: both divide in fp32 (torch's CUDA scalar division may
         # multiply by the reciprocal: 1 ulp). bf16: one bf16 step at |x| < 4
         # where an fp32 ulp crosses a rounding boundary.
         print(f"[K1] eval_transform {dtype}: max_abs_err {errs[dtype]:.3g} "
-              f"(tol {tol:.3g})")
+              f"(tol {tol:.3g}); every (channel, byte) bit-equal to the float32 IEEE "
+              f"formula{' rounded to bf16' if bits == torch.int16 else ''}: {exact}; "
+              f"the same bits on a second launch: {same}; digest {_digest(out.view(bits))}")
         check(errs[dtype] <= tol, f"K1 {dtype} error {errs[dtype]} > {tol}")
-    ms = device_ms(lambda: eval_transform(u8, 256, 128, torch.bfloat16))
-    plain = device_ms(lambda: eval_transform_plain(u8, torch.bfloat16))
-    b, by = bound_ms(u8.numel() * (1 + 2), 3 * u8.numel())
-    print(f"[K1] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
-    report["eval_transform"] = dict(max_abs_err=errs[torch.bfloat16], ms=ms,
-                                    plain_ms=plain, bound_ms=b, bound_by=by)
+        check(exact and same, f"K1 {dtype}: bits differ from the formula or run to run")
+        del out, ref, again
+        ms = device_ms(run)
+        plain = device_ms(lambda dtype=dtype: eval_transform_plain(u8, dtype))
+        b, by = bound_ms(u8.numel() * (1 + torch.finfo(dtype).bits // 8), 3 * u8.numel())
+        times[dtype] = (ms, plain, b, by)
+        print(f"[K1] {dtype}: ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by}, "
+              f"{b / ms:.1%})")
+    ms, plain, b, by = times[torch.bfloat16]
+    ms32, plain32, b32, _ = times[torch.float32]
+    host = host_us(lambda: eval_transform(u8, 256, 128, torch.bfloat16), reps=50)
+    print(f"[K1] host {host:.1f} us a call")
+    report["eval_transform"] = dict(max_abs_err=errs[torch.bfloat16], ms=ms, host_us=host,
+                                    plain_ms=plain, bound_ms=b, bound_by=by,
+                                    fp32_max_abs_err=errs[torch.float32], fp32_ms=ms32,
+                                    fp32_plain_ms=plain32, fp32_bound_ms=b32)
 
 
 def check_k2(report):
@@ -934,21 +1002,32 @@ def check_k12(report):
                torch.arange(w, device="cuda")[None]) % 2).float() * 2 - 1
     out = diff_transform(img, 2 * h, 2 * w)
     ref = diff_transform_plain(img, 2 * h, 2 * w)
+    ref64 = diff_transform_plain(img.double(), 2 * h, 2 * w)
     torch.cuda.synchronize()
     check(out.shape == ref.shape and out.stride() == ref.stride(),
           "K12 layout differs from the plain version")
     err = float((out - ref).abs().max())
-    edge = float((out - ref)[:, :, [0, 1, 2, -3, -2, -1]].abs().max())
+    err64 = float((out.double() - ref64).abs().max())
+    edges = [0, 1, 2, -3, -2, -1]
+    edge = max(float((out - ref)[:, :, edges].abs().max()),
+               float((out.double() - ref64)[:, :, edges].abs().max()),
+               float((out.double() - ref64)[:, :, :, edges].abs().max()))
+    same = _same_bits(lambda: diff_transform(img, 2 * h, 2 * w), out)
     tol = 5e-6   # ~20 fp32 ulps of the outputs: 16 taps in another order, then / std
     print(f"[K12] diff_transform ({n}, 3, {h}, {w}) -> ({2 * h}, {2 * w}) channels_last: "
-          f"max_abs_err {err:.3g}, edge rows {edge:.3g} (tol {tol:.3g})")
-    check(err <= tol, f"K12 error {err} > {tol}")
+          f"max_abs_err {err:.3g}, against fp64 {err64:.3g}, edge rows and columns "
+          f"{edge:.3g} (tol {tol:.3g}); the same bits on a second launch: {same}; "
+          f"digest {_digest(out)}")
+    check(max(err, err64, edge) <= tol, f"K12 error {max(err, err64, edge)} > {tol}")
+    check(same, "K12 wrote other bits on a second launch")
     ms = device_ms(lambda: diff_transform(img, 2 * h, 2 * w))
     plain = device_ms(lambda: diff_transform_plain(img, 2 * h, 2 * w))
+    host = host_us(lambda: diff_transform(img, 2 * h, 2 * w))
     b, by = bound_ms(4 * (img.numel() + out.numel()), 75 * out.numel())
-    print(f"[K12] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
-    report["diff_transform"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                                    bound_by=by)
+    print(f"[K12] ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} ({by}, {b / ms:.1%}); "
+          f"host {host:.1f} us a call")
+    report["diff_transform"] = dict(max_abs_err=err, max_abs_err_fp64=err64, ms=ms,
+                                    plain_ms=plain, bound_ms=b, bound_by=by, host_us=host)
 
 
 def _eval_set(seed=0, n_ids=256, n_query=1024, n_gallery=3072, h=256, w=128,

@@ -16,7 +16,7 @@ the file ``cli/fdgan_train --stage 1 --netE-pretrain`` reads. ``--debug``:
 ResNet-18, one epoch of 2 iterations. ``--resume`` reads the port's
 ``.pth.tar``; a flax ``.msgpack`` raises. Runs on the card unless
 ``--device cpu`` is given. ``--dataset cuhk03`` (``JsonDataset``) is not
-ported yet (ROADMAP A-1).
+ported yet (ROADMAP A: `JsonDataset`/CUHK03).
 """
 
 import argparse
@@ -46,7 +46,7 @@ def create_fd_dataset(cfg):
     if cfg.data.dataset in ("cuhk03", "json"):
         raise NotImplementedError(
             f"--dataset {cfg.data.dataset}: JsonDataset/CUHK03 are not ported yet "
-            "(ROADMAP A-1)")
+            "(ROADMAP A: `JsonDataset`/CUHK03)")
     return create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True)
 
 
@@ -65,8 +65,8 @@ def main(argv=None):
     device = resolve_device(ns.device)
     if cfg.train.resume.endswith(".msgpack"):
         raise NotImplementedError(
-            "--resume of a flax msgpack checkpoint is not ported yet (ROADMAP "
-            "A8); resume from the port's checkpoint.pth.tar")
+            "--resume of a flax msgpack checkpoint is not ported yet "
+            "(ROADMAP A: msgpack checkpoints); resume from the port's checkpoint.pth.tar")
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
     sys.stdout = logger
     try:

@@ -6,7 +6,7 @@ CC/examples/test.py:57-89): load a checkpoint → mAP/CMC.
 
 Runs on the card unless ``--device cpu`` is given. ``--resume-torch`` reads
 ``cli/train_usl``'s checkpoints. Not ported yet: ``--resume`` of a flax
-msgpack checkpoint (the serialization item, A8) and ``--dsbn`` (A8).
+msgpack checkpoint (ROADMAP A: msgpack checkpoints) and ``--dsbn`` (ROADMAP A: `--dsbn`).
 """
 
 import argparse
@@ -48,11 +48,12 @@ def main(argv=None):
     if ns.dsbn:
         raise NotImplementedError(
             "--dsbn is not ported yet: domain-specific BN checkpoints wait "
-            "for models/dsbn.py (ROADMAP A8)")
+            "for models/dsbn.py (ROADMAP A: `--dsbn`)")
     if cfg.train.resume:
         raise NotImplementedError(
             "--resume (flax msgpack checkpoint) is not ported yet: it waits "
-            "for utils/serialization.py (ROADMAP A8); use --resume-torch")
+            "for utils/serialization.py (ROADMAP A: msgpack checkpoints); use "
+            "--resume-torch")
 
     # Convolutions run in TF32 on the card (cudnn.allow_tf32 = True): the
     # input is already rounded to bf16, and the JAX package's convolutions

@@ -25,8 +25,9 @@ another pairing raises ``ValueError``.
 
 Not ported yet, and raising with their ROADMAP items:
 ``--cluster-with-gan-features`` (the confidence weights and the GAN-feature
-clustering, A6), ``--bipath`` and ``--learnable-memory`` (A6), ``--fp16`` (A9)
-and ``--resume`` of a flax msgpack checkpoint (A8).
+clustering), ``--bipath`` and ``--learnable-memory`` (the bip and
+learnable-memory modes), ``--fp16`` and ``--resume`` of a flax msgpack
+checkpoint.
 """
 
 import argparse
@@ -63,15 +64,17 @@ def _refuse_unported(cfg):
     unported = (
         (cfg.gan.cluster_with_gan_features,
          "--cluster-with-gan-features (compute_conf_weight and the GAN-feature "
-         "clustering) is not ported yet (ROADMAP A6)"),
+         "clustering) is not ported yet (ROADMAP A: GAN-feature clustering)"),
         (cfg.gan.bipath, "--bipath (the train_all_bip mode) is not ported yet "
-                         "(ROADMAP A6)"),
+                         "(ROADMAP A: bip and learnable-memory modes)"),
         (cfg.gan.learnable_memory, "--learnable-memory (the train_all_with_memory "
-                                   "mode) is not ported yet (ROADMAP A6)"),
-        (cfg.train.fp16, "--fp16 is not ported yet: bf16 parameters wait for "
-                         "ROADMAP A9"),
+                                   "mode) is not ported yet "
+                                   "(ROADMAP A: bip and learnable-memory modes)"),
+        (cfg.train.fp16, "--fp16 (bf16 parameters) is not ported yet "
+                         "(ROADMAP A: `--fp16`)"),
         (cfg.train.resume.endswith(".msgpack"),
-         "--resume of a flax msgpack checkpoint is not ported yet (ROADMAP A8); "
+         "--resume of a flax msgpack checkpoint is not ported yet "
+         "(ROADMAP A: msgpack checkpoints); "
          "resume from the port's checkpoint.pth.tar"),
     )
     for bad, msg in unported:

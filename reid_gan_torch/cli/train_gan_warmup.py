@@ -14,7 +14,8 @@ images of the train set alone (the ``only_gan`` loader, shuffled, batch
 which ``cli/train_gan_usl --continue-train`` loads. ``--continue-train``
 here starts from them too. Runs on the card unless ``--device cpu`` is
 given. ``--model-gen Pose`` raises ``ValueError`` (the joint trainer drives
-the pose generator); ``--fp16`` is not ported yet (ROADMAP A9).
+the pose generator); ``--fp16`` is not ported yet
+(ROADMAP A: `--fp16`).
 """
 
 import argparse
@@ -39,8 +40,8 @@ SECTIONS = ("data", "model", "optim", "cluster", "train", "gan")
 
 def _check(cfg):
     if cfg.train.fp16:
-        raise NotImplementedError("--fp16 is not ported yet: bf16 parameters wait "
-                                  "for ROADMAP A9")
+        raise NotImplementedError("--fp16 (bf16 parameters) is not ported yet "
+                                  "(ROADMAP A: `--fp16`)")
     if cfg.gan.model_gen == "Pose":
         raise ValueError("the GAN warm-up's standalone step trains the AE "
                          "generator (--model-gen AE); the joint trainer drives "
@@ -91,7 +92,7 @@ def run(cfg, dataset, device=None, image_cache=None):
         load_networks({"G": gan.net_G, "D": gan.net_D}, save_dir, cfg.gan.which_epoch)
 
     # the AE generator takes no keypoints; the pose generators' warm-up is
-    # not ported yet (ROADMAP A5)
+    # not ported yet (ROADMAP A: other generators and DPTN)
     pre = Preprocessor(list(dataset.train), mode="only_gan",
                        gan_height=cfg.data.gan_height, gan_width=cfg.data.gan_width,
                        cache="default" if image_cache is None else image_cache)

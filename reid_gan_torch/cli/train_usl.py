@@ -11,7 +11,7 @@ centroid bank), trains ``--iters`` P×K steps, and every ``--eval-step``
 epochs evaluates and writes ``checkpoint.pth.tar`` (and
 ``model_best.pth.tar``, which ``cli/test.py --resume-torch`` reads). Runs on
 the card unless ``--device cpu`` is given. Not ported yet: ``--resume`` of a
-flax msgpack checkpoint (ROADMAP A8) and ``--fp16`` (ROADMAP A9).
+flax msgpack checkpoint (ROADMAP A: msgpack checkpoints) and ``--fp16`` (ROADMAP A: `--fp16`).
 """
 
 import argparse
@@ -49,11 +49,12 @@ def main(argv=None):
     device = resolve_device(ns.device)
     if cfg.train.fp16:
         raise NotImplementedError(
-            "--fp16 is not ported yet: bf16 parameters wait for ROADMAP A9")
+            "--fp16 (bf16 parameters) is not ported yet "
+            "(ROADMAP A: `--fp16`)")
     if cfg.train.resume.endswith(".msgpack"):
         raise NotImplementedError(
-            "--resume of a flax msgpack checkpoint is not ported yet (ROADMAP "
-            "A8); resume from the port's checkpoint.pth.tar")
+            "--resume of a flax msgpack checkpoint is not ported yet "
+            "(ROADMAP A: msgpack checkpoints); resume from the port's checkpoint.pth.tar")
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
     sys.stdout = logger
     try:

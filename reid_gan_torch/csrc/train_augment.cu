@@ -58,6 +58,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "exact_div.cuh"
 
 namespace {
 
@@ -121,17 +122,10 @@ __device__ __forceinline__ float pick(int c, float a, float b, float d) {
   return c == 0 ? a : (c == 1 ? b : d);
 }
 
-// The quotient a / s, a = v - m, without a division: the product with
-// y = 1 / s rounded to nearest, corrected once by its exact remainder a - s q
-// (Markstein's step, fma). For the ImageNet std values this equals
-// __fdiv_rn(a, s) for every float a with 2^-40 <= |a| <= 1 and a = 0, checked
-// exhaustively (scripts/torch_exact_division.py); the normalised crop's a lies
-// in [-0.49, 0.6]. Three fp32 instructions where __fdiv_rn takes about ten,
-// one of them a quarter-rate MUFU.RCP.
+// (v - m) / s with y = 1 / s (exact_div.cuh); the normalised crop's v - m
+// lies in [-0.49, 0.6].
 __device__ __forceinline__ float normalise(float v, float m, float s, float y) {
-  const float a = __fsub_rn(v, m);
-  const float q = __fmul_rn(a, y);
-  return __fmaf_rn(__fmaf_rn(-s, q, a), y, q);
+  return reid::std_quotient(__fsub_rn(v, m), s, y);
 }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }

@@ -43,7 +43,7 @@ One ``train`` (AE hard-mix) step, G frozen (gan_trainers.py:91-139):
 
 The ``train_reid`` warm-up step is the USL step (``ClusterContrastTrainer``).
 The ``train_all_bip`` and ``train_all_with_memory`` modes are not ported yet
-(ROADMAP A6).
+(ROADMAP A: bip and learnable-memory modes).
 """
 
 import time
@@ -192,7 +192,7 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         gs.opt_G.step()
         self._mark("Adam (encoder, G)")
         # the parallel GAN bank (gan_x) is empty on this path: it comes with
-        # the GAN-feature clustering (ROADMAP A6)
+        # the GAN-feature clustering (ROADMAP A: GAN-feature clustering)
         update_memory(state.memory, f_out.detach(), targets, momentum=self.momentum,
                       use_hard=self.use_hard, group_size=self.num_instances)
         self._mark("bank fold (K7)")
@@ -222,7 +222,8 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         the epoch's mean of each loss)."""
         if mode not in MODES:
             raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (ROADMAP A6); the port runs "
+                f"mode {mode!r} is not ported yet (ROADMAP A: bip and learnable-memory modes); "
+                f"the port runs "
                 f"{MODES}")
         meters = {}
         batch_time, data_time = AverageMeter(), AverageMeter()

@@ -83,7 +83,7 @@ def extract_train_features(extractor, train_set, height, width, batch_size=256,
     if getattr(extractor, "extra", False):
         raise NotImplementedError(
             "clustering on GAN features is not ported yet: it comes with the "
-            "joint GAN slice (ROADMAP A6)")
+            "joint GAN slice (ROADMAP A: GAN-feature clustering)")
     pre = Preprocessor(train_set, mode="reid", height=height, width=width, cache=cache)
     loader = DataLoader(pre, batch_size=batch_size, drop_last=False, num_workers=workers)
     features, _ = extract_features(extractor, loader, print_freq=1 << 30)

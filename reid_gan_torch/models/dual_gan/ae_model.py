@@ -18,7 +18,7 @@ JAX functions:
 
 ``hard_mix`` and ``synthesize_fc`` make the AE hard-mix mode's negatives;
 ``optimize_parameters`` is the standalone D→G step of the GAN warm-up.
-Not ported yet (ROADMAP A6): ``synthesize_mix_p``; ``use_vgg`` raises.
+Not ported yet (ROADMAP A: GAN-feature clustering): ``synthesize_mix_p``; ``use_vgg`` raises.
 """
 
 from typing import Any, NamedTuple
@@ -73,7 +73,7 @@ class AEModel:
                  reid_feat_dim=2048, device=None):
         if cfg.use_vgg:
             raise NotImplementedError("use_vgg: the VGG19 perceptual loss is not "
-                                      "ported yet (ROADMAP A5)")
+                                      "ported yet (ROADMAP A: other generators and DPTN)")
         self.cfg = cfg
         self.h, self.w = gan_height, gan_width
         self.reid_feat_dim = reid_feat_dim

@@ -21,7 +21,7 @@ differ:
 
 Only what ``PoseGenerator1``, ``AEGenerator`` and ``ResDiscriminator`` use
 is here; ``ResUP12Block``, ``FeatureAdaptBlock`` and ``AutoAttn`` are not
-ported yet (ROADMAP A5).
+ported yet (ROADMAP A: other generators and DPTN).
 """
 
 import torch
@@ -121,12 +121,14 @@ class SpectralConvTranspose(_SpectralMixin, nn.Module):
 
 def make_norm(norm, c):
     """'batch' | 'instance' | 'none' → module or None (base_function.py:
-    102-113). Instance norm is not ported yet (ROADMAP A5)."""
+    102-113). Instance norm is not ported yet
+    (ROADMAP A: other generators and DPTN)."""
     if norm == "batch":
         return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
     if norm == "none" or norm is None:
         return None
-    raise NotImplementedError(f"norm {norm!r} is not ported yet (ROADMAP A5)")
+    raise NotImplementedError(f"norm {norm!r} is not ported yet "
+                              "(ROADMAP A: other generators and DPTN)")
 
 
 def _apply(norm, x):

@@ -1,7 +1,7 @@
 """Multi-mode GAN loss and the WGAN-GP gradient penalty (port of
 ``reid_gan_tpu/models/dual_gan/external_function.py:17-63``; parity:
 CC/dual_gan/models/external_function.py:14-104). ``VGG19``/``VGGLoss`` are
-not ported yet (ROADMAP A5): the engine raises on ``use_vgg``.
+not ported yet (ROADMAP A: other generators and DPTN): the engine raises on ``use_vgg``.
 """
 
 import torch

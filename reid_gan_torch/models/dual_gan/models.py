@@ -15,7 +15,8 @@ _MODEL_DEFAULTS = {
 
 def find_model_using_name(name):
     if name == "DPTN":
-        raise NotImplementedError("the DPTN engine is not ported yet (ROADMAP A8)")
+        raise NotImplementedError("the DPTN engine is not ported yet "
+                                  "(ROADMAP A: other generators and DPTN)")
     if name not in _MODELS:
         raise KeyError(f"unknown dual_gan model {name}; options: {list(_MODELS)}")
     return _MODELS[name]

@@ -183,8 +183,8 @@ def define_G(model_gen="Pose", image_nc=3, pose_nc=18, ngf=64, img_f=256,
                            use_spect, output_nc)
     if model_gen in ("DEC", "FD", "PoseAE", "DPTN"):
         raise NotImplementedError(
-            f"generator {model_gen!r} is not ported yet (ROADMAP A5); the port "
-            "runs --model-gen Pose and AE")
+            f"generator {model_gen!r} is not ported yet (ROADMAP A: other generators and DPTN); "
+            "the port runs --model-gen Pose and AE")
     raise ValueError(f"generator {model_gen} not implemented")
 
 

@@ -8,7 +8,7 @@ package (row-major over (H, W)). The attention is flax's
 k, v projections with bias, the query scaled by 1/sqrt(head_dim), the
 softmax over keys, an output projection with bias. ``_SeqNorm('batch')`` is
 BatchNorm over the B·L tokens of each channel. ``PTM`` (DPTN) is not ported
-yet (ROADMAP A5).
+yet (ROADMAP A: other generators and DPTN).
 """
 
 import math
@@ -21,13 +21,14 @@ from .base_function import get_nonlinearity
 
 class _SeqNorm(nn.Module):
     """BatchNorm1d over the (B·L) tokens of (B, L, C) (ptm.py:26-48);
-    instance norm is not ported yet (ROADMAP A5)."""
+    instance norm is not ported yet
+    (ROADMAP A: other generators and DPTN)."""
 
     def __init__(self, c, norm="batch", affine=True):
         super().__init__()
         if norm != "batch":
             raise NotImplementedError(f"sequence norm {norm!r} is not ported yet "
-                                      "(ROADMAP A5)")
+                                      "(ROADMAP A: other generators and DPTN)")
         self.bn = nn.BatchNorm1d(c, eps=1e-5, momentum=0.1, affine=affine)
 
     def forward(self, x):

@@ -15,8 +15,8 @@ device, so no call waits on the card.
 
 Unlike the JAX function, ``update_memory`` updates the bank in place (the
 JAX function returns a new state): that saves a copy of the bank per step.
-The gradient-memory functions (cm.py:140-193) are not ported yet (ROADMAP
-A6).
+The gradient-memory functions (cm.py:140-193) are not ported yet
+(ROADMAP A: bip and learnable-memory modes).
 """
 
 from typing import NamedTuple

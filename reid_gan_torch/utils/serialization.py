@@ -5,7 +5,8 @@ to ``model_best.pth.tar``, the file ``cli/test.py --resume-torch`` reads;
 and the GAN nets' per-net layout ``{which_epoch}_net_{name}.pth`` (parity:
 CC/dual_gan/models/base_model.py:94-161). The JAX package writes flax
 msgpack instead (``reid_gan_tpu/utils/serialization.py:31-60,94-115``);
-reading one here is not ported (ROADMAP A8).
+reading one here is not ported
+(ROADMAP A: msgpack checkpoints).
 """
 
 import os

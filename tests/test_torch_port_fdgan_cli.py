@@ -140,7 +140,7 @@ def test_fdgan_clis_chain_through_their_checkpoints(tmp_path):
     assert "G: " in last and "nan" not in last
     assert m2.stage == 2 and len(m2.opt_G.param_groups[0]["params"]) > \
         len(list(m2.net_G.parameters()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A-1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A: `JsonDataset`/CUHK03"):
         fdgan_train.main(["--dataset", "cuhk03", "--device", "cpu",
                           "--logs-dir", str(tmp_path / "x")])
     assert torch.isfinite(next(m2.net_G.parameters())).all()

@@ -93,11 +93,13 @@ def test_save_and_load_networks_round_trip(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--cluster-with-gan-features"], "ROADMAP A6"), (["--bipath"], "ROADMAP A6"),
-    (["--learnable-memory"], "ROADMAP A6"),
-    (["--no-gan-train", "--cluster-with-gan-features"], "ROADMAP A6"),
-    (["--fp16"], "ROADMAP A9"), (["--resume", "logs/checkpoint.msgpack"], "ROADMAP A8"),
-    (["--model-gen", "DEC", "--dataset", "synthetic"], "ROADMAP A5")])
+    (["--cluster-with-gan-features"], "ROADMAP A: GAN-feature clustering"),
+    (["--bipath"], "ROADMAP A: bip and learnable-memory modes"),
+    (["--learnable-memory"], "ROADMAP A: bip and learnable-memory modes"),
+    (["--no-gan-train", "--cluster-with-gan-features"], "ROADMAP A: GAN-feature clustering"),
+    (["--fp16"], "ROADMAP A: `--fp16`"),
+    (["--resume", "logs/checkpoint.msgpack"], "ROADMAP A: msgpack checkpoints"),
+    (["--model-gen", "DEC", "--dataset", "synthetic"], "ROADMAP A: other generators and DPTN")])
 def test_unported_options_raise(tmp_path, flag, item):
     from reid_gan_torch.cli.train_gan_usl import main
 

@@ -229,10 +229,10 @@ def test_engine_defaults_and_unported_options():
     gan.set_epoch_lr(state, 0.5)
     assert state.opt_D.param_groups[0]["lr"] == pytest.approx(cfg.gan_lr * 0.05)
     for bad in (GANConfig(model_gen="DEC"), GANConfig(model_gen="Pose", use_vgg=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A: other generators and DPTN"):
             create_model(bad, device="cpu")
     assert type(create_model(GANConfig(model_gen="AE"), gan_height=GH, gan_width=GW,
                              num_feats=32, ngf=8, device="cpu").net_G).__name__ == \
         "AEGenerator"
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A: other generators and DPTN"):
         create_model(GANConfig(model="DPTN"), device="cpu")

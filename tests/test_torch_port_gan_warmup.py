@@ -149,8 +149,9 @@ def test_warmup_then_hard_mix_cli_end_to_end(tmp_path, capsys):
     ("train_gan_usl", ["--model-gen", "Pose", "--no-gan-train"], ValueError,
      "needs --model-gen AE"),
     ("train_gan_warmup", ["--model-gen", "Pose"], ValueError, "AE generator"),
-    ("train_gan_warmup", ["--model-gen", "DEC"], NotImplementedError, "ROADMAP A5"),
-    ("train_gan_warmup", ["--fp16"], NotImplementedError, "ROADMAP A9")])
+    ("train_gan_warmup", ["--model-gen", "DEC"], NotImplementedError,
+     "ROADMAP A: other generators and DPTN"),
+    ("train_gan_warmup", ["--fp16"], NotImplementedError, "ROADMAP A: `--fp16`")])
 def test_generator_pairings_and_unported_options_raise(tmp_path, cli, flags, err, match):
     """The joint CLI's modes need their generators; the warm-up trains the
     AE generator; the unported generators and ``--fp16`` raise."""

@@ -19,13 +19,17 @@ lists in scratch), exact ties and the inner product (K8); odd
 batches and frames (K9, K10), missing joints and joints on the frame's
 corners (K10), channel counts off the warp stride and the vector width
 (K11), odd batches, frames and the rows next to the edge, whose taps are
-renormalised (K12); the all-shots rows and the separate camera set (K3);
-every σ, erased channels, missing and corner joints and flips on odd
-frames (K13); erase rectangles at the borders with flips, every image
-flipped, none, or erased, widths on and off the float4 path, one image and
-odd frames (K14); the same bits on a second launch (K4, K14 as K5, K6); and
-the raise on inputs a kernel does not take, a C entry's size checks as a
-ValueError (K4, K14).
+renormalised, scales other than 2x, bands of rows that do not divide the
+height, one image and tiles of columns past 48 KiB of shared memory (K12);
+every byte value in every channel bit-equal to the float32 IEEE formula
+(bf16: its rounding to nearest even), element counts with every tail and
+batches 4-byte but not 16-byte aligned (K1); the all-shots rows and the
+separate camera set (K3); every σ, erased channels, missing and corner
+joints and flips on odd frames (K13); erase rectangles at the borders with
+flips, every image flipped, none, or erased, widths on and off the float4
+path, one image and odd frames (K14); the same bits on a second launch
+(K1, K4, K12, K14 as K5, K6); and the raise on inputs a kernel does not
+take, a C entry's size checks as a ValueError (K4, K14).
 
 Needs a CUDA card; skips without one. This file imports no JAX, so it runs
 on a machine without it, with the JAX test harness left out:
@@ -34,6 +38,7 @@ on a machine without it, with the JAX test harness left out:
         tests/test_torch_port_kernels_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -71,6 +76,84 @@ def test_eval_transform_rejects_a_misaligned_batch(card):
     flat = torch.zeros(1 + 2 * 4 * 2 * 3, dtype=torch.uint8, device=card)
     with pytest.raises(ValueError, match="aligned"):
         eval_transform(flat[1:].view(2, 4, 2, 3), 4, 2)
+
+
+def _k1_formula(u8, dtype):
+    """numpy's float32 IEEE ``(b / 255 - mean[c]) / std[c]`` of an (N, H, W,
+    3) batch as int32 bits, or its bf16 rounding (nearest even) as int16."""
+    from reid_gan_torch.ops.transforms import IMAGENET_MEAN, IMAGENET_STD
+
+    b = np.arange(256, dtype=np.float32)
+    table = np.stack([(b / np.float32(255) - np.float32(m)) / np.float32(s)
+                      for m, s in zip(IMAGENET_MEAN, IMAGENET_STD)]).view(np.uint32)
+    if dtype == torch.bfloat16:
+        table = ((table + 0x7FFF + ((table >> 16) & 1)) >> 16).astype(np.uint16).view(np.int16)
+    else:
+        table = table.view(np.int32)
+    x = u8.cpu().numpy()
+    return torch.from_numpy(table[np.arange(3), x]).to(u8.device)
+
+
+def _k1_bits(out, dtype):
+    """K1's output (channels_last) as (N, H, W, 3) integer bits."""
+    return out.permute(0, 2, 3, 1).view(torch.int32 if dtype == torch.float32 else torch.int16)
+
+
+def _k1_batch(card, shape, offset, seed):
+    """A uint8 (N, H, W, 3) batch starting ``offset`` bytes past a 16-byte
+    boundary."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    n = shape[0] * shape[1] * shape[2] * 3
+    flat = torch.randint(0, 256, (n + 16,), dtype=torch.uint8, device=card, generator=g)
+    assert flat.data_ptr() % 16 == 0
+    return flat[offset:offset + n].view(shape)
+
+
+@pytest.mark.parametrize("offset", [0, 4, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eval_transform_is_the_ieee_formula_bit_for_bit(card, dtype, offset):
+    """A batch that holds every byte value in every channel, 16-byte aligned
+    (48-byte groups) and 4-byte but not 16-byte aligned (12-byte groups):
+    every value bit-equal to numpy's float32 IEEE (b / 255 - mean) / std, and
+    in bf16 to its rounding to nearest even."""
+    from reid_gan_torch.ops.transforms import eval_transform
+
+    u8 = _k1_batch(card, (3, 16, 16, 3), offset, 0)
+    ramp = torch.arange(256, device=card, dtype=torch.int32).view(1, 16, 16, 1)
+    shift = torch.arange(3, device=card, dtype=torch.int32).view(1, 1, 1, 3) * 85 + \
+        torch.arange(3, device=card, dtype=torch.int32).view(3, 1, 1, 1)
+    u8.copy_(((ramp + shift) % 256).to(torch.uint8))
+    out = eval_transform(u8, 16, 16, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(_k1_bits(out, dtype), _k1_formula(u8, dtype))
+
+
+@pytest.mark.parametrize("offset", [0, 4, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eval_transform_tails(card, dtype, offset):
+    """Widths 40-55 of one row: element counts with every tail modulo 48
+    (and modulo 12 on the 4-byte aligned path), bit-equal to the formula
+    and within the plain version's tolerance."""
+    from reid_gan_torch.ops.transforms import eval_transform, eval_transform_plain
+
+    for w in range(40, 56):
+        u8 = _k1_batch(card, (1, 1, w, 3), offset, w)
+        out = eval_transform(u8, 1, w, dtype)
+        ref = eval_transform_plain(u8, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(_k1_bits(out, dtype), _k1_formula(u8, dtype)), w
+        tol = 1e-6 if dtype == torch.float32 else 2.0 ** -6
+        assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eval_transform_gives_the_same_bits_run_to_run(card, dtype):
+    from reid_gan_torch.ops.transforms import eval_transform
+
+    u8 = _k1_batch(card, (4, 64, 32, 3), 0, 5)
+    first, second = eval_transform(u8, 64, 32, dtype), eval_transform(u8, 64, 32, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(_k1_bits(first, dtype), _k1_bits(second, dtype))
 
 
 def _gem_bn_inputs(card, n, c, h, w, p):
@@ -522,6 +605,78 @@ def test_diff_transform_matches_plain(card, n, h, w):
     assert float((out.double() - ref64).abs().max()) <= 5e-6
     edge = (out.double() - ref64)[:, :, [0, 1, 2, -3, -2, -1]]
     assert float(edge.abs().max()) <= 5e-6
+
+
+def _k12_fp64(img, oh, ow):
+    """The plain K12 in fp64 arithmetic on its fp32 weights: the exact value
+    of the function the kernel computes. At 2x the weights are exact in
+    fp32 but at the renormalised edges; at other scales the fp32 sample
+    points alone move the fp64 function's outputs by up to 1.2e-5."""
+    from reid_gan_torch.ops.transforms import IMAGENET_MEAN, IMAGENET_STD, cubic_resize_weights
+
+    n, c, h, w = img.shape
+    wh = cubic_resize_weights(h, oh, torch.float32, img.device).double()
+    ww = cubic_resize_weights(w, ow, torch.float32, img.device).double()
+    x = torch.einsum("nchw,hk->nckw", (img.double() + 1.0) / 2.0, wh)
+    x = torch.einsum("nckw,wl->nckl", x, ww)
+    stat = lambda v: torch.tensor(v, dtype=torch.float32, device=img.device).double().view(1, 3, 1, 1)  # noqa: E731
+    return (x - stat(IMAGENET_MEAN)) / stat(IMAGENET_STD)
+
+
+def _k12_check(card, n, h, w, oh, ow, seed):
+    """K12 against the plain version and its fp64 arithmetic on the same
+    weights at 5e-6, edge rows and columns (with -1/+1 swings) included;
+    returns the input and the output."""
+    from reid_gan_torch.ops.transforms import diff_transform, diff_transform_plain
+
+    g = torch.Generator(device=card).manual_seed(seed)
+    img = torch.tanh(2 * torch.randn((n, 3, h, w), device=card, generator=g))
+    alt = (torch.arange(h, device=card)[:, None] + torch.arange(w, device=card)[None]) % 2
+    alt = alt.float() * 2 - 1
+    for rows in (slice(0, 2), slice(h - 2, h)):
+        img[:, :, rows] = alt[rows]
+    for cols in (slice(0, 2), slice(w - 2, w)):
+        img[:, :, :, cols] = alt[:, cols]
+    out = diff_transform(img, oh, ow)
+    ref = diff_transform_plain(img, oh, ow)
+    ref64 = _k12_fp64(img, oh, ow)
+    torch.cuda.synchronize()
+    assert out.shape == (n, 3, oh, ow) and out.stride() == ref.stride()
+    assert float((out - ref).abs().max()) <= 5e-6
+    err64 = (out.double() - ref64).abs()
+    assert float(err64.max()) <= 5e-6
+    edges = [0, 1, 2, -3, -2, -1]
+    assert float(err64[:, :, edges].max()) <= 5e-6
+    assert float(err64[:, :, :, edges].max()) <= 5e-6
+    return img, out
+
+
+@pytest.mark.parametrize("n,h,w,oh,ow", [
+    (3, 50, 30, 256, 128),     # a non-2x upsample to the re-ID size
+    (2, 13, 9, 37, 21),        # odd scales, OW off the 4-pixel unit
+    (1, 7, 5, 7, 5),           # scale 1: one tap of weight 1
+    (1, 128, 64, 256, 128),    # one image
+    (32, 20, 12, 37, 24),      # bands of 4 rows, the last one partial
+    (16, 51, 30, 102, 60),     # bands of 4, the last one of 2 rows
+    (300, 5, 3, 37, 7),        # bands of 16, the last one of 5 rows; W off float4
+    (1, 4, 3000, 8, 3100),     # tiles of output columns, past 48 KiB of shared memory
+    (30, 40, 80, 160, 160),    # 4x by 2x; the staging rows and the window past 48 KiB
+])
+def test_diff_transform_off_2x_and_band_edges_match_plain(card, n, h, w, oh, ow):
+    """K12 at other scales than 2x, one image, and batches whose band of
+    output rows (4 or 16, the most that still gives every SM two blocks)
+    does not divide OH, so the last band of each image is partial."""
+    _k12_check(card, n, h, w, oh, ow, n + h + w)
+
+
+@pytest.mark.parametrize("n,h,w,oh,ow", [(16, 128, 64, 256, 128), (2, 13, 9, 37, 21)])
+def test_diff_transform_gives_the_same_bits_run_to_run(card, n, h, w, oh, ow):
+    from reid_gan_torch.ops.transforms import diff_transform
+
+    img, out = _k12_check(card, n, h, w, oh, ow, 7)
+    again = diff_transform(img, oh, ow)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
 
 
 def test_diff_transform_rejects_bad_inputs(card):

@@ -193,9 +193,9 @@ def test_preprocessors_share_one_decode_cache():
 def test_train_usl_refuses_the_cpu_unless_asked_and_unported_options(monkeypatch):
     from reid_gan_torch.cli.train_usl import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A: `--fp16`"):
         main(["--device", "cpu", "--fp16"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A: msgpack checkpoints"):
         main(["--device", "cpu", "--resume", "logs/checkpoint.msgpack"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
