@@ -23,8 +23,11 @@ the script exits non-zero without printing a result:
    hard-mix re-encode's (16, 2048, 16, 8), the latter timed in L2
    and after a flush of the L2, each with a digest and the same bits on a
    second launch; K3 ``rank_stats`` at Market-1501's eval shape
-   (3,368 queries x 15,913 gallery, 751 ids, 6 cameras, 2048-d), once more
-   with exact ties; K4 ``train_augment`` at 256 x 256x128 (once more with
+   (3,368 queries x 15,913 gallery, 751 ids, 6 cameras, 2048-d, in chunks
+   of 1,024 and a short last one), once more with exact ties, each with a
+   digest of AP, first bins and match counts and the same bits on a second
+   launch, and at MSMT17's (a 1,024-query chunk x 82,161 gallery, 3,060
+   ids, 15 cameras); K4 ``train_augment`` at 256 x 256x128 (once more with
    the erase flags zeroed, and the same bits on a second launch); K5 ``gem_pool``
    forward and backward (d map and dp) at (256, 2048, 16, 8); K6
    ``infonce`` forward and backward at B 256 x D 2048 against banks of 768
@@ -51,7 +54,7 @@ the script exits non-zero without printing a result:
    the same bits on a second launch (K1 and K12 also time their wrappers'
    host cost a call); K3's all-shots rows and separate camera set at
    Market-1501's eval shape (a 1,024-query chunk, distinct and with exact
-   ties); K8 above its register lists (k 65,
+   ties; a digest of the outputs and rows); K8 above its register lists (k 65,
    128, 256 and 300 at 2,048 rows, L2 and inner product, with exact ties)
    and k 128 timed at 12,936 rows; K13 ``pose_peaks`` at (512, 18, 256,
    128) with σ 4, 5 and 6, erased channels, missing and corner joints and
@@ -170,7 +173,8 @@ the script exits non-zero without printing a result:
    ``library_ms`` is cuBLAS's two fp32 products, and
    K6's entry also carries its times with the extra negatives
    (``ex_f_*``) and at 30,720 bank rows (``bank_30720_*``), K3's its
-   variants' (``variant_ms``), K8's its k 128 time (``k128_ms``), its
+   variants' (``variant_ms``), MSMT17's chunk (``msmt_ms``) and the
+   chunk's distance product (``distance_ms``, context), K8's its k 128 time (``k128_ms``), its
    time at 32,621 rows (``n32621_ms``), its fp32 FMA bound
    (``bound_fp32_ms``) and the fp32 ``torch.matmul`` of the product alone
    (``matmul_fp32_ms``, context, not a library version of K8);
@@ -384,12 +388,12 @@ def check_k2(report):
     report["gem_bn_l2n"] = dict(max_abs_err=worst, **entry)
 
 
-def _market_block(g, ties):
+def _market_block(g, ties, m=3368, n=15913, ids=751, cams=6, dim=2048):
     """Market-1501 eval shape from a seed: 751 ids, 6 cameras, identity
-    centroids plus noise, L2-normalised 2048-d features. The noise puts the
-    block's mAP near one half, so matches land at every rank and each AP is
-    a sum of unequal precision terms."""
-    m, n, ids, cams, dim = 3368, 15913, 751, 6, 2048
+    centroids plus noise, L2-normalised 2048-d features (other shapes by
+    the arguments: MSMT17's gallery is 82,161 images of 3,060 ids and 15
+    cameras). The noise puts the block's mAP near one half, so matches land
+    at every rank and each AP is a sum of unequal precision terms."""
     centers = torch.randn((ids, dim), device="cuda", generator=g)
     qid = torch.randint(0, ids, (m,), device="cuda", generator=g, dtype=torch.int32)
     gid = torch.randint(0, ids, (n,), device="cuda", generator=g, dtype=torch.int32)
@@ -405,6 +409,30 @@ def _market_block(g, ties):
     return qf, gf, qid, qcam, gid, gcam
 
 
+def _k3_held(args, tol, label, **kw):
+    """K3 on ``args`` against its plain version: match counts and first
+    bins equal, AP (and the all-shots rows) within ``tol``, the same bits on
+    a second launch. Returns (outputs, plain outputs, max_abs_err)."""
+    from reid_gan_torch.engine.metrics import rank_stats, rank_stats_plain
+
+    out = rank_stats(*args, **kw)
+    ref = rank_stats_plain(*args, **kw)
+    again = rank_stats(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(out[2], ref[2]), f"K3 {label}: match counts differ")
+    check(torch.equal(out[1], ref[1]), f"K3 {label}: first-match bins differ")
+    check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+              for a, b in zip(out, again)), f"K3 {label}: other bits on a second launch")
+    err = max(float((a - b).abs().max()) for a, b in zip(out[::3], ref[::3]))
+    check(err <= tol, f"K3 {label}: error {err} > {tol}")
+    return out, ref, err
+
+
+def _k3_bound(q, n, topk=0, ops_per_entry=2):
+    """K3's least time: the block, ids, cameras and outputs moved once."""
+    return bound_ms(4 * (q * n + 2 * q + 2 * n + 3 * q + q * topk), ops_per_entry * q * n)
+
+
 def check_k3(report):
     from reid_gan_torch.engine.metrics import rank_stats, rank_stats_plain
     from reid_gan_torch.ops.distance import squared_euclidean
@@ -416,53 +444,82 @@ def check_k3(report):
     for ties in (False, True):
         qf, gf, qid, qcam, gid, gcam = _market_block(g, ties)
         m, n = qf.shape[0], gf.shape[0]
-        err, n_tied, first, ap_sum, n_valid = 0.0, 0, None, 0.0, 0
-        for s in range(0, m, chunk):
+        err, n_tied, first, ap_sum, n_valid, outs = 0.0, 0, None, 0.0, 0, []
+        for s in range(0, m, chunk):   # a short last chunk is ranked as it is
             e = min(s + chunk, m)
-            pad = chunk - (e - s)     # rank_metrics_features' sentinel padding
-            q = torch.nn.functional.pad(qf[s:e], (0, 0, 0, pad))
-            sent = torch.full((pad,), torch.iinfo(torch.int32).min,
-                              dtype=torch.int32, device="cuda")
-            qi, qc = torch.cat([qid[s:e], sent]), torch.cat([qcam[s:e], sent])
-            d = squared_euclidean(q, gf)
+            args = (squared_euclidean(qf[s:e], gf), qid[s:e], qcam[s:e], gid, gcam)
+            d = args[0]
             if ties:   # exact ties whatever the product's summation order
                 d[:, 1::2] = d[:, 0::2][:, :n // 2]
                 n_tied += int((d[:, 1::2] == d[:, 0::2][:, :n // 2]).sum())
-            ap, fb, nm = rank_stats(d, qi, qc, gid, gcam)
-            ap_r, fb_r, nm_r = rank_stats_plain(d, qi, qc, gid, gcam)
-            torch.cuda.synchronize()
-            check(torch.equal(nm, nm_r), "K3 match counts differ")
-            check(torch.equal(fb, fb_r), "K3 first-match bins differ")
-            err = max(err, float((ap - ap_r).abs().max()))
-            ap_sum += float(ap_r[nm_r > 0].double().sum())
-            n_valid += int((nm_r > 0).sum())
-            first = first or (d, qi, qc, gid, gcam)
+            out, ref, e_ap = _k3_held(args, tol, f"{m}x{n} ties {ties}")
+            err = max(err, e_ap)
+            ap_sum += float(ref[0][ref[2] > 0].double().sum())
+            n_valid += int((ref[2] > 0).sum())
+            outs.append(out)
+            first = first or args
         label = "exact ties" if ties else "distinct"
         print(f"[K3] rank_stats {m}x{n} ({label}, {n_tied} tied pairs, "
               f"mAP {ap_sum / n_valid:.4f}): bins and counts equal, "
-              f"AP max_abs_err {err:.3g} (tol {tol:.3g})")
-        check(err <= tol, f"K3 AP error {err} > {tol}")
+              f"AP max_abs_err {err:.3g} (tol {tol:.3g}), the same bits on a second "
+              f"launch; digest of AP, first bins, |M| "
+              f"{_digest(*(torch.cat(t) for t in zip(*outs)))}")
         check(not ties or n_tied > 0, "K3 tie case has no ties")
         worst = max(worst, err)
         if not ties:
-            timed = first
+            timed, feats = first, (qf[:chunk], gf)
     d = timed[0]
     ms = device_ms(lambda: rank_stats(*timed))
     plain = device_ms(lambda: rank_stats_plain(*timed), reps=3)
     q_, n_ = d.shape
-    b, by = bound_ms(4 * (q_ * n_ + 2 * q_ + 2 * n_ + 3 * q_), 2 * q_ * n_)
+    b, by = _k3_bound(q_, n_)
+    dist = device_ms(lambda: squared_euclidean(*feats))
     print(f"[K3] per {q_}-query chunk of the distinct case: ms {ms:.4f} "
-          f"plain_ms {plain:.4f} bound_ms {b:.4f} ({by})")
+          f"plain_ms {plain:.4f} bound_ms {b:.4f} ({by}, {100 * b / ms:.1f}%); the "
+          f"chunk's distance product ahead of it (fp32 torch.matmul, context) ms {dist:.4f}")
     report["rank_stats"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
-                                bound_ms=b, bound_by=by)
+                                bound_ms=b, bound_by=by, distance_ms=dist)
+    del timed, first, d, feats
+    worst = max(worst, _check_k3_msmt17(report, g, tol))
+    report["rank_stats"]["max_abs_err"] = worst
 
 
-def _digest(t):
-    """A short hash of a tensor's bytes, so that two processes (a commit and
+def _check_k3_msmt17(report, g, tol):
+    """K3 on a 1,024-query chunk against MSMT17's gallery (82,161 images,
+    3,060 ids, 15 cameras), from ``_market_block``'s recipe: counts and
+    bins against the plain version, the time, the plain time, the bound."""
+    from reid_gan_torch.engine.metrics import rank_stats, rank_stats_plain
+    from reid_gan_torch.ops.distance import squared_euclidean
+
+    qf, gf, qid, qcam, gid, gcam = _market_block(g, False, m=1024, n=82161, ids=3060,
+                                                 cams=15)
+    args = (squared_euclidean(qf, gf), qid, qcam, gid, gcam)
+    del qf, gf
+    out, ref, err = _k3_held(args, tol, "MSMT17 chunk")
+    has = ref[2] > 0
+    q_, n_ = args[0].shape
+    ms = device_ms(lambda: rank_stats(*args))
+    plain = device_ms(lambda: rank_stats_plain(*args), reps=3)
+    b, by = _k3_bound(q_, n_)
+    print(f"[K3] MSMT17 chunk {q_}x{n_} (3,060 ids, 15 cameras, mean |M| "
+          f"{float(ref[2][has].float().mean()):.1f}, max {int(ref[2].max())}, mAP "
+          f"{float(ref[0][has].double().mean()):.4f}): bins and counts equal, AP "
+          f"max_abs_err {err:.3g} (tol {tol:.3g}), the same bits on a second launch; "
+          f"digest {_digest(*out)}; ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} "
+          f"({by}, {100 * b / ms:.1f}%)")
+    report["rank_stats"].update(msmt_ms=ms, msmt_plain_ms=plain, msmt_bound_ms=b)
+    return err
+
+
+def _digest(*ts):
+    """A short hash of tensors' bytes, so that two processes (a commit and
     its parent) can show that they wrote the same bits."""
     import hashlib
 
-    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def _same_bits(fn, out):
@@ -2192,29 +2249,26 @@ def check_k3_variants(report):
             d[:, 1::2] = d[:, 0::2][:, :n // 2]
         args = (d, qid[:chunk].contiguous(), qcam[:chunk].contiguous(), gid, gcam)
         for sep in (False, True):
-            ap, fb, nm, hist = rank_stats(*args, separate_camera_set=sep, allshots_topk=topk)
-            ap_r, fb_r, nm_r, hist_r = rank_stats_plain(*args, separate_camera_set=sep,
-                                                        allshots_topk=topk)
-            torch.cuda.synchronize()
-            check(torch.equal(nm, nm_r) and torch.equal(fb, fb_r),
-                  f"K3 variant (sep {sep}, ties {ties}) counts or bins differ")
-            e_ap = float((ap - ap_r).abs().max())
-            e_h = float((hist - hist_r).abs().max())
+            out, ref, err = _k3_held(args, tol, f"variant (sep {sep}, ties {ties})",
+                                     separate_camera_set=sep, allshots_topk=topk)
+            ap, fb, nm, hist = out
+            e_ap = float((ap - ref[0]).abs().max())
             print(f"[K3] all-shots, separate camera set {sep}, "
                   f"{'exact ties' if ties else 'distinct'}: counts and first bins equal; "
-                  f"AP max_abs_err {e_ap:.3g}, all-shots rows max_abs_err {e_h:.3g} "
-                  f"(tol {tol:.3g}); all-shots top-1 {float(hist[nm > 0, 0].mean()):.4f}")
-            check(max(e_ap, e_h) <= tol, f"K3 variant error {max(e_ap, e_h)} > {tol}")
-            worst = max(worst, e_ap, e_h)
+                  f"AP max_abs_err {e_ap:.3g}, all-shots rows max_abs_err "
+                  f"{float((hist - ref[3]).abs().max()):.3g} (tol {tol:.3g}); all-shots "
+                  f"top-1 {float(hist[nm > 0, 0].mean()):.4f}; the same bits on a second "
+                  f"launch; digest of the outputs and rows {_digest(*out)}")
+            worst = max(worst, err)
         if not ties:
             timed = args
     ms = device_ms(lambda: rank_stats(*timed, separate_camera_set=True, allshots_topk=topk))
     plain = device_ms(lambda: rank_stats_plain(*timed, separate_camera_set=True,
                                                allshots_topk=topk), reps=3)
     q_, n_ = timed[0].shape
-    b, by = bound_ms(4 * (q_ * n_ + 2 * q_ + 2 * n_ + 3 * q_ + q_ * topk), 3 * q_ * n_)
+    b, by = _k3_bound(q_, n_, topk, 3)
     print(f"[K3] all-shots + separate cameras per {q_}-query chunk: ms {ms:.4f} plain_ms "
-          f"{plain:.4f} bound_ms {b:.4f} ({by})")
+          f"{plain:.4f} bound_ms {b:.4f} ({by}, {100 * b / ms:.1f}%)")
     report["rank_stats"].update(variant_ms=ms, variant_plain_ms=plain, variant_bound_ms=b,
                                 variant_max_abs_err=worst)
 

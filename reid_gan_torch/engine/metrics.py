@@ -26,6 +26,8 @@ from ..kernels import RANK_STATS
 from ..ops.distance import squared_euclidean
 from ..utils import to_numpy
 
+RANK_STATS_MAX_N = 1 << 21   # K3 keeps a counter's two halves in 16 bits (csrc/rank_stats.cu)
+
 
 def rank_stats_plain(d, qid, qcam, gid, gcam, separate_camera_set=False,
                      allshots_topk=0):
@@ -80,6 +82,9 @@ def _rank_stats_cuda(d, qid, qcam, gid, gcam, separate_camera_set, allshots_topk
     q, n = d.shape
     if d.dtype != torch.float32 or not d.is_contiguous():
         raise ValueError("rank_stats takes a contiguous float32 (q, n) block")
+    if n >= RANK_STATS_MAX_N:
+        raise ValueError(f"rank_stats takes fewer than {RANK_STATS_MAX_N} gallery "
+                         f"entries; got {n}")
     for name, t, size in (("qid", qid, q), ("qcam", qcam, q),
                           ("gid", gid, n), ("gcam", gcam, n)):
         if t.dtype != torch.int32 or t.device != d.device or \
@@ -129,10 +134,10 @@ def _default_ids_cams(m, n, query_ids, gallery_ids, query_cams, gallery_cams):
 def _rank_chunks(block, m, n, query_ids, gallery_ids, query_cams, gallery_cams,
                  topk, chunk, device, separate_camera_set=False, first_match_break=True):
     """The chunk loop shared by both entries: ``block(s, e)`` gives the
-    (e - s, n) device distance block of queries s..e; each is padded to
-    ``chunk`` rows and ranked by K3 (its plain version on the CPU). The
-    all-shots rows are summed in float64 in query order. Only the (topk,)
-    histogram and two scalars leave the device."""
+    (e - s, n) device distance block of queries s..e, ranked by K3 (its
+    plain version on the CPU) as it is: a short last chunk is not padded to
+    ``chunk`` rows. The all-shots rows are summed in float64 in query order.
+    Only the (topk,) histogram and two scalars leave the device."""
     query_ids, gallery_ids, query_cams, gallery_cams = _default_ids_cams(
         m, n, query_ids, gallery_ids, query_cams, gallery_cams)
     gids = torch.as_tensor(np.asarray(gallery_ids, np.int32)).to(device)
@@ -145,14 +150,6 @@ def _rank_chunks(block, m, n, query_ids, gallery_ids, query_cams, gallery_cams,
         d = block(s, e)
         qid = np.asarray(query_ids[s:e], np.int32)
         qcam = np.asarray(query_cams[s:e], np.int32)
-        if e - s < chunk:      # pad to the fixed chunk shape
-            pad = chunk - (e - s)
-            d = torch.nn.functional.pad(d, (0, 0, 0, pad))
-            # int32 min can never be a real gallery id/cam → padded rows
-            # have zero matches and drop out via the has-mask
-            sentinel = np.iinfo(np.int32).min
-            qid = np.pad(qid, (0, pad), constant_values=sentinel)
-            qcam = np.pad(qcam, (0, pad), constant_values=sentinel)
         stats = rank_stats(
             d.contiguous(), torch.as_tensor(qid).to(device),
             torch.as_tensor(qcam).to(device), gids, gcams, separate_camera_set,

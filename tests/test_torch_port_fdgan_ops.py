@@ -187,7 +187,7 @@ def _distmat(rng, m, n, ties):
 @pytest.mark.parametrize("ties", [False, True], ids=["distinct", "exact_ties"])
 def test_rank_metrics_variants_match_jax(sep, fmb, ties):
     """``rank_metrics`` (K3's plain version) against JAX's jitted backend
-    (stable sort, as K3's order) with a chunk that forces padding, and,
+    (stable sort, as K3's order) with a chunk that leaves a short last one, and,
     without ties, against the numpy backend: CMC and mAP within 1e-6."""
     from reid_gan_tpu.engine.metrics import rank_metrics as jax_rank
     from reid_gan_torch.engine.metrics import rank_metrics

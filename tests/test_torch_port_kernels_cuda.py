@@ -24,7 +24,10 @@ height, one image and tiles of columns past 48 KiB of shared memory (K12);
 every byte value in every channel bit-equal to the float32 IEEE formula
 (bf16: its rounding to nearest even), element counts with every tail and
 batches 4-byte but not 16-byte aligned (K1); the all-shots rows and the
-separate camera set (K3); every σ, erased channels, missing and corner
+separate camera set, the same bits on a second launch, one match, every
+valid entry tied, |M| at and one past a round, rows off 16-byte alignment,
+q off a block's rows, MSMT17's 82,161-entry gallery and the raise past
+2^21 entries (K3); every σ, erased channels, missing and corner
 joints and flips on odd frames (K13); erase rectangles at the borders with
 flips, every image flipped, none, or erased, widths on and off the float4
 path, one image and odd frames (K14); the same bits on a second launch
@@ -262,6 +265,135 @@ def test_rank_stats_variants_match_plain(card, sep, q, n, num_ids, ties, topk):
     assert float((ap - ap_r).abs().max()) <= 1e-6
     assert hist.shape == (q, topk) and float((hist - hist_r).abs().max()) <= 1e-6
     assert float(hist[nm > 0].sum(dim=1).max()) <= 1.0 + 1e-6
+
+
+def _rank_cap():
+    """K3's staged same-id entries a row per round (``kCap`` in the source)."""
+    import os.path as osp
+    import re
+
+    src = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
+                   "reid_gan_torch", "csrc", "rank_stats.cu")
+    with open(src) as fh:
+        return int(re.search(r"constexpr int kCap = (\d+);", fh.read()).group(1))
+
+
+def _rank_check(args, sep=False, topk=0):
+    """K3 against its plain version (match counts and first bins exactly, AP
+    and the all-shots rows within 1e-6) and a second launch (the same bits)."""
+    from reid_gan_torch.engine.metrics import rank_stats, rank_stats_plain
+
+    kw = dict(separate_camera_set=sep, allshots_topk=topk)
+    out, again, ref = rank_stats(*args, **kw), rank_stats(*args, **kw), \
+        rank_stats_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out[2], ref[2]) and torch.equal(out[1], ref[1])
+    assert float((out[0] - ref[0]).abs().max()) <= 1e-6
+    if topk:
+        assert out[3].shape == ref[3].shape
+        assert float((out[3] - ref[3]).abs().max()) <= 1e-6
+    for a, b in zip(out, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return out
+
+
+@pytest.mark.parametrize("sep,topk", [(False, 0), (True, 100)],
+                         ids=["first_match", "allshots_separate_cams"])
+@pytest.mark.parametrize("q,n,num_ids,ties", [
+    (9, 1000, 10, True),
+    (6, 4000, 2, False),           # rounds
+])
+def test_rank_stats_same_bits_on_a_second_launch(card, sep, topk, q, n, num_ids, ties):
+    """AP, first bins, match counts and all-shots rows: the same bits on a
+    second launch (the AP terms are summed in sorted order, not in the order
+    in which matches are found)."""
+    _rank_check(_rank_case(card, q, n, num_ids, ties, seed=7 * q + n), sep, topk)
+
+
+@pytest.mark.parametrize("topk", [0, 16])
+def test_rank_stats_one_match_and_all_tied(card, topk):
+    """Row 1 has exactly one valid match; in row 2 every valid entry ties
+    with a match (AP |M| / |V|, all-shots bins by index)."""
+    d, qid, qcam, gid, gcam = _rank_case(card, 4, 300, 50, False, seed=11)
+    gid[(gid == 7) | (gid == 9)] = 8
+    gid[5], gcam[5], qid[1], qcam[1] = 7, 1, 7, 0          # the one match
+    gid[10:20], gcam[10:20], qid[2], qcam[2] = 9, 1, 9, 0  # ten matches,
+    gcam[12] = 0                                            # one junk entry
+    d[2] = 3.0                                              # all tied
+    out = _rank_check((d, qid, qcam, gid, gcam), topk=topk)
+    assert int(out[2][1]) == 1 and int(out[2][2]) == 9
+
+
+@pytest.mark.parametrize("extra", [0, 1], ids=["at_capacity", "one_past"])
+@pytest.mark.parametrize("sep,topk", [(False, 0), (True, 20)],
+                         ids=["first_match", "allshots_separate_cams"])
+def test_rank_stats_matches_at_and_past_a_round(card, extra, sep, topk):
+    """Row 1 has exactly as many same-id entries as a round stages, all
+    valid matches (one round), or one more (two rounds); row 3 of the same
+    block half as many, with junk (same camera) among them; the other rows a
+    few matches each, so one block mixes rows of one and of two rounds."""
+    cap = _rank_cap()
+    d, qid, qcam, gid, gcam = _rank_case(card, 8, 3000, 600, False, seed=cap + extra)
+    gid[:cap + extra], gcam[:cap + extra], qid[1], qcam[1] = 1000, 1, 1000, 0
+    gid[-cap // 2:], gcam[-cap // 2:], qid[3], qcam[3] = 1001, 2, 1001, 0
+    gcam[-3:] = 0                                           # junk
+    perm = torch.randperm(3000, device=card, generator=torch.Generator(card).manual_seed(1))
+    gid, gcam = gid[perm].contiguous(), gcam[perm].contiguous()
+    out = _rank_check((d, qid, qcam, gid, gcam), sep, topk)
+    assert int(out[2][1]) == cap + extra and int(out[2][3]) == cap // 2 - 3
+
+
+@pytest.mark.parametrize("sep,topk", [(False, 0), (True, 100)],
+                         ids=["first_match", "allshots_separate_cams"])
+@pytest.mark.parametrize("n,offset", [(1001, 0), (1003, 1), (1002, 2), (999, 3)])
+def test_rank_stats_rows_off_16_byte_alignment(card, sep, topk, n, offset):
+    """n off the 4-wide loads: rows start at every offset from a 16-byte
+    boundary, the block's first row too (``offset`` floats into a larger
+    buffer), with heads and tails of 1-3 columns."""
+    d, qid, qcam, gid, gcam = _rank_case(card, 13, n, 20, True, seed=n + offset)
+    buf = torch.empty(13 * n + offset, device=card)
+    buf[offset:] = d.flatten()
+    d = buf[offset:].view(13, n)
+    assert d.data_ptr() % 16 == 4 * offset
+    _rank_check((d, qid, qcam, gid, gcam), sep, topk)
+
+
+@pytest.mark.parametrize("q", [1, 13, 33])
+def test_rank_stats_rows_off_the_block(card, q):
+    """q not a multiple of a block's rows, each row its own id and camera."""
+    d, _, _, gid, gcam = _rank_case(card, q, 2500, 40, False, seed=q)
+    qid = torch.arange(q, device=card, dtype=torch.int32) % 40
+    qcam = torch.arange(q, device=card, dtype=torch.int32) % 3
+    for sep, topk in ((False, 0), (True, 50)):
+        _rank_check((d, qid, qcam, gid, gcam), sep, topk)
+
+
+def test_rank_stats_rejects_a_gallery_past_its_counters(card):
+    """A lane's counts are kept in 16 bits: a gallery of 2^21 entries or
+    more raises, naming the limit."""
+    from reid_gan_torch.engine.metrics import RANK_STATS_MAX_N, rank_stats
+
+    n = RANK_STATS_MAX_N
+    d = torch.zeros((1, n), device=card)
+    ids = torch.zeros(n, dtype=torch.int32, device=card)
+    one = torch.zeros(1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="gallery"):
+        rank_stats(d, one, one, ids, ids)
+
+
+def test_rank_stats_msmt17_gallery(card):
+    """A few rows against 82,161 gallery entries of 3,060 ids and 15
+    cameras (MSMT17's gallery), both protocols."""
+    g = torch.Generator(device=card).manual_seed(17)
+    q, n = 5, 82161
+    d = torch.rand((q, n), device=card, generator=g)
+    qid = torch.randint(0, 3060, (q,), device=card, generator=g, dtype=torch.int32)
+    gid = torch.randint(0, 3060, (n,), device=card, generator=g, dtype=torch.int32)
+    qcam = torch.randint(0, 15, (q,), device=card, generator=g, dtype=torch.int32)
+    gcam = torch.randint(0, 15, (n,), device=card, generator=g, dtype=torch.int32)
+    for sep, topk in ((False, 0), (True, 100)):
+        out = _rank_check((d, qid, qcam, gid, gcam), sep, topk)
+        assert int(out[2].min()) > 0
 
 
 # ---------------------------------------------------------------------------
