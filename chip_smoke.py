@@ -89,11 +89,37 @@ the script exits non-zero without printing a result:
    batch of the clustering extraction and of both evals, K8 once, K4-K7
    once a step, K3 once an eval. It needs at least 16 clusters and half the
    images labelled, and prints the epoch's time split; then the labels of
-   the features run() clustered, taken through the plain kNN, must match
-   the labels run() made through K8 (under 1% of the points moved where the
-   two kNN tables differ), and Infomap runs once on K8's inner-product
-   graph;
-6. the joint main path: ``ClusterContrastWithGANTrainer.run_epoch`` in
+   the features run() clustered, taken through the exact (fp64) kNN, must
+   match the labels run() made through K8 (under 1% of the points moved
+   where the two kNN tables differ; the plain fp32 kNN's labels are printed
+   beside them), and Infomap runs once on K8's inner-product graph;
+6. ``[ibn_main]``: phase 3 with the headline recipe's encoder,
+   ``resnet_ibn50a`` (IBN-a in stages 1-3): K1-K3 must launch; its warm
+   extraction rate beside phase 3's ``resnet50`` rate of the same call; the
+   trace with the concatenation and copy kernels as groups of their own and
+   the device time under ``aten::instance_norm`` and ``aten::cat``; the IBN
+   splits timed alone at the batch's shapes against ``BatchNorm2d`` at the
+   same places; one batch of features held against the plain K1/K2 path;
+7. ``[ibn_train]``: phase 4 with ``resnet_ibn50a`` and K7's hard fold
+   (``--use-hard``): K4-K7 once a step, one step held against the plain
+   versions with the hard fold, 10 warm steps timed with the peak memory, 3
+   traced as in ``[ibn_main]``, the IBN splits forward and backward against
+   ``BatchNorm2d`` as a share of the step's busy time;
+8. ``[ibn_usl]``: phase 5 with the headline recipe's flags (``--arch
+   resnet_ibn50a --use-hard --eps 0.4 --k1 30 --k2 6``, batch 256 of 16
+   instances, 20 steps): the same launch counts, labels check and epoch
+   split;
+9. ``[variants]``: K5 (forward and backward) and K2 at the variants' maps,
+   8x8 and 8x4, and K5 on the halves of a channels_last 16x8 map through
+   ``part_map``, each against its plain version and timed; then
+   ``resnet_bip50``, ``resnet_bipd50`` and ``resnet_mp50`` (``sum`` fusion,
+   and once more with the predictor) at full width: one eval batch of 256
+   at 256x128 held against the plain heads (K2 twice, once, K5 three
+   times), 3 USL steps of batch 256 on phase 4's set (K5 forward and
+   backward 2, 1 and 3 times a step, K4, K6, K7 once; a finite loss; every
+   parameter moved but a zero one the loss does not reach), the peak
+   memory and 3 warm steps timed;
+10. the joint main path: ``ClusterContrastWithGANTrainer.run_epoch`` in
    ``train_all`` mode at the recipe's width (a random ResNet-50, norm on, at
    256x128; the pose generator and the discriminator at 128x64; seed 0) for
    20 steps of batch 256 on phase 4's set with keypoints from a seed (a
@@ -105,7 +131,7 @@ the script exits non-zero without printing a result:
    running stats and D's ``u`` changed, the losses finite; then the peak
    device memory, 10 warm steps timed, 3 traced with the profiler and split
    into the step's phases by CUDA events;
-7. the AE hard-mix main path: ``ClusterContrastWithGANTrainer.run_epoch``
+11. the AE hard-mix main path: ``ClusterContrastWithGANTrainer.run_epoch``
    in ``train`` mode at the recipe's width (a random ResNet-50, norm on, at
    256x128; the AE generator, ngf 64, img_f 256, 3 layers, 3 blocks, and
    the discriminator at 128x64; seed 0) for 20 steps of batch 256 on phase
@@ -117,25 +143,25 @@ the script exits non-zero without printing a result:
    parameter must have moved, G's running stats all changed, G's
    parameters and D unchanged; then peak memory, 10 warm steps timed, 3
    traced and split into the step's phases by CUDA events;
-8. the GAN warm-up's main path: ``GANTrainer.train_gan`` with the AE
+12. the GAN warm-up's main path: ``GANTrainer.train_gan`` with the AE
    generator and the discriminator at 128x64 for 20 iterations of batch 256
    on an ``only_gan`` loader of phase 4's GAN images. One step is first
    held against the same step through K9's plain version. Launch counts are
    zeroed just before and read just after: K9 once an iteration, nothing
    else. Then peak memory, 10 warm iterations timed, 3 traced;
-9. the whole joint loop: one epoch of ``cli/train_gan_usl.run`` on phase
+13. the whole joint loop: one epoch of ``cli/train_gan_usl.run`` on phase
    5's set with keypoints, Infomap (eps 0.5, k1 15) and 20 steps. Launch
    counts are zeroed just before and read just after: K1-K11 must all have
    launched, K12-K14 not. It writes the checkpoints and the GAN nets' files, and
    prints the epoch's split;
-10. the whole hard-mix loop: ``cli/train_gan_warmup.run`` for 4 iterations
+14. the whole hard-mix loop: ``cli/train_gan_warmup.run`` for 4 iterations
    (1 epoch, ``--debug``) writes the nets, then one epoch of
    ``cli/train_gan_usl.run`` with ``--model-gen AE --no-gan-train
    --continue-train`` loads them and runs on phase 5's set with the DBSCAN
    recipe and 20 steps. Launch counts are zeroed just before the epoch and
    read just after: K1-K9 and K12 must have launched, K10, K11, K13 and
    K14 not;
-11. FD-GAN stage I (``[fd_stage1]``): ``SiameseTrainer`` on a random
+15. FD-GAN stage I (``[fd_stage1]``): ``SiameseTrainer`` on a random
    ResNet-50 Siamese net (last stride 2, average pool, the square-difference
    head) at 256x128, batches of 256 pairs from ``RandomPairSampler`` over an
    in-memory set of 128 ids x 8 images with landmark files on disk. One
@@ -148,10 +174,10 @@ the script exits non-zero without printing a result:
    top 100 re-scored and ``dataset=None``: K1 once a batch and K3 six times
    (the mAP, all-shots and market1501 passes of both stages). The net is
    saved as the next phase's stage-I checkpoint;
-12. FD-GAN stages II and III (``[fd_stage2]``, ``[fd_stage3]``):
+16. FD-GAN stages II and III (``[fd_stage2]``, ``[fd_stage3]``):
    ``FDGANModel`` at full width (E and Di ResNet-50 Siamese nets, G with ngf
    64, Dp with ndf 64, at 256x128), batches of 256 pairs from the
-   ``fdgan_pose`` loader; stage II starts from phase 11's checkpoint (Di
+   ``fdgan_pose`` loader; stage II starts from phase 15's checkpoint (Di
    from E), stage III from the nets stage II saved. One step each is held
    against the same step through K13's and K14's plain versions (the
    losses, the fake, a G, a Dp, two Di and in stage III an E gradient);
@@ -159,14 +185,15 @@ the script exits non-zero without printing a result:
    else; the nets of the stage move), peak memory, 2 warm steps timed and
    1 traced, split into the input, E and G forward, Di, Dp and G phases by
    CUDA events;
-13. the FD-GAN chain (``[fd_chain]``): ``cli/fdgan_baseline.run`` →
+17. the FD-GAN chain (``[fd_chain]``): ``cli/fdgan_baseline.run`` →
    ``cli/fdgan_train.run`` stage II from its checkpoint → stage III from
    the stage-II nets, one epoch each at full width, on 64 ids x 8 train
    images and 128 + 384 eval images in memory with landmark files on disk.
    Launch counts are zeroed just before and read just after: K1, K3, K13
    and K14 must have launched;
-14. a JSON line with every kernel's launches (the sum over the two whole
-   joint loops, phases 9 and 10, and the FD-GAN chain, phase 13), error,
+18. a JSON line with every kernel's launches (the sum over the two whole
+   joint loops, phases 13 and 14, the FD-GAN chain, phase 17, and the
+   headline recipe's loop, phase 8), error,
    times and bound; K5's and K6's entries carry ``forward_ms``,
    ``backward_ms`` and ``autograd_ms`` (``ms`` is forward + backward;
    ``autograd_ms`` adds autograd's accumulation into ``x.grad``), K6's
@@ -178,9 +205,10 @@ the script exits non-zero without printing a result:
    time at 32,621 rows (``n32621_ms``), its fp32 FMA bound
    (``bound_fp32_ms``) and the fp32 ``torch.matmul`` of the product alone
    (``matmul_fp32_ms``, context, not a library version of K8);
-15. the last line: ``{"ok": true, "device": {...}}``.
+19. the last line: ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import importlib
 import json
 import os
@@ -1152,10 +1180,21 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_device(label, fn):
+# The IBN phases' extra groups, matched ahead of PROFILE_GROUPS: the split's
+# concatenation and the copies of its halves into one memory format
+IBN_GROUPS = (
+    ("concatenate (torch.cat)", ("CatArrayBatchedCopy",)),
+    ("copy (contiguous, memory format)", ("direct_copy_kernel",)),
+)
+
+
+def profile_device(label, fn, groups=(), ops=()):
     """Run ``fn`` under ``torch.profiler``: device time by group and kernel,
     and the share of the window (first device event to last) in which the
-    card ran nothing."""
+    card ran nothing. ``groups`` are matched ahead of ``PROFILE_GROUPS``;
+    ``ops`` names host operators whose device time (their kernels', as the
+    profiler links them) is printed too. Returns the busy ms, or None when
+    the profiler saw no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1167,7 +1206,7 @@ def profile_device(label, fn):
     if not dev:
         print(f"[profile] {label}: the profiler saw no device events: "
               "breakdown not measured")
-        return
+        return None
     busy, reach, by_name = 0.0, dev[0][0], {}
     for start, end, name in dev:
         busy += max(0.0, end - max(start, reach))   # union of the intervals
@@ -1176,15 +1215,21 @@ def profile_device(label, fn):
     span = reach - dev[0][0]
     print(f"[profile] {label}: device busy {busy / 1e3:.3f} ms of a "
           f"{span / 1e3:.3f} ms window, idle share {1 - busy / span:.4f}")
-    groups = {}
+    by_group = {}
     for name, us in by_name.items():
-        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
-                     "other")
-        groups[group] = groups.get(group, 0.0) + us
-    for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        group = next((g for g, keys in tuple(groups) + PROFILE_GROUPS
+                      if any(k in name for k in keys)), "other")
+        by_group[group] = by_group.get(group, 0.0) + us
+    for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {label} group {group}: {us / busy:.2%} ({us / 1e3:.3f} ms)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[profile] {label} {us / busy:7.2%} {us / 1e3:9.3f} ms  {name[:110]}")
+    for op in ops:
+        us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                 for e in prof.key_averages() if e.key == op)
+        print(f"[profile] {label} op {op}: {us / busy:.2%} ({us / 1e3:.3f} ms of device "
+              f"time under the operator)")
+    return busy / 1e3
 
 
 def _split_by_marks(marks, steps):
@@ -1199,7 +1244,9 @@ def _split_by_marks(marks, steps):
     return ", ".join(f"{k} {v:.3f} ({v / total:.1%})" for k, v in split.items())
 
 
-def phase_main_path(counts):
+def phase_main_path(counts, arch="resnet50", label="main"):
+    """The eval main path on a random ``arch``; returns the warm extraction
+    rate in img/s."""
     from reid_gan_torch import kernels
     from reid_gan_torch.engine.evaluators import (
         Evaluator,
@@ -1215,7 +1262,7 @@ def phase_main_path(counts):
     torch.backends.cudnn.allow_tf32 = True   # as cli/test.py sets it
     batches, query, gallery = _eval_set()
     torch.manual_seed(0)
-    model = create("resnet50")               # GeM, last stride 1, fp32
+    model = create(arch)                     # GeM, last stride 1, fp32
     extractor = FeatureExtractor(model, height=256, width=128, batch_size=256,
                                  device="cuda")
 
@@ -1229,10 +1276,10 @@ def phase_main_path(counts):
     counts.update({k: v for k, v in kernels.launch_counts().items()
                    if k in ("eval_transform", "gem_bn_l2n", "rank_stats")})
     n_img = len(query) + len(gallery)
-    print(f"[main] Evaluator.evaluate on {n_img} images (1st run, cuDNN cold): "
-          f"{wall:.2f} s; mAP {mAP:.4f} top-1 {scores[0]:.4f} "
+    print(f"[{label}] {arch}: Evaluator.evaluate on {n_img} images (1st run, cuDNN "
+          f"cold): {wall:.2f} s; mAP {mAP:.4f} top-1 {scores[0]:.4f} "
           f"top-5 {scores[4]:.4f} top-10 {scores[9]:.4f}")
-    print(f"[main] launches: {counts}")
+    print(f"[{label}] launches: {counts}")
     check(all(v > 0 for v in counts.values()), f"a kernel did not launch: {counts}")
     check(0.0 <= mAP <= 1.0 and np.all(np.diff(scores) >= 0), "bad metrics")
 
@@ -1241,8 +1288,13 @@ def phase_main_path(counts):
     features, _ = extract_features(extractor, batches)
     torch.cuda.synchronize()
     ext = time.perf_counter() - t0
-    print(f"[main] extraction (warm): {n_img / ext:.1f} img/s")
-    profile_device("extraction", lambda: extract_features(extractor, batches))
+    print(f"[{label}] extraction (warm): {n_img / ext:.1f} img/s ({arch})")
+    ibn = arch.startswith("resnet_ibn")
+    profile_device(f"extraction ({arch})", lambda: extract_features(extractor, batches),
+                   groups=IBN_GROUPS if ibn else (),
+                   ops=("aten::instance_norm", "aten::cat") if ibn else ())
+    if ibn:
+        _ibn_cost(label, extractor.model, train=False)
     x = np.stack([features[f] for f, _, _ in query])
     y = np.stack([features[f] for f, _, _ in gallery])
     norms = np.linalg.norm(np.concatenate([x, y]), axis=1)
@@ -1261,7 +1313,7 @@ def phase_main_path(counts):
     got = torch.from_numpy(np.stack([features[f] for f in batches[0]["fname"]])).cuda()
     err = float((got - ref).abs().max())
     tol = 1e-4   # K2's sum order; a pixel where K1's bf16 rounding differs
-    print(f"[main] batch 0 features vs plain K1/K2 path: max_abs_err {err:.3g} "
+    print(f"[{label}] batch 0 features vs plain K1/K2 path: max_abs_err {err:.3g} "
           f"(tol {tol:.3g})")
     check(err <= tol, f"main-path features differ from the plain path: {err}")
 
@@ -1269,10 +1321,11 @@ def phase_main_path(counts):
         x, y, [p for _, p, _ in query], [p for _, p, _ in gallery],
         [c for _, _, c in query], [c for _, _, c in gallery], device="cuda")
     cmc_p, map_p = _plain_rank_metrics(x, y, query, gallery)
-    print(f"[main] rank metrics kernel vs plain: mAP {map_k:.6f} vs {map_p:.6f}, "
+    print(f"[{label}] rank metrics kernel vs plain: mAP {map_k:.6f} vs {map_p:.6f}, "
           f"top-1 {cmc_k[0]:.6f} vs {cmc_p[0]:.6f}")
     check(np.array_equal(cmc_k, cmc_p) and abs(map_k - map_p) <= 1e-6,
           "rank metrics differ from the plain rank pass")
+    return n_img / ext
 
 
 class _InMemoryImages:
@@ -1292,9 +1345,11 @@ class _InMemoryImages:
         return src[i], self.old_size
 
 
+@functools.lru_cache(maxsize=1)
 def _pseudo_set(seed=0, n_ids=700, per_id=18, h=256, w=128):
     """A pseudo-labelled train set in memory: 700 ids x 18 images, 6
-    cameras, a base colour per id plus noise, staged at 256x128."""
+    cameras, a base colour per id plus noise, staged at 256x128 (made once
+    and shared by the phases that train on it; none writes to it)."""
     rng = np.random.default_rng(seed)
     n = n_ids * per_id
     pids = np.repeat(np.arange(n_ids), per_id)
@@ -1310,13 +1365,14 @@ def _pseudo_set(seed=0, n_ids=700, per_id=18, h=256, w=128):
     return items, imgs
 
 
-def _compare_step(trainer, state, batch):
-    """One step's loss, feature gradient and folded bank through the
-    kernels (the model's own forward: K4, K5, K6, K7) and through the plain
-    versions, from the same parameters, bank and draws. cuDNN's TF32 is off
-    on both sides, so the two differ only by the kernels' arithmetic."""
-    from reid_gan_torch.models.pooling import gem_pool_plain, l2n
-    from reid_gan_torch.models.resnet import ResNetBackbone
+def _compare_step(trainer, state, batch, label="train"):
+    """One step's loss, feature gradient, GeM p gradients (K5's backward)
+    and folded bank through the kernels (the model's own forward:
+    K4, K5, K6, K7, in the trainer's fold mode) and through the plain
+    versions (the same forward under
+    ``_plain_heads``), from the same parameters, bank and draws. cuDNN's
+    TF32 is off on both sides, so the two differ only by the kernels'
+    arithmetic."""
     from reid_gan_torch.ops.cluster_memory import (
         memory_loss,
         memory_loss_plain,
@@ -1336,41 +1392,49 @@ def _compare_step(trainer, state, batch):
                                    torch.Generator(device=dev).manual_seed(99))
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
+    model.zero_grad(set_to_none=True)    # the trainer's last step leaves its gradients
     try:
         results = []
         for plain in (False, True):
             mem = state.memory._replace(features=state.memory.features.clone())
             if plain:
                 x = train_augment_plain(img, params)
-                fmap = ResNetBackbone.forward(model, x)
-                feat = l2n(model.feat_bn(gem_pool_plain(fmap, model.gap.p)))
+                with _plain_heads():
+                    feat = model(x, with_gan_feat=False)["feat"]
             else:
                 x = train_augment(img, params, h, w)
                 feat = model(x, with_gan_feat=False)["feat"]
             feat.retain_grad()
             loss = (memory_loss_plain if plain else memory_loss)(feat, y, mem)[0].mean()
             loss.backward()
-            (update_memory_plain if plain else update_memory)(mem, feat.detach(), y)
+            (update_memory_plain if plain else update_memory)(
+                mem, feat.detach(), y, use_hard=trainer.use_hard)
+            grads = torch.cat([q.grad.flatten() for n, q in model.named_parameters()
+                               if n.rsplit(".", 1)[-1] == "p" and q.grad is not None])
             model.zero_grad(set_to_none=True)
-            results.append((float(loss.detach()), feat.grad, mem.features))
+            results.append((float(loss.detach()), feat.grad, grads, mem.features))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    (lk, gk, bk), (lp, gp, bp) = results
+    (lk, gk, wk, bk), (lp, gp, wp, bp) = results
     e_loss = abs(lk - lp)
     e_g = float((gk - gp).abs().max() / gp.abs().max())
+    e_w = float((wk - wp).norm() / wp.norm())
     e_bank = float((bk - bp).abs().max())
     # fp32 ResNet-50 on inputs that differ by K4's rounding, then temp 0.05
-    tol_loss, tol_g, tol_bank = 1e-3, 1e-3, 1e-4
-    print(f"[train] one step, kernels vs plain versions (TF32 off): loss {lk:.6f} "
+    tol_loss, tol_g, tol_w, tol_bank = 1e-3, 1e-3, 1e-3, 1e-4
+    print(f"[{label}] one step, kernels vs plain versions (TF32 off, "
+          f"{'hard' if trainer.use_hard else 'plain'} fold): loss {lk:.6f} "
           f"vs {lp:.6f} (err {e_loss:.3g}, tol {tol_loss:.3g}); feat grad rel err "
-          f"{e_g:.3g} (tol {tol_g:.3g}); folded bank max_abs_err {e_bank:.3g} "
-          f"(tol {tol_bank:.3g})")
-    check(e_loss <= tol_loss and e_g <= tol_g and e_bank <= tol_bank,
+          f"{e_g:.3g} (tol {tol_g:.3g}); GeM p grads rel err (2-norm, {wp.numel()} "
+          f"of them) {e_w:.3g} (tol {tol_w:.3g}); folded bank "
+          f"max_abs_err {e_bank:.3g} (tol {tol_bank:.3g})")
+    check(e_loss <= tol_loss and e_g <= tol_g and e_w <= tol_w and e_bank <= tol_bank,
           "the train step through the kernels differs from the plain versions")
 
 
-def phase_train(counts):
-    """The train main path: ``ClusterContrastTrainer.train`` on ResNet-50."""
+def phase_train(counts, arch="resnet50", use_hard=False, label="train"):
+    """The train main path: ``ClusterContrastTrainer.train`` on a random
+    ``arch`` (ResNet-50), K7 in its hard mode with ``use_hard``."""
     from reid_gan_torch import kernels
     from reid_gan_torch.engine.trainers import ClusterContrastTrainer
     from reid_gan_torch.engine.usl import bank_rows, make_train_loader
@@ -1385,15 +1449,16 @@ def phase_train(counts):
         torch.randn((n_ids, 2048), device="cuda", generator=g), dim=1)
     memory = init_memory(centers, k_pad=bank_rows(n_ids), device="cuda")
     torch.manual_seed(0)
-    model = create("resnet50", norm=True)            # GeM, last stride 1, fp32
-    trainer = ClusterContrastTrainer(model, height=256, width=128,
+    model = create(arch, norm=True)                  # GeM, last stride 1, fp32
+    trainer = ClusterContrastTrainer(model, height=256, width=128, use_hard=use_hard,
                                      num_instances=16, device="cuda")
     state = trainer.init_state(memory)
     loader = make_train_loader(items, 256, 128, 256, 16, workers=4, iters=400,
                                seed=1, cache=_InMemoryImages(imgs))
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if p.requires_grad}
-    print(f"[train] set-up (data {len(items)} images, bank {tuple(memory.features.shape)}, "
+    print(f"[{label}] {arch}, {'hard' if use_hard else 'plain'} fold; set-up (data "
+          f"{len(items)} images, bank {tuple(memory.features.shape)}, "
           f"{memory.num_valid.item()} live): {time.perf_counter() - t0:.1f} s")
 
     steps = 20
@@ -1407,8 +1472,8 @@ def phase_train(counts):
     counts.update({k: v for k, v in kernels.launch_counts().items()
                    if k in ("train_augment", "gem_pool", "infonce", "bank_fold")})
     phases = kernels.phase_launch_counts()
-    print(f"[train] {steps} steps (1st, cuDNN cold): {wall:.2f} s, mean loss {loss:.4f}")
-    print(f"[train] launches: {phases}")
+    print(f"[{label}] {steps} steps (1st, cuDNN cold): {wall:.2f} s, mean loss {loss:.4f}")
+    print(f"[{label}] launches: {phases}")
     for name in ("train_augment.forward", "gem_pool.forward", "gem_pool.backward",
                  "infonce.forward", "infonce.backward", "bank_fold.forward"):
         check(phases[name] == steps, f"{name} launched {phases[name]} times, "
@@ -1419,24 +1484,281 @@ def phase_train(counts):
     check(not still, f"parameters that did not move: {still[:5]}")
     norms = state.memory.features[:n_ids].norm(dim=1)
     err = float((norms - 1).abs().max())
-    print(f"[train] {len(before)} parameter tensors all moved; bank rows' norm - 1: "
+    print(f"[{label}] {len(before)} parameter tensors all moved; bank rows' norm - 1: "
           f"max {err:.3g}")
     check(err <= 1e-5, "bank rows are not unit vectors after the fold")
 
-    _compare_step(trainer, state, loader.next())
+    _compare_step(trainer, state, loader.next(), label)
 
     warm = 10
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, _ = trainer.train(state, 1, loader, train_iters=warm, print_freq=warm,
                              base_seed=1)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    print(f"[train] warm: {warm / dt:.3f} steps/s, {warm * 256 / dt:.1f} img/s "
-          f"(batch 256, 256x128, ResNet-50, fp32 weights, TF32 convolutions)")
-    profile_device("train (3 warm steps)", lambda: trainer.train(
-        state, 2, loader, train_iters=3, print_freq=3, base_seed=1))
+    print(f"[{label}] warm: {warm / dt:.3f} steps/s, {warm * 256 / dt:.1f} img/s "
+          f"(batch 256, 256x128, {arch}, fp32 weights, TF32 convolutions); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    ibn = arch.startswith("resnet_ibn")
+    busy = profile_device(f"{label} (3 warm steps)", lambda: trainer.train(
+        state, 2, loader, train_iters=3, print_freq=3, base_seed=1),
+        groups=IBN_GROUPS if ibn else (),
+        ops=("aten::instance_norm", "aten::cat") if ibn else ())
+    if ibn:
+        _ibn_cost(label, model, train=True, step_ms=None if busy is None else busy / 3)
     loader.close()
+
+
+def _ibn_cost(label, model, train, step_ms=None, batch=256):
+    """The model's IBN splits timed alone at the shapes a batch of 256 at
+    256x128 gives them, forward (and backward with ``train``), against
+    ``nn.BatchNorm2d`` of the same width at the same places, on channels_last
+    maps as the model runs them: what the split costs beyond the BatchNorm
+    it replaces (instance norm, the halves' copies and the concatenation)."""
+    from reid_gan_torch.models.resnet import IBN
+
+    shapes = {}
+
+    def count(module, args):
+        shape = tuple(args[0].shape)
+        shapes[shape] = shapes.get(shape, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(count) for m in model.modules()
+             if isinstance(m, IBN)]
+    was = model.training
+    model.eval()
+    with torch.no_grad():
+        model(torch.rand((batch, 3, 256, 128), device="cuda").contiguous(
+            memory_format=torch.channels_last))
+    model.train(was)
+    for h in hooks:
+        h.remove()
+    total = {"IBN": 0.0, "BatchNorm2d": 0.0}
+    for shape, n in shapes.items():
+        x = torch.randn(shape, device="cuda").contiguous(memory_format=torch.channels_last)
+        grad = torch.randn_like(x)
+        per = {}
+        for name, m in (("IBN", IBN(shape[1])),
+                        ("BatchNorm2d", torch.nn.BatchNorm2d(shape[1]))):
+            m = m.cuda().train(train)
+            if train:
+                xg = x.detach().requires_grad_(True)
+                per[name] = device_ms(lambda: m(xg).backward(grad))
+            else:
+                with torch.no_grad():
+                    per[name] = device_ms(lambda: m(x))
+            total[name] += n * per[name]
+        print(f"[{label}] IBN at {shape} x {n}: {per['IBN']:.4f} ms against BatchNorm2d "
+              f"{per['BatchNorm2d']:.4f} ms ({'forward and backward' if train else 'forward'})")
+    extra = total["IBN"] - total["BatchNorm2d"]
+    share = "" if not step_ms else f", {extra / step_ms:.2%} of a step's {step_ms:.3f} ms busy"
+    print(f"[{label}] IBN splits: {sum(shapes.values())} at {len(shapes)} shapes, "
+          f"{total['IBN']:.3f} ms a batch against {total['BatchNorm2d']:.3f} ms for "
+          f"BatchNorm2d at the same places: +{extra:.3f} ms{share}")
+
+
+def _plain_heads():
+    """The kernel wrappers the variants' heads call (K2, K5, K11) swapped for
+    their plain versions, for a hold against the model's own forward."""
+    import contextlib
+    from unittest import mock
+
+    from reid_gan_torch.models import pooling, resnet, resnet_variants
+
+    stack = contextlib.ExitStack()
+    for module, name, fn in ((pooling, "gem_pool", pooling.gem_pool_plain),
+                             (pooling, "gem_bn_l2n", pooling.gem_bn_l2n_plain),
+                             (resnet_variants, "gan_feat",
+                              lambda f: resnet.gan_feat_plain(f.detach()))):
+        stack.enter_context(mock.patch.object(module, name, fn))
+    return stack
+
+
+def check_variant_maps():
+    """K5 (forward and backward) and K2 at the variants' map shapes, batch
+    256 x 2048 channels: 8x8 (a half of ``resnet_mp50``'s 16x8 part map) and
+    8x4 (its global branch at stride 2), each against its plain version and
+    timed beside its bound; then K5 on the two halves of a channels_last
+    16x8 map through ``part_map``, the route ``ResNetMP`` takes, its
+    gradient reaching the whole map."""
+    from reid_gan_torch.models.pooling import (
+        gem_bn_l2n,
+        gem_bn_l2n_plain,
+        gem_pool,
+        gem_pool_plain,
+    )
+    from reid_gan_torch.models.resnet_variants import part_map
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    n, c = 256, 2048
+    gamma = torch.rand(c, device="cuda", generator=g) + 0.5
+    mean = torch.rand(c, device="cuda", generator=g) * 0.2
+    var = torch.rand(c, device="cuda", generator=g) + 0.5
+    p3 = torch.tensor([3.0], device="cuda")
+    gout = torch.randn((n, c), device="cuda", generator=g) / n
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+
+    def grads(fn, fmap):
+        x = fmap.detach().requires_grad_(True)
+        p = p3.clone().requires_grad_(True)
+        out = fn(x, p)
+        out.backward(gout)
+        return out.detach(), x.grad, p.grad
+
+    for h, w in ((8, 8), (8, 4)):
+        fmap = torch.relu(torch.rand((n, c, h, w), device="cuda", generator=g) * 2 - 0.6)
+        fmap = fmap.contiguous(memory_format=torch.channels_last)
+        (o, dx, dp), (o_r, dx_r, dp_r) = grads(gem_pool, fmap), grads(gem_pool_plain, fmap)
+        e5 = (rel(o, o_r), rel(dx, dx_r), abs(float(dp - dp_r)) / abs(float(dp_r)))
+        out = gem_bn_l2n(fmap, p3, gamma, mean, var)
+        e2 = float((out - gem_bn_l2n_plain(fmap, p3, gamma, mean, var)).abs().max())
+        torch.cuda.synchronize()
+        print(f"[variants] K5 at {h}x{w}: rel err forward {e5[0]:.3g}, d map {e5[1]:.3g} "
+              f"(tol 1e-05), dp {e5[2]:.3g} (tol 0.001); K2 at {h}x{w}: max_abs_err "
+              f"{e2:.3g} (tol 1e-05)")
+        check(max(e5[:2]) <= 1e-5 and e5[2] <= 1e-3 and e2 <= 1e-5,
+              f"K5 or K2 at {h}x{w} differs from its plain version")
+        x = fmap.detach().requires_grad_(True)
+        pp = p3.clone().requires_grad_(True)
+        t = _time_phases(lambda: gem_pool(x, pp), (x, pp), gout)
+        k5_plain = device_ms(lambda: torch.autograd.grad(gem_pool_plain(x, pp), (x, pp), gout))
+        bf, _ = bound_ms(4 * (fmap.numel() + 2 * n * c), 4 * fmap.numel())
+        bb, _ = bound_ms(4 * (2 * fmap.numel() + 3 * n * c), 4 * fmap.numel())
+        k2 = device_ms(lambda: gem_bn_l2n(fmap, p3, gamma, mean, var))
+        k2_plain = device_ms(lambda: gem_bn_l2n_plain(fmap, p3, gamma, mean, var))
+        b2, by2 = bound_ms(4 * (fmap.numel() + 3 * c + 1 + n * c), 3 * fmap.numel())
+        print(f"[variants] K5 at {h}x{w}: forward ms {t['forward_ms']:.4f} backward ms "
+              f"{t['backward_ms']:.4f} together {t['ms']:.4f} bound_ms {bf + bb:.4f} "
+              f"(bytes, {(bf + bb) / t['ms']:.1%}) plain_ms {k5_plain:.4f}; K2 at {h}x{w}: "
+              f"ms {k2:.4f} bound_ms {b2:.4f} ({by2}, {b2 / k2:.1%}) plain_ms {k2_plain:.4f}")
+
+    full = torch.relu(torch.rand((n, c, 16, 8), device="cuda", generator=g) * 2 - 0.6)
+    full = full.contiguous(memory_format=torch.channels_last)
+    res = []
+    for fn, part in ((gem_pool, part_map), (gem_pool_plain, lambda m, a, b: m[:, :, a:b])):
+        x = full.detach().requires_grad_(True)
+        p = p3.clone().requires_grad_(True)
+        halves = [fn(part(x, 0, 8), p), fn(part(x, 8, 16), p)]
+        sum((hv * gout).sum() for hv in halves).backward()
+        res.append((torch.cat([hv.detach() for hv in halves], 1), x.grad, p.grad))
+    torch.cuda.synchronize()
+    (o, dx, dp), (o_r, dx_r, dp_r) = res
+    errs = (rel(o, o_r), rel(dx, dx_r), abs(float(dp - dp_r)) / abs(float(dp_r)))
+    print(f"[variants] K5 on the halves of a channels_last (256, 2048, 16, 8) map through "
+          f"part_map: rel err forward {errs[0]:.3g}, d map {errs[1]:.3g} (tol 1e-05), dp "
+          f"{errs[2]:.3g} (tol 0.001)")
+    check(max(errs[:2]) <= 1e-5 and errs[2] <= 1e-3, "K5 on part maps differs from plain")
+
+
+# (factory name, keyword arguments, GeMs a step: K5 launches per step, the
+# parameters the USL loss cannot reach: bip's second branch, which the fused
+# feature weighs by 1 - output_balance = 0, bipd's GAN branch, mp's GAN
+# projection and predictor, none of whose outputs the loss reads)
+VARIANT_RUNS = (("resnet_bip50", {}, 2, ("p2_", "gap2.", "feat_bn2.")),
+                ("resnet_bipd50", {}, 1, ("p2_",)),
+                ("resnet_mp50", {"fusion": "sum"}, 3, ("proj_gan.",)),
+                ("resnet_mp50", {"fusion": "sum", "need_predictor": True}, 3,
+                 ("proj_gan.", "predictor.")))
+
+
+def phase_variants():
+    """``[variants]``: K5 and K2 at the variants' map shapes, then for each
+    backbone variant at full width (random weights, ``norm`` on): one eval
+    batch of 256 at 256x128 held against the same forward through the plain
+    heads (K2 ``bip``/``bipd``, K5 ``mp``), then 3 USL steps of batch 256
+    (16 x 16) on phase 4's set with their launches (K5 forward and backward
+    once per GeM per step; K4, K6, K7 once a step), a finite loss, every
+    parameter the loss reaches moved, one step held against the plain
+    versions, the peak memory and 3 warm steps timed."""
+    from reid_gan_torch import kernels
+    from reid_gan_torch.engine.trainers import ClusterContrastTrainer
+    from reid_gan_torch.engine.usl import bank_rows, make_train_loader
+    from reid_gan_torch.models import create
+    from reid_gan_torch.ops.cluster_memory import init_memory
+    from reid_gan_torch.ops.transforms import eval_transform
+
+    check_variant_maps()
+    t_phase = time.perf_counter()
+    img = torch.from_numpy(_eval_set()[0][0]["img"]).cuda()
+    items, imgs = _pseudo_set()
+    n_ids, steps = 700, 3
+    for name, kw, n_gem, unreached in VARIANT_RUNS:
+        tag = f"[variants] {name}" + "".join(f" {k}={v}" for k, v in kw.items())
+        torch.manual_seed(0)
+        model = create(name, norm=True, **kw).to("cuda", memory_format=torch.channels_last)
+        model.eval()
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            with torch.inference_mode():
+                x = eval_transform(img, 256, 128, torch.bfloat16).float()
+                kernels.reset_launch_counts()
+                got = model(x)
+                launched = {k: v for k, v in kernels.phase_launch_counts().items() if v}
+                with _plain_heads():
+                    ref = model(x)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        torch.cuda.synchronize()
+        want = {"gem_pool.forward": 3} if name == "resnet_mp50" else \
+            {"gem_bn_l2n.forward": 2 if name == "resnet_bip50" else 1}
+        err = float((got - ref).abs().max())
+        print(f"{tag}: eval batch of 256 at 256x128, features vs the plain heads (TF32 "
+              f"off): max_abs_err {err:.3g} (tol 0.0001); launches {launched}")
+        check(got.shape == (256, 2048) and bool(torch.isfinite(got).all()) and err <= 1e-4
+              and launched == want, f"{name} eval differs from its plain heads or "
+                                    f"launched {launched}, not {want}")
+
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        centers = torch.nn.functional.normalize(
+            torch.randn((n_ids, 2048), device="cuda", generator=gen), dim=1)
+        trainer = ClusterContrastTrainer(model, height=256, width=128, num_instances=16,
+                                         device="cuda")
+        state = trainer.init_state(init_memory(centers, k_pad=bank_rows(n_ids), device="cuda"))
+        loader = make_train_loader(items, 256, 128, 256, 16, workers=4, iters=400, seed=1,
+                                   cache=_InMemoryImages(imgs))
+        before = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if p.requires_grad}
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        state, loss = trainer.train(state, 0, loader, train_iters=steps, print_freq=steps,
+                                    base_seed=1)
+        torch.cuda.synchronize()
+        phases = kernels.phase_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {"gem_pool.forward": steps * n_gem, "gem_pool.backward": steps * n_gem,
+                "train_augment.forward": steps, "infonce.forward": steps,
+                "infonce.backward": steps, "bank_fold.forward": steps}
+        bad = {k: phases[k] for k, v in want.items() if phases[k] != v}
+        reached = [n for n in before if not n.startswith(unreached)]
+        params = dict(model.named_parameters())
+        still = [n for n in reached if torch.equal(params[n].detach(), before[n])]
+        print(f"{tag}: {steps} USL steps (1st, cuDNN cold), mean loss {loss:.4f}; "
+              f"launches per step K5 forward {phases['gem_pool.forward'] / steps:g}, "
+              f"backward {phases['gem_pool.backward'] / steps:g}, K4 "
+              f"{phases['train_augment.forward'] / steps:g}, K6 "
+              f"{phases['infonce.forward'] / steps:g}, K7 {phases['bank_fold.forward'] / steps:g};"
+              f" {len(reached) - len(still)} of the {len(reached)} parameter tensors the "
+              f"loss reaches moved ({len(before) - len(reached)} it cannot reach: "
+              f"{', '.join(unreached)}); peak {peak:.3f} GiB")
+        check(not bad, f"{name}: launches {bad}, not {want}")
+        check(np.isfinite(loss) and not still, f"{name}: loss {loss} or parameters that "
+                                               f"did not move: {still[:5]}")
+        _compare_step(trainer, state, loader.next(), tag[1:].replace("]", "", 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = trainer.train(state, 1, loader, train_iters=steps, print_freq=steps,
+                                 base_seed=1)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / steps
+        print(f"{tag}: warm {dt * 1e3:.1f} ms a step, {256 / dt:.1f} img/s (batch 256, "
+              f"256x128, fp32 weights, TF32 convolutions)")
+        loader.close()
+        del model, trainer, state
+        torch.cuda.empty_cache()
+    print(f"[variants] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def _usl_set(seed=0, n_train=12936, ids=751, n_query=1024, n_gallery=3072,
@@ -1469,6 +1791,19 @@ def _usl_set(seed=0, n_train=12936, ids=751, n_query=1024, n_gallery=3072,
                            gallery=items[n_train + n_query:]), imgs
 
 
+def knn_fp64(f, k, block=2048):
+    """The exact reference of K8's L2 table: the k nearest rows of each row
+    of the card's (N, D) features by squared distance in fp64, ties to the
+    lower index, as host (N, k) int32."""
+    f = f.double()
+    sq = (f * f).sum(1)
+    out = []
+    for s in range(0, f.shape[0], block):
+        d = sq[s:s + block, None] + sq[None] - 2.0 * (f[s:s + block] @ f.T)
+        out.append(torch.sort(d, dim=1, stable=True)[1][:, :k].to(torch.int32).cpu().numpy())
+    return np.concatenate(out)
+
+
 def _changed_points(a, b):
     """Points whose cluster in ``a`` is not the one most of their ``b``
     cluster went to (noise counts as a cluster of its own)."""
@@ -1480,10 +1815,11 @@ def _changed_points(a, b):
     return int(changed)
 
 
-def phase_usl(counts):
+def phase_usl(counts, arch="resnet50", use_hard=False, label="usl"):
     """The whole USL epoch through ``cli/train_usl.run``: extraction (K1,
     K2), kNN (K8), Jaccard and DBSCAN (host C++), the bank, 20 P×K steps
-    (K4-K7), eval (K1-K3) and the checkpoint."""
+    (K4-K7, K7 hard with ``use_hard``), eval (K1-K3) and the checkpoint, on
+    a random ``arch``."""
     import tempfile
 
     from reid_gan_torch import kernels
@@ -1499,9 +1835,13 @@ def phase_usl(counts):
     dataset, imgs = _usl_set()
     cache = _InMemoryImages(imgs)
     cfg = Config()                     # the recipe: eps 0.4, min_samples 4, k1 30, k2 6
+    cfg.model.arch, cfg.cluster.use_hard = arch, use_hard
     cfg.data.workers = 4
     cfg.train.epochs, cfg.train.iters, cfg.train.eval_step = 1, 20, 1
-    print(f"[usl] data: {len(dataset.train)} train images of 751 ids, "
+    print(f"[{label}] --arch {arch}{' --use-hard' if use_hard else ''} --eps "
+          f"{cfg.cluster.eps} --k1 {cfg.cluster.k1} --k2 {cfg.cluster.k2}, batch "
+          f"{cfg.data.batch_size} of {cfg.data.num_instances} instances")
+    print(f"[{label}] data: {len(dataset.train)} train images of 751 ids, "
           f"{len(dataset.query)} + {len(dataset.gallery)} eval, 256x128, made in "
           f"{time.perf_counter() - t_phase:.1f} s; depth cut: 1 epoch of "
           f"{cfg.train.iters} steps instead of {Config().train.iters}")
@@ -1524,9 +1864,9 @@ def phase_usl(counts):
     (feats, run_labels), = clustered
     n_clusters, n_train = int(run_labels.max()) + 1, len(dataset.train)
     n_labelled = int((run_labels >= 0).sum())
-    print(f"[usl] run(): {wall:.2f} s, best mAP {best:.4f}; {n_clusters} clusters, "
+    print(f"[{label}] run(): {wall:.2f} s, best mAP {best:.4f}; {n_clusters} clusters, "
           f"{n_labelled} of {n_train} images pseudo-labelled; wrote {saved}")
-    print(f"[usl] launches: {phases}")
+    print(f"[{label}] launches: {phases}")
     check(phases["knn_topk.forward"] == 1, "K8 did not launch once in the clustering")
     for name in ("train_augment.forward", "gem_pool.forward", "gem_pool.backward",
                  "infonce.forward", "infonce.backward", "bank_fold.forward"):
@@ -1548,36 +1888,50 @@ def phase_usl(counts):
              "Jaccard": secs["jaccard"] - secs["knn"], "DBSCAN": secs["dbscan"],
              "bank": secs["bank"], steps: secs["train"], "eval": secs["eval"]}
     cluster_s = sum(v for k, v in split.items() if k not in (steps, "eval"))
-    print("[usl] epoch split (s, host clock): "
+    print(f"[{label}] epoch split (s, host clock): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     # at the 20 steps' mean pace, which carries the new trainer's start: an upper figure
     full, step_s = Config().train.iters, secs["train"] / cfg.train.iters
-    print(f"[usl] projected {full}-step epoch: clustering {cluster_s:.2f} s + {full} steps "
+    print(f"[{label}] projected {full}-step epoch: clustering {cluster_s:.2f} s + {full} steps "
           f"{full * step_s:.2f} s ({step_s:.3f} s a step, the {steps}' mean) + eval "
           f"{split['eval']:.2f} s")
 
-    # the labels run() made through K8 against those from the plain kNN on
-    # the same features
+    # the labels run() made through K8 against those of the exact (fp64)
+    # kNN on the same features, and the plain fp32 version's beside them: on
+    # random weights the features nearly collapse (cosines about 0.999), and
+    # fp32 rounding alone then moves points, as the plain kNN on its own
+    # input jittered by about one part in 10^7 shows
     f_dev = torch.from_numpy(feats).cuda()
     k1, k2 = cfg.cluster.k1, cfg.cluster.k2
     rank = knn_search(f_dev, k1)[1]
+    exact_rank = knn_fp64(f_dev, k1)
     plain_vals, plain_rank = knn_search_plain(f_dev, k1)
-    plain_labels = dbscan(jaccard_from_rank(plain_rank, feats, k1, k2), cfg.cluster.eps,
-                          cfg.cluster.min_samples)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    jit = f_dev * (1 + 1e-7 * torch.randn(f_dev.shape, device="cuda", generator=gen))
+    jit_rank = knn_search_plain(jit / jit.norm(dim=1, keepdim=True), k1)[1]
+    exact_labels, plain_labels, jit_labels = (
+        dbscan(jaccard_from_rank(r, feats, k1, k2), cfg.cluster.eps, cfg.cluster.min_samples)
+        for r in (exact_rank, plain_rank, jit_rank))
     rows, gap = _swap_gap(f_dev, rank, plain_vals, plain_rank, "l2")
-    swapped = int(np.unique(rows).size)
-    changed = _changed_points(run_labels, plain_labels)
-    same = np.array_equal(run_labels, plain_labels)
-    print(f"[usl] labels check: kNN tables differ in {swapped} rows (largest plain-side "
-          f"gap {gap:.3g}); labels identical: {same}; {changed} of {n_train} points "
-          f"changed cluster")
+    swapped = int((rank != exact_rank).any(1).sum())
+    changed = _changed_points(run_labels, exact_labels)
+    same = np.array_equal(run_labels, exact_labels)
+    print(f"[{label}] labels check against the fp64 kNN: K8's table differs in {swapped} "
+          f"rows; labels identical: {same}; {changed} of {n_train} points changed cluster "
+          f"(the plain fp32 kNN: {int((plain_rank != exact_rank).any(1).sum())} rows, "
+          f"{_changed_points(plain_labels, exact_labels)} points; K8 against the plain "
+          f"fp32 kNN: {int(np.unique(rows).size)} rows, largest plain-side gap "
+          f"{gap:.3g}, {_changed_points(run_labels, plain_labels)} points; the plain fp32 "
+          f"kNN against itself on a 1e-7 jitter: "
+          f"{int((jit_rank != plain_rank).any(1).sum())} rows, "
+          f"{_changed_points(jit_labels, plain_labels)} points)")
     check(same if swapped == 0 else changed < n_train / 100,
-          "K8's kNN changes the labels against the plain kNN")
+          "K8's kNN changes the labels against the exact kNN")
     info = pseudo_labels_infomap(feats, eps=0.5, k1=15, cluster_num=4,
                                  print_flag=False, device="cuda")
-    print(f"[usl] Infomap (eps 0.5, k1 15, through K8's inner product): "
+    print(f"[{label}] Infomap (eps 0.5, k1 15, through K8's inner product): "
           f"{int(info.max()) + 1} clusters, {int((info < 0).sum())} outliers")
-    print(f"[usl] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    print(f"[{label}] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def _write_pose_csv(items, path, seed):
@@ -2895,11 +3249,22 @@ def main(argv=None):
     check_k14(report)
     torch.cuda.synchronize()
     counts = {}
-    phase_main_path(counts)
+    r50_rate = phase_main_path(counts)
     torch.cuda.synchronize()
     phase_train(counts)
     torch.cuda.synchronize()
     phase_usl(counts)
+    torch.cuda.synchronize()
+    ibn_rate = phase_main_path({}, arch="resnet_ibn50a", label="ibn_main")
+    print(f"[ibn_main] warm extraction, this call: resnet_ibn50a {ibn_rate:.1f} img/s "
+          f"against resnet50 {r50_rate:.1f} img/s ({ibn_rate / r50_rate:.3f})")
+    torch.cuda.synchronize()
+    phase_train({}, arch="resnet_ibn50a", use_hard=True, label="ibn_train")
+    torch.cuda.synchronize()
+    ibn_counts = {}                     # the headline recipe's loop: its counts
+    phase_usl(ibn_counts, arch="resnet_ibn50a", use_hard=True, label="ibn_usl")
+    torch.cuda.synchronize()            # join the line's launches
+    phase_variants()
     torch.cuda.synchronize()
     phase_joint(counts)
     torch.cuda.synchronize()
@@ -2928,7 +3293,8 @@ def main(argv=None):
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces,
-         "launches": joint_counts[k.name] + hardmix_counts[k.name] + chain_counts[k.name],
+         "launches": joint_counts[k.name] + hardmix_counts[k.name] + chain_counts[k.name]
+         + ibn_counts[k.name],
          "library_ms": None, **report[k.name]}
         for k in kernels.KERNELS]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -66,7 +66,7 @@ def main(argv=None):
     dataset = create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True)
     torch.manual_seed(0)
     model = create_model(cfg.model.arch, num_features=cfg.model.features,
-                         pooling_type=cfg.model.pooling_type)
+                         norm=cfg.model.norm, pooling_type=cfg.model.pooling_type)
     if ns.resume_torch:
         load_torch_reference_checkpoint(ns.resume_torch, model)
 

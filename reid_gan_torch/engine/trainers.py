@@ -96,6 +96,13 @@ class ClusterContrastTrainer:
         loss = losses.mean()
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        # a parameter the loss does not reach (a variant's second branch,
+        # GAN projection or predictor) gets a zero gradient, as in the JAX
+        # step, so that Adam's coupled weight decay moves it all the same
+        for group in state.optimizer.param_groups:
+            for q in group["params"]:
+                if q.grad is None:
+                    q.grad = torch.zeros_like(q)
         state.optimizer.step()
         state.scheduler.step()
         update_memory(state.memory, out["feat"].detach(), targets,

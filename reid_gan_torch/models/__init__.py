@@ -12,6 +12,17 @@ from .resnet import (
     resnet50,
     resnet101,
     resnet152,
+    resnet_ibn50a,
+    resnet_ibn101a,
+)
+from .resnet_variants import (
+    PredictorMLP,
+    ResNetBip,
+    ResNetBipD,
+    ResNetMP,
+    resnet_bip50,
+    resnet_bipd50,
+    resnet_mp50,
 )
 
 __factory = {
@@ -20,6 +31,11 @@ __factory = {
     "resnet50": resnet50,
     "resnet101": resnet101,
     "resnet152": resnet152,
+    "resnet_ibn50a": resnet_ibn50a,
+    "resnet_ibn101a": resnet_ibn101a,
+    "resnet_bip50": resnet_bip50,
+    "resnet_bipd50": resnet_bipd50,
+    "resnet_mp50": resnet_mp50,
 }
 
 
@@ -34,5 +50,6 @@ def create(name, *args, **kwargs):
     return __factory[name](*args, **kwargs)
 
 
-__all__ = ["EltwiseSubEmbed", "FDResNet", "ReIDResNet", "ResNetBackbone", "SiameseNet",
-           "create", "names", "siamese_baseline"]
+__all__ = ["EltwiseSubEmbed", "FDResNet", "PredictorMLP", "ReIDResNet", "ResNetBackbone",
+           "ResNetBip", "ResNetBipD", "ResNetMP", "SiameseNet", "create", "names",
+           "siamese_baseline"]

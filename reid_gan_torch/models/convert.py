@@ -1,6 +1,8 @@
 """Weight conversion between the JAX package's trees and the port's
 ``state_dict`` layout, and reference-checkpoint key normalisation."""
 
+import re
+
 import numpy as np
 import torch
 
@@ -11,64 +13,83 @@ def _t(a):
     return torch.tensor(a.astype(np.promote_types(a.dtype, np.float32)))
 
 
+# The JAX variants' scopes that hold one ``ResNetStage`` (children
+# ``layerK_J``), which the port keeps as an ``nn.Sequential`` (children ``J``)
+_STAGE_SCOPES = ("p1_l3", "p1_l4", "p2_l3", "p2_l4", "res_g", "res_p")
+
+
+def _torch_child(child, in_stage):
+    """A flax scope's name → the port's module name: ``layerI_J`` →
+    ``layerI.J`` (``J`` inside a ``ResNetStage``), ``downsample_{conv,bn}``
+    → ``downsample.{0,1}``."""
+    if re.fullmatch(r"layer[0-9]_[0-9]+", child):
+        stage, blk = child.split("_")
+        return blk if in_stage else f"{stage}.{blk}"
+    return {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}.get(child, child)
+
+
+def _module_to_sd(sd, key, name, p, s):
+    """One flax module's (params, batch_stats) subtrees, numpy leaves, into
+    ``sd`` under the torch prefix ``key``: a kernel (HWIO → OIHW for a
+    convolution, (in, out) → (out, in) for a Dense) with its bias, a
+    BatchNorm (its running stats; a scale-only one gets its frozen zero
+    bias), an instance norm ``IN`` (scale and shift, no stats), a GeM ``p``,
+    or a scope of such modules."""
+    join = lambda k: f"{key}.{k}" if key else k   # noqa: E731
+    if "kernel" in p:
+        kern = np.asarray(p["kernel"])
+        sd[join("weight")] = _t(np.transpose(kern, (3, 2, 0, 1)) if kern.ndim == 4 else kern.T)
+        if "bias" in p:
+            sd[join("bias")] = _t(p["bias"])
+    elif "scale" in p and name == "IN":
+        sd[join("weight")] = _t(p["scale"])
+        sd[join("bias")] = _t(p["bias"])
+    elif "scale" in p:
+        scale = np.asarray(p["scale"])
+        sd[join("weight")] = _t(scale)
+        sd[join("bias")] = _t(p["bias"]) if "bias" in p else \
+            torch.zeros(scale.shape, dtype=torch.float32)
+        sd[join("running_mean")] = _t(s["mean"])
+        sd[join("running_var")] = _t(s["var"])
+        sd[join("num_batches_tracked")] = torch.tensor(0)
+    elif "p" in p:
+        sd[join("p")] = _t(p["p"])
+    else:
+        for child, sub in p.items():
+            if not isinstance(sub, dict) and not hasattr(sub, "items"):
+                raise KeyError(f"unsupported entry {key or '.'}/{child}")
+            _module_to_sd(sd, join(_torch_child(child, name in _STAGE_SCOPES)), child,
+                          sub, s.get(child, {}))
+    return sd
+
+
 def resnet_state_dict_from_jax(params, batch_stats):
-    """``ReIDResNet`` (params, batch_stats) trees, numpy leaves → a torch
-    ``state_dict`` for the port's ``ReIDResNet``.
+    """``ReIDResNet`` (or ``FDResNet``) (params, batch_stats) trees, numpy
+    leaves → a torch ``state_dict`` for the port's model.
 
     The inverse of ``reid_gan_tpu/models/resnet.py::import_torch_resnet``
     (resnet.py:263-337): conv kernels HWIO → OIHW, Dense (in, out) →
     (out, in) (``feat``, ``classifier``), BN scale/bias/mean/var →
     weight/bias/running_mean/running_var,
     ``base/layerI_J`` → ``layerI.J``, ``downsample_{conv,bn}`` →
-    ``downsample.{0,1}``. The scale-only ``feat_bn`` gets its frozen zero
-    bias. IBN variants are not covered (their ``bn1`` is split).
+    ``downsample.{0,1}``, an IBN-a split ``bn1/{IN,BN}`` → ``bn1.IN.{weight,
+    bias}`` and ``bn1.BN.*`` (resnet.py:290-305). The scale-only ``feat_bn``
+    gets its frozen zero bias.
     """
-    sd = {}
+    params, batch_stats = dict(params), dict(batch_stats)
+    sd = _module_to_sd({}, "", "base", params.pop("base"), batch_stats.pop("base", {}))
+    return _module_to_sd(sd, "", "", params, batch_stats)
 
-    def conv(key, tree):
-        sd[key] = _t(np.transpose(np.asarray(tree["kernel"]), (3, 2, 0, 1)))
 
-    def bn(prefix, p, s):
-        scale = np.asarray(p["scale"])
-        sd[f"{prefix}.weight"] = _t(scale)
-        sd[f"{prefix}.bias"] = _t(p["bias"]) if "bias" in p else \
-            torch.zeros(scale.shape, dtype=torch.float32)
-        sd[f"{prefix}.running_mean"] = _t(s["mean"])
-        sd[f"{prefix}.running_var"] = _t(s["var"])
-        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
-
-    base_p, base_s = params["base"], batch_stats["base"]
-    conv("conv1.weight", base_p["conv1"])
-    bn("bn1", base_p["bn1"], base_s["bn1"])
-    for name in base_p:
-        if not name.startswith("layer"):
-            continue
-        stage, blk = name.split("_")
-        prefix = f"{stage}.{blk}"
-        for sub in base_p[name]:
-            if sub == "downsample_conv":
-                conv(f"{prefix}.downsample.0.weight", base_p[name][sub])
-            elif sub == "downsample_bn":
-                bn(f"{prefix}.downsample.1", base_p[name][sub],
-                   base_s[name][sub])
-            elif sub.startswith("conv"):
-                conv(f"{prefix}.{sub}.weight", base_p[name][sub])
-            elif sub.startswith("bn") and "scale" in base_p[name][sub]:
-                bn(f"{prefix}.{sub}", base_p[name][sub], base_s[name][sub])
-            else:
-                raise KeyError(f"unsupported backbone entry base/{name}/{sub}")
-    if "gap" in params:
-        sd["gap.p"] = _t(params["gap"]["p"])
-    if "feat" in params:
-        sd["feat.weight"] = _t(np.asarray(params["feat"]["kernel"]).T)
-        sd["feat.bias"] = _t(params["feat"]["bias"])
-    if "feat_bn" in params:
-        bn("feat_bn", params["feat_bn"], batch_stats["feat_bn"])
-    if "classifier" in params:
-        sd["classifier.weight"] = _t(np.asarray(params["classifier"]["kernel"]).T)
-        if "bias" in params["classifier"]:
-            sd["classifier.bias"] = _t(params["classifier"]["bias"])
-    return sd
+def variant_state_dict_from_jax(params, batch_stats):
+    """A ``ResNetBip``, ``ResNetBipD`` or ``ResNetMP`` (params, batch_stats)
+    → the port's ``state_dict`` of the same variant
+    (``models/resnet_variants.py``), scope by scope: ``base`` (the stem,
+    ``base.conv1``, ``base.layerI.J``), the stages ``p1_l3`` ... ``res_p``
+    (``layerK_J`` → ``<scope>.J``), the GeMs ``gap*``/``gpool_*``, the
+    scale-only ``feat_bn*``, the Dense ``fc_id_*``, the 1×1 ``proj_gan``
+    and ``predictor/{fc1, bn1, fc2}``."""
+    return _module_to_sd({}, "", "", params, batch_stats)
 
 
 def _prefixed(prefix, sd):

@@ -234,3 +234,13 @@ def gem_bn_l2n(fmap, p, weight, running_mean, running_var, gem_eps=1e-6,
         raise ValueError(f"gem_bn_l2n: unsupported device {fmap.device}")
     return gem_bn_l2n_plain(fmap, p, weight, running_mean, running_var,
                             gem_eps, bn_eps)
+
+
+def eval_l2_head(fmap, gap, bn):
+    """An eval head of pooling ``gap`` → BatchNorm ``bn`` on its running
+    stats → L2 norm of an (N, C, H, W) map: kernel K2 (``gem_bn_l2n``) when
+    ``gap`` is GeM with a learned p, else the three modules in turn."""
+    if isinstance(gap, GeneralizedMeanPooling) and isinstance(gap.p, nn.Parameter):
+        return gem_bn_l2n(fmap, gap.p, bn.weight, bn.running_mean, bn.running_var,
+                          gap.eps, bn.eps)
+    return l2n(bn(gap(fmap)))

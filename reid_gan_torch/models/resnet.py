@@ -4,7 +4,10 @@ torchvision key names (``conv1``, ``bn1``, ``layerI.J.convK``,
 ``layerI.J.downsample.{0,1}``) plus ``gap.p``, ``feat.*``, ``feat_bn.*`` and
 ``classifier.weight``, so a ``state_dict()`` of this model is what
 ``reid_gan_tpu.models.resnet.import_torch_resnet`` reads and what
-``convert.resnet_state_dict_from_jax`` writes. ``nn.BatchNorm2d`` already has
+``convert.resnet_state_dict_from_jax`` writes. The IBN-a encoders
+(``resnet_ibn50a``, ``resnet_ibn101a``; CC/clustercontrast/models/
+resnet_ibn_a.py:22-105) split the ``bn1`` of every block of stages 1-3 into
+``bn1.IN`` and ``bn1.BN``, the layout of the reference's checkpoints. ``nn.BatchNorm2d`` already has
 the semantics of the JAX package's ``TorchBatchNorm``: in eval mode it
 normalises with the running stats; in train mode with the biased batch
 variance, and it stores the unbiased one with torch momentum 0.1 (flax
@@ -25,20 +28,49 @@ import torch
 from torch import nn
 
 from ..kernels import GAN_FEAT_L2N
-from .pooling import GeneralizedMeanPooling, build_pooling_layer, gem_bn_l2n, l2n
+from .pooling import build_pooling_layer, eval_l2_head, l2n
 
 
 def _conv(cin, cout, k, stride=1):
     return nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=False)
 
 
+class IBN(nn.Module):
+    """Instance-Batch Norm split (resnet.py:38-51; resnet_ibn_a.py:54-67):
+    the first half of the channels through instance norm with an affine
+    scale and shift (the JAX package's one-channel-a-group ``GroupNorm``,
+    eps 1e-5; no running stats, so train and eval normalise alike), the
+    second half through BatchNorm, concatenated. The output keeps the
+    input's memory format: a channels_last block stays channels_last."""
+
+    def __init__(self, planes):
+        super().__init__()
+        self.half = planes // 2
+        self.IN = nn.InstanceNorm2d(self.half, eps=1e-5, affine=True,
+                                    track_running_stats=False)
+        self.BN = nn.BatchNorm2d(planes - self.half)
+
+    def forward(self, x):
+        # torch.cat and the copy back to channels_last, not writes of the
+        # halves into one output: the writes save a pass forward but their
+        # backward costs more (PERF.md §6, the IBN-a entry)
+        out = torch.cat([self.IN(x[:, :self.half]), self.BN(x[:, self.half:])], 1)
+        if x.is_contiguous(memory_format=torch.channels_last):
+            return out.contiguous(memory_format=torch.channels_last)
+        return out
+
+
+def _bn1(planes, ibn):
+    return IBN(planes) if ibn else nn.BatchNorm2d(planes)
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, inplanes, planes, stride=1):
+    def __init__(self, inplanes, planes, stride=1, ibn=False):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = _bn1(planes, ibn)
         self.conv2 = _conv(planes, planes, 3)
         self.bn2 = nn.BatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
@@ -57,11 +89,11 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride=1):
+    def __init__(self, inplanes, planes, stride=1, ibn=False):
         super().__init__()
         out = planes * self.expansion
         self.conv1 = _conv(inplanes, planes, 1)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = _bn1(planes, ibn)
         self.conv2 = _conv(planes, planes, 3, stride)
         self.bn2 = nn.BatchNorm2d(planes)
         self.conv3 = _conv(planes, out, 1)
@@ -89,42 +121,58 @@ STAGES = {
 }
 
 
-class ResNetBackbone(nn.Module):
-    """conv1 → maxpool → layer1..4 (NCHW in, NCHW out)."""
+def _init_convs(module):
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):   # conv_kaiming of the JAX package
+            nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
 
-    def __init__(self, depth=50, last_stride=1):
+
+def make_stage(depth, stage, stride, ibn=False):
+    """The blocks of ``layer{stage}`` (1-based) as an ``nn.Sequential``
+    (children ``0``, ``1``, ...), the first with ``stride``; IBN in every
+    block's ``bn1`` when ``ibn``."""
+    block, sizes = STAGES[depth]
+    planes = (64, 128, 256, 512)[stage - 1]
+    inplanes = 64 if stage == 1 else planes // 2 * block.expansion
+    blocks = []
+    for j in range(sizes[stage - 1]):
+        blocks.append(block(inplanes, planes, stride if j == 0 else 1, ibn))
+        inplanes = planes * block.expansion
+    return nn.Sequential(*blocks)
+
+
+class ResNetBackbone(nn.Module):
+    """conv1 → maxpool → layer1..``stop_at_stage`` (NCHW in, NCHW out);
+    IBN-a in stages 1-3 with ``ibn`` (stage 4 never has it, resnet.py:146)."""
+
+    def __init__(self, depth=50, last_stride=1, ibn=False, stop_at_stage=4):
         super().__init__()
-        block, sizes = STAGES[depth]
+        self.stop_at_stage = stop_at_stage
         self.conv1 = _conv(3, 64, 7, 2)
         self.bn1 = nn.BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
-        inplanes = 64
-        for i, planes in enumerate((64, 128, 256, 512)):
+        for i in range(stop_at_stage):
             stride = 1 if i == 0 else (last_stride if i == 3 else 2)
-            blocks = []
-            for j in range(sizes[i]):
-                blocks.append(block(inplanes, planes, stride if j == 0 else 1))
-                inplanes = planes * block.expansion
-            setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
-        self.out_channels = inplanes
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):   # conv_kaiming of the JAX package
-                nn.init.kaiming_normal_(m.weight, mode="fan_out",
-                                        nonlinearity="relu")
+            setattr(self, f"layer{i + 1}", make_stage(depth, i + 1, stride, ibn and i < 3))
+        block, _ = STAGES[depth]
+        self.out_channels = (64, 128, 256, 512)[stop_at_stage - 1] * block.expansion
+        _init_convs(self)
 
     def forward(self, x):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for i in range(self.stop_at_stage):
+            x = getattr(self, f"layer{i + 1}")(x)
+        return x
 
 
 class ReIDResNet(ResNetBackbone):
     """Eval: (N, 3, H, W) → (N, D) L2-normalised ``feat_bn`` output.
     Train: ``{'feat', 'gan_feat'}`` (+ ``'prob'``), as ``resnet.py:208-219``."""
 
-    def __init__(self, depth=50, num_features=0, norm=False, dropout=0.0,
+    def __init__(self, depth=50, ibn=False, num_features=0, norm=False, dropout=0.0,
                  num_classes=0, pooling_type="gem", last_stride=1):
-        super().__init__(depth, last_stride)
+        super().__init__(depth, last_stride, ibn)
         self.gap = build_pooling_layer(pooling_type)
         dim = self.out_channels
         self.num_features = num_features
@@ -141,23 +189,15 @@ class ReIDResNet(ResNetBackbone):
         if num_classes > 0:
             self.classifier = nn.Linear(dim, num_classes, bias=False)
             nn.init.normal_(self.classifier.weight, std=0.001)
-        self._fused_head = (isinstance(self.gap, GeneralizedMeanPooling)
-                            and isinstance(self.gap.p, nn.Parameter)
-                            and num_features == 0)
 
     def forward(self, x, with_gan_feat=True):
         fmap = super().forward(x)
         # the heads run in (at least) fp32, as resnet.py:183 upcasts
         fmap = fmap.to(torch.promote_types(fmap.dtype, torch.float32))
         if not self.training:
-            if self._fused_head:
-                bn = self.feat_bn
-                return gem_bn_l2n(fmap, self.gap.p, bn.weight, bn.running_mean,
-                                  bn.running_var, self.gap.eps, bn.eps)
-            z = self.gap(fmap)
-            if self.num_features > 0:
-                z = self.feat(z)
-            return l2n(self.feat_bn(z))
+            if self.num_features == 0:
+                return eval_l2_head(fmap, self.gap, self.feat_bn)
+            return l2n(self.feat_bn(self.feat(self.gap(fmap))))
         out = {"feat": self._train_head(fmap)}
         if with_gan_feat:
             out["gan_feat"] = gan_feat(fmap)
@@ -275,3 +315,11 @@ def resnet101(**kw):
 
 def resnet152(**kw):
     return ReIDResNet(depth=152, **kw)
+
+
+def resnet_ibn50a(**kw):
+    return ReIDResNet(depth=50, ibn=True, **kw)
+
+
+def resnet_ibn101a(**kw):
+    return ReIDResNet(depth=101, ibn=True, **kw)

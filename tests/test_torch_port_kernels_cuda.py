@@ -4,16 +4,17 @@ width, narrow and odd maps, galleries smaller than a block, queries with no
 match, rows with more matches than K3 stages in one round; crops and erase
 rectangles at the borders, a 1 x 1 crop, every image flipped or none and
 erased or none, widths on and off the float4 and the 16-byte staging copy,
-one image and heights off the eight bands (K4); p other than 3, maps of zeros and odd
-sizes, one image, one position and positions and channels off the block's
-split (K5); one live bank row, a full bank and banks off the column tile,
-D under the tensor cores' depth and off the stage and the D slice,
-num_valid on and one past a tile, stage and slice edge, a bank of 30,720
-rows, and extra negatives (``ex_f``) of 1, 16 and 33 rows in groups of 1
-and of the whole batch, against banks of 768 and 30,720 rows (K6); the
-same bits on a second run (K5, K6); one label for the whole batch, all
-labels distinct and exact ties in
-the hard fold (K7); sets smaller than a tile, D off the stage and off the
+one image and heights off the eight bands (K4); p other than 3, maps of
+zeros and odd sizes, one image, one position and positions and channels
+off the block's split, the backbone variants' 8x8 and 8x4 maps and the
+halves of a channels_last map through ``part_map`` (K5; K2 at the
+variants' maps too); one live bank row, a full bank and banks off the
+column tile, D under the tensor cores' depth and off the stage and the D
+slice, num_valid on and one past a tile, stage and slice edge, a bank of
+30,720 rows, and extra negatives (``ex_f``) of 1, 16 and 33 rows in
+groups of 1 and of the whole batch, against banks of 768 and 30,720 rows
+(K6); the same bits on a second run (K5, K6); one label for the whole
+batch, all labels distinct and exact ties in the hard fold (K7); sets smaller than a tile, D off the stage and off the
 vector width, k of 1, 64, 65, 128, 256 and 300 (the register lists and the
 lists in scratch), exact ties and the inner product (K8); odd
 batches and frames (K9, K10), missing joints and joints on the frame's
@@ -172,13 +173,16 @@ def _gem_bn_inputs(card, n, c, h, w, p):
 
 @pytest.mark.parametrize("n,c,h,w,p", [(3, 12, 5, 1, 3.2), (2, 2048, 16, 8, 1.0),
                                        (5, 516, 3, 3, 4.5), (16, 2048, 16, 8, 3.0),
-                                       (1, 2048, 16, 8, 4.5), (2, 12288, 2, 2, 3.0)])
+                                       (1, 2048, 16, 8, 4.5), (2, 12288, 2, 2, 3.0),
+                                       (256, 2048, 8, 8, 3.0), (256, 2048, 8, 4, 3.0)])
 def test_gem_bn_l2n_matches_plain(card, n, c, h, w, p):
     """Channel counts under one chunk of 128 and with a partial last chunk
     (C 12, 516), a single position column, p = 1 (average pooling) and 4.5,
-    the hard-mix step's 16 images and one image at full width, and the
-    widest C (96 chunks over a cluster of 16): unit vectors within 1e-5
-    (lg2/ex2 against torch.pow, and the sum order)."""
+    the hard-mix step's 16 images and one image at full width, the widest
+    C (96 chunks over a cluster of 16), and the backbone variants' maps at
+    the extraction batch (8x8, a half of ``resnet_mp50``'s part map; 8x4,
+    its global branch): unit vectors within 1e-5 (lg2/ex2 against
+    torch.pow, and the sum order)."""
     from reid_gan_torch.models.pooling import gem_bn_l2n, gem_bn_l2n_plain
 
     args = _gem_bn_inputs(card, n, c, h, w, p)
@@ -485,6 +489,8 @@ def test_train_augment_rejects_bad_inputs(card):
     (1, 2048, 16, 8, 3.0, False),    # one image
     (3, 132, 1, 1, 3.0, False),      # one position: one warp of the 8 works
     (2, 260, 127, 1, 3.5, False),    # S off the 8-warp position split, C off 128
+    (256, 2048, 8, 8, 3.0, False),   # a half of resnet_mp50's 16x8 part map
+    (256, 2048, 8, 4, 3.0, False),   # resnet_mp50's global branch at stride 2
 ])
 def test_gem_pool_forward_backward_match_plain(card, n, c, h, w, p, zeros):
     """Forward, d map and dp against the plain version's autograd in fp64 on
@@ -527,6 +533,39 @@ def test_gem_pool_forward_backward_match_plain(card, n, c, h, w, p, zeros):
         assert rel(fmap.grad, f64.grad) <= 1e-5
         assert abs(float(pp.grad) - float(p64.grad)) <= 1e-4 * abs(float(p64.grad))
     assert fmap.grad.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("n,h", [(4, 16), (256, 16), (3, 7)])
+def test_gem_pool_on_part_maps_matches_plain(card, n, h):
+    """K5 on the upper and lower halves of a channels_last map through
+    ``part_map``, the route ``ResNetMP`` takes (a row slice of such a map is
+    contiguous in neither format for N > 1, so each half is copied), against
+    the plain version on the slices themselves: the pooled halves and the
+    gradient of the whole map within 1e-5 relative, dp within 1e-4."""
+    from reid_gan_torch.models.pooling import gem_pool, gem_pool_plain
+    from reid_gan_torch.models.resnet_variants import part_map
+
+    gen = torch.Generator(device=card).manual_seed(n + h)
+    c, w = 2048, 8
+    fmap = torch.relu(torch.rand((n, c, h, w), device=card, generator=gen) * 2 - 0.6)
+    fmap = fmap.contiguous(memory_format=torch.channels_last)
+    gout = torch.randn((n, 2 * c), device=card, generator=gen)
+    div = h // 2
+    res = []
+    for fn, part in ((gem_pool, part_map), (gem_pool_plain, lambda m, a, b: m[:, :, a:b])):
+        x = fmap.detach().requires_grad_(True)
+        p = torch.tensor([3.0], device=card, requires_grad=True)
+        out = torch.cat([fn(part(x, 0, div), p), fn(part(x, div, h), p)], 1)
+        out.backward(gout)
+        res.append((out.detach(), x.grad, p.grad))
+    torch.cuda.synchronize()
+    (out, dx, dp), (ref, dx_r, dp_r) = res
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    assert rel(out, ref) <= 1e-5 and rel(dx, dx_r) <= 1e-5
+    assert abs(float(dp) - float(dp_r)) <= 1e-4 * abs(float(dp_r))
 
 
 def test_gem_pool_gives_the_same_bits_run_to_run(card):

@@ -49,19 +49,19 @@ def _random_variables(jmodel, rng):
     return variables["params"], variables["batch_stats"]
 
 
-def _jax_model_and_weights(seed):
+def _jax_model_and_weights(seed, ibn=False):
     from reid_gan_tpu.models.resnet import ReIDResNet as JaxReIDResNet
 
-    jmodel = JaxReIDResNet(depth=18, norm=True)
+    jmodel = JaxReIDResNet(depth=18, ibn=ibn, norm=True)
     params, stats = _random_variables(jmodel, np.random.RandomState(seed))
     return jmodel, params, stats
 
 
-def _port_model(params, stats, dtype):
-    from reid_gan_torch.models import create
+def _port_model(params, stats, dtype, ibn=False):
     from reid_gan_torch.models.convert import resnet_state_dict_from_jax
+    from reid_gan_torch.models.resnet import ReIDResNet
 
-    model = create("resnet18", norm=True)
+    model = ReIDResNet(depth=18, ibn=ibn, norm=True)
     model.load_state_dict(resnet_state_dict_from_jax(params, stats), strict=True)
     return model.to(dtype).train()
 
@@ -126,6 +126,18 @@ def _cosine(a, b):
 
 
 def test_fp64_steps_match_jax_steps():
+    _fp64_steps_match_jax_steps(ibn=False)
+
+
+def test_fp64_steps_match_jax_steps_ibn():
+    """The two fp64 steps below with IBN-a in stages 1-3, at the same
+    tolerances: the instance-norm halves' gradients come back through
+    ``import_torch_resnet``'s ``bn1.IN`` routing, the BN halves' running
+    stats within 1e-6 relative."""
+    _fp64_steps_match_jax_steps(ibn=True)
+
+
+def _fp64_steps_match_jax_steps(ibn):
     """Two steps on augmented batches, in fp64: the port's
     ``ClusterContrastTrainer.update`` (train forward/backward, InfoNCE and
     GeM as their plain versions differentiated by autograd, torch Adam with
@@ -149,7 +161,7 @@ def test_fp64_steps_match_jax_steps():
     from reid_gan_torch.engine.trainers import ClusterContrastTrainer
     from reid_gan_torch.ops.cluster_memory import init_memory
 
-    jmodel, params, stats = _jax_model_and_weights(2)
+    jmodel, params, stats = _jax_model_and_weights(2, ibn)
     bank = _bank(4, np.float64)
     steps = []
     for i in range(2):
@@ -158,7 +170,7 @@ def test_fp64_steps_match_jax_steps():
                                     height=H, width=W, train=True), np.float64)
         steps.append((x, y))
 
-    model = _port_model(params, stats, torch.float64)
+    model = _port_model(params, stats, torch.float64, ibn)
     trainer = ClusterContrastTrainer(model, height=H, width=W, num_instances=K,
                                      device="cpu")
     state = trainer.init_state(init_memory(bank, k_pad=K_PAD, device="cpu"))
