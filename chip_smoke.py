@@ -1396,7 +1396,8 @@ def _compare_step(trainer, state, batch, label="train"):
     try:
         results = []
         for plain in (False, True):
-            mem = state.memory._replace(features=state.memory.features.clone())
+            mem = state.memory._replace(features=state.memory.features.clone(),
+                                        gan_features=state.memory.gan_features.clone())
             if plain:
                 x = train_augment_plain(img, params)
                 with _plain_heads():
@@ -1761,6 +1762,23 @@ def phase_variants():
     print(f"[variants] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+def _two_colour_images(rng, pids, h=256, w=128):
+    """uint8 (N, h, w, 3) images of ids ``pids`` (0 to max): an upper and a
+    lower colour block an id from ``rng``, then per-pixel noise from a bank
+    of 64 fields (±40) drawn after the colours."""
+    colours = rng.integers(0, 256, (int(pids.max()) + 1, 2, 3)).astype(np.int16)
+    noise = rng.integers(-40, 40, (64, h, w, 3), dtype=np.int16)
+    n = len(pids)
+    imgs = np.empty((n, h, w, 3), np.uint8)
+    block = np.empty((64, h, 1, 3), np.int16)
+    for s in range(0, n, 64):
+        e = min(s + 64, n)
+        block[:e - s, :h // 2] = colours[pids[s:e], 0][:, None, None]
+        block[:e - s, h // 2:] = colours[pids[s:e], 1][:, None, None]
+        np.clip(block[:e - s] + noise[:e - s], 0, 255, out=imgs[s:e], casting="unsafe")
+    return imgs
+
+
 def _usl_set(seed=0, n_train=12936, ids=751, n_query=1024, n_gallery=3072,
              eval_ids=256, h=256, w=128):
     """An in-memory dataset at Market-1501's train size (12,936 images of 751
@@ -1776,15 +1794,7 @@ def _usl_set(seed=0, n_train=12936, ids=751, n_query=1024, n_gallery=3072,
     pids = np.concatenate([np.arange(n_train) % ids,
                            ids + np.arange(n_query + n_gallery) % eval_ids])
     cams = rng.integers(0, 6, n)
-    colours = rng.integers(0, 256, (ids + eval_ids, 2, 3)).astype(np.int16)
-    noise = rng.integers(-40, 40, (64, h, w, 3), dtype=np.int16)
-    imgs = np.empty((n, h, w, 3), np.uint8)
-    block = np.empty((64, h, 1, 3), np.int16)
-    for s in range(0, n, 64):
-        e = min(s + 64, n)
-        block[:e - s, :h // 2] = colours[pids[s:e], 0][:, None, None]
-        block[:e - s, h // 2:] = colours[pids[s:e], 1][:, None, None]
-        np.clip(block[:e - s] + noise[:e - s], 0, 255, out=imgs[s:e], casting="unsafe")
+    imgs = _two_colour_images(rng, pids, h, w)
     items = [(f"{pids[i]:04d}_c{cams[i] + 1}_{i:06d}.jpg", int(pids[i]), int(cams[i]))
              for i in range(n)]
     return SimpleNamespace(train=items[:n_train], query=items[n_train:n_train + n_query],
@@ -1947,12 +1957,13 @@ def _write_pose_csv(items, path, seed):
     return path
 
 
-def _compare_joint_step(trainer, state, batch):
+def _compare_joint_step(trainer, state, batch, label="joint"):
     """One joint step's losses, ``feat`` gradient, a G and a D parameter
-    gradient and folded bank through the kernels (K4-K7, K9-K11) and through
-    the plain versions, from the same weights, buffers, bank and draws, with
-    cuDNN's TF32 off on both sides; the weights and buffers are restored
-    after."""
+    gradient and folded bank (and GAN bank, where the state has one, fed the
+    pooled GAN map as ``train_all_step`` feeds it) through the kernels
+    (K4-K7, K9-K11) and through the plain versions, from the same weights,
+    buffers, banks and draws, with cuDNN's TF32 off on both sides; the
+    weights and buffers are restored after."""
     import copy
 
     from reid_gan_torch.models.pooling import gem_pool_plain, l2n
@@ -1989,7 +2000,8 @@ def _compare_joint_step(trainer, state, batch):
         for plain in (False, True):
             for m, sd in zip(nets, snap):
                 m.load_state_dict(sd)
-            mem = state.memory._replace(features=state.memory.features.clone())
+            mem = state.memory._replace(features=state.memory.features.clone(),
+                                        gan_features=state.memory.gan_features.clone())
             model.train()
             if plain:
                 x = train_augment_plain(d["img"], params)
@@ -2014,38 +2026,47 @@ def _compare_joint_step(trainer, state, batch):
             (loss_cl + loss_G).backward()
             loss_D = gan.d_loss(xs, fake)
             loss_D.backward()
-            (update_memory_plain if plain else update_memory)(mem, feat.detach(), y)
+            gan_x = f_gan.mean(dim=(2, 3)) if mem.gan_features.shape[0] else None
+            (update_memory_plain if plain else update_memory)(mem, feat.detach(), y,
+                                                              gan_x=gan_x)
             results.append((loss_cl.item(), loss_G.item(), loss_D.item(), feat.grad,
                             G.outconv.conv1.conv.weight.grad.clone(),
-                            D.conv.conv.weight.grad.clone(), mem.features))
+                            D.conv.conv.weight.grad.clone(), mem.features,
+                            mem.gan_features))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
         for m, sd in zip(nets, snap):
             m.load_state_dict(sd)
             m.zero_grad(set_to_none=True)
-    (ck, gk, dk, fk, ggk, dgk, bk), (cp, gp, dp, fp, ggp, dgp, bp) = results
+    (ck, gk, dk, fk, ggk, dgk, bk, gbk), (cp, gp, dp, fp, ggp, dgp, bp, gbp) = results
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
     e_loss = max(abs(ck - cp) / abs(cp), abs(gk - gp) / abs(gp), abs(dk - dp) / abs(dp))
     e_grad = max(rel(fk, fp), rel(ggk, ggp), rel(dgk, dgp))
     e_bank = float((bk - bp).abs().max())
+    e_gan = float((gbk - gbp).abs().max()) if gbk.shape[0] else 0.0
     # fp32 ResNet-50, G and D on inputs that differ by the kernels' rounding
     tol_loss, tol_grad, tol_bank = 1e-3, 1e-3, 1e-4
-    print(f"[joint] one step, kernels vs plain versions (TF32 off): loss_cl {ck:.6f} vs "
+    gan_bank = f"; folded GAN bank {tuple(gbk.shape)} max_abs_err {e_gan:.3g} (tol " \
+        f"{tol_bank:.3g})" if gbk.shape[0] else ""
+    print(f"[{label}] one step, kernels vs plain versions (TF32 off): loss_cl {ck:.6f} vs "
           f"{cp:.6f}, G {gk:.6f} vs {gp:.6f}, D {dk:.6f} vs {dp:.6f} (max rel err "
           f"{e_loss:.3g}, tol {tol_loss:.3g}); feat / G outconv / D conv grad max rel "
           f"err {rel(fk, fp):.3g} / {rel(ggk, ggp):.3g} / {rel(dgk, dgp):.3g} (tol "
-          f"{tol_grad:.3g}); folded bank max_abs_err {e_bank:.3g} (tol {tol_bank:.3g})")
-    check(e_loss <= tol_loss and e_grad <= tol_grad and e_bank <= tol_bank,
+          f"{tol_grad:.3g}); folded bank max_abs_err {e_bank:.3g} (tol {tol_bank:.3g})"
+          + gan_bank)
+    check(e_loss <= tol_loss and e_grad <= tol_grad and max(e_bank, e_gan) <= tol_bank,
           "the joint step through the kernels differs from the plain versions")
 
 
-def phase_joint(counts):
-    """The joint main path: ``ClusterContrastWithGANTrainer.run_epoch`` in
-    ``train_all`` mode on ResNet-50, the pose generator and the
-    discriminator."""
+def _joint_trainer(gan_bank=False, iters=400, seed=1):
+    """The joint step at the recipe's width: a random ResNet-50 (GeM, last
+    stride 1, norm on) at 256x128, the pose generator and the discriminator
+    at 128x64, from seed 0; a bank of 700 unit rows padded to 768, with a
+    GAN half of as many rows with ``gan_bank``; a ``with_gan`` loader of
+    ``iters`` batches of 256 (16 ids x 16) over phase 4's set with keypoints.
+    Returns (trainer, state, loader)."""
     import tempfile
 
-    from reid_gan_torch import kernels
     from reid_gan_torch.config import GANConfig
     from reid_gan_torch.engine.gan_trainers import ClusterContrastWithGANTrainer
     from reid_gan_torch.engine.usl import bank_rows, make_train_loader
@@ -2053,15 +2074,15 @@ def phase_joint(counts):
     from reid_gan_torch.models.dual_gan.models import create_model as create_gan
     from reid_gan_torch.ops.cluster_memory import init_memory
 
-    t0 = time.perf_counter()
     items, imgs = _pseudo_set()
     n_ids = 700
     g = torch.Generator(device="cuda").manual_seed(0)
     centers = torch.nn.functional.normalize(
         torch.randn((n_ids, 2048), device="cuda", generator=g), dim=1)
-    memory = init_memory(centers, k_pad=bank_rows(n_ids), device="cuda")
-    # the recipe's width: a random ResNet-50 (GeM, last stride 1, norm on), the
-    # pose generator and the discriminator, from seed 0
+    gan_centers = torch.nn.functional.normalize(
+        torch.randn((n_ids, 2048), device="cuda", generator=g), dim=1) if gan_bank else None
+    memory = init_memory(centers, k_pad=bank_rows(n_ids), gan_centroids=gan_centers,
+                         device="cuda")
     torch.manual_seed(0)
     gan = create_gan(GANConfig(model="AE", model_gen="Pose"), gan_height=128,
                      gan_width=64, reid_feat_dim=2048, device="cuda")
@@ -2071,12 +2092,25 @@ def phase_joint(counts):
     state = trainer.init_state(memory, gan.init_state())
     with tempfile.TemporaryDirectory() as tmp:   # the loader reads the CSV at once
         loader = make_train_loader(
-            items, 256, 128, 256, 16, workers=4, iters=400, seed=1,
+            items, 256, 128, 256, 16, workers=4, iters=iters, seed=seed,
             cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]), mode="with_gan",
             gan_height=128, gan_width=64, flip_all=True,
             pose_file=_write_pose_csv(items, os.path.join(tmp, "poses.csv"), 12))
-    print(f"[joint] set-up ({len(items)} images at 256x128 and 128x64 with keypoints, "
-          f"bank {tuple(memory.features.shape)}): {time.perf_counter() - t0:.1f} s")
+    return trainer, state, loader
+
+
+def phase_joint(counts):
+    """The joint main path: ``ClusterContrastWithGANTrainer.run_epoch`` in
+    ``train_all`` mode on ResNet-50, the pose generator and the
+    discriminator."""
+    from reid_gan_torch import kernels
+
+    t0 = time.perf_counter()
+    trainer, state, loader = _joint_trainer()
+    model, gan = trainer.model, trainer.gan
+    print(f"[joint] set-up ({len(_pseudo_set()[0])} images at 256x128 and 128x64 with "
+          f"keypoints, bank {tuple(state.memory.features.shape)}): "
+          f"{time.perf_counter() - t0:.1f} s")
 
     _compare_joint_step(trainer, state, loader.next())
 
@@ -2272,7 +2306,8 @@ def _compare_hardmix_step(trainer, state, batch, seed=99):
         for plain, jitter in ((False, 0.0), (True, 0.0), (True, 0.0), (True, 1e-6)):
             for m, sd in zip(nets, snap):
                 m.load_state_dict(sd)
-            mem = state.memory._replace(features=state.memory.features.clone())
+            mem = state.memory._replace(features=state.memory.features.clone(),
+                                        gan_features=state.memory.gan_features.clone())
             st = trainer.init_state(mem, state.gan)
             model.zero_grad(set_to_none=True)
             head.clear()
@@ -2586,6 +2621,246 @@ def phase_hardmix_run(counts):
 # FD-GAN: K3's variants, K8 for any k, K13, K14, the three stages, the chain
 # ---------------------------------------------------------------------------
 
+def _check_test_all_batch():
+    """One extraction batch of ``[main]``'s eval set through a
+    ``FeatureExtractor(extra_features=True)`` on a random ResNet-50 (K1, K2,
+    K11), held against the same model through the plain versions: the
+    features and the GAN maps' spatial means. Then the extra work's cost:
+    the warm extraction of the eval set without and with ``extra_features``
+    in turns, and K11 with the mean alone on one batch's map."""
+    from reid_gan_torch.engine.evaluators import FeatureExtractor, extract_features
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.pooling import gem_bn_l2n_plain
+    from reid_gan_torch.models.resnet import ResNetBackbone, gan_feat, gan_feat_plain
+    from reid_gan_torch.ops.transforms import eval_transform_plain
+
+    torch.backends.cudnn.allow_tf32 = True   # as the CLIs set it
+    batches, _, _ = _eval_set()
+    torch.manual_seed(0)
+    model = create("resnet50")
+    extractor = FeatureExtractor(model, height=256, width=128, batch_size=256,
+                                 device="cuda", extra_features=True)
+    img = torch.from_numpy(batches[0]["img"]).cuda()
+    (feat, pooled), _ = extractor.dispatch(batches[0]["img"])
+    with torch.inference_mode():
+        fmap = ResNetBackbone.forward(model, eval_transform_plain(img, torch.bfloat16).float())
+        bn = model.feat_bn
+        ref = gem_bn_l2n_plain(fmap, model.gap.p, bn.weight, bn.running_mean,
+                               bn.running_var)
+        ref_pooled = gan_feat_plain(fmap).mean(dim=(2, 3))
+    torch.cuda.synchronize()
+    e_feat = float((feat - ref).abs().max())
+    e_gan = float((pooled - ref_pooled).abs().max())
+    # K2's sum order, a pixel where K1's bf16 rounding differs; K11's sums of
+    # 2048 squares, averaged over the 128 positions
+    tol_feat, tol_gan = 1e-4, 1e-5
+    print(f"[gan_clusters] one test_all extraction batch {tuple(img.shape)} vs the plain "
+          f"K1/K2/K11 path: feat {tuple(feat.shape)} max_abs_err {e_feat:.3g} (tol "
+          f"{tol_feat:.3g}), pooled GAN feature {tuple(pooled.shape)} max_abs_err "
+          f"{e_gan:.3g} (tol {tol_gan:.3g})")
+    check(e_feat <= tol_feat and e_gan <= tol_gan,
+          "the test_all extraction differs from the plain path")
+
+    rates = {False: [], True: []}
+    n_img = sum(len(b["fname"]) for b in batches)
+    for extra in (False, True, True, False):
+        extractor.extra = extra
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extract_features(extractor, batches)
+        torch.cuda.synchronize()
+        rates[extra].append(n_img / (time.perf_counter() - t0))
+    fmap = fmap.contiguous(memory_format=torch.channels_last)
+    extra_ms = device_ms(lambda: gan_feat(fmap).mean(dim=(2, 3)))
+    print(f"[gan_clusters] warm extraction of {n_img} images, without / with test_all, "
+          f"in turns: {rates[False][0]:.1f}, {rates[True][0]:.1f}, {rates[True][1]:.1f}, "
+          f"{rates[False][1]:.1f} img/s (with / without, means: "
+          f"{np.mean(rates[True]) / np.mean(rates[False]):.4f}); K11 and the spatial mean "
+          f"on one batch's map {tuple(fmap.shape)}: {extra_ms:.4f} ms")
+
+
+def _check_gan_bank_step():
+    """One ``train_all`` step of ``[joint]``'s set-up with a GAN bank beside
+    the bank, held against the plain versions by ``_compare_joint_step``:
+    both banks after the joint fold."""
+    trainer, state, loader = _joint_trainer(gan_bank=True, iters=1, seed=3)
+    _compare_joint_step(trainer, state, loader.next(), label="gan_clusters")
+    loader.close()
+
+
+def _plain_reconstruction_losses(gan, pseudo, bank, cfg, pose_file, cache):
+    """``reconstruction_losses`` of ``cli/train_gan_usl`` through the plain
+    versions of K9 and K10, with G as it is."""
+    from reid_gan_torch.data.loader import DataLoader, Preprocessor
+    from reid_gan_torch.ops.pose import batch_cords_to_map_plain
+    from reid_gan_torch.ops.transforms import gan_input_transform_plain
+
+    gh, gw = cfg.data.gan_height, cfg.data.gan_width
+    loader = DataLoader(Preprocessor(pseudo, mode="only_gan", gan_height=gh, gan_width=gw,
+                                     pose_file=pose_file, cache=cache),
+                        batch_size=cfg.data.batch_size, drop_last=False,
+                        num_workers=cfg.data.workers)
+    rec = np.zeros(len(pseudo), np.float32)
+    with torch.no_grad():
+        for batch in loader:
+            xs = gan_input_transform_plain(torch.from_numpy(batch["Xs"]).cuda())
+            feats = bank[torch.from_numpy(np.asarray(batch["pid"])).cuda()]
+            ps = batch_cords_to_map_plain(torch.from_numpy(batch["keypoints"]).cuda(),
+                                          torch.from_numpy(batch["old_size"]).cuda(), gh, gw)
+            fake = gan.synthesize_p(feats[:, :, None, None].expand(-1, -1, gh // 8, gw // 8),
+                                    ps)
+            rec[np.asarray(batch["index"])] = gan.get_L1_loss(fake, xs).cpu().numpy()
+    return rec
+
+
+def phase_gan_clusters(counts):
+    """Two epochs of ``cli/train_gan_usl.run`` with ``--cluster-with-gan-features
+    --warmup-epo 0`` on the ``[usl]`` set with keypoints: each epoch's
+    extraction gives features (K1, K2) and pooled GAN features (K11), Infomap
+    clusters the features, the bank gets a GAN half; epoch 1 first scores
+    every pseudo-labelled image (K9, K10, the pose generator) for its
+    confidence weight; 20 joint steps an epoch fold both banks in one K7
+    launch; evals run the same extractor."""
+    import copy
+    import tempfile
+
+    from reid_gan_torch import kernels
+    from reid_gan_torch.cli import train_gan_usl
+    from reid_gan_torch.config import Config
+    from reid_gan_torch.utils import Timer
+
+    t_phase = time.perf_counter()
+    _check_test_all_batch()
+    _check_gan_bank_step()
+    dataset, imgs = _usl_set()
+    cfg = Config()
+    cfg.data.workers = 4
+    cfg.train.epochs, cfg.train.iters, cfg.train.eval_step = 2, 20, 1
+    cfg.cluster.cluster_backend, cfg.cluster.eps = "infomap", 0.5
+    cfg.cluster.k1, cfg.cluster.k2 = 15, 4
+    cfg.gan.model, cfg.gan.model_gen = "AE", "Pose"
+    cfg.gan.cluster_with_gan_features, cfg.gan.warmup_epo = True, 0
+
+    spans, banks, scored = [], [], {}
+    cluster, rec_fn = train_gan_usl.cluster_epoch, train_gan_usl.reconstruction_losses
+    conf_fn = train_gan_usl.compute_conf_weight
+
+    def clustered(*args, **kwargs):            # each epoch's start: the spans so far
+        spans.append(dict(Timer.spans))
+        out = cluster(*args, **kwargs)
+        banks.append((out[0], out[0].gan_features.clone()))
+        return out
+
+    def reconstructed(gan, pseudo, memory, cfg, pose_file=None, cache="default"):
+        before = kernels.phase_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = rec_fn(gan, pseudo, memory, cfg, pose_file, cache)
+        torch.cuda.synchronize()
+        after = kernels.phase_launch_counts()
+        scored.update(seconds=time.perf_counter() - t0, rec=rec, gan=gan, pseudo=pseudo,
+                      bank=memory.features.clone(), args=(cfg, pose_file, cache),
+                      G=copy.deepcopy(gan.net_G.state_dict()),
+                      launches={k: after[k] - before[k] for k in after if after[k] > before[k]})
+        return rec
+
+    def weighed(*args, **kwargs):
+        scored["conf"] = conf_fn(*args, **kwargs)
+        return scored["conf"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dataset.train_pose_dir = _write_pose_csv(dataset.train,
+                                                 os.path.join(tmp, "poses.csv"), 13)
+        cfg.train.logs_dir = os.path.join(tmp, "logs")
+        cfg.gan.save_dir = os.path.join(tmp, "ckpt")
+        print(f"[gan_clusters] run(): --cluster-with-gan-features --warmup-epo 0; data "
+              f"{len(dataset.train)} train images of 751 ids with keypoints, "
+              f"{len(dataset.query)} + {len(dataset.gallery)} eval; Infomap (eps 0.5, k1 "
+              f"15); depth cut: 2 epochs of {cfg.train.iters} steps")
+        train_gan_usl.cluster_epoch = clustered
+        train_gan_usl.reconstruction_losses = reconstructed
+        train_gan_usl.compute_conf_weight = weighed
+        try:
+            Timer.spans.clear()
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            best = train_gan_usl.run(cfg, dataset, device="cuda",
+                                     image_cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            train_gan_usl.cluster_epoch = cluster
+            train_gan_usl.reconstruction_losses = rec_fn
+            train_gan_usl.compute_conf_weight = conf_fn
+        launches, phases = kernels.launch_counts(), kernels.phase_launch_counts()
+        spans.append(dict(Timer.spans))
+        saved = sorted(os.listdir(cfg.train.logs_dir)) + sorted(
+            os.listdir(os.path.join(cfg.gan.save_dir, "experiment")))
+        counts.update(launches)
+        print(f"[gan_clusters] run(): {wall:.2f} s, best mAP {best:.4f}; wrote {saved}")
+        print(f"[gan_clusters] run() launches: {phases}")
+
+        # launches: K11 once an extraction batch (two clusterings, three evals)
+        # and once a step; K7 once a step; K9, K10 once a weights batch and a step
+        steps, bs = cfg.train.epochs * cfg.train.iters, cfg.data.batch_size
+        extract = cfg.train.epochs * -(-len(dataset.train) // bs) + 3 * -(
+            -(len(dataset.query) + len(dataset.gallery)) // bs)
+        n_scored = len(scored["pseudo"])
+        weights_batches = -(-n_scored // bs)
+        want = {"gan_feat_l2n.forward": extract + steps, "eval_transform.forward": extract,
+                "gem_bn_l2n.forward": extract, "bank_fold.forward": steps,
+                "gan_input.forward": weights_batches + steps,
+                "pose_maps.forward": weights_batches + steps}
+        for name, n in want.items():
+            check(phases[name] == n, f"{name} launched {phases[name]} times, not {n}")
+        check(scored["launches"] == {"gan_input.forward": weights_batches,
+                                     "pose_maps.forward": weights_batches},
+              f"the weights pass launched {scored['launches']}")
+        check(np.isfinite(best) and {"checkpoint.pth.tar", "latest_net_G.pth",
+                                     "iter.txt"} <= set(saved),
+              "no finite mAP or a missing checkpoint")
+        for epoch, (memory, start) in enumerate(banks):
+            k = int(memory.num_valid)
+            moved = int(((memory.gan_features[:k] - start[:k]).abs().amax(dim=1) > 0).sum())
+            print(f"[gan_clusters] epoch {epoch}: bank {tuple(memory.features.shape)} and GAN "
+                  f"bank {tuple(memory.gan_features.shape)}, {k} live rows; {moved} GAN rows "
+                  f"moved in {cfg.train.iters} steps")
+            check(memory.gan_features.shape == memory.features.shape and moved > 0
+                  and not bool(memory.gan_features[k:].any()),
+                  "the GAN bank is empty, did not move, or its padding moved")
+
+        # the weights: rec against the plain composition on G as it scored
+        # (the loader reads the keypoint CSV, still in ``tmp``)
+        gan = scored["gan"]
+        gan.net_G.load_state_dict(scored["G"])
+        rec, conf = scored["rec"], scored["conf"]
+        ref = _plain_reconstruction_losses(gan, scored["pseudo"], scored["bank"],
+                                           *scored["args"])
+        block = n_scored // cfg.data.num_instances
+        ref_conf = np.ones(n_scored, np.float32)
+        ref_conf[np.argsort(-ref)[:block]] = 0.0
+        e_rec = float(np.abs(rec - ref).max())
+        tol = 1e-4 * float(np.abs(ref).max())   # K9, K10 rounding through G's TF32 convolutions
+        cut = float(np.sort(rec)[::-1][block - 1])
+        differ = np.flatnonzero(conf != ref_conf)
+        print(f"[gan_clusters] weights pass: {n_scored} images in {weights_batches} batches, "
+              f"{scored['seconds']:.3f} s ({n_scored / scored['seconds']:.1f} img/s); rec "
+              f"{rec.min():.4f}-{rec.max():.4f}, max_abs_err vs plain K9/K10 {e_rec:.3g} (tol "
+              f"{tol:.3g}); {int((conf == 0).sum())} blocked (n // {cfg.data.num_instances} = "
+              f"{block}), cut {cut:.6f}; {differ.size} samples blocked on one side only, "
+              f"largest |rec - cut| among them "
+              f"{float(np.abs(rec[differ] - cut).max()) if differ.size else 0.0:.3g}")
+        check(e_rec <= tol, "the weights pass differs from the plain composition")
+        check(int((conf == 0).sum()) == block and np.all(np.abs(rec[differ] - cut) <= tol),
+              "the blocked set differs from the plain one away from the cut")
+        for epoch in range(cfg.train.epochs):
+            split = {k: v - spans[epoch].get(k, 0.0) for k, v in spans[epoch + 1].items()}
+            print(f"[gan_clusters] epoch {epoch} split (s, host clock, Timer.spans): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    print(f"[gan_clusters] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def check_k3_variants(report):
     """K3's all-shots rows and separate camera set against the plain pass at
     Market-1501's eval shape, distinct and with exact ties."""
@@ -2759,15 +3034,7 @@ def _fd_set(root, seed=0, n_ids=128, per_id=8, n_query=256, n_gallery=768, h=256
     pids = np.concatenate([np.arange(n_train) // per_id,
                            n_ids + np.arange(n_query + n_gallery) % eval_ids])
     cams = rng.integers(0, 6, n)
-    colours = rng.integers(0, 256, (n_ids + eval_ids, 2, 3)).astype(np.int16)
-    noise = rng.integers(-40, 40, (64, h, w, 3), dtype=np.int16)
-    imgs = np.empty((n, h, w, 3), np.uint8)
-    block = np.empty((64, h, 1, 3), np.int16)
-    for s in range(0, n, 64):
-        e = min(s + 64, n)
-        block[:e - s, :h // 2] = colours[pids[s:e], 0][:, None, None]
-        block[:e - s, h // 2:] = colours[pids[s:e], 1][:, None, None]
-        np.clip(block[:e - s] + noise[:e - s], 0, 255, out=imgs[s:e], casting="unsafe")
+    imgs = _two_colour_images(rng, pids, h, w)
     names = [f"{pids[i]:04d}_c{cams[i] + 1}_{i:06d}.jpg" for i in range(n)]
     items = [(names[i], int(pids[i]), int(cams[i])) for i in range(n)]
     poses = os.path.join(root, "poses")
@@ -3172,6 +3439,89 @@ def phase_fd_chain(counts, root, batch=256):
     print(f"[fd_chain] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+def _cuhk03_tree(root, seed=7, n_ids=1467, n_test=100, h=256, w=128):
+    """CUHK03 in the open-reid layout at its split sizes, written to ``root``:
+    ``meta.json`` (1,467 ids, 9 or 10 images an id over two cameras, listed
+    by bare names), ``splits.json`` (the first 1,367 ids trainval, the last
+    100 both query and gallery, as CUHK03's splits list them) and an empty
+    ``images/``; the pixels stay in memory (two colour blocks an id plus
+    noise, staged at 256x128) for ``_InMemoryImages``, so a name's last field
+    is its image's index."""
+    rng = np.random.default_rng(seed)
+    pids = np.repeat(np.arange(n_ids), rng.integers(9, 11, n_ids))
+    identities = [[[], []] for _ in range(n_ids)]
+    for i, pid in enumerate(pids):
+        cam = int(i % 2)
+        identities[pid][cam].append(f"{pid:08d}_{cam:02d}_{i:06d}.jpg")
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    with open(os.path.join(root, "meta.json"), "w") as f:
+        json.dump({"name": "cuhk03", "shot": "multiple", "num_cameras": 2,
+                   "identities": identities}, f)
+    test = list(range(n_ids - n_test, n_ids))
+    with open(os.path.join(root, "splits.json"), "w") as f:
+        json.dump([{"trainval": list(range(n_ids - n_test)), "query": test,
+                    "gallery": test}], f)
+    return _two_colour_images(rng, pids, h, w)
+
+
+def phase_cuhk03(counts, root, batch=256, anchors=256):
+    """``cli/fdgan_baseline.run`` on ``CUHK03(root)`` at full width: a
+    ResNet-50 Siamese net, one epoch of ``anchors`` train images' pairs (2
+    batches of 256), then the cascade eval of the 100 test ids under the
+    cuhk03 protocol (K1; K3 for each stage's mAP; the single-gallery-shot
+    CMC on the host) and the checkpoint."""
+    from reid_gan_torch import kernels
+    from reid_gan_torch.cli import fdgan_baseline
+    from reid_gan_torch.config import Config
+    from reid_gan_torch.data.datasets import CUHK03
+    from reid_gan_torch.engine import fdgan
+
+    t_phase = time.perf_counter()
+    imgs = _cuhk03_tree(root)
+    ds = CUHK03(root)
+    n_train = len(ds.train)
+    ds.train = ds.train[:anchors]
+    cfg = Config()
+    cfg.data.dataset, cfg.data.workers, cfg.data.batch_size = "cuhk03", 4, batch
+    cfg.optim.lr, cfg.optim.step_size = 0.01, 40
+    cfg.train.epochs, cfg.train.eval_step = 1, 1
+    cfg.train.logs_dir = os.path.join(root, "logs")
+    print(f"[cuhk03] CUHK03 tree: {len(imgs)} images of 1467 ids, {ds.num_trainval_ids} "
+          f"trainval ids ({ds.num_train_ids} train, {ds.num_val_ids} val), "
+          f"{len(ds.query)} query = gallery images of 100 ids, made in "
+          f"{time.perf_counter() - t_phase:.1f} s; depth cut: 1 epoch on {anchors} of "
+          f"{n_train} train images (2 batches of {batch} pairs)")
+    results, evaluate_all = [], fdgan.fd_evaluate_all
+
+    def recorded(*args, **kwargs):
+        results.append(evaluate_all(*args, **kwargs))
+        return results[-1]
+
+    fdgan.fd_evaluate_all = recorded
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = fdgan_baseline.run(cfg, ds, "cuda", image_cache=_InMemoryImages(imgs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        fdgan.fd_evaluate_all = evaluate_all
+    launches = kernels.launch_counts()
+    counts.update(launches)
+    saved = sorted(os.listdir(cfg.train.logs_dir))
+    print(f"[cuhk03] run(): {wall:.2f} s, best mAP {best:.4f}; (cuhk03 top-1, mAP) of "
+          f"the first and the second stage: "
+          + ", ".join(f"({t:.4f}, {m:.4f})" for t, m in results) + f"; wrote {saved}")
+    print(f"[cuhk03] launches: {kernels.phase_launch_counts()}")
+    check(launches["eval_transform"] > 0 and launches["rank_stats"] > 0
+          and launches["fd_augment"] == 4,
+          f"K1 and K3 must launch, K14 twice a step: {launches}")
+    check(len(results) == 2 and np.all(np.isfinite(results))
+          and "checkpoint.pth.tar" in saved, "no finite cuhk03 metrics or no checkpoint")
+    print(f"[cuhk03] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 # ``--kernels``: each kernel's checks, by its name in PERF.md
 KERNEL_CHECKS = {
     "K1": (check_k1,), "K2": (check_k2,), "K3": (check_k3, check_k3_variants),
@@ -3277,9 +3627,12 @@ def main(argv=None):
     torch.cuda.synchronize()            # counts, summed, are the line's launches
     phase_hardmix_run(hardmix_counts)
     torch.cuda.synchronize()
+    gan_clusters_counts = {}
+    phase_gan_clusters(gan_clusters_counts)
+    torch.cuda.synchronize()
     import tempfile
 
-    fd_counts, chain_counts = {}, {}
+    fd_counts, chain_counts, cuhk03_counts = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         fd_set = _fd_set(os.path.join(tmp, "set"))
         phase_fd_stage1(fd_counts, fd_set, tmp)
@@ -3290,11 +3643,14 @@ def main(argv=None):
         torch.cuda.synchronize()
         phase_fd_chain(chain_counts, os.path.join(tmp, "chain"))
         torch.cuda.synchronize()
+        phase_cuhk03(cuhk03_counts, os.path.join(tmp, "cuhk03"))
+        torch.cuda.synchronize()
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces,
-         "launches": joint_counts[k.name] + hardmix_counts[k.name] + chain_counts[k.name]
-         + ibn_counts[k.name],
+         "launches": sum(c[k.name] for c in (joint_counts, hardmix_counts, chain_counts,
+                                             ibn_counts, gan_clusters_counts,
+                                             cuhk03_counts)),
          "library_ms": None, **report[k.name]}
         for k in kernels.KERNELS]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

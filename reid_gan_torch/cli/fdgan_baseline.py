@@ -15,8 +15,10 @@ query's top 100, 20 with ``--debug``) and writes ``checkpoint.pth.tar``
 the file ``cli/fdgan_train --stage 1 --netE-pretrain`` reads. ``--debug``:
 ResNet-18, one epoch of 2 iterations. ``--resume`` reads the port's
 ``.pth.tar``; a flax ``.msgpack`` raises. Runs on the card unless
-``--device cpu`` is given. ``--dataset cuhk03`` (``JsonDataset``) is not
-ported yet (ROADMAP A: `JsonDataset`/CUHK03).
+``--device cpu`` is given. ``--dataset cuhk03`` and ``--dataset json`` read
+an open-reid tree (``meta.json``, ``splits.json``, ``images/``), whose image
+names resolve under its ``images/``; cuhk03 is scored under its own CMC
+protocol.
 """
 
 import argparse
@@ -26,6 +28,7 @@ import sys
 import torch
 
 from ..config import dump_config, parse_config
+from ..data.datasets import create as create_dataset
 from ..data.loader import DataLoader, Preprocessor
 from ..data.sampler import RandomPairSampler
 from ..device import resolve_device
@@ -36,18 +39,6 @@ from ..utils import Logger
 from ..utils.serialization import load_checkpoint, save_checkpoint
 
 SECTIONS = ("data", "model", "optim", "train")
-
-
-def create_fd_dataset(cfg):
-    """The dataset of ``--dataset``; ``cuhk03`` and ``json`` (the JSON
-    split datasets) raise, naming their roadmap item."""
-    from ..data.datasets import create as create_dataset
-
-    if cfg.data.dataset in ("cuhk03", "json"):
-        raise NotImplementedError(
-            f"--dataset {cfg.data.dataset}: JsonDataset/CUHK03 are not ported yet "
-            "(ROADMAP A: `JsonDataset`/CUHK03)")
-    return create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True)
 
 
 def main(argv=None):
@@ -71,7 +62,8 @@ def main(argv=None):
     sys.stdout = logger
     try:
         dump_config(cfg, cfg.train.logs_dir, "opt.txt", sections=SECTIONS)
-        return run(cfg, create_fd_dataset(cfg), device)
+        return run(cfg, create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True),
+                   device)
     finally:
         sys.stdout = logger.console
         logger.close()
@@ -88,7 +80,8 @@ def make_cascade_evaluator(model, cfg, device):
 
 def run(cfg, dataset, device=None, image_cache=None, depth=50):
     """Stage I (fdgan_baseline.py:28-111) on ``dataset`` (``.train``,
-    ``.query``, ``.gallery`` lists of ``(fname, pid, camid)``), on ``device``
+    ``.query``, ``.gallery`` lists of ``(fname, pid, camid)``, the names
+    relative to ``.images_dir`` where it has one), on ``device``
     (default: the card). ``image_cache`` goes to every ``Preprocessor``
     (default: the shared decode cache). Returns the best mAP, or the
     evaluation's (top-1, mAP) with ``--evaluate``."""
@@ -98,6 +91,7 @@ def run(cfg, dataset, device=None, image_cache=None, depth=50):
     if cfg.train.debug:
         depth = 18
     cache = "default" if image_cache is None else image_cache
+    root = getattr(dataset, "images_dir", None)   # the JSON datasets' names are relative
     torch.manual_seed(cfg.train.seed)
     model = siamese_baseline(depth=depth)
     if cfg.train.resume:
@@ -105,8 +99,8 @@ def run(cfg, dataset, device=None, image_cache=None, depth=50):
     model = model.to(device, memory_format=torch.channels_last)
     h, w = cfg.data.height, cfg.data.width
     query, gallery = list(dataset.query), list(dataset.gallery)
-    test_loader = DataLoader(Preprocessor(query + gallery, mode="reid", height=h, width=w,
-                                          cache=cache),
+    test_loader = DataLoader(Preprocessor(query + gallery, root=root, mode="reid",
+                                          height=h, width=w, cache=cache),
                              batch_size=cfg.data.batch_size, drop_last=False,
                              num_workers=cfg.data.workers)
     rerank_topk = min(20 if cfg.train.debug else 100, len(gallery) - 1)
@@ -127,8 +121,8 @@ def run(cfg, dataset, device=None, image_cache=None, depth=50):
     for epoch in range(epochs):
         train = list(dataset.train)
         loader = DataLoader(
-            Preprocessor(train, mode="pair", height=h, width=w, seed=cfg.train.seed + epoch,
-                         cache=cache),
+            Preprocessor(train, root=root, mode="pair", height=h, width=w,
+                         seed=cfg.train.seed + epoch, cache=cache),
             sampler=RandomPairSampler(train, neg_pos_ratio=1, seed=cfg.train.seed + epoch),
             batch_size=cfg.data.batch_size, num_workers=cfg.data.workers, drop_last=True)
         trainer.train(epoch, _limit(loader, 2) if cfg.train.debug else loader,

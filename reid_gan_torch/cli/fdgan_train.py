@@ -31,6 +31,7 @@ import time
 import torch
 
 from ..config import dump_config, parse_config
+from ..data.datasets import create as create_dataset
 from ..data.loader import DataLoader, Preprocessor
 from ..data.sampler import RandomPairSampler
 from ..device import resolve_device
@@ -38,7 +39,7 @@ from ..models.fdgan.model import FDGANModel
 from ..utils import AverageMeter, Logger
 from ..utils.serialization import load_networks, save_networks
 from ..utils.visualizer import Visualizer
-from .fdgan_baseline import _limit, create_fd_dataset, make_cascade_evaluator
+from .fdgan_baseline import _limit, make_cascade_evaluator
 
 SECTIONS = ("data", "model", "optim", "train", "gan", "fdgan")
 
@@ -59,7 +60,8 @@ def main(argv=None):
     sys.stdout = logger
     try:
         dump_config(cfg, cfg.train.logs_dir, "opt.txt", sections=SECTIONS)
-        return run(cfg, create_fd_dataset(cfg), device)
+        return run(cfg, create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True),
+                   device)
     finally:
         sys.stdout = logger.console
         logger.close()
@@ -68,7 +70,8 @@ def main(argv=None):
 def run(cfg, dataset, device=None, image_cache=None):
     """Stages II/III (fdgan_train.py:65-203) on ``dataset`` (``.train``,
     ``.query``, ``.gallery``, ``.pid_imgs`` and ``.poses_dir``, the landmark
-    files), on ``device`` (default: the card). ``image_cache`` goes to every
+    files; the image names relative to ``.images_dir`` where it has one), on
+    ``device`` (default: the card). ``image_cache`` goes to every
     ``Preprocessor`` (default: the shared decode cache). Returns the
     engine."""
     device = resolve_device(device)
@@ -83,7 +86,8 @@ def run(cfg, dataset, device=None, image_cache=None):
     if cfg.gan.continue_train:
         load_networks(model.nets(), save_dir, cfg.gan.which_epoch)
     train = list(dataset.train)
-    pre = Preprocessor(train, mode="fdgan_pose", height=h, width=w,
+    root = getattr(dataset, "images_dir", None)   # the JSON datasets' names are relative
+    pre = Preprocessor(train, root=root, mode="fdgan_pose", height=h, width=w,
                        pid_imgs=dataset.pid_imgs, pose_root=getattr(dataset, "poses_dir", None),
                        seed=cfg.train.seed, cache=cache)
     visualizer = Visualizer(cfg.train.logs_dir, name=cfg.gan.name)
@@ -95,7 +99,8 @@ def run(cfg, dataset, device=None, image_cache=None):
     query, gallery = list(dataset.query), list(dataset.gallery)
 
     def reid_loader(items):
-        return DataLoader(Preprocessor(items, mode="reid", height=h, width=w, cache=cache),
+        return DataLoader(Preprocessor(items, root=root, mode="reid", height=h, width=w,
+                                       cache=cache),
                           batch_size=cfg.data.batch_size, drop_last=False,
                           num_workers=cfg.data.workers)
 

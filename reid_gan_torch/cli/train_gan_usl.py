@@ -23,11 +23,17 @@ and the epoch counter. Runs on the card unless ``--device cpu`` is given.
 ``train_all`` needs the pose generator and ``train`` the AE generator;
 another pairing raises ``ValueError``.
 
-Not ported yet, and raising with their ROADMAP items:
-``--cluster-with-gan-features`` (the confidence weights and the GAN-feature
-clustering), ``--bipath`` and ``--learnable-memory`` (the bip and
-learnable-memory modes), ``--fp16`` and ``--resume`` of a flax msgpack
-checkpoint.
+``--cluster-with-gan-features``: every extraction (the clustering pass and
+the evals) also pools the encoder's GAN map (kernel K11), the bank gets a
+GAN half of the clusters' mean GAN features, folded each step beside the
+main one (K7), and from the epoch after ``--warmup-epo`` on the joint loss
+weighs each sample by ``compute_conf_weight`` (K9, K10). As in the JAX
+loop, the weights are computed under ``--no-gan-train`` too, where the
+hard-mix step does not read them.
+
+Not ported yet, and raising with their ROADMAP items: ``--bipath`` and
+``--learnable-memory`` (the bip and learnable-memory modes), ``--fp16`` and
+``--resume`` of a flax msgpack checkpoint.
 """
 
 import argparse
@@ -47,6 +53,8 @@ from ..engine.gan_trainers import ClusterContrastWithGANTrainer
 from ..engine.usl import cluster_epoch, make_train_loader
 from ..models import create as create_model
 from ..models.dual_gan.models import create_model as create_gan
+from ..ops.pose import batch_cords_to_map
+from ..ops.transforms import gan_input_transform
 from ..utils import Logger, Timer
 from ..utils.serialization import (
     load_checkpoint,
@@ -60,11 +68,57 @@ from .train_usl import _checkpoint
 SECTIONS = ("data", "model", "optim", "cluster", "train", "gan")
 
 
+def reconstruction_losses(gan, pseudo_dataset, memory, cfg, pose_file=None,
+                          cache="default"):
+    """Each pseudo-labelled image's reconstruction loss (``get_L1_loss``,
+    train_gan_usl.py:37-75; parity: ...infomap.py:384-428): the pose
+    generator renders the image's cluster centroid, broadcast to the GAN
+    map's (h/8, w/8), in the image's own pose (kernel K10 on its keypoints
+    from ``pose_file``); the AE generator reconstructs the image; both
+    against the GAN input (K9). G runs in eval mode on ``memory``'s device
+    over an ``only_gan`` loader. Returns a (len(pseudo_dataset),) float32
+    host array in the dataset's order."""
+    gh, gw = cfg.data.gan_height, cfg.data.gan_width
+    pre = Preprocessor(pseudo_dataset, mode="only_gan", gan_height=gh, gan_width=gw,
+                       pose_file=pose_file, cache=cache)
+    loader = DataLoader(pre, batch_size=cfg.data.batch_size, drop_last=False,
+                        num_workers=cfg.data.workers)
+    dev = memory.features.device
+    dtype = next(gan.net_G.parameters()).dtype
+    rec = np.zeros(len(pseudo_dataset), np.float32)
+    with torch.no_grad():
+        for batch in loader:
+            xs = gan_input_transform(torch.from_numpy(np.ascontiguousarray(batch["Xs"]))
+                                     .to(dev), gh, gw).to(dtype)
+            if gan.model_gen == "Pose":
+                feats = memory.features[torch.from_numpy(np.asarray(batch["pid"])).to(dev)]
+                fmap = feats[:, :, None, None].expand(-1, -1, gh // 8, gw // 8)
+                ps = batch_cords_to_map(
+                    torch.from_numpy(np.asarray(batch["keypoints"], np.float32)).to(dev),
+                    torch.from_numpy(np.asarray(batch["old_size"], np.float32)).to(dev),
+                    gh, gw)
+                fake = gan.synthesize_p(fmap.to(dtype), ps.to(dtype))
+            else:
+                fake = gan.apply_G(xs)
+            rec[np.asarray(batch["index"])] = gan.get_L1_loss(fake, xs).cpu().numpy()
+    return rec
+
+
+def compute_conf_weight(gan, pseudo_dataset, memory, cfg, pose_file=None,
+                        cache="default"):
+    """The per-sample confidence weights of the joint loss (train_gan_usl.py:
+    37-80): 1, and 0 for the ``len(pseudo_dataset) // num_instances``
+    samples G reconstructs worst (``reconstruction_losses``)."""
+    t0 = time.time()
+    rec = reconstruction_losses(gan, pseudo_dataset, memory, cfg, pose_file, cache)
+    conf = np.ones(len(rec), np.float32)
+    conf[np.argsort(-rec)[:len(rec) // cfg.data.num_instances]] = 0.0
+    print(f"calculate confidence weight cost time: {time.time() - t0:.1f}")
+    return conf
+
+
 def _refuse_unported(cfg):
     unported = (
-        (cfg.gan.cluster_with_gan_features,
-         "--cluster-with-gan-features (compute_conf_weight and the GAN-feature "
-         "clustering) is not ported yet (ROADMAP A: GAN-feature clustering)"),
         (cfg.gan.bipath, "--bipath (the train_all_bip mode) is not ported yet "
                          "(ROADMAP A: bip and learnable-memory modes)"),
         (cfg.gan.learnable_memory, "--learnable-memory (the train_all_with_memory "
@@ -165,7 +219,8 @@ def run(cfg, dataset, device=None, image_cache=None):
         start_epoch = max(start_epoch, int(ckpt["epoch"]))
 
     extractor = FeatureExtractor(model, height=cfg.data.height, width=cfg.data.width,
-                                 batch_size=cfg.data.batch_size, device=device)
+                                 batch_size=cfg.data.batch_size, device=device,
+                                 extra_features=cfg.gan.cluster_with_gan_features)
     evaluator = Evaluator(extractor)
     test_pre = Preprocessor(list(dataset.query) + list(dataset.gallery), mode="reid",
                             height=cfg.data.height, width=cfg.data.width, cache=cache)
@@ -193,6 +248,13 @@ def run(cfg, dataset, device=None, image_cache=None):
         k_pad = memory.features.shape[0]  # sticky: the bank keeps its shape
         state = trainer.init_state(memory, gan_state) if state is None else \
             trainer.set_memory(state, memory)
+        # one epoch after the GAN joins, so G has trained before it scores
+        # (train_gan_usl.py:182-185; config.py's gating note)
+        conf_weight = None
+        if cfg.gan.cluster_with_gan_features and epoch > cfg.gan.warmup_epo:
+            with Timer("conf"):
+                conf_weight = compute_conf_weight(gan, pseudo_dataset, memory, cfg,
+                                                  pose_file, cache)
 
         # the mode (...infomap.py:450-466): the USL step while warming up,
         # then the joint or the hard-mix step on the with_gan loader
@@ -210,7 +272,8 @@ def run(cfg, dataset, device=None, image_cache=None):
             state, errs = trainer.run_epoch(state, epoch, loader, mode=mode,
                                             train_iters=iters,
                                             print_freq=cfg.train.print_freq,
-                                            base_seed=cfg.train.seed)
+                                            base_seed=cfg.train.seed,
+                                            conf_weight=conf_weight)
         loader.close()
 
         if (epoch + 1) % cfg.train.eval_step == 0 or epoch == epochs - 1:

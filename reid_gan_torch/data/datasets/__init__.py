@@ -3,6 +3,7 @@ FD/reid/datasets/__init__.py factories)."""
 
 from .base import BaseImageDataset
 from .dir_datasets import DukeMTMC, Market1501, MSMT17, PersonX, VeRi
+from .json_dataset import CUHK03, JsonDataset
 from .synthetic import HardSyntheticDataset, SyntheticDataset
 
 __factory = {
@@ -12,6 +13,8 @@ __factory = {
     "msmt17": MSMT17,
     "personx": PersonX,
     "veri": VeRi,
+    "cuhk03": CUHK03,
+    "json": JsonDataset,
     "synthetic": SyntheticDataset,
     "synthetic_hard": HardSyntheticDataset,
 }

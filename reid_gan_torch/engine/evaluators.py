@@ -32,35 +32,47 @@ class FeatureExtractor:
     as a trainer may share the model). The staged batch is
     normalised and rounded to ``dtype`` (default bf16, as the JAX extractor
     rounds its input, evaluators.py:47), then cast to the model's parameter
-    dtype.
+    dtype. With ``extra_features`` the model runs its ``test_all`` forward
+    and each image also gets its GAN map's spatial mean in fp32 (a plain
+    ``torch.mean``, as the JAX extractor leaves it to XLA,
+    evaluators.py:48-56).
     """
 
     def __init__(self, model, height=256, width=128, batch_size=256,
-                 device=None, dtype=torch.bfloat16):
+                 device=None, dtype=torch.bfloat16, extra_features=False):
         self.device = resolve_device(device)
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
         self.param_dtype = next(self.model.parameters()).dtype
         self.height, self.width = height, width
         self.batch_size = batch_size
         self.dtype = dtype
+        self.extra = extra_features
 
     def dispatch(self, img_u8):
         """Enqueue the forward of a host (B, H, W, 3) uint8 batch and return
-        the device features and B, without waiting for the card."""
+        the device features (with ``extra_features``, the pair of features
+        and pooled GAN features) and B, without waiting for the card."""
         x = torch.from_numpy(np.ascontiguousarray(img_u8)).to(self.device)
         self.model.eval()
         with torch.inference_mode():
-            x = eval_transform(x, self.height, self.width, self.dtype)
-            return self.model(x.to(self.param_dtype)), img_u8.shape[0]
+            x = eval_transform(x, self.height, self.width, self.dtype).to(self.param_dtype)
+            if not self.extra:
+                return self.model(x), img_u8.shape[0]
+            out = self.model(x, test_all=True)
+            return (out["feat"], out["gan_feat"].float().mean(dim=(2, 3))), img_u8.shape[0]
 
     def __call__(self, img_u8):
-        f, _ = self.dispatch(img_u8)
-        return f.float().cpu().numpy()
+        out, _ = self.dispatch(img_u8)
+        if self.extra:
+            return tuple(t.float().cpu().numpy() for t in out)
+        return out.float().cpu().numpy()
 
 
 def extract_features(extractor, data_loader, print_freq=50, max_pending=8):
     """Run the extractor over a loader; returns OrderedDicts fname → feature
-    and fname → pid (parity: evaluators.py:30-68).
+    and fname → pid, with an ``extra_features`` extractor fname → feature,
+    fname → pooled GAN feature and fname → pid (parity: evaluators.py:
+    96-135).
 
     Batches are dispatched without a per-batch host sync, so the card runs
     ahead while the loader stages the next batch. At most ``max_pending``
@@ -69,20 +81,25 @@ def extract_features(extractor, data_loader, print_freq=50, max_pending=8):
     batch_time = AverageMeter()
     data_time = AverageMeter()
     features = OrderedDict()
+    gan_features = OrderedDict()
     labels = OrderedDict()
     pending = []
+    extra = getattr(extractor, "extra", False)
 
     def drain_one():
-        f, fnames = pending.pop(0)
-        feats = f.float().cpu().numpy()
+        out, fnames = pending.pop(0)
+        feats = (out[0] if extra else out).float().cpu().numpy()
+        gans = out[1].cpu().numpy() if extra else None
         for j, fname in enumerate(fnames):
             features[fname] = feats[j]
+            if extra:
+                gan_features[fname] = gans[j]
 
     end = time.time()
     for i, batch in enumerate(data_loader):
         data_time.update(time.time() - end)
-        f, _ = extractor.dispatch(batch["img"])
-        pending.append((f, batch["fname"]))
+        out, _ = extractor.dispatch(batch["img"])
+        pending.append((out, batch["fname"]))
         if len(pending) >= max_pending:
             drain_one()
         for fname, pid in zip(batch["fname"], batch["pid"]):
@@ -95,6 +112,8 @@ def extract_features(extractor, data_loader, print_freq=50, max_pending=8):
                   f"Data {data_time.val:.3f} ({data_time.avg:.3f})")
     while pending:
         drain_one()
+    if extra:
+        return features, gan_features, labels
     return features, labels
 
 

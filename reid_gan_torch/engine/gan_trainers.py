@@ -19,7 +19,9 @@ One ``train_all`` step on the card:
 5. the D step on the detached fake, real first, from the ``u`` the G loss
    left, then D's Adam;
 6. the encoder's Adam (and its per-step schedule) and G's Adam;
-7. the momentum fold of ``feat`` into the bank (K7).
+7. the momentum fold of ``feat`` into the bank and, where the bank has a
+   GAN half (GAN-feature clustering), of the GAN map's spatial mean into
+   it, both in one launch (K7).
 
 The joint backward runs before the D step's forwards: D's power iteration
 and optimizer update its buffers and parameters in place, which would break
@@ -191,10 +193,12 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         state.scheduler.step()
         gs.opt_G.step()
         self._mark("Adam (encoder, G)")
-        # the parallel GAN bank (gan_x) is empty on this path: it comes with
-        # the GAN-feature clustering (ROADMAP A: GAN-feature clustering)
+        # the parallel GAN bank, where there is one, takes the pooled GAN map
+        # (gan_trainers.py:241-249)
+        gan_x = out["gan_feat"].mean(dim=(2, 3)) \
+            if state.memory.gan_features.shape[0] else None
         update_memory(state.memory, f_out.detach(), targets, momentum=self.momentum,
-                      use_hard=self.use_hard, group_size=self.num_instances)
+                      use_hard=self.use_hard, gan_x=gan_x, group_size=self.num_instances)
         self._mark("bank fold (K7)")
         state = state._replace(step=state.step + 1,
                                gan=gs._replace(step=gs.step + 1))

@@ -4,11 +4,12 @@ cluster_contrast_train_usl_infomap.py, Infomap recipe). Per epoch,
 ``cluster_epoch``:
 
   1. extracts the L2-normalised features of the whole train set (kernels K1,
-     K2 on the card);
+     K2 on the card) and, with an ``extra_features`` extractor, the pooled
+     GAN features too (K11);
   2. makes pseudo-labels: kNN (kernel K8) → k-reciprocal Jaccard → DBSCAN
      (host C++), or an inner-product kNN graph (K8) → Infomap, or k-means;
   3. builds the centroid bank (normalised means, padded to a multiple of
-     256 rows).
+     256 rows), and from the pooled GAN features the parallel GAN bank.
 
 The caller then rebuilds the P×K loader over the pseudo-labelled subset
 (``make_train_loader``) and runs the InfoNCE epoch (``engine/trainers.py``).
@@ -76,18 +77,18 @@ def bank_rows(num_clusters, k_pad=None):
 
 def extract_train_features(extractor, train_set, height, width, batch_size=256,
                            workers=4, cache="default"):
-    """Features of the whole train set in its order → (N, D) host array
-    (usl.py:68-84). The GAN-feature branch waits for the joint slice."""
+    """Features of the whole train set in its order → ((N, D) host array,
+    (N, C) pooled GAN features with an ``extra_features`` extractor, else
+    None) (usl.py:68-84; reference ...infomap.py:309-318)."""
     from .evaluators import extract_features
 
-    if getattr(extractor, "extra", False):
-        raise NotImplementedError(
-            "clustering on GAN features is not ported yet: it comes with the "
-            "joint GAN slice (ROADMAP A: GAN-feature clustering)")
     pre = Preprocessor(train_set, mode="reid", height=height, width=width, cache=cache)
     loader = DataLoader(pre, batch_size=batch_size, drop_last=False, num_workers=workers)
-    features, _ = extract_features(extractor, loader, print_freq=1 << 30)
-    return np.stack([features[f] for f, _, _ in train_set])
+    out = extract_features(extractor, loader, print_freq=1 << 30)
+    feats = np.stack([out[0][f] for f, _, _ in train_set])
+    if not getattr(extractor, "extra", False):
+        return feats, None
+    return feats, np.stack([out[1][f] for f, _, _ in train_set])
 
 
 def make_train_loader(train_set, height, width, batch_size, num_instances,
@@ -109,11 +110,13 @@ def cluster_epoch(extractor, train_set, cfg, k_pad=None, backend=None,
     """One clustering phase → (memory_state, pseudo_dataset, num_clusters)
     (usl.py:98-139). Features come from ``extractor`` (on its device); the
     kNN and the bank live on the same device. The bank is padded to a
-    multiple of 256 rows and to at least ``k_pad``. ``on_cluster``, where
+    multiple of 256 rows and to at least ``k_pad``; with an
+    ``extra_features`` extractor the GAN bank holds the clusters' normalised
+    mean GAN features, row for row (usl.py:130-138). ``on_cluster``, where
     given, is called with the (N, D) host features and the labels."""
     device = extractor.device
     with Timer("extract", verbose=print_flag):
-        feats = extract_train_features(extractor, train_set, cfg.data.height,
+        feats, gan_feats = extract_train_features(extractor, train_set, cfg.data.height,
                                        cfg.data.width, batch_size=cfg.data.batch_size,
                                        workers=cfg.data.workers, cache=cache)
     backend = backend or cfg.cluster.cluster_backend
@@ -137,6 +140,9 @@ def cluster_epoch(extractor, train_set, cfg, k_pad=None, backend=None,
         print(f"==> Clustered into {num_clusters} classes "
               f"({int((labels == -1).sum())} outliers)")
     with Timer("bank", verbose=print_flag):
+        gan_centers = None if gan_feats is None else \
+            generate_cluster_features(labels, gan_feats)
         memory = init_memory(generate_cluster_features(labels, feats),
-                             k_pad=bank_rows(num_clusters, k_pad), device=device)
+                             k_pad=bank_rows(num_clusters, k_pad),
+                             gan_centroids=gan_centers, device=device)
     return memory, build_pseudo_dataset(train_set, labels), num_clusters

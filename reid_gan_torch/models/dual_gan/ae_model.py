@@ -17,8 +17,8 @@ JAX functions:
   updated D in the standalone step).
 
 ``hard_mix`` and ``synthesize_fc`` make the AE hard-mix mode's negatives;
-``optimize_parameters`` is the standalone D→G step of the GAN warm-up.
-Not ported yet (ROADMAP A: GAN-feature clustering): ``synthesize_mix_p``; ``use_vgg`` raises.
+``synthesize_mix_p`` the pose generator's; ``optimize_parameters`` is the
+standalone D→G step of the GAN warm-up. ``use_vgg`` raises.
 """
 
 from typing import Any, NamedTuple
@@ -125,6 +125,17 @@ class AEModel:
         mixed = hard_mix(f_s.reshape(f_s.shape[0], -1), reid_f,
                          group_size).reshape((-1,) + f_s.shape[1:])
         return self.apply_G(mixed, train=train, method="forward_dec")
+
+    def synthesize_mix_p(self, f_gan, f_gan_ex, source_pose, p_idx, train=False):
+        """Pose generator's negatives (ae_model.py:194-205; AE_model.py:
+        238-250): the batch's features and the extra ones ``f_gan_ex``
+        rendered in one pass, the extra ones with the poses ``p_idx`` (the
+        draws, (len(f_gan_ex),) indices into the batch, sampled by the
+        caller). Returns (the batch's images, the extra ones detached)."""
+        bs = f_gan.shape[0]
+        syn = self.synthesize_p(torch.cat([f_gan, f_gan_ex]),
+                                torch.cat([source_pose, source_pose[p_idx]]), train=train)
+        return syn[:bs], syn[bs:].detach()
 
     # -------------------------------------------------------------- losses
     def d_loss(self, real, fake, generator=None):

@@ -167,7 +167,8 @@ class ResNetBackbone(nn.Module):
 
 
 class ReIDResNet(ResNetBackbone):
-    """Eval: (N, 3, H, W) → (N, D) L2-normalised ``feat_bn`` output.
+    """Eval: (N, 3, H, W) → (N, D) L2-normalised ``feat_bn`` output; with
+    ``test_all``, ``{'feat', 'gan_feat'}`` (``resnet.py:201-205``).
     Train: ``{'feat', 'gan_feat'}`` (+ ``'prob'``), as ``resnet.py:208-219``."""
 
     def __init__(self, depth=50, ibn=False, num_features=0, norm=False, dropout=0.0,
@@ -190,14 +191,16 @@ class ReIDResNet(ResNetBackbone):
             self.classifier = nn.Linear(dim, num_classes, bias=False)
             nn.init.normal_(self.classifier.weight, std=0.001)
 
-    def forward(self, x, with_gan_feat=True):
+    def forward(self, x, with_gan_feat=True, test_all=False):
         fmap = super().forward(x)
         # the heads run in (at least) fp32, as resnet.py:183 upcasts
         fmap = fmap.to(torch.promote_types(fmap.dtype, torch.float32))
         if not self.training:
             if self.num_features == 0:
-                return eval_l2_head(fmap, self.gap, self.feat_bn)
-            return l2n(self.feat_bn(self.feat(self.gap(fmap))))
+                feat = eval_l2_head(fmap, self.gap, self.feat_bn)
+            else:
+                feat = l2n(self.feat_bn(self.feat(self.gap(fmap))))
+            return {"feat": feat, "gan_feat": gan_feat(fmap)} if test_all else feat
         out = {"feat": self._train_head(fmap)}
         if with_gan_feat:
             out["gan_feat"] = gan_feat(fmap)

@@ -6,7 +6,8 @@ Module names mirror the JAX package's scopes (``base``, ``p1_l3``,
 ``res_g``, ``gpool_p1``, ``feat_bn_g``, ``predictor.fc1``, ...), so
 ``convert.variant_state_dict_from_jax`` maps one tree onto the other by
 name. The port's conventions hold: in eval a model returns its feature
-tensor; in train it takes ``with_gan_feat`` and returns a dict with
+tensor, or with ``test_all`` (``ResNetBipD``, ``ResNetMP``) a dict with its
+GAN map; in train it takes ``with_gan_feat`` and returns a dict with
 ``'feat'``. Every GeM with a learned p runs through kernel K5 (forward and
 backward); an eval head of GeM → scale-only BN on running stats → L2 is
 kernel K2; ``ResNetBipD``'s GAN map is kernel K11.
@@ -129,9 +130,11 @@ class ResNetBipD(_BiPath):
     """Bi-path with decoupled outputs: p1 → the pooled id vector, p2 → the
     spatial GAN map (resnet_variants.py:91-128; resnet_bipd.py:97-138).
 
-    Eval: the L2-normalised ``feat_bn`` output (kernel K2). Train:
-    ``{'feat'}``, L2-normalised with ``norm``, and with ``with_gan_feat`` the
-    channel-L2 map of p2 (kernel K11, detached as ``resnet.gan_feat``)."""
+    Eval: the L2-normalised ``feat_bn`` output (kernel K2); with
+    ``test_all``, ``{'feat', 'gan_feat'}``. Train: ``{'feat'}``,
+    L2-normalised with ``norm``, and with ``with_gan_feat`` ``gan_feat``.
+    ``gan_feat`` is the channel-L2 map of p2 (kernel K11, detached as
+    ``resnet.gan_feat``)."""
 
     def __init__(self, depth=50, norm=True, dropout=0.0, pooling_type="gem",
                  num_features=0):
@@ -141,10 +144,11 @@ class ResNetBipD(_BiPath):
         self.gap = build_pooling_layer(pooling_type)
         self.feat_bn = _feat_bn(self.out_channels)
 
-    def forward(self, x, with_gan_feat=True):
+    def forward(self, x, with_gan_feat=True, test_all=False):
         x1, x2 = self.branches(x)
         if not self.training:
-            return eval_l2_head(x1, self.gap, self.feat_bn)
+            feat = eval_l2_head(x1, self.gap, self.feat_bn)
+            return {"feat": feat, "gan_feat": gan_feat(x2)} if test_all else feat
         f = _pool_bn(self.gap, self.feat_bn, x1)
         out = {"feat": l2n(f) if self.norm else f}
         if with_gan_feat:
@@ -175,7 +179,8 @@ class ResNetMP(nn.Module):
     3, ``sum``, ``cat`` or plain fusion, and a 1×1 GAN projection
     (resnet_variants.py:146-232; resnet_mp.py:85-158).
 
-    Eval: the fused feature (N, D). Train: ``{'feat', 'feat_g', 'feat_p1',
+    Eval: the fused feature (N, D); with ``test_all``, ``{'feat',
+    'gan_feat', 'feat_g'}``. Train: ``{'feat', 'feat_g', 'feat_p1',
     'feat_p2'}``, with ``with_gan_feat`` the projected map ``gan_feat``
     (N, num_proj, H, W), and with ``need_predictor`` the predictor's output
     ``pred``. The predictor's parameters exist in eval mode too, so
@@ -206,7 +211,7 @@ class ResNetMP(nn.Module):
         nn.init.kaiming_normal_(self.proj_gan.weight, mode="fan_out", nonlinearity="relu")
         self.predictor = PredictorMLP(nfeat) if need_predictor else None
 
-    def forward(self, x, with_gan_feat=True):
+    def forward(self, x, with_gan_feat=True, test_all=False):
         stem = self.base(x)
         x_g, x_p = _fp32(self.res_g(stem)), _fp32(self.res_p(stem))
         div = x_p.shape[2] // 2
@@ -221,13 +226,18 @@ class ResNetMP(nn.Module):
         else:
             x_gc = x_g
         f_gc = l2n(x_gc) if self.norm else x_gc
-        if not self.training:
+        if not self.training and not test_all:
             return f_gc
+        gan = self.proj_gan(x_p.to(self.proj_gan.weight.dtype)) \
+            if with_gan_feat or test_all else None
+        if not self.training:
+            return {"feat": f_gc, "gan_feat": gan,
+                    "feat_g": l2n(x_g) if self.norm else x_g}
         parts = (x_g, x_p1, x_p2)
         f_g, f_p1, f_p2 = map(l2n, parts) if self.norm else parts
         out = {"feat": f_gc, "feat_g": f_g, "feat_p1": f_p1, "feat_p2": f_p2}
-        if with_gan_feat:
-            out["gan_feat"] = self.proj_gan(x_p.to(self.proj_gan.weight.dtype))
+        if gan is not None:
+            out["gan_feat"] = gan
         if self.predictor is not None:
             out["pred"] = self.predictor(f_gc)
         return out

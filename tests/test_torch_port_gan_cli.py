@@ -93,10 +93,8 @@ def test_save_and_load_networks_round_trip(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--cluster-with-gan-features"], "ROADMAP A: GAN-feature clustering"),
     (["--bipath"], "ROADMAP A: bip and learnable-memory modes"),
     (["--learnable-memory"], "ROADMAP A: bip and learnable-memory modes"),
-    (["--no-gan-train", "--cluster-with-gan-features"], "ROADMAP A: GAN-feature clustering"),
     (["--fp16"], "ROADMAP A: `--fp16`"),
     (["--resume", "logs/checkpoint.msgpack"], "ROADMAP A: msgpack checkpoints"),
     (["--model-gen", "DEC", "--dataset", "synthetic"], "ROADMAP A: other generators and DPTN")])

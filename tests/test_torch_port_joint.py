@@ -84,12 +84,15 @@ def _assert_state(name, module, ref):
         np.testing.assert_allclose(got[k].numpy(), r, err_msg=f"{name} {k}", **tol)
 
 
-def test_train_all_and_train_reid_steps_match_jax(monkeypatch):
-    """At each step: the losses (loss_cl, G, D; the train_reid loss) within
-    1e-9 relative; the encoder's, G's and D's gradients (``_assert_grads``);
-    the parameters after Adam within 1e-10; G's and the
-    encoder's running stats within 1e-6 relative; D's spectral u/sigma within
-    1e-9; the bank within 1e-10."""
+def joint_setup(monkeypatch, gan_bank=None):
+    """The port's trainer and the JAX trainer from the same weights (resnet18,
+    the pose G and D, fp64) and bank, with a GAN bank of ``gan_bank`` rows
+    where given; the JAX step's in-step transforms replaced by the identity
+    and its gradients captured. Returns a namespace with the port's
+    ``model``, ``gan``, ``trainer``, ``state`` and the JAX ``jt``,
+    ``jstate``; ``seen["x"]`` is the port's last augmented batch."""
+    from types import SimpleNamespace
+
     from reid_gan_tpu.engine import gan_trainers as jax_gan_trainers
     from reid_gan_tpu.models.dual_gan.ae_model import AEState
     from reid_gan_tpu.models.resnet import ReIDResNet as JaxReIDResNet
@@ -99,8 +102,7 @@ def test_train_all_and_train_reid_steps_match_jax(monkeypatch):
     from reid_gan_torch.models.dual_gan.ae_model import AEModel
     from reid_gan_torch.models.dual_gan.convert import state_dict_from_jax
     from reid_gan_torch.ops.cluster_memory import init_memory
-    from reid_gan_torch.ops.pose import batch_cords_to_map
-    from reid_gan_torch.ops.transforms import gan_input_transform, train_augment
+    from reid_gan_torch.ops.transforms import train_augment
 
     jmodel = JaxReIDResNet(depth=18, norm=True)
     params, stats = _random_variables(jmodel, np.random.RandomState(20))
@@ -127,8 +129,8 @@ def test_train_all_and_train_reid_steps_match_jax(monkeypatch):
         return seen["x"]
 
     trainer.augment = augment
-    state = trainer.init_state(init_memory(bank, k_pad=K_PAD, device="cpu"),
-                               gan.init_state())
+    state = trainer.init_state(init_memory(bank, k_pad=K_PAD, gan_centroids=gan_bank,
+                                           device="cpu"), gan.init_state())
 
     # ---- JAX: the in-step transforms give back what the batch carries
     monkeypatch.setattr(jax_gan_trainers, "reid_augment",
@@ -144,65 +146,89 @@ def test_train_all_and_train_reid_steps_match_jax(monkeypatch):
         jgs = AEState(G=G, D=Dv, opt_G=jgan.tx_G.init(G["params"]),
                       opt_D=jgan.tx_D.init(Dv["params"]), step=jnp.zeros((), jnp.int32))
         jstate = jt.init_state({"params": to64(params), "batch_stats": to64(stats)},
-                               jgs, jax_init_memory(bank, k_pad=K_PAD))
+                               jgs, jax_init_memory(bank, k_pad=K_PAD, gan_centroids=gan_bank))
+    return SimpleNamespace(model=model, gan=gan, trainer=trainer, state=state, jt=jt,
+                           jstate=jstate, seen=seen, augment=augment)
 
-    def port_grads(module, names=None):
-        return {n: p.grad.numpy() for n, p in module.named_parameters()
-                if p.grad is not None and (names is None or n in names)}
 
-    def enc_named(tree):
-        return _jax_named(jax.tree.map(np.asarray, tree),
-                          jax.tree.map(np.asarray, jstate.enc_batch_stats))
+def _port_grads(module):
+    return {n: p.grad.numpy() for n, p in module.named_parameters() if p.grad is not None}
 
+
+def _enc_named(s, tree):
+    return _jax_named(jax.tree.map(np.asarray, tree),
+                      jax.tree.map(np.asarray, s.jstate.enc_batch_stats))
+
+
+def train_all_step_matches_jax(s, step_i, seed, batch, conf):
+    """One ``train_all`` step of ``joint_setup``'s pair on ``batch`` with
+    the weights ``conf``, held as the test below states: the losses, the
+    encoder's, G's and D's gradients, the parameters and buffers, and the
+    bank and the GAN bank (within 1e-10)."""
+    from reid_gan_torch.models.dual_gan.convert import state_dict_from_jax
+    from reid_gan_torch.ops.pose import batch_cords_to_map
+    from reid_gan_torch.ops.transforms import gan_input_transform
+
+    dev = {k: torch.from_numpy(v) for k, v in batch.items()}
+    xs = gan_input_transform(dev["Xs"], GH, GW)
+    ps = batch_cords_to_map(dev["keypoints"], dev["old_size"], GH, GW)
+    s.state, errs = s.trainer.train_all_step(s.state, dev, seed, torch.from_numpy(conf))
+    with jax.enable_x64(True):
+        s.jstate, jerrs = s.jt._get_step("train_all")(
+            s.jstate, {"img": _nhwc64(s.seen["x"]), "pid": jnp.asarray(batch["pid"]),
+                       "Xs": _nhwc64(xs), "Ps": _nhwc64(ps)},
+            np.int32(seed), jnp.asarray(conf))
+    for k in ("loss_cl", "G", "D", "loss"):
+        assert abs(float(errs[k]) - float(jerrs[k])) <= 1e-9 * abs(float(jerrs[k])), k
+    model, gan = s.model, s.gan
+    enc_ref = _enc_named(s, s.jstate.enc_opt[0]["g"])
+    _assert_grads(f"step {step_i} encoder", _port_grads(model),
+                  {k: v for k, v in enc_ref.items() if k in dict(model.named_parameters())
+                   and k != "feat_bn.bias"})
+    g_ref = jax.tree.map(np.asarray, s.jstate.gan.opt_G[0]["g"])
+    d_ref = jax.tree.map(np.asarray, s.jstate.gan.opt_D[0]["g"])
+    _assert_grads(f"step {step_i} G", _port_grads(gan.net_G),
+                  {k: v.numpy() for k, v in state_dict_from_jax(gan.net_G, g_ref).items()})
+    _assert_grads(f"step {step_i} D", _port_grads(gan.net_D),
+                  {k: v.numpy() for k, v in state_dict_from_jax(gan.net_D, d_ref).items()})
+    _assert_state(f"step {step_i} encoder", model, _enc_named(s, s.jstate.enc_params))
+    for net, var in ((gan.net_G, s.jstate.gan.G), (gan.net_D, s.jstate.gan.D)):
+        _assert_state(f"step {step_i} {type(net).__name__}", net,
+                      state_dict_from_jax(net, jax.tree.map(np.asarray, var["params"]),
+                                          jax.tree.map(np.asarray, var["batch_stats"])))
+    for name in ("features", "gan_features"):
+        np.testing.assert_allclose(getattr(s.state.memory, name).numpy(),
+                                   np.asarray(getattr(s.jstate.memory, name)), rtol=0,
+                                   atol=1e-10, err_msg=name)
+
+
+def test_train_all_and_train_reid_steps_match_jax(monkeypatch):
+    """At each step: the losses (loss_cl, G, D; the train_reid loss) within
+    1e-9 relative; the encoder's, G's and D's gradients (``_assert_grads``);
+    the parameters after Adam within 1e-10; G's and the
+    encoder's running stats within 1e-6 relative; D's spectral u/sigma within
+    1e-9; the bank within 1e-10."""
+    s = joint_setup(monkeypatch)
     for step_i, seed in enumerate((30, 31)):
         batch, conf = _batch(40 + step_i)
-        dev = {k: torch.from_numpy(v) for k, v in batch.items()}
-        xs = gan_input_transform(dev["Xs"], GH, GW)
-        ps = batch_cords_to_map(dev["keypoints"], dev["old_size"], GH, GW)
-        state, errs = trainer.train_all_step(state, dev, seed, torch.from_numpy(conf))
-        with jax.enable_x64(True):
-            jstate, jerrs = jt._get_step("train_all")(
-                jstate, {"img": _nhwc64(seen["x"]), "pid": jnp.asarray(batch["pid"]),
-                         "Xs": _nhwc64(xs), "Ps": _nhwc64(ps)},
-                np.int32(seed), jnp.asarray(conf))
-        for k in ("loss_cl", "G", "D", "loss"):
-            assert abs(float(errs[k]) - float(jerrs[k])) <= 1e-9 * abs(float(jerrs[k])), k
-        enc_ref = enc_named(jstate.enc_opt[0]["g"])
-        _assert_grads(f"step {step_i} encoder", port_grads(model),
-                      {k: v for k, v in enc_ref.items() if k in dict(model.named_parameters())
-                       and k != "feat_bn.bias"})
-        g_ref = jax.tree.map(np.asarray, jstate.gan.opt_G[0]["g"])
-        d_ref = jax.tree.map(np.asarray, jstate.gan.opt_D[0]["g"])
-        _assert_grads(f"step {step_i} G", port_grads(gan.net_G),
-                      {k: v.numpy() for k, v in
-                       state_dict_from_jax(gan.net_G, g_ref).items()})
-        _assert_grads(f"step {step_i} D", port_grads(gan.net_D),
-                      {k: v.numpy() for k, v in
-                       state_dict_from_jax(gan.net_D, d_ref).items()})
-        _assert_state(f"step {step_i} encoder", model,
-                      enc_named(jstate.enc_params))
-        for net, var in ((gan.net_G, jstate.gan.G), (gan.net_D, jstate.gan.D)):
-            _assert_state(f"step {step_i} {type(net).__name__}", net,
-                          state_dict_from_jax(net, jax.tree.map(np.asarray, var["params"]),
-                                              jax.tree.map(np.asarray, var["batch_stats"])))
-        np.testing.assert_allclose(state.memory.features.numpy(),
-                                   np.asarray(jstate.memory.features), rtol=0, atol=1e-10)
-    assert state.step == state.gan.step == 2
+        train_all_step_matches_jax(s, step_i, seed, batch, conf)
+    assert s.state.step == s.state.gan.step == 2
 
     # ---- one train_reid (warm-up) step from there
     batch, _ = _batch(50)
-    trainer.augment = lambda img, seed: augment(img, seed, jax.random.PRNGKey)
-    state, loss = trainer.step(state, torch.from_numpy(batch["img"]),
-                               torch.from_numpy(batch["pid"]), 32)
+    s.trainer.augment = lambda img, seed: s.augment(img, seed, jax.random.PRNGKey)
+    state, loss = s.trainer.step(s.state, torch.from_numpy(batch["img"]),
+                                 torch.from_numpy(batch["pid"]), 32)
     with jax.enable_x64(True):
-        jstate, jerrs = jt._get_step("train_reid")(
-            jstate, {"img": _nhwc64(seen["x"]), "pid": jnp.asarray(batch["pid"])},
+        jstate, jerrs = s.jt._get_step("train_reid")(
+            s.jstate, {"img": _nhwc64(s.seen["x"]), "pid": jnp.asarray(batch["pid"])},
             np.int32(32))
     assert abs(float(loss) - float(jerrs["loss"])) <= 1e-9 * abs(float(jerrs["loss"]))
-    enc_ref = enc_named(jstate.enc_opt[0]["g"])
-    _assert_grads("train_reid encoder", port_grads(model),
-                  {k: v for k, v in enc_ref.items() if k in dict(model.named_parameters())
+    s.jstate = jstate
+    enc_ref = _enc_named(s, jstate.enc_opt[0]["g"])
+    _assert_grads("train_reid encoder", _port_grads(s.model),
+                  {k: v for k, v in enc_ref.items() if k in dict(s.model.named_parameters())
                    and k != "feat_bn.bias"})
-    _assert_state("train_reid encoder", model, enc_named(jstate.enc_params))
+    _assert_state("train_reid encoder", s.model, _enc_named(s, jstate.enc_params))
     np.testing.assert_allclose(state.memory.features.numpy(),
                                np.asarray(jstate.memory.features), rtol=0, atol=1e-10)

@@ -879,6 +879,40 @@ def _fold_inputs(card, b, d, k_pad, labels, seed):
             x, y)
 
 
+def test_update_memory_joint_fold_with_padded_banks(card):
+    """GAN-feature clustering's fold: a bank and a GAN bank of 700 live rows
+    padded to 768 (``init_memory``), a P×K batch of 16 labels x 16 and the
+    pooled GAN rows as ``gan_x``: one launch, both banks within 1e-6 and
+    1e-5 of the plain fold, and the padding rows still zero."""
+    from reid_gan_torch import kernels
+    from reid_gan_torch.ops.cluster_memory import (
+        init_memory,
+        update_memory,
+        update_memory_plain,
+    )
+
+    b, d, nv, k_pad = 256, 2048, 700, 768
+    g = torch.Generator(device=card).manual_seed(77)
+    centers, gan = (torch.nn.functional.normalize(
+        torch.randn((nv, d), device=card, generator=g), dim=1) for _ in range(2))
+    state = init_memory(centers, k_pad=k_pad, gan_centroids=gan, device=card)
+    x = torch.randn((b, d), device=card, generator=g)
+    gan_x = torch.relu(torch.randn((b, d), device=card, generator=g)) / d ** 0.5
+    y = torch.as_tensor([(i // 16) * 43 % nv for i in range(b)], dtype=torch.int32,
+                        device=card)
+    ref = state._replace(features=state.features.clone(),
+                         gan_features=state.gan_features.clone())
+    before = kernels.BANK_FOLD.launches["forward"]
+    update_memory(state, x, y, gan_x=gan_x, group_size=16)
+    assert kernels.BANK_FOLD.launches["forward"] == before + 1
+    update_memory_plain(ref, x, y, gan_x=gan_x)
+    torch.cuda.synchronize()
+    assert float((state.features - ref.features).abs().max()) <= 1e-6
+    assert float((state.gan_features - ref.gan_features).abs().max()) <= 1e-5
+    assert not state.features[nv:].any() and not state.gan_features[nv:].any()
+    assert not torch.equal(state.gan_features[:nv], gan)
+
+
 @pytest.mark.parametrize("case", ["one_label", "all_distinct", "pxk", "hard_tie"])
 def test_update_memory_matches_plain(card, case):
     """Plain fold (feature and GAN banks, in one launch) and hard fold
@@ -1176,6 +1210,31 @@ def test_gan_feat_l2n_matches_plain(card, n, c, h, w):
     torch.cuda.synchronize()
     assert not out.requires_grad and out.is_contiguous(memory_format=torch.channels_last)
     assert float((out - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("n,c,h,w", [(256, 2048, 8, 8), (256, 2048, 8, 4),
+                                     (136, 2048, 16, 8)])
+def test_gan_feat_l2n_in_inference_mode_matches_plain(card, n, c, h, w):
+    """K11 as the ``test_all`` extraction runs it, under
+    ``torch.inference_mode()``: the variants' 8x8 and 8x4 maps and the
+    short last batch of Market-1501's 12,936 train images at 16x8; the map
+    within 1e-6 of the plain version and its spatial mean (the pooled GAN
+    feature) within 1e-6."""
+    from reid_gan_torch import kernels
+    from reid_gan_torch.models.resnet import gan_feat, gan_feat_plain
+
+    g = torch.Generator(device=card).manual_seed(n + h * w)
+    with torch.inference_mode():
+        x = torch.relu(torch.randn((n, c, h, w), device=card, generator=g)).contiguous(
+            memory_format=torch.channels_last)
+        before = kernels.GAN_FEAT_L2N.launches["forward"]
+        out = gan_feat(x)
+        assert kernels.GAN_FEAT_L2N.launches["forward"] == before + 1
+        ref = gan_feat_plain(x)
+        torch.cuda.synchronize()
+        assert out.is_inference() and out.is_contiguous(memory_format=torch.channels_last)
+        assert float((out - ref).abs().max()) <= 1e-6
+        assert float((out.mean(dim=(2, 3)) - ref.mean(dim=(2, 3))).abs().max()) <= 1e-6
 
 
 def test_gan_feat_l2n_rejects_an_nchw_map(card):
