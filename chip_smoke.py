@@ -160,7 +160,32 @@ the script exits non-zero without printing a result:
    --continue-train`` loads them and runs on phase 5's set with the DBSCAN
    recipe and 20 steps. Launch counts are zeroed just before the epoch and
    read just after: K1-K9 and K12 must have launched, K10, K11, K13 and
-   K14 not;
+   K14 not; then ``[gan_clusters]`` (two epochs of ``cli/train_gan_usl.run
+   --cluster-with-gan-features``, one extraction batch and one step with
+   both banks held against the plain versions);
+14a. ``[vgg_joint]``: phase 10's step with ``--use-vgg`` (VGG19 on the 256
+   fakes and GAN images at 128x64, random taps from seed 0) held against
+   the plain versions, the content and style terms too; 5 warm steps
+   without and with VGG in turns, each with its peak memory; 3 steps traced
+   with and 3 without VGG (VGG's share of the busy time) and split by CUDA
+   events; one epoch of ``cli/train_gan_usl.run --use-vgg`` at phase 13's
+   configuration, and a 4-step one with ``--vgg-weights`` pointing at a
+   torchvision-layout file of those taps, which the engine must hold. Both
+   epochs' launches are counted as phase 13's and join the kernels line;
+14b. ``[vgg_warmup]``: phase 12's ``GANTrainer.train_gan`` with ``--use-vgg``:
+   20 iterations (K9 once an iteration, nothing else), the peak memory, 5
+   warm iterations without and with VGG in turns;
+14c. ``[dptn]``: ``DPTNModel`` at full width (ngf 64, num_feats 256, 3
+   layers, 3 blocks, 2 CABs and 2 TTBs, 128x64, batch 256), source and
+   target images through K9 and their pose maps through K10: 3 steps and
+   one with VGG, each timed with the peak memory and finite losses, then
+   ``synthesize_pair``;
+14d. ``[generators]``: train-mode forwards at batch 256 of ``DECGenerator1``
+   on a random ResNet-50's GAN map (K1, K11), ``FDGenerator`` on the pooled
+   map and 512-wide noise and the pose generator with instance norm (cold
+   and warm times, finite); one standalone ``PoseAE`` step through K9 and
+   K10 held against their plain versions as phase 12's step, then 3 timed
+   with the peak memory;
 15. FD-GAN stage I (``[fd_stage1]``): ``SiameseTrainer`` on a random
    ResNet-50 Siamese net (last stride 2, average pool, the square-difference
    head) at 256x128, batches of 256 pairs from ``RandomPairSampler`` over an
@@ -192,8 +217,9 @@ the script exits non-zero without printing a result:
    Launch counts are zeroed just before and read just after: K1, K3, K13
    and K14 must have launched;
 18. a JSON line with every kernel's launches (the sum over the two whole
-   joint loops, phases 13 and 14, the FD-GAN chain, phase 17, and the
-   headline recipe's loop, phase 8), error,
+   joint loops, phases 13 and 14, ``[gan_clusters]``, ``[vgg_joint]``'s two
+   epochs, the FD-GAN chain, phase 17, ``[cuhk03]`` and the headline
+   recipe's loop, phase 8), error,
    times and bound; K5's and K6's entries carry ``forward_ms``,
    ``backward_ms`` and ``autograd_ms`` (``ms`` is forward + backward;
    ``autograd_ms`` adds autograd's accumulation into ``x.grad``), K6's
@@ -1995,7 +2021,7 @@ def _compare_joint_step(trainer, state, batch, label="joint"):
     snap = [copy.deepcopy(m.state_dict()) for m in nets]
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-    results = []
+    results, vgg_terms = [], []
     try:
         for plain in (False, True):
             for m, sd in zip(nets, snap):
@@ -2018,6 +2044,9 @@ def _compare_joint_step(trainer, state, batch, label="joint"):
                 feat, f_gan = out["feat"], out["gan_feat"]
             feat.retain_grad()
             fake = gan.synthesize_p(f_gan, ps, train=True)
+            if gan.vgg is not None:
+                with torch.no_grad():
+                    vgg_terms.append([float(t) for t in gan.vgg(fake, xs)])
             loss_G = gan.get_loss_G_train(fake, xs)
             loss_cl = ((memory_loss_plain if plain else memory_loss)(feat, y, mem)[0]
                        * conf).mean()
@@ -2056,15 +2085,26 @@ def _compare_joint_step(trainer, state, batch, label="joint"):
           + gan_bank)
     check(e_loss <= tol_loss and e_grad <= tol_grad and max(e_bank, e_gan) <= tol_bank,
           "the joint step through the kernels differs from the plain versions")
+    if vgg_terms:
+        (ck, sk), (cp, sp) = vgg_terms
+        e_vgg = max(abs(ck - cp) / abs(cp), abs(sk - sp) / abs(sp))
+        tol_vgg = 1e-4      # VGG19 in fp32 on fakes and targets the kernels' ulps move
+        print(f"[{label}] VGG terms, kernels vs plain versions (TF32 off): content "
+              f"{ck:.6f} vs {cp:.6f}, style {sk:.6e} vs {sp:.6e} (max rel err "
+              f"{e_vgg:.3g}, tol {tol_vgg:.3g})")
+        check(e_vgg <= tol_vgg, "the VGG terms through the kernels differ from the plain "
+                                "versions")
 
 
-def _joint_trainer(gan_bank=False, iters=400, seed=1):
+def _joint_trainer(gan_bank=False, iters=400, seed=1, use_vgg=False):
     """The joint step at the recipe's width: a random ResNet-50 (GeM, last
     stride 1, norm on) at 256x128, the pose generator and the discriminator
     at 128x64, from seed 0; a bank of 700 unit rows padded to 768, with a
     GAN half of as many rows with ``gan_bank``; a ``with_gan`` loader of
-    ``iters`` batches of 256 (16 ids x 16) over phase 4's set with keypoints.
-    Returns (trainer, state, loader)."""
+    ``iters`` batches of 256 (16 ids x 16) over phase 4's set with keypoints;
+    with ``use_vgg`` the VGG19 perceptual loss (random taps from seed 0, the
+    AE defaults' λ_style 500 and λ_content 0.5). Returns (trainer, state,
+    loader)."""
     import tempfile
 
     from reid_gan_torch.config import GANConfig
@@ -2084,8 +2124,8 @@ def _joint_trainer(gan_bank=False, iters=400, seed=1):
     memory = init_memory(centers, k_pad=bank_rows(n_ids), gan_centroids=gan_centers,
                          device="cuda")
     torch.manual_seed(0)
-    gan = create_gan(GANConfig(model="AE", model_gen="Pose"), gan_height=128,
-                     gan_width=64, reid_feat_dim=2048, device="cuda")
+    gan = create_gan(GANConfig(model="AE", model_gen="Pose", use_vgg=use_vgg),
+                     gan_height=128, gan_width=64, reid_feat_dim=2048, device="cuda")
     model = create("resnet50", norm=True)
     trainer = ClusterContrastWithGANTrainer(model, gan, height=256, width=128,
                                             num_instances=16, device="cuda")
@@ -2171,15 +2211,17 @@ def phase_joint(counts):
     loader.close()
 
 
-def phase_joint_run(counts):
+def phase_joint_run(counts, label="joint", iters=20, vgg_weights=None):
     """One epoch of ``cli/train_gan_usl.run`` on the ``[usl]`` set with
     keypoints: extraction (K1, K2), Infomap on K8's inner-product kNN, the
-    bank, 20 joint steps (K4-K7, K9-K11), eval (K1-K3), the checkpoints and
-    the GAN nets' files."""
+    bank, ``iters`` joint steps (K4-K7, K9-K11), eval (K1-K3), the
+    checkpoints and the GAN nets' files. ``vgg_weights``: with ``--use-vgg``,
+    random taps ("") or the torchvision-layout file at that path, which the
+    engine ``run()`` built must then hold. Returns the engine."""
     import tempfile
 
     from reid_gan_torch import kernels
-    from reid_gan_torch.cli.train_gan_usl import run
+    from reid_gan_torch.cli import train_gan_usl
     from reid_gan_torch.config import Config
     from reid_gan_torch.utils import Timer
 
@@ -2187,33 +2229,47 @@ def phase_joint_run(counts):
     dataset, imgs = _usl_set()
     cfg = Config()
     cfg.data.workers = 4
-    cfg.train.epochs, cfg.train.iters, cfg.train.eval_step = 1, 20, 1
+    cfg.train.epochs, cfg.train.iters, cfg.train.eval_step = 1, iters, 1
     cfg.cluster.cluster_backend, cfg.cluster.eps = "infomap", 0.5
     cfg.cluster.k1, cfg.cluster.k2 = 15, 4
     cfg.gan.model, cfg.gan.model_gen = "AE", "Pose"
+    if vgg_weights is not None:
+        cfg.gan.use_vgg, cfg.gan.vgg_weights = True, vgg_weights
+    created, create_gan = [], train_gan_usl.create_gan
+
+    def creating(*args, **kwargs):
+        created.append(create_gan(*args, **kwargs))
+        return created[-1]
+
     with tempfile.TemporaryDirectory() as tmp:
         dataset.train_pose_dir = _write_pose_csv(dataset.train,
                                                  os.path.join(tmp, "poses.csv"), 13)
         cfg.train.logs_dir = os.path.join(tmp, "logs")
         cfg.gan.save_dir = os.path.join(tmp, "ckpt")
-        print(f"[joint] run(): data {len(dataset.train)} train images of 751 ids with "
+        vgg = "" if vgg_weights is None else (
+            f"; --use-vgg with {'--vgg-weights' if vgg_weights else 'random taps'}")
+        print(f"[{label}] run(): data {len(dataset.train)} train images of 751 ids with "
               f"keypoints, {len(dataset.query)} + {len(dataset.gallery)} eval; Infomap "
-              f"(eps 0.5, k1 15); depth cut: 1 epoch of {cfg.train.iters} steps")
+              f"(eps 0.5, k1 15); depth cut: 1 epoch of {cfg.train.iters} steps{vgg}")
         Timer.spans.clear()
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        best = run(cfg, dataset, device="cuda",
-                   image_cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        train_gan_usl.create_gan = creating
+        try:
+            t0 = time.perf_counter()
+            best = train_gan_usl.run(cfg, dataset, device="cuda",
+                                     image_cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            train_gan_usl.create_gan = create_gan
         launches = kernels.launch_counts()
         secs = dict(Timer.spans)
         saved = sorted(os.listdir(cfg.train.logs_dir)) + sorted(
             os.listdir(os.path.join(cfg.gan.save_dir, "experiment")))
     counts.update(launches)
-    print(f"[joint] run(): {wall:.2f} s, best mAP {best:.4f}; wrote {saved}")
-    print(f"[joint] run() launches: {kernels.phase_launch_counts()}")
+    print(f"[{label}] run(): {wall:.2f} s, best mAP {best:.4f}; wrote {saved}")
+    print(f"[{label}] run() launches: {kernels.phase_launch_counts()}")
     off = ("diff_transform", "pose_peaks", "fd_augment")
     check(all(v > 0 for k, v in launches.items() if k not in off)
           and all(launches[k] == 0 for k in off),
@@ -2221,9 +2277,14 @@ def phase_joint_run(counts):
     check(np.isfinite(best) and {"checkpoint.pth.tar", "latest_net_G.pth",
                                  "latest_net_D.pth", "iter.txt"} <= set(saved),
           "no finite mAP or a missing checkpoint")
-    print("[joint] run() epoch split (s, host clock, Timer.spans): "
+    gan, = created
+    check((gan.vgg is not None) == (vgg_weights is not None)
+          and (gan.vgg is None or gan.vgg.pretrained == bool(vgg_weights)),
+          "the engine run() built has not the VGG loss it was asked for")
+    print(f"[{label}] run() epoch split (s, host clock, Timer.spans): "
           + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
-    print(f"[joint] run() phase wall time {time.perf_counter() - t_phase:.1f} s")
+    print(f"[{label}] run() phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return gan
 
 
 def _hardmix_trainer(items, imgs):
@@ -2454,19 +2515,71 @@ def phase_hardmix():
     loader.close()
 
 
+def _hold_standalone_step(label, gan, xs_u8, cords=None, old=None):
+    """One standalone D→G step of ``gan`` (an ``AEModel``) on the uint8 GAN
+    batch ``xs_u8`` through K9, and with the PoseAE generator on the pose
+    maps of ``cords`` (in frames ``old``) through K10, against the same step
+    through their plain versions, from the same weights, TF32 off: the
+    losses, the fake, G's output conv and D's last conv gradients. The nets
+    are restored after."""
+    import copy
+
+    from reid_gan_torch.ops.pose import batch_cords_to_map, batch_cords_to_map_plain
+    from reid_gan_torch.ops.transforms import gan_input_transform_plain
+
+    nets = (gan.net_G, gan.net_D)
+    snap = [copy.deepcopy(m.state_dict()) for m in nets]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    results = []
+    try:
+        for plain in (False, True):
+            for m, sd in zip(nets, snap):
+                m.load_state_dict(sd)
+            st = gan.init_state()
+            pose = None
+            if plain:
+                if cords is not None:
+                    pose = batch_cords_to_map_plain(cords, old, gan.h, gan.w)
+                _, errs, fake = gan.step(st, gan_input_transform_plain(xs_u8), pose=pose)
+            else:
+                if cords is not None:
+                    pose = batch_cords_to_map(cords, old, gan.h, gan.w)
+                _, errs, fake = gan.optimize_parameters(st, xs_u8, pose=pose)
+            results.append((float(errs["G"]), float(errs["D"]), fake,
+                            gan.net_G.decoder.outconv.conv1.conv.weight.grad.clone(),
+                            gan.net_D.conv.conv.weight.grad.clone()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        for m, sd in zip(nets, snap):
+            m.load_state_dict(sd)
+            m.zero_grad(set_to_none=True)
+    (gk, dk, fk, ggk, dgk), (gp, dp, fp, ggp, dgp) = results
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    e_loss = max(abs(gk - gp) / abs(gp), abs(dk - dp) / abs(dp))
+    e_grad = max(rel(ggk, ggp), rel(dgk, dgp))
+    e_fake = float((fk - fp).abs().max())
+    tol_loss, tol_grad, tol_fake = 1e-4, 1e-3, 1e-4   # K9's ulp through fp32 G and D
+    which = "K9" if cords is None else "K9, K10"
+    print(f"[{label}] one step, {which} vs the plain versions (TF32 off): G {gk:.6f} vs "
+          f"{gp:.6f}, D {dk:.6f} vs {dp:.6f} (max rel err {e_loss:.3g}, tol "
+          f"{tol_loss:.3g}); fake max_abs_err {e_fake:.3g} (tol {tol_fake:.3g}); G outconv "
+          f"/ D conv grad max rel err {rel(ggk, ggp):.3g} / {rel(dgk, dgp):.3g} (tol "
+          f"{tol_grad:.3g})")
+    check(e_loss <= tol_loss and e_grad <= tol_grad and e_fake <= tol_fake,
+          f"the standalone GAN step through {which} differs from the plain versions")
+
+
 def phase_warmup():
     """The GAN warm-up's main path: ``GANTrainer.train_gan`` with the AE
     generator and the discriminator at 128x64, batch 256, on an ``only_gan``
     loader of phase 4's set."""
-    import copy
-
     from reid_gan_torch import kernels
     from reid_gan_torch.config import GANConfig
     from reid_gan_torch.data import IterLoader
     from reid_gan_torch.data.loader import DataLoader, Preprocessor
     from reid_gan_torch.engine.gan_trainers import GANTrainer
     from reid_gan_torch.models.dual_gan.models import create_model as create_gan
-    from reid_gan_torch.ops.transforms import gan_input_transform_plain
 
     t0 = time.perf_counter()
     items, imgs = _pseudo_set()
@@ -2484,41 +2597,8 @@ def phase_warmup():
           f"{time.perf_counter() - t0:.1f} s")
 
     # one step through K9 and through its plain version, TF32 off
-    xs_u8 = torch.from_numpy(np.ascontiguousarray(it.next()["Xs"])).cuda()
-    nets = (gan.net_G, gan.net_D)
-    snap = [copy.deepcopy(m.state_dict()) for m in nets]
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    results = []
-    try:
-        for plain in (False, True):
-            for m, sd in zip(nets, snap):
-                m.load_state_dict(sd)
-            st = gan.init_state()
-            if plain:
-                _, errs, fake = gan.step(st, gan_input_transform_plain(xs_u8))
-            else:
-                _, errs, fake = gan.optimize_parameters(st, xs_u8)
-            results.append((float(errs["G"]), float(errs["D"]), fake,
-                            gan.net_G.decoder.outconv.conv1.conv.weight.grad.clone(),
-                            gan.net_D.conv.conv.weight.grad.clone()))
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-        for m, sd in zip(nets, snap):
-            m.load_state_dict(sd)
-            m.zero_grad(set_to_none=True)
-    (gk, dk, fk, ggk, dgk), (gp, dp, fp, ggp, dgp) = results
-    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
-    e_loss = max(abs(gk - gp) / abs(gp), abs(dk - dp) / abs(dp))
-    e_grad = max(rel(ggk, ggp), rel(dgk, dgp))
-    e_fake = float((fk - fp).abs().max())
-    tol_loss, tol_grad, tol_fake = 1e-4, 1e-3, 1e-4   # K9's ulp through fp32 G and D
-    print(f"[warmup] one step, K9 vs its plain version (TF32 off): G {gk:.6f} vs {gp:.6f}, "
-          f"D {dk:.6f} vs {dp:.6f} (max rel err {e_loss:.3g}, tol {tol_loss:.3g}); fake "
-          f"max_abs_err {e_fake:.3g} (tol {tol_fake:.3g}); G outconv / D conv grad max "
-          f"rel err {rel(ggk, ggp):.3g} / {rel(dgk, dgp):.3g} (tol {tol_grad:.3g})")
-    check(e_loss <= tol_loss and e_grad <= tol_grad and e_fake <= tol_fake,
-          "the standalone GAN step through K9 differs from the plain version")
+    _hold_standalone_step("warmup", gan, torch.from_numpy(
+        np.ascontiguousarray(it.next()["Xs"])).cuda())
 
     before = {(k, n): p.detach().clone() for k, m in (("G", gan.net_G), ("D", gan.net_D))
               for n, p in m.named_parameters()}
@@ -2859,6 +2939,292 @@ def phase_gan_clusters(counts):
             print(f"[gan_clusters] epoch {epoch} split (s, host clock, Timer.spans): "
                   + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     print(f"[gan_clusters] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# The VGG19 perceptual loss, the DPTN engine and the other generators
+# ---------------------------------------------------------------------------
+
+def _torchvision_vgg19_file(vgg, path):
+    """Save ``vgg`` (the port's ``VGG19``) in torchvision's ``vgg19`` layout,
+    ``features.{i}.weight/bias`` at each conv's index in ``features``, as a
+    user's ``--vgg-weights`` file holds it."""
+    from reid_gan_torch.models.dual_gan.external_function import _torch_layers
+
+    convs = [i for i, v in enumerate(_torch_layers()) if v == "conv"]
+    sd = {}
+    for ci, li in enumerate(convs):
+        conv = getattr(vgg, f"conv{ci}")
+        sd[f"features.{li}.weight"] = conv.weight.detach().cpu()
+        sd[f"features.{li}.bias"] = conv.bias.detach().cpu()
+    torch.save(sd, path)
+    return path
+
+
+def _turns(label, fn, unit, n, sides=(False, True, True, False)):
+    """``fn(side)`` (``n`` ``unit``s) for each side in turns, each timed on
+    the host clock (synchronised) with its peak device memory. Prints and
+    returns ({side: [ms per unit]}, {side: peak GiB})."""
+    ms, peak, order = {}, {}, []
+    for side in sides:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn(side)
+        torch.cuda.synchronize()
+        order.append((time.perf_counter() - t0) * 1e3 / n)
+        ms.setdefault(side, []).append(order[-1])
+        peak[side] = max(peak.get(side, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+    print(f"[{label}] {n} warm {unit}s a turn, without / with VGG in turns: "
+          + ", ".join(f"{v:.2f}" for v in order)
+          + f" ms per {unit}; means {np.mean(ms[False]):.2f} / {np.mean(ms[True]):.2f} "
+          f"(with / without {np.mean(ms[True]) / np.mean(ms[False]):.4f}); peak device "
+          f"memory {peak[False]:.2f} / {peak[True]:.2f} GiB")
+    return ms, peak
+
+
+def phase_vgg_joint(counts):
+    """``--use-vgg`` on the joint main path: ``[joint]``'s step with the VGG19
+    perceptual loss held against the plain versions (the VGG terms too),
+    warm steps without and with VGG in turns, the peak memory, VGG's share
+    of the step's device time (two profiles); then one epoch of
+    ``cli/train_gan_usl.run --use-vgg`` at ``[joint] run()``'s configuration
+    with random taps, and a short one with ``--vgg-weights`` pointing at a
+    torchvision-layout file of those taps."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    trainer, state, loader = _joint_trainer(iters=80, seed=5, use_vgg=True)
+    gan = trainer.gan
+    vgg = gan.vgg
+    print(f"[vgg_joint] the [joint] step with --use-vgg: VGG19 (16 convs; random taps, "
+          f"seed 0) on the 256 fakes and GAN images at 128x64, λ_style "
+          f"{gan.cfg.lambda_style}, λ_content {gan.cfg.lambda_content}")
+    _compare_joint_step(trainer, state, loader.next(), label="vgg_joint")
+    for side in (True, False):                       # cuDNN warm on both sides
+        gan.vgg = vgg if side else None
+        state, errs = trainer.run_epoch(state, 0, loader, train_iters=2, print_freq=2,
+                                        base_seed=5)
+        check(all(np.isfinite(v) for v in errs.values()), f"losses not finite: {errs}")
+
+    def steps(side):
+        gan.vgg = vgg if side else None
+        trainer.run_epoch(state, 1, loader, train_iters=5, print_freq=5, base_seed=5)
+
+    ms, _ = _turns("vgg_joint", steps, "step", 5)
+    print(f"[vgg_joint] warm: {256e3 / np.mean(ms[True]):.1f} img/s with VGG, "
+          f"{256e3 / np.mean(ms[False]):.1f} without (batch 256, ResNet-50 at 256x128 + "
+          f"pose G and D at 128x64, fp32 weights, TF32 convolutions)")
+    busy = {}
+    for side in (True, False):
+        gan.vgg = vgg if side else None
+        trainer.marks = []
+        busy[side] = profile_device(f"vgg_joint (3 warm steps, use_vgg {side})",
+                                    lambda: trainer.run_epoch(state, 2, loader,
+                                                              train_iters=3, print_freq=3,
+                                                              base_seed=5))
+        marks, trainer.marks = trainer.marks, None
+        print(f"[vgg_joint] device time by phase, use_vgg {side} (CUDA events, mean of 3 "
+              f"steps, ms): " + _split_by_marks(marks, 3))
+    gan.vgg = vgg
+    if busy[True] and busy[False]:
+        print(f"[vgg_joint] VGG's share of the step's device time (profiles, busy with / "
+              f"without): {1 - busy[False] / busy[True]:.4f} ({busy[True] / 3:.3f} / "
+              f"{busy[False] / 3:.3f} ms a step)")
+    loader.close()
+
+    run_counts, weights_counts = {}, {}
+    phase_joint_run(run_counts, label="vgg_joint", vgg_weights="")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _torchvision_vgg19_file(gan.vgg.model, os.path.join(tmp, "vgg19.pth"))
+        loaded = phase_joint_run(weights_counts, label="vgg_joint weights", iters=4,
+                                 vgg_weights=path)
+    same = all(torch.equal(a, b) for a, b in zip(loaded.vgg.model.state_dict().values(),
+                                                 gan.vgg.model.state_dict().values()))
+    print(f"[vgg_joint] --vgg-weights: the engine run() built holds the file's taps: {same}")
+    check(same, "--vgg-weights did not load the file's taps")
+    counts.update({k: run_counts[k] + weights_counts[k] for k in run_counts})
+    print(f"[vgg_joint] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_vgg_warmup():
+    """``--use-vgg`` on the GAN warm-up's path: ``GANTrainer.train_gan`` with
+    the AE generator and VGG19 at ``[warmup]``'s configuration (batch 256,
+    128x64): 20 iterations (K9 once an iteration, nothing else), the peak
+    memory, warm iterations without and with VGG in turns."""
+    from reid_gan_torch import kernels
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.data import IterLoader
+    from reid_gan_torch.data.loader import DataLoader, Preprocessor
+    from reid_gan_torch.engine.gan_trainers import GANTrainer
+    from reid_gan_torch.models.dual_gan.models import create_model as create_gan
+
+    t_phase = time.perf_counter()
+    items, imgs = _pseudo_set()
+    torch.manual_seed(0)
+    gan = create_gan(GANConfig(model="AE", model_gen="AE", use_vgg=True), gan_height=128,
+                     gan_width=64, device="cuda")
+    pre = Preprocessor(items, mode="only_gan", gan_height=128, gan_width=64,
+                       cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+    it = IterLoader(DataLoader(pre, batch_size=256, shuffle=True, num_workers=4,
+                               drop_last=True, seed=2))
+    it.new_epoch()
+    trainer = GANTrainer(gan, print_freq=10, device="cuda")
+    state = gan.init_state()
+    iters = 20
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, errs = trainer.train_gan(state, 0, it, train_iters=iters, base_seed=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    print(f"[vgg_warmup] {iters} D->G iterations with VGG (1st): {wall:.2f} s; mean "
+          + ", ".join(f"{k} {v:.4f}" for k, v in errs.items()) + "; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[vgg_warmup] launches: {kernels.phase_launch_counts()}")
+    check(launches["gan_input"] == iters and
+          all(v == 0 for k, v in launches.items() if k != "gan_input"),
+          f"the warm-up launched other than K9 once an iteration: {launches}")
+    check(all(np.isfinite(v) for v in errs.values()), f"losses not finite: {errs}")
+    vgg, gan.vgg = gan.vgg, None
+    trainer.train_gan(state, 1, it, train_iters=2, base_seed=2)     # cuDNN warm
+
+    def iterations(side):
+        gan.vgg = vgg if side else None
+        trainer.train_gan(state, 2, it, train_iters=5, base_seed=2)
+
+    ms, _ = _turns("vgg_warmup", iterations, "iteration", 5)
+    print(f"[vgg_warmup] warm: {256e3 / np.mean(ms[True]):.1f} img/s with VGG, "
+          f"{256e3 / np.mean(ms[False]):.1f} without (batch 256, AE G and D at 128x64, "
+          f"fp32 weights, TF32 convolutions)")
+    it.close()
+    print(f"[vgg_warmup] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def _gan_batch(n, seed):
+    """``n`` uint8 GAN images at 128x64 of phase 4's set on the card and
+    their pose maps through K10 (keypoints from a seed in the 256x128
+    frame, a fifth missing), (N, 18, 128, 64)."""
+    from reid_gan_torch.ops.pose import batch_cords_to_map
+
+    items, imgs = _pseudo_set()
+    rng = np.random.default_rng(seed)
+    idx = np.sort(rng.permutation(len(items))[:n])
+    old = np.tile(np.asarray([[256.0, 128.0]], np.float32), (n, 1))
+    xs = torch.from_numpy(np.ascontiguousarray(imgs[idx, ::2, ::2])).cuda()
+    cords = torch.from_numpy(_keypoints(rng, n, old)).cuda()
+    old = torch.from_numpy(old).cuda()
+    return xs, cords, old, batch_cords_to_map(cords, old, 128, 64)
+
+
+def phase_dptn(batch=256):
+    """The DPTN engine at full width (ngf 64, num_feats 256, 3 layers, 3
+    blocks, 2 CABs and 2 TTBs, 128x64): source and target images through
+    K9, their pose maps through K10; 3 steps, one more with VGG19, and
+    ``synthesize_pair``."""
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.models.dual_gan.models import create_model as create_gan
+    from reid_gan_torch.ops.transforms import gan_input_transform
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(0)
+    gan = create_gan(GANConfig(model="DPTN", use_vgg=True), gan_height=128, gan_width=64,
+                     device="cuda")
+    xs_u8, _, _, ps = _gan_batch(batch, 21)
+    xt_u8, _, _, pt = _gan_batch(batch, 22)
+    b = {"Xs": gan_input_transform(xs_u8, 128, 64), "Ps": ps,
+         "Xt": gan_input_transform(xt_u8, 128, 64), "Pt": pt}
+    state = gan.init_state()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    vgg = gan.vgg
+    print(f"[dptn] DPTNModel: G {sum(p.numel() for p in gan.net_G.parameters()):,} and D "
+          f"{sum(p.numel() for p in gan.net_D.parameters()):,} parameters; batch {batch} "
+          f"at 128x64 (K9), pose maps {tuple(ps.shape)} (K10)")
+    torch.cuda.reset_peak_memory_stats()
+    for i, use in enumerate((False, False, False, True)):
+        gan.vgg = vgg if use else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, errs, fake = gan.optimize_parameters(state, b, g)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses = {k: float(v) for k, v in errs.items()}
+        print(f"[dptn] step {i}{' with VGG' if use else ''}{' (cuDNN cold)' if i == 0 else ''}"
+              f": {dt * 1e3:.1f} ms; G {losses['G']:.4f}, D {losses['D']:.4f}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(all(np.isfinite(v) for v in losses.values()) and fake.shape == (
+            batch, 3, 128, 64), f"step {i}: losses not finite or a fake of the wrong shape")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    neg = gan.synthesize_pair(b["Xs"], b["Ps"], b["Pt"])
+    torch.cuda.synchronize()
+    print(f"[dptn] synthesize_pair {tuple(neg.shape)}: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; finite {bool(torch.isfinite(neg).all())}")
+    check(bool(torch.isfinite(neg).all()) and not neg.requires_grad,
+          "synthesize_pair not finite or not detached")
+    print(f"[dptn] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_generators(batch=256):
+    """The other generators at full width on the card: ``DECGenerator1`` on
+    a ResNet-50's GAN map (K1, K11), ``FDGenerator`` on 2048-wide vectors and
+    512-wide noise, one standalone step of the ``PoseAE`` engine (K9, K10)
+    held against the plain versions, and the pose generator with
+    ``norm="instance"``."""
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.dual_gan.models import create_model as create_gan
+    from reid_gan_torch.models.dual_gan.networks import define_G
+    from reid_gan_torch.ops.transforms import eval_transform
+
+    t_phase = time.perf_counter()
+    xs_u8, cords, old, ps = _gan_batch(batch, 23)
+    _, imgs = _pseudo_set()
+    torch.manual_seed(0)
+    model = create("resnet50", norm=True).to("cuda", memory_format=torch.channels_last).eval()
+    with torch.inference_mode():
+        fmap = model(eval_transform(torch.from_numpy(imgs[:batch]).cuda(), 256, 128,
+                                    torch.float32), test_all=True)["gan_feat"]
+    fmap = fmap.clone()
+    noise = torch.randn((batch, 512), device="cuda")
+    runs = (("DECGenerator1 on the GAN map", define_G("DEC"), (fmap,)),
+            ("FDGenerator (add) on pooled maps + noise", define_G("FD"),
+             (fmap.mean(dim=(2, 3)), noise)),
+            ("pose generator, norm instance", define_G("Pose", norm="instance"),
+             (fmap, ps)))
+    for name, net, args in runs:
+        net = net.cuda().train()
+        times = []
+        with torch.no_grad():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = net(*args)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        print(f"[generators] {name}: {tuple(args[0].shape)} -> {tuple(out.shape)}, train-mode "
+              f"forward {times[0]:.1f} ms cold, {min(times[1:]):.2f} ms warm; finite "
+              f"{bool(torch.isfinite(out).all())}")
+        check(bool(torch.isfinite(out).all()) and out.shape[:2] == (batch, 3),
+              f"{name}: not finite or the wrong shape")
+        del net, out
+    gan = create_gan(GANConfig(model="AE", model_gen="PoseAE"), gan_height=128,
+                     gan_width=64, device="cuda")
+    _hold_standalone_step("generators PoseAE", gan, xs_u8, cords, old)
+    state = gan.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, errs, _ = gan.optimize_parameters(state, xs_u8, pose=ps)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+    print(f"[generators] PoseAE standalone step (batch {batch}, 128x64): {dt:.1f} ms warm; "
+          f"G {float(errs['G']):.4f}, D {float(errs['D']):.4f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[generators] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def check_k3_variants(report):
@@ -3630,6 +3996,15 @@ def main(argv=None):
     gan_clusters_counts = {}
     phase_gan_clusters(gan_clusters_counts)
     torch.cuda.synchronize()
+    vgg_joint_counts = {}
+    phase_vgg_joint(vgg_joint_counts)
+    torch.cuda.synchronize()
+    phase_vgg_warmup()
+    torch.cuda.synchronize()
+    phase_dptn()
+    torch.cuda.synchronize()
+    phase_generators()
+    torch.cuda.synchronize()
     import tempfile
 
     fd_counts, chain_counts, cuhk03_counts = {}, {}, {}
@@ -3650,7 +4025,7 @@ def main(argv=None):
          "replaces": k.replaces,
          "launches": sum(c[k.name] for c in (joint_counts, hardmix_counts, chain_counts,
                                              ibn_counts, gan_clusters_counts,
-                                             cuhk03_counts)),
+                                             vgg_joint_counts, cuhk03_counts)),
          "library_ms": None, **report[k.name]}
         for k in kernels.KERNELS]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

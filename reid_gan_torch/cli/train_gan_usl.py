@@ -21,7 +21,10 @@ under ``<save-dir>/<name>``, the linear learning-rate decay of G and D, and
 the epoch's losses in ``loss_log.txt``. ``--continue-train`` reloads the nets
 and the epoch counter. Runs on the card unless ``--device cpu`` is given.
 ``train_all`` needs the pose generator and ``train`` the AE generator;
-another pairing raises ``ValueError``.
+another pairing, and ``--model DPTN`` (whose engine has neither mode's
+synthesis), raises ``ValueError``. ``--use-vgg`` adds the VGG19 perceptual
+loss of the fake against the GAN image to the joint step's G loss, with the
+torchvision-layout weights of ``--vgg-weights`` or random taps.
 
 ``--cluster-with-gan-features``: every extraction (the clustering pass and
 the evals) also pools the encoder's GAN map (kernel K11), the bank gets a
@@ -140,13 +143,19 @@ def _check_generator(cfg):
     """The joint modes' generators: ``train_all`` renders from the encoder's
     GAN map and pose maps (the pose generator), ``train`` encodes and decodes
     the GAN images (the AE generator). The JAX step fails on the other
-    pairings too (in ``synthesize_p`` and ``synthesize_fc``)."""
+    pairings too (in ``synthesize_p`` and ``synthesize_fc``), and on the
+    DPTN engine, which has neither (ROADMAP C, reference side)."""
     gen = cfg.gan.model_gen
-    if cfg.gan.gan_train and gen == "AE":
-        raise ValueError("--model-gen AE with the GAN trained jointly: the "
-                         "'train_all' mode renders from pose maps and needs "
-                         "--model-gen Pose; the AE generator runs the hard-mix "
-                         "'train' mode (--no-gan-train)")
+    if cfg.gan.model == "DPTN":
+        raise ValueError("--model DPTN: the joint modes render through the AE "
+                         "engine's synthesize_p / synthesize_fc and "
+                         "get_loss_G_train, which the DPTN engine does not have; "
+                         "use --model AE")
+    if cfg.gan.gan_train and gen != "Pose":
+        raise ValueError(f"--model-gen {gen} with the GAN trained jointly: the "
+                         f"'train_all' mode renders from pose maps and needs "
+                         f"--model-gen Pose; the AE generator runs the hard-mix "
+                         f"'train' mode (--no-gan-train)")
     if not cfg.gan.gan_train and gen != "AE":
         raise ValueError(f"--no-gan-train runs the hard-mix 'train' mode, which "
                          f"encodes and decodes the GAN images: it needs "
@@ -198,7 +207,7 @@ def run(cfg, dataset, device=None, image_cache=None):
     feat_dim = 512 if any(d in cfg.model.arch for d in ("18", "34")) else 2048
     gan = create_gan(cfg.gan, gan_height=cfg.data.gan_height,
                      gan_width=cfg.data.gan_width, reid_feat_dim=feat_dim,
-                     device=device)
+                     seed=cfg.train.seed, device=device)
     save_dir = osp.join(cfg.gan.save_dir, cfg.gan.name)
     iter_path = osp.join(save_dir, "iter.txt")
     start_epoch = 0

@@ -12,10 +12,16 @@ images of the train set alone (the ``only_gan`` loader, shuffled, batch
 1 epoch of 4 iterations). After each epoch the mean losses go to
 ``loss_log.txt`` and the nets to ``<save-dir>/<name>/latest_net_{G,D}.pth``,
 which ``cli/train_gan_usl --continue-train`` loads. ``--continue-train``
-here starts from them too. Runs on the card unless ``--device cpu`` is
-given. ``--model-gen Pose`` raises ``ValueError`` (the joint trainer drives
-the pose generator); ``--fp16`` is not ported yet
-(ROADMAP A: `--fp16`).
+here starts from them too. ``--use-vgg`` adds the VGG19 perceptual loss to
+the G step, with the torchvision-layout weights of ``--vgg-weights`` or
+random taps. Runs on the card unless ``--device cpu`` is given.
+
+The standalone step drives the AE generator: the other generators raise
+``ValueError`` before any work, where the JAX CLI fails in its first step
+(ROADMAP C, reference side): ``Pose``, ``DEC`` and ``FD`` are not stepped
+standalone, and ``PoseAE`` and ``--model DPTN`` need pose maps, which the
+``only_gan`` batches do not carry (they carry keypoints). ``--fp16`` is not
+ported yet (ROADMAP A: `--fp16`).
 """
 
 import argparse
@@ -42,10 +48,20 @@ def _check(cfg):
     if cfg.train.fp16:
         raise NotImplementedError("--fp16 (bf16 parameters) is not ported yet "
                                   "(ROADMAP A: `--fp16`)")
-    if cfg.gan.model_gen == "Pose":
+    gen = cfg.gan.model_gen
+    if cfg.gan.model == "DPTN" or gen == "PoseAE":
+        what = "--model DPTN" if cfg.gan.model == "DPTN" else "--model-gen PoseAE"
+        raise ValueError(f"{what} steps on pose maps, and the warm-up's only_gan "
+                         f"batches carry keypoints, not pose maps: the GAN warm-up "
+                         f"trains the AE generator (--model-gen AE)")
+    if gen == "Pose":
         raise ValueError("the GAN warm-up's standalone step trains the AE "
                          "generator (--model-gen AE); the joint trainer drives "
                          "the pose generator")
+    if gen != "AE":
+        raise ValueError(f"optimize_parameters supports AE/PoseAE; {gen} is driven "
+                         f"by the joint trainer: the GAN warm-up trains the AE "
+                         f"generator (--model-gen AE)")
 
 
 def main(argv=None):
@@ -85,14 +101,14 @@ def run(cfg, dataset, device=None, image_cache=None):
     torch.backends.cudnn.allow_tf32 = True
     torch.manual_seed(cfg.train.seed)
     gan = create_gan(cfg.gan, gan_height=cfg.data.gan_height,
-                     gan_width=cfg.data.gan_width, device=device)
+                     gan_width=cfg.data.gan_width, seed=cfg.train.seed, device=device)
     gan_state = gan.init_state()
     save_dir = osp.join(cfg.gan.save_dir, cfg.gan.name)
     if cfg.gan.continue_train:
         load_networks({"G": gan.net_G, "D": gan.net_D}, save_dir, cfg.gan.which_epoch)
 
-    # the AE generator takes no keypoints; the pose generators' warm-up is
-    # not ported yet (ROADMAP A: other generators and DPTN)
+    # the AE generator takes no keypoints (``_check`` refuses the generators
+    # that would need their pose maps)
     pre = Preprocessor(list(dataset.train), mode="only_gan",
                        gan_height=cfg.data.gan_height, gan_width=cfg.data.gan_width,
                        cache="default" if image_cache is None else image_cache)

@@ -13,7 +13,8 @@ One ``train_all`` step on the card:
 3. the generator on (``gan_feat``, pose maps), in train mode: its BatchNorm
    normalises with batch stats and updates its running stats once a step;
 4. the G loss against the discriminator as it stands (the pre-update D), in
-   train mode, so its spectral ``u``/``sigma`` advance; the conf-weighted
+   train mode, so its spectral ``u``/``sigma`` advance, with ``use_vgg`` the
+   VGG19 perceptual terms of the fake against the GAN image; the conf-weighted
    InfoNCE against the bank (K6); their sum's backward reaches the encoder
    through ``feat`` only and G through the fake (K6's and K5's backward);
 5. the D step on the detached fake, real first, from the ``u`` the G loss
@@ -96,8 +97,7 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
                          weight_decay, step_size, iters_per_epoch, num_instances,
                          device)
         self.gan = gan
-        gan.net_G.to(self.device)
-        gan.net_D.to(self.device)
+        gan.to(self.device)
         # a list to collect (phase, CUDA event) pairs at the joint step's
         # phase boundaries, for a device-time split; None records nothing
         self.marks = None
@@ -269,14 +269,15 @@ class GANTrainer:
     """Standalone GAN pre-training, the warm-up before the joint run
     (gan_trainers.py:545-610; parity: CC/clustercontrast/trainers.py:
     273-335): one D→G iteration of ``gan`` (an ``AEModel`` with the AE
-    generator) per batch, on ``device`` (default: the card)."""
+    generator; the PoseAE generator's step takes pose maps, which the
+    ``only_gan`` batches do not carry) per batch, on ``device`` (default:
+    the card)."""
 
     def __init__(self, gan, print_freq=100, device=None):
         self.gan = gan
         self.print_freq = print_freq
         self.device = resolve_device(device)
-        gan.net_G.to(self.device)
-        gan.net_D.to(self.device)
+        gan.to(self.device)
         self._gen = torch.Generator(device=self.device)
 
     def train_gan(self, gan_state, epoch, gan_loader, train_iters=400, base_seed=0):

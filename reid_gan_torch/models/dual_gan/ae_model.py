@@ -1,7 +1,7 @@
-"""AEModel, the dual_gan engine of the joint loop and the GAN warm-up, for
-the pose and the AE generators (port of
-``reid_gan_tpu/models/dual_gan/ae_model.py``; parity:
-CC/dual_gan/models/AE_model.py).
+"""AEModel, the dual_gan engine of the joint loop and the GAN warm-up (port
+of ``reid_gan_tpu/models/dual_gan/ae_model.py``; parity:
+CC/dual_gan/models/AE_model.py), and ``GANEngine``, what it shares with the
+DPTN engine (``dptn_model.py``).
 
 The nets are ``torch.nn.Module``s held by the engine and trained in place;
 ``AEState`` carries their optimizers: Adam with β1 0.5 at ``gan_lr`` for G
@@ -14,20 +14,28 @@ JAX functions:
 - ``get_loss_G_train``: the G loss against D as it stands, in train mode
   so its power iteration persists, with D's parameters frozen so the loss's
   gradient reaches the fake only (the pre-update D in the joint step, the
-  updated D in the standalone step).
+  updated D in the standalone step), plus with ``use_vgg`` the VGG19
+  perceptual terms ``style · λ_style + content · λ_content`` of the fake
+  against the target.
 
-``hard_mix`` and ``synthesize_fc`` make the AE hard-mix mode's negatives;
-``synthesize_mix_p`` the pose generator's; ``optimize_parameters`` is the
-standalone D→G step of the GAN warm-up. ``use_vgg`` raises.
+The generator is any of ``define_G``'s: the joint ``train_all`` step
+renders with the pose generator, the hard-mix ``train`` step and the
+standalone step run the AE generator, the standalone step the PoseAE
+generator too (with the pose maps); the DEC and FD generators are built and
+never stepped, as in the JAX package. ``hard_mix`` and ``synthesize_fc``
+make the AE hard-mix mode's negatives; ``synthesize_mix_p`` the pose
+generator's; ``optimize_parameters`` is the standalone D→G step of the GAN
+warm-up.
 """
 
+import contextlib
 from typing import Any, NamedTuple
 
 import torch
 
 from ...ops.cluster_memory import _l2n
 from ...ops.transforms import gan_input_transform
-from .external_function import cal_gradient_penalty, gan_loss
+from .external_function import VGGLoss, cal_gradient_penalty, gan_loss
 from .networks import define_D, define_G
 
 
@@ -64,26 +72,56 @@ def hard_mix(f_s, reid_f, group_size):
     return LAMBDA_FUS * f_s[in_id] + (1 - LAMBDA_FUS) * f_s[out_id]
 
 
-class AEModel:
-    """The engine: ``net_G`` (the pose or the AE generator, ``cfg.model_gen``)
-    and ``net_D`` (the spectral-norm discriminator) on ``device``, with the
-    loss functions of the joint step and the standalone GAN step."""
+@contextlib.contextmanager
+def frozen(module):
+    """``module``'s parameters with ``requires_grad`` off for the block: a
+    loss through it reaches its inputs only."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+class GANEngine:
+    """The nets of a dual_gan engine on ``device``: ``net_G`` (``MODEL_GEN``
+    of ``define_G``, else ``cfg.model_gen``; batch norm and no spectral norm
+    by default) and ``net_D`` (the spectral-norm discriminator, ndf 32,
+    img_f 128), and with ``cfg.use_vgg`` the VGG19 perceptual loss ``vgg``
+    (``vgg_params``: a ``VGG19`` state dict; without it random taps drawn
+    from ``seed``, which leave torch's global generator as it was), else
+    ``vgg`` None (ae_model.py:63-94; AE_model.py:66-101). The keywords are
+    the JAX engines'."""
+
+    MODEL_GEN = None
 
     def __init__(self, cfg, gan_height=128, gan_width=64, num_feats=256, ngf=64,
-                 reid_feat_dim=2048, device=None):
-        if cfg.use_vgg:
-            raise NotImplementedError("use_vgg: the VGG19 perceptual loss is not "
-                                      "ported yet (ROADMAP A: other generators and DPTN)")
+                 layers_g=3, num_blocks=3, dis_layers=3, use_spect_g=False,
+                 use_spect_d=True, norm="batch", vgg_params=None, reid_feat_dim=2048,
+                 seed=0, device=None):
         self.cfg = cfg
         self.h, self.w = gan_height, gan_width
         self.reid_feat_dim = reid_feat_dim
-        self.model_gen = cfg.model_gen
+        self.model_gen = self.MODEL_GEN or cfg.model_gen
         self.gan_mode = cfg.gan_mode
-        # the engine's nets (AE_model.py:66-101): G with batch norm and no
-        # spectral norm, 3 layers; D with spectral norm, ndf 32, img_f 128
-        self.net_G = define_G(cfg.model_gen, pose_nc=cfg.pose_channels, ngf=ngf,
-                              img_f=num_feats, reid_nc=reid_feat_dim).to(device)
-        self.net_D = define_D(input_nc=3, ndf=32, img_f=128, layers=3).to(device)
+        self.net_G = define_G(self.model_gen, pose_nc=cfg.pose_channels, ngf=ngf,
+                              img_f=num_feats, encoder_layer=layers_g, norm=norm,
+                              use_spect=use_spect_g, num_blocks=num_blocks,
+                              reid_nc=reid_feat_dim)
+        self.net_D = define_D(input_nc=3, ndf=32, img_f=128, layers=dis_layers,
+                              use_spect=use_spect_d)
+        self.vgg = VGGLoss(vgg_params, seed) if cfg.use_vgg else None
+        self.to(device)
+
+    def to(self, device):
+        """Move the nets (and the VGG19 taps) to ``device``."""
+        for net in (self.net_G, self.net_D, self.vgg):
+            if net is not None:
+                net.to(device)
+        return self
 
     def init_state(self):
         """Fresh Adam states for G and D (AE_model.py:131-158)."""
@@ -103,7 +141,6 @@ class AEModel:
             g["lr"] = self.cfg.gan_lr * self.cfg.ratio_g2d * mult
         return state
 
-    # ------------------------------------------------------------ forwards
     def apply_G(self, *args, train=False, method="forward"):
         self.net_G.train(train)
         return getattr(self.net_G, method)(*args)
@@ -112,6 +149,38 @@ class AEModel:
         self.net_D.train(train)
         return self.net_D(x)
 
+    def d_loss(self, real, fake, generator=None, alpha=None):
+        """backward_D_basic (AE_model.py:294-308): real, then the detached
+        fake, in train mode, plus the WGAN-GP penalty for ``wgangp``, taken
+        in eval mode from the stats D had before this call (``alpha``: its
+        mixing weights, else drawn from ``generator``)."""
+        fake = fake.detach()
+        gp = 0.0
+        if self.gan_mode == "wgangp":
+            gp, _ = cal_gradient_penalty(lambda x: self.apply_D(x, train=False),
+                                         real, fake, alpha=alpha, generator=generator)
+        pred_real = self.apply_D(real, train=True)
+        pred_fake = self.apply_D(fake, train=True)
+        loss = (gan_loss(pred_real, True, True, self.gan_mode) +
+                gan_loss(pred_fake, False, True, self.gan_mode)) * 0.5
+        return loss + gp
+
+    def vgg_terms(self, fake, target):
+        """(style · λ_style, content · λ_content) of ``fake`` against
+        ``target`` with the VGG19 loss, else (None, None)."""
+        if self.vgg is None:
+            return None, None
+        content, style = self.vgg(fake, target)
+        return style * self.cfg.lambda_style, content * self.cfg.lambda_content
+
+
+class AEModel(GANEngine):
+    """The AE engine: ``net_G`` is ``cfg.model_gen`` (the pose generator
+    for the joint step, the AE generator for the hard-mix mode and the
+    warm-up), with the loss functions of the joint step and the standalone
+    GAN step (ae_model.py:60-368)."""
+
+    # ------------------------------------------------------------ forwards
     def synthesize_p(self, features, source_pose, train=False):
         """Features + pose maps → image (AE_model.py:212-214)."""
         return self.apply_G(features, source_pose, train=train)
@@ -138,66 +207,47 @@ class AEModel:
         return syn[:bs], syn[bs:].detach()
 
     # -------------------------------------------------------------- losses
-    def d_loss(self, real, fake, generator=None):
-        """backward_D_basic (AE_model.py:294-308): real, then the detached
-        fake, in train mode, plus the WGAN-GP penalty for ``wgangp``, taken
-        in eval mode from the stats D had before this call."""
-        fake = fake.detach()
-        gp = 0.0
-        if self.gan_mode == "wgangp":
-            gp, _ = cal_gradient_penalty(lambda x: self.apply_D(x, train=False),
-                                         real, fake, generator=generator)
-        pred_real = self.apply_D(real, train=True)
-        pred_fake = self.apply_D(fake, train=True)
-        loss = (gan_loss(pred_real, True, True, self.gan_mode) +
-                gan_loss(pred_fake, False, True, self.gan_mode)) * 0.5
-        return loss + gp
-
-    def g_loss_basic(self, fake, target, use_d=True):
-        """backward_G_basic (AE_model.py:316-337): per-element L1 · λ_rec and
-        GAN · λ_g against D in eval mode."""
-        cfg = self.cfg
-        loss_app = torch.abs(fake - target) * cfg.lambda_rec
-        loss_ad = None
-        if use_d:
-            loss_ad = gan_loss(self.apply_D(fake, train=False), True, False,
-                               self.gan_mode) * cfg.lambda_g
-        return loss_app, loss_ad
-
     def get_loss_G_train(self, fake, target):
         """The joint step's G loss (ae_model.py:262-284): D frozen and in
         train mode, so its power iteration persists into the D step; the
-        per-sample L1 mean plus the per-sample GAN mean (lsgan), averaged."""
+        per-sample L1 mean plus the per-sample GAN mean (lsgan), averaged;
+        plus the VGG terms with ``use_vgg``."""
         cfg = self.cfg
-        frozen = [p for p in self.net_D.parameters() if p.requires_grad]
-        for p in frozen:
-            p.requires_grad_(False)
-        try:
+        with frozen(self.net_D):
             pred_fake = self.apply_D(fake, train=True)
-        finally:
-            for p in frozen:
-                p.requires_grad_(True)
         loss_ad = gan_loss(pred_fake, True, False, self.gan_mode) * cfg.lambda_g
         loss_app = torch.abs(fake - target) * cfg.lambda_rec
         per_sample = loss_app.reshape(loss_app.shape[0], -1).mean(dim=-1)
         if loss_ad.dim() > 0:
             per_sample = per_sample + loss_ad.reshape(loss_ad.shape[0], -1).mean(dim=-1)
-            return per_sample.mean()
-        return per_sample.mean() + loss_ad
+            loss = per_sample.mean()
+        else:
+            loss = per_sample.mean() + loss_ad
+        loss_style, loss_content = self.vgg_terms(fake, target)
+        if loss_style is not None:
+            loss = loss + loss_style + loss_content
+        return loss
 
-    def step(self, state, source, generator=None):
+    def step(self, state, source, generator=None, pose=None):
         """The standalone D→G step (ae_model.py:298-359) on a GAN batch
-        ``source`` (N, 3, H, W) at the nets' dtype: G's one train-mode
-        forward (its running stats fold once, as the JAX step keeps only the
-        second of its two identical forwards), the D step on the detached
-        fake (real, then fake, each advancing D's ``u``) and D's Adam, then
-        the G loss against the updated D in train mode (its power iteration
-        persists) and G's Adam. ``generator`` seeds the WGAN-GP draws.
-        Returns (state, {"G", "D"} losses on the device, the fake)."""
-        if self.model_gen != "AE":
-            raise ValueError(f"the standalone GAN step drives the AE generator; "
-                             f"{self.model_gen!r} is driven by the joint trainer")
-        fake = self.apply_G(source, train=True)
+        ``source`` (N, 3, H, W) at the nets' dtype, with the PoseAE
+        generator on its pose maps ``pose`` (N, pose_nc, H, W): G's one
+        train-mode forward (its running stats fold once, as the JAX step
+        keeps only the second of its two identical forwards), the D step on
+        the detached fake (real, then fake, each advancing D's ``u``) and
+        D's Adam, then the G loss against the updated D in train mode (its
+        power iteration persists) and G's Adam. ``generator`` seeds the
+        WGAN-GP draws. Returns (state, {"G", "D"} losses on the device, the
+        fake)."""
+        if self.model_gen == "AE":
+            fake = self.apply_G(source, train=True)
+        elif self.model_gen == "PoseAE":
+            if pose is None:
+                raise ValueError("the PoseAE generator's step needs the pose maps")
+            fake = self.apply_G(source, pose, train=True)
+        else:
+            raise ValueError(f"optimize_parameters supports AE/PoseAE; "
+                             f"{self.model_gen} is driven by the joint trainer")
         state.opt_D.zero_grad(set_to_none=True)
         loss_D = self.d_loss(source, fake, generator)
         loss_D.backward()
@@ -209,19 +259,24 @@ class AEModel:
         return state._replace(step=state.step + 1), \
             {"G": loss_G.detach(), "D": loss_D.detach()}, fake.detach()
 
-    def optimize_parameters(self, state, xs_u8, generator=None):
+    def optimize_parameters(self, state, xs_u8, generator=None, pose=None):
         """One D→G iteration on a device uint8 (N, H, W, 3) GAN batch staged
         at the GAN size (AE_model.py:392-401): the GAN input transform (K9 on
-        the card), then ``step``."""
+        the card), then ``step``; ``pose``: the PoseAE generator's pose maps
+        (kernel K10's output)."""
         dtype = next(self.net_G.parameters()).dtype
         source = gan_input_transform(xs_u8, self.h, self.w).to(dtype)
-        return self.step(state, source, generator)
+        return self.step(state, source, generator,
+                         None if pose is None else pose.to(dtype))
 
     def get_L1_loss(self, fake, target, with_dis=False):
-        """Per-sample reconstruction loss (AE_model.py:378-390)."""
+        """Per-sample reconstruction loss, the mean L1 · λ_rec, plus with
+        ``with_dis`` the mean GAN term · λ_g against D in eval mode
+        (AE_model.py:378-390); no VGG term."""
+        loss = torch.abs(fake - target) * self.cfg.lambda_rec
+        loss = loss.reshape(loss.shape[0], -1).mean(-1)
         if with_dis:
-            loss_app, loss_ad = self.g_loss_basic(fake, target, True)
-            return loss_app.reshape(loss_app.shape[0], -1).mean(-1) + \
-                loss_ad.reshape(loss_ad.shape[0], -1).mean(-1)
-        loss_app = torch.abs(fake - target) * self.cfg.lambda_rec
-        return loss_app.reshape(loss_app.shape[0], -1).mean(-1)
+            loss_ad = gan_loss(self.apply_D(fake, train=False), True, False,
+                               self.gan_mode) * self.cfg.lambda_g
+            loss = loss + loss_ad.reshape(loss_ad.shape[0], -1).mean(-1)
+        return loss

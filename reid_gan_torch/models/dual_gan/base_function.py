@@ -19,9 +19,11 @@ differ:
 - BatchNorm is torch's (flax momentum 0.9 = torch momentum 0.1; the
   unbiased running variance, as the JAX package's ``TorchBatchNorm``).
 
-Only what ``PoseGenerator1``, ``AEGenerator`` and ``ResDiscriminator`` use
-is here; ``ResUP12Block``, ``FeatureAdaptBlock`` and ``AutoAttn`` are not
-ported yet (ROADMAP A: other generators and DPTN).
+- instance norm is flax's ``_InstanceNorm``: per sample and channel over
+  H and W, biased variance, eps 1e-5, affine ``scale``/``bias`` →
+  ``weight``/``bias``;
+- ``use_coord`` appends ``linspace(-1, 1, H)`` and ``linspace(-1, 1, W)``
+  channels after the input's, before the convolution.
 """
 
 import torch
@@ -70,14 +72,28 @@ class _SpectralMixin:
         return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
 
 
+def add_coords(x):
+    """(N, C, H, W) → (N, C + 2, H, W): the ``linspace(-1, 1, H)`` row and
+    ``linspace(-1, 1, W)`` column coordinates after the channels
+    (base_function.py:64-71)."""
+    n, _, h, w = x.shape
+    yy = torch.linspace(-1, 1, h, dtype=x.dtype, device=x.device)
+    xx = torch.linspace(-1, 1, w, dtype=x.dtype, device=x.device)
+    return torch.cat([x, yy[None, None, :, None].expand(n, 1, h, w),
+                      xx[None, None, None, :].expand(n, 1, h, w)], dim=1)
+
+
 class SpectralConv(_SpectralMixin, nn.Module):
-    """Conv with optional spectral normalisation (base_function.py:49-78;
-    ``use_coord`` is not ported)."""
+    """Conv with optional spectral normalisation and coordinate channels
+    (base_function.py:49-78): with ``use_coord`` the convolution takes
+    ``in_c + 2`` channels (``add_coords``)."""
 
     def __init__(self, in_c, out_c, kernel_size=3, stride=1, padding=1,
-                 use_bias=True, use_spect=False):
+                 use_bias=True, use_spect=False, use_coord=False):
         super().__init__()
-        self.conv = nn.Conv2d(in_c, out_c, kernel_size, stride, padding, bias=use_bias)
+        self.use_coord = use_coord
+        self.conv = nn.Conv2d(in_c + 2 * use_coord, out_c, kernel_size, stride, padding,
+                              bias=use_bias)
         nn.init.orthogonal_(self.conv.weight)
         if use_bias:
             nn.init.zeros_(self.conv.bias)
@@ -86,6 +102,8 @@ class SpectralConv(_SpectralMixin, nn.Module):
             self._init_spectral(out_c)
 
     def forward(self, x):
+        if self.use_coord:
+            x = add_coords(x)
         w = self.conv.weight
         if self.use_spect:
             w = self._normalized(w, w.reshape(w.shape[0], -1))
@@ -97,7 +115,12 @@ class SpectralConvTranspose(_SpectralMixin, nn.Module):
     """flax ``ConvTranspose(padding="SAME")`` with optional spectral
     normalisation (base_function.py:81-99). The weight is torch's
     (in, out, kH, kW) layout holding the flax kernel flipped; the transposed
-    convolution without padding is cropped to ``stride`` times the input."""
+    convolution without padding is cropped to its first ``stride`` times the
+    input's rows and columns. ``kernel_size`` and ``stride`` are ints or
+    (H, W) pairs. The crop is flax's where ``lax`` pads the dilated input by
+    ``⌈(k + s − 2) / 2⌉ = k − 1`` ahead, as torch does: on an axis with
+    ``k − 1 ≤ stride ≤ k`` (the decoders' 3 by 2, ``ResUP12Block``'s 5 by 4
+    and 3 by 2); other pairs raise."""
 
     def __init__(self, in_c, out_c, kernel_size=3, stride=2, use_bias=True,
                  use_spect=False):
@@ -106,6 +129,9 @@ class SpectralConvTranspose(_SpectralMixin, nn.Module):
         nn.init.orthogonal_(self.conv.weight)
         if use_bias:
             nn.init.zeros_(self.conv.bias)
+        if any(not k - 1 <= s <= k for k, s in zip(self.conv.kernel_size, self.conv.stride)):
+            raise ValueError(f"flax SAME crop of kernel {self.conv.kernel_size} "
+                             f"stride {self.conv.stride} is not the first rows")
         self.use_spect = use_spect
         if use_spect:
             self._init_spectral(out_c)
@@ -121,14 +147,15 @@ class SpectralConvTranspose(_SpectralMixin, nn.Module):
 
 def make_norm(norm, c):
     """'batch' | 'instance' | 'none' → module or None (base_function.py:
-    102-113). Instance norm is not ported yet
-    (ROADMAP A: other generators and DPTN)."""
+    102-131). Instance norm: per sample and channel over H and W, biased
+    variance, eps 1e-5, affine, no running stats."""
     if norm == "batch":
         return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    if norm == "instance":
+        return nn.InstanceNorm2d(c, eps=1e-5, affine=True, track_running_stats=False)
     if norm == "none" or norm is None:
         return None
-    raise NotImplementedError(f"norm {norm!r} is not ported yet "
-                              "(ROADMAP A: other generators and DPTN)")
+    raise NotImplementedError(norm)
 
 
 def _apply(norm, x):
@@ -153,7 +180,8 @@ class ResBlock(nn.Module):
     143-184)."""
 
     def __init__(self, in_c, out_c, hidden_c=None, norm="batch",
-                 activation="LeakyReLU", sample_type="none", use_spect=False):
+                 activation="LeakyReLU", sample_type="none", use_spect=False,
+                 use_coord=False):
         super().__init__()
         if sample_type not in ("none", "up", "down"):
             raise ValueError(f"sample_type {sample_type!r}")
@@ -161,11 +189,12 @@ class ResBlock(nn.Module):
         conv_c = out_c * 4 if sample_type == "up" else out_c
         self.act = get_nonlinearity(activation)
         self.sample_type = sample_type
+        kw = dict(use_spect=use_spect, use_coord=use_coord)
         self.norm1 = make_norm(norm, in_c)
-        self.conv1 = SpectralConv(in_c, hidden_c, 3, 1, 1, use_spect=use_spect)
+        self.conv1 = SpectralConv(in_c, hidden_c, 3, 1, 1, **kw)
         self.norm2 = make_norm(norm, hidden_c)
-        self.conv2 = SpectralConv(hidden_c, conv_c, 3, 1, 1, use_spect=use_spect)
-        self.bypass = SpectralConv(in_c, conv_c, 1, 1, 0, use_spect=use_spect)
+        self.conv2 = SpectralConv(hidden_c, conv_c, 3, 1, 1, **kw)
+        self.bypass = SpectralConv(in_c, conv_c, 1, 1, 0, **kw)
 
     def forward(self, x):
         y = self.conv1(self.act(_apply(self.norm1, x)))
@@ -183,12 +212,13 @@ class EncoderBlockOptimized(nn.Module):
     (base_function.py:187-209)."""
 
     def __init__(self, in_c, out_c, norm="batch", activation="LeakyReLU",
-                 use_spect=False):
+                 use_spect=False, use_coord=False):
         super().__init__()
         self.act = get_nonlinearity(activation)
-        self.conv1 = SpectralConv(in_c, out_c, 4, 2, 1, use_spect=use_spect)
+        kw = dict(use_spect=use_spect, use_coord=use_coord)
+        self.conv1 = SpectralConv(in_c, out_c, 4, 2, 1, **kw)
         self.norm1 = make_norm(norm, out_c)
-        self.conv2 = SpectralConv(out_c, out_c, 3, 1, 1, use_spect=use_spect)
+        self.conv2 = SpectralConv(out_c, out_c, 3, 1, 1, **kw)
 
     def forward(self, x):
         return self.conv2(self.act(_apply(self.norm1, self.conv1(x))))
@@ -199,19 +229,40 @@ class EncoderBlock(nn.Module):
     norm-free conv↓2 → act → conv → act (base_function.py:212-248)."""
 
     def __init__(self, in_c, out_c, norm="batch", activation="LeakyReLU",
-                 use_spect=False):
+                 use_spect=False, use_coord=False):
         super().__init__()
         self.act = get_nonlinearity(activation)
+        kw = dict(use_spect=use_spect, use_coord=use_coord)
         self.norm1 = make_norm(norm, in_c)
-        self.conv1 = SpectralConv(in_c, out_c, 4, 2, 1, use_spect=use_spect)
+        self.conv1 = SpectralConv(in_c, out_c, 4, 2, 1, **kw)
         self.norm2 = make_norm(norm, out_c)
-        self.conv2 = SpectralConv(out_c, out_c, 3, 1, 1, use_spect=use_spect)
+        self.conv2 = SpectralConv(out_c, out_c, 3, 1, 1, **kw)
 
     def forward(self, x):
         if self.norm1 is not None:
             y = self.conv1(self.act(self.norm1(x)))
             return self.conv2(self.act(self.norm2(y)))
         return self.act(self.conv2(self.act(self.conv1(x))))
+
+
+class FeatureAdaptBlock(nn.Module):
+    """A (N, in_c) vector, or a (N, in_c, 1, 1) map, → (N, out_c, *up_size)
+    through a transposed convolution of kernel ``up_size`` (flax's
+    ``padding="VALID"`` on a 1×1 input: no crop; ``convert.py`` flips the
+    kernel) → norm → act (base_function.py:251-270)."""
+
+    def __init__(self, in_c, out_c, up_size=(8, 4), norm="batch", activation="LeakyReLU"):
+        super().__init__()
+        self.act = get_nonlinearity(activation)
+        self.conv1 = nn.ConvTranspose2d(in_c, out_c, up_size)
+        nn.init.orthogonal_(self.conv1.weight)
+        nn.init.zeros_(self.conv1.bias)
+        self.norm1 = make_norm(norm, out_c)
+
+    def forward(self, x):
+        if x.dim() == 2:
+            x = x[:, :, None, None]
+        return self.act(_apply(self.norm1, self.conv1(x)))
 
 
 class FeatureAdaptBlock1(nn.Module):
@@ -244,6 +295,30 @@ class ResBlockDecoder(nn.Module):
         self.norm2 = make_norm(norm, hidden_c)
         self.conv2 = SpectralConvTranspose(hidden_c, out_c, 3, 2, use_spect=use_spect)
         self.bypass = SpectralConvTranspose(in_c, out_c, 3, 2, use_spect=use_spect)
+
+    def forward(self, x):
+        y = self.conv1(self.act(_apply(self.norm1, x)))
+        y = self.conv2(self.act(_apply(self.norm2, y)))
+        return y + self.bypass(x)
+
+
+class ResUP12Block(nn.Module):
+    """Pre-activation residual upsampling by (4, 2): a 1×1 conv, then
+    (5, 3)-kernel transposed convolutions of stride (4, 2) on both branches
+    (base_function.py:325-356)."""
+
+    def __init__(self, in_c, out_c, hidden_c=None, norm="batch",
+                 activation="LeakyReLU", use_spect=False):
+        super().__init__()
+        hidden_c = hidden_c or out_c
+        self.act = get_nonlinearity(activation)
+        self.norm1 = make_norm(norm, in_c)
+        self.conv1 = SpectralConv(in_c, hidden_c, 1, 1, 0, use_spect=use_spect)
+        self.norm2 = make_norm(norm, hidden_c)
+        self.conv2 = SpectralConvTranspose(hidden_c, out_c, (5, 3), (4, 2),
+                                           use_spect=use_spect)
+        self.bypass = SpectralConvTranspose(in_c, out_c, (5, 3), (4, 2),
+                                            use_spect=use_spect)
 
     def forward(self, x):
         y = self.conv1(self.act(_apply(self.norm1, x)))
@@ -295,14 +370,47 @@ class Output(nn.Module):
     """[norm] → act → reflection pad → conv → tanh (base_function.py:423-449)."""
 
     def __init__(self, in_c, out_c, kernel_size=3, norm="none",
-                 activation="LeakyReLU", use_spect=False):
+                 activation="LeakyReLU", use_spect=False, use_coord=False):
         super().__init__()
         self.act = get_nonlinearity(activation)
         self.norm1 = make_norm(norm, in_c)
         self.pad = kernel_size // 2
-        self.conv1 = SpectralConv(in_c, out_c, kernel_size, 1, 0, use_spect=use_spect)
+        self.conv1 = SpectralConv(in_c, out_c, kernel_size, 1, 0, use_spect=use_spect,
+                                  use_coord=use_coord)
 
     def forward(self, x):
         y = self.act(_apply(self.norm1, x))
         y = F.pad(y, (self.pad,) * 4, mode="reflect")
         return torch.tanh(self.conv1(y))
+
+
+class AutoAttn(nn.Module):
+    """Self-attention of a (N, C, H, W) map on itself (base_function.py:
+    452-477): a 1×1 ``query_conv`` to C/4 channels, energy q·qᵀ over the
+    H·W positions, softmax, ``gamma · attention @ x + x``. The long form
+    (``pre_c``: the channels of a ``pre`` map, with a ``mask``) also moves
+    ``pre`` by the attention, ``flow = alpha · (1 − mask) · flow + mask ·
+    pre``, and runs a spectral ``ResBlock`` on the concatenation. ``gamma``
+    and ``alpha`` start at 0. Returns (output, attention (N, H·W, H·W))."""
+
+    def __init__(self, in_c, pre_c=None, norm="batch"):
+        super().__init__()
+        self.query_conv = nn.Conv2d(in_c, in_c // 4, 1)
+        nn.init.orthogonal_(self.query_conv.weight)
+        nn.init.zeros_(self.query_conv.bias)
+        self.gamma = nn.Parameter(torch.zeros(1))
+        if pre_c is not None:
+            self.alpha = nn.Parameter(torch.zeros(1))
+            self.model = ResBlock(in_c + pre_c, in_c, in_c, norm=norm, use_spect=True)
+
+    def forward(self, x, pre=None, mask=None):
+        n, c, h, w = x.shape
+        q = self.query_conv(x).flatten(2).transpose(1, 2)            # (N, HW, C/4)
+        attention = torch.softmax(q @ q.transpose(1, 2), dim=-1)
+        out = (attention @ x.flatten(2).transpose(1, 2)).transpose(1, 2)
+        out = self.gamma * out.reshape(n, c, h, w) + x
+        if pre is not None:
+            flow = (attention @ pre.flatten(2).transpose(1, 2)).transpose(1, 2)
+            flow = self.alpha * (1 - mask) * flow.reshape(pre.shape) + mask * pre
+            out = self.model(torch.cat([out, flow], dim=1))
+        return out, attention

@@ -13,7 +13,9 @@ lands in:
 - ``nn.Linear``: a Dense (in, out) kernel, or an attention kernel (d_model,
   heads, head_dim) / output kernel (heads, head_dim, d_model), → (out, in);
   (heads, head_dim) biases flattened;
-- BatchNorm: scale/bias → weight/bias, mean/var → running_mean/var;
+- BatchNorm and instance norm: scale/bias → weight/bias, mean/var →
+  running_mean/var;
+- ``AutoAttn``'s ``gamma`` and ``alpha`` as they are;
 - spectral norm: ``SpectralNorm_0/conv/kernel/{u,sigma}`` → the conv
   block's ``u``/``sigma`` buffers.
 
@@ -52,12 +54,13 @@ def _param(module, name, a):
 
 
 _NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-          "mean": "running_mean", "var": "running_var"}
+          "mean": "running_mean", "var": "running_var", "gamma": "gamma",
+          "alpha": "alpha"}
 
 
 def state_dict_from_jax(net, params, batch_stats=None):
-    """The ``state_dict`` entries of ``net`` (a ``PoseGenerator1``, an
-    ``AEGenerator``, a ``ResDiscriminator``, or FD-GAN's
+    """The ``state_dict`` entries of ``net`` (any dual_gan generator, block
+    or transformer, the ``ResDiscriminator``, ``VGG19``, or FD-GAN's
     ``CustomPoseGenerator`` or ``NLayerDiscriminator``) for the JAX
     ``params`` and ``batch_stats`` trees.
     BatchNorm modules also get a zero ``num_batches_tracked``."""

@@ -1,22 +1,25 @@
-"""GAN-engine factory with the per-model option defaults (port of
-``reid_gan_tpu/models/dual_gan/models.py:16-44,65-74``; parity:
+"""GAN-engine factory with the per-model option defaults, and the VGG19
+weights loader (port of ``reid_gan_tpu/models/dual_gan/models.py``; parity:
 CC/dual_gan/models/__init__.py:7-31, models.py:4-22)."""
 
+import torch
+
 from .ae_model import AEModel
+from .dptn_model import DPTNModel
+from .external_function import import_torch_vgg19, random_vgg19
 
-_MODELS = {"AE": AEModel}
+_MODELS = {"AE": AEModel, "DPTN": DPTNModel}
 
-# the reference's modify_options defaults (AE_model.py:19-46)
+# the reference's modify_options defaults (AE_model.py:19-46, DPTN_model.py)
 _MODEL_DEFAULTS = {
     "AE": {"lambda_rec": 2.0, "lambda_g": 5.0, "lambda_style": 500.0,
            "lambda_content": 0.5, "ratio_g2d": 0.1},
+    "DPTN": {"lambda_rec": 2.5, "lambda_g": 2.0, "lambda_style": 500.0,
+             "lambda_content": 0.5, "ratio_g2d": 0.1},
 }
 
 
 def find_model_using_name(name):
-    if name == "DPTN":
-        raise NotImplementedError("the DPTN engine is not ported yet "
-                                  "(ROADMAP A: other generators and DPTN)")
     if name not in _MODELS:
         raise KeyError(f"unknown dual_gan model {name}; options: {list(_MODELS)}")
     return _MODELS[name]
@@ -39,10 +42,28 @@ def get_option_setter(name):
     return apply
 
 
+def load_vgg_params(path):
+    """A torchvision vgg19 ``.pth`` (a state dict, or an object with
+    ``.state_dict()``) → a ``VGG19`` state dict (models.py:47-62): its convs
+    by ``import_torch_vgg19``, any conv the file lacks from
+    ``random_vgg19(0)`` (the JAX loader's is its init from key 0). Nothing
+    is downloaded."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    vgg = random_vgg19(0)
+    vgg.load_state_dict(import_torch_vgg19(sd), strict=False)
+    return vgg.state_dict()
+
+
 def create_model(cfg, **kwargs):
-    """Instantiate the engine named by ``cfg.model`` (models.py:65-74)."""
+    """Instantiate the engine named by ``cfg.model`` (models.py:65-74), with
+    the VGG19 weights of ``cfg.vgg_weights`` where ``use_vgg`` asks for them
+    and the caller passed none."""
     cls = find_model_using_name(cfg.model)
     get_option_setter(cfg.model)(cfg)
+    if cfg.use_vgg and cfg.vgg_weights and "vgg_params" not in kwargs:
+        kwargs["vgg_params"] = load_vgg_params(cfg.vgg_weights)
     model = cls(cfg, **kwargs)
     print(f"model [{cls.__name__}] was created")
     return model

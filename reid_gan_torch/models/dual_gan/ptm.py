@@ -1,39 +1,51 @@
-"""Pose transformer cross module (port of ``reid_gan_tpu/models/dual_gan/ptm.py``
-``_SeqNorm``, ``CAB``, ``TTB`` and ``PCTM``; parity: CC/dual_gan/models/
-PTM.py:6-58,162-247).
+"""Pose transformer modules (port of ``reid_gan_tpu/models/dual_gan/ptm.py``
+``_SeqNorm``, ``CAB``, ``TTB``, ``PTM`` and ``PCTM``; parity: CC/dual_gan/
+models/PTM.py:6-112,162-247).
 
 Batch-first (B, L, C) token sequences in the NHWC flatten order of the JAX
 package (row-major over (H, W)). The attention is flax's
 ``MultiHeadDotProductAttention`` written as plain matmuls and a softmax: q,
 k, v projections with bias, the query scaled by 1/sqrt(head_dim), the
-softmax over keys, an output projection with bias. ``_SeqNorm('batch')`` is
-BatchNorm over the B·L tokens of each channel. ``PTM`` (DPTN) is not ported
-yet (ROADMAP A: other generators and DPTN).
+softmax over keys, an output projection with bias, in plain torch (the JAX
+package leaves it to XLA too). ``_SeqNorm('batch')`` is BatchNorm over the
+B·L tokens of each channel, ``_SeqNorm('instance')`` normalises each
+sample's channel over its L tokens (biased variance, eps 1e-5) with its own
+``weight``/``bias`` (flax's ``scale``/``bias``).
 """
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .base_function import get_nonlinearity
 
 
 class _SeqNorm(nn.Module):
-    """BatchNorm1d over the (B·L) tokens of (B, L, C) (ptm.py:26-48);
-    instance norm is not ported yet
-    (ROADMAP A: other generators and DPTN)."""
+    """The channel norm of (B, L, C) tokens (ptm.py:26-48): BatchNorm1d over
+    the B·L tokens, or instance norm over each sample's L tokens."""
 
     def __init__(self, c, norm="batch", affine=True):
         super().__init__()
-        if norm != "batch":
-            raise NotImplementedError(f"sequence norm {norm!r} is not ported yet "
-                                      "(ROADMAP A: other generators and DPTN)")
-        self.bn = nn.BatchNorm1d(c, eps=1e-5, momentum=0.1, affine=affine)
+        if norm not in ("batch", "instance"):
+            raise NotImplementedError(f"sequence norm {norm!r}")
+        self.norm = norm
+        if norm == "batch":
+            self.bn = nn.BatchNorm1d(c, eps=1e-5, momentum=0.1, affine=affine)
+        elif affine:
+            self.weight = nn.Parameter(torch.ones(c))
+            self.bias = nn.Parameter(torch.zeros(c))
+        else:
+            self.weight = self.bias = None
 
     def forward(self, x):
         b, l, c = x.shape
-        return self.bn(x.reshape(b * l, c)).reshape(b, l, c)
+        if self.norm == "batch":
+            return self.bn(x.reshape(b * l, c)).reshape(b, l, c)
+        y = F.instance_norm(x.transpose(1, 2), weight=self.weight, bias=self.bias,
+                            eps=1e-5)
+        return y.transpose(1, 2)
 
 
 def _xavier_linear(in_f, out_f):
@@ -108,10 +120,11 @@ class TTB(nn.Module):
         return self.norm3(tgt + self.linear2(self.act(self.linear1(tgt))))
 
 
-class PCTM(nn.Module):
-    """(query = pose map, value = id-feature map) cross module: CABs over the
-    id tokens, TTBs with the pose tokens as query (ptm.py:149-177). NCHW maps
-    in and out."""
+class PTM(nn.Module):
+    """DPTN's transformer (ptm.py:118-146): CABs over the ``src`` tokens,
+    then TTBs with the ``tgt`` tokens as query, the CABs' output as key and
+    the ``val`` tokens as value, then ``decoder_norm``. NCHW maps of
+    ``d_model`` channels in and out."""
 
     def __init__(self, d_model, nhead=2, num_CABs=2, num_TTBs=2,
                  dim_feedforward=256, activation="LeakyReLU", affine=True,
@@ -125,13 +138,27 @@ class PCTM(nn.Module):
         self.num_CABs, self.num_TTBs = num_CABs, num_TTBs
         self.decoder_norm = _SeqNorm(d_model, norm, affine)
 
-    def forward(self, query, value):
-        n, c, h, w = query.shape
-        memory = value.flatten(2).transpose(1, 2)
+    def _transform(self, src, tgt, val=None):
+        """``val`` None: the CABs' output is the value too (``PCTM``)."""
+        n, c, h, w = tgt.shape
+        memory = src.flatten(2).transpose(1, 2)
         for i in range(self.num_CABs):
             memory = getattr(self, f"cab{i}")(memory)
-        out = query.flatten(2).transpose(1, 2)
+        val = memory if val is None else val.flatten(2).transpose(1, 2)
+        out = tgt.flatten(2).transpose(1, 2)
         for i in range(self.num_TTBs):
-            out = getattr(self, f"ttb{i}")(out, memory, memory)
+            out = getattr(self, f"ttb{i}")(out, memory, val)
         out = self.decoder_norm(out)
         return out.transpose(1, 2).reshape(n, c, h, w)
+
+    def forward(self, src, tgt, val):
+        return self._transform(src, tgt, val)
+
+
+class PCTM(PTM):
+    """(query = pose map, value = id-feature map) cross module: CABs over the
+    id tokens, TTBs with the pose tokens as query and the CABs' output as
+    key and value (ptm.py:149-177). NCHW maps in and out."""
+
+    def forward(self, query, value):
+        return self._transform(value, query)

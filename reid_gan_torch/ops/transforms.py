@@ -403,16 +403,21 @@ def cubic_resize_weights(size, out_size, dtype=torch.float32, device=None):
     return torch.where(inside[None], w, 0.0)
 
 
+def cubic_resize(x, height, width):
+    """``jax.image.resize(method="bicubic")`` of a (N, C, H, W) map upsampled
+    to (height, width): ``cubic_resize_weights`` along H, then W."""
+    wh = cubic_resize_weights(x.shape[2], height, x.dtype, x.device)
+    ww = cubic_resize_weights(x.shape[3], width, x.dtype, x.device)
+    x = torch.einsum("nchw,hk->nckw", x, wh)
+    return torch.einsum("nckw,wl->nckl", x, ww)
+
+
 def diff_transform_plain(gen_img, height=256, width=128):
     """Plain PyTorch version of K12, differentiable: (N, 3, H, W) generated
     images in [-1, 1] → ``(x + 1) / 2`` → the JAX bicubic resize to
     (height, width), along H, then W → ImageNet normalise; NCHW in
     channels_last memory."""
-    x = (gen_img + 1.0) / 2.0
-    wh = cubic_resize_weights(x.shape[2], height, x.dtype, x.device)
-    ww = cubic_resize_weights(x.shape[3], width, x.dtype, x.device)
-    x = torch.einsum("nchw,hk->nckw", x, wh)
-    x = torch.einsum("nckw,wl->nckl", x, ww)
+    x = cubic_resize((gen_img + 1.0) / 2.0, height, width)
     return normalize(x, _MEAN_F32, _STD_F32).contiguous(memory_format=torch.channels_last)
 
 

@@ -21,13 +21,18 @@ from test_torch_port_knn import few_threads  # noqa: F401 (autouse)
 GH, GW, B, REID = 16, 8, 8, 512
 
 
-def jax_gan(gan_mode="lsgan"):
+def jax_gan(gan_mode="lsgan", gh=GH, gw=GW, vgg_params=None):
+    """The JAX engine with the pose generator at (gh, gw); with
+    ``vgg_params`` (a VGG19 tree) ``use_vgg`` at the AE defaults' λ_style
+    500 and λ_content 0.5."""
     from reid_gan_tpu.config import GANConfig
     from reid_gan_tpu.models.dual_gan.ae_model import AEModel
 
-    return AEModel(GANConfig(model="AE", model_gen="Pose", gan_mode=gan_mode),
-                   gan_height=GH, gan_width=GW, num_feats=32, ngf=8, num_blocks=1,
-                   reid_feat_dim=REID)
+    vgg = {} if vgg_params is None else dict(use_vgg=True, lambda_style=500.0,
+                                             lambda_content=0.5)
+    return AEModel(GANConfig(model="AE", model_gen="Pose", gan_mode=gan_mode, **vgg),
+                   gan_height=gh, gan_width=gw, num_feats=32, ngf=8, num_blocks=1,
+                   reid_feat_dim=REID, vgg_params=vgg_params)
 
 
 def gan_variables(gan, seed):
@@ -209,8 +214,10 @@ def test_gradient_penalty_matches_jax():
 def test_engine_defaults_and_unported_options():
     """The AE defaults override only fields left at the dataclass default,
     as JAX's option setter; G and D Adam with β1 0.5 at gan_lr and
-    gan_lr·ratio_g2d; ``set_epoch_lr``; the generators and options that wait
-    raise, and the AE generator builds."""
+    gan_lr·ratio_g2d; ``set_epoch_lr``; every generator builds (the DEC and
+    FD generators on the re-ID width), ``use_vgg`` builds the VGG19 loss,
+    ``--model DPTN`` the DPTN engine, and an unknown generator raises
+    ``ValueError``."""
     from reid_gan_tpu.config import GANConfig as JaxGANConfig
     from reid_gan_tpu.models.dual_gan.models import get_option_setter as jax_setter
     from reid_gan_torch.config import GANConfig
@@ -228,11 +235,17 @@ def test_engine_defaults_and_unported_options():
     assert state.opt_D.defaults["lr"] == pytest.approx(cfg.gan_lr * 0.1)
     gan.set_epoch_lr(state, 0.5)
     assert state.opt_D.param_groups[0]["lr"] == pytest.approx(cfg.gan_lr * 0.05)
-    for bad in (GANConfig(model_gen="DEC"), GANConfig(model_gen="Pose", use_vgg=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A: other generators and DPTN"):
-            create_model(bad, device="cpu")
+    small = dict(gan_height=GH, gan_width=GW, num_feats=32, ngf=8, reid_feat_dim=REID,
+                 device="cpu")
+    dec = create_model(GANConfig(model_gen="DEC"), **small)
+    assert dec.net_G.feature_block.conv1.in_channels == REID and dec.vgg is None
+    vgg = create_model(GANConfig(model_gen="Pose", use_vgg=True), **small).vgg
+    assert type(vgg).__name__ == "VGGLoss" and not vgg.pretrained
+    assert not any(p.requires_grad for p in vgg.parameters())
     assert type(create_model(GANConfig(model_gen="AE"), gan_height=GH, gan_width=GW,
                              num_feats=32, ngf=8, device="cpu").net_G).__name__ == \
         "AEGenerator"
-    with pytest.raises(NotImplementedError, match="ROADMAP A: other generators and DPTN"):
-        create_model(GANConfig(model="DPTN"), device="cpu")
+    assert type(create_model(GANConfig(model="DPTN"), **small).net_G).__name__ == \
+        "DPTNGenerator"
+    with pytest.raises(ValueError, match="generator Cycle not implemented"):
+        create_model(GANConfig(model_gen="Cycle"), device="cpu")

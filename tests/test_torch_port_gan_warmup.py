@@ -149,12 +149,23 @@ def test_warmup_then_hard_mix_cli_end_to_end(tmp_path, capsys):
     ("train_gan_usl", ["--model-gen", "Pose", "--no-gan-train"], ValueError,
      "needs --model-gen AE"),
     ("train_gan_warmup", ["--model-gen", "Pose"], ValueError, "AE generator"),
-    ("train_gan_warmup", ["--model-gen", "DEC"], NotImplementedError,
-     "ROADMAP A: other generators and DPTN"),
+    ("train_gan_warmup", ["--model-gen", "DEC"], ValueError,
+     "optimize_parameters supports AE/PoseAE; DEC"),
+    ("train_gan_warmup", ["--model-gen", "FD"], ValueError,
+     "optimize_parameters supports AE/PoseAE; FD"),
+    ("train_gan_warmup", ["--model-gen", "PoseAE"], ValueError,
+     "carry keypoints, not pose maps"),
+    ("train_gan_warmup", ["--model", "DPTN"], ValueError, "carry keypoints, not pose maps"),
+    ("train_gan_usl", ["--model", "DPTN"], ValueError, "DPTN engine does not have"),
+    ("train_gan_usl", ["--model", "DPTN", "--no-gan-train"], ValueError,
+     "DPTN engine does not have"),
     ("train_gan_warmup", ["--fp16"], NotImplementedError, "ROADMAP A: `--fp16`")])
 def test_generator_pairings_and_unported_options_raise(tmp_path, cli, flags, err, match):
-    """The joint CLI's modes need their generators; the warm-up trains the
-    AE generator; the unported generators and ``--fp16`` raise."""
+    """The joint CLI's modes need their generators, and the DPTN engine has
+    neither mode's synthesis; the warm-up trains the AE generator (the DEC
+    and FD generators are not stepped standalone, PoseAE and DPTN need pose
+    maps the ``only_gan`` batches do not carry: the JAX CLI fails in its
+    first step, ROADMAP C); ``--fp16`` raises."""
     import importlib
 
     main = importlib.import_module(f"reid_gan_torch.cli.{cli}").main

@@ -36,14 +36,17 @@ def _capture():
         lambda updates, state, params=None: (updates, {"g": updates}))
 
 
-def _batch(seed):
+def _batch(seed, size=(H, W, GH, GW)):
+    """A ``train_all`` batch of uint8 images at (h, w) and GAN images at
+    (gh, gw) (``size``), keypoints and conf weights."""
+    h, w, gh, gw = size
     rng = np.random.RandomState(seed)
     old = np.tile(np.asarray([[64, 32]], np.float32), (B, 1))
     kp = np.stack([rng.uniform(0, 64, (B, 18)), rng.uniform(0, 32, (B, 18))], -1)
     kp[rng.rand(B, 18) < 0.2] = -1
-    return {"img": rng.randint(0, 256, (B, H, W, 3)).astype(np.uint8),
+    return {"img": rng.randint(0, 256, (B, h, w, 3)).astype(np.uint8),
             "pid": np.repeat(rng.permutation(NV)[:B // GROUP], GROUP).astype(np.int32),
-            "Xs": rng.randint(0, 256, (B, GH, GW, 3)).astype(np.uint8),
+            "Xs": rng.randint(0, 256, (B, gh, gw, 3)).astype(np.uint8),
             "keypoints": kp.astype(np.float32), "old_size": old}, \
         (rng.rand(B) < 0.75).astype(np.float32)
 
@@ -84,13 +87,15 @@ def _assert_state(name, module, ref):
         np.testing.assert_allclose(got[k].numpy(), r, err_msg=f"{name} {k}", **tol)
 
 
-def joint_setup(monkeypatch, gan_bank=None):
+def joint_setup(monkeypatch, gan_bank=None, size=(H, W, GH, GW), vgg_params=None):
     """The port's trainer and the JAX trainer from the same weights (resnet18,
     the pose G and D, fp64) and bank, with a GAN bank of ``gan_bank`` rows
-    where given; the JAX step's in-step transforms replaced by the identity
-    and its gradients captured. Returns a namespace with the port's
-    ``model``, ``gan``, ``trainer``, ``state`` and the JAX ``jt``,
-    ``jstate``; ``seen["x"]`` is the port's last augmented batch."""
+    where given, images at (h, w) and the GAN at (gh, gw) (``size``), and
+    with ``vgg_params`` (a JAX VGG19 tree) ``use_vgg`` on both sides; the
+    JAX step's in-step transforms replaced by the identity and its gradients
+    captured. Returns a namespace with the port's ``model``, ``gan``,
+    ``trainer``, ``state``, the JAX ``jt``, ``jstate``, and ``size``;
+    ``seen["x"]`` is the port's last augmented batch."""
     from types import SimpleNamespace
 
     from reid_gan_tpu.engine import gan_trainers as jax_gan_trainers
@@ -101,12 +106,14 @@ def joint_setup(monkeypatch, gan_bank=None):
     from reid_gan_torch.engine.gan_trainers import ClusterContrastWithGANTrainer
     from reid_gan_torch.models.dual_gan.ae_model import AEModel
     from reid_gan_torch.models.dual_gan.convert import state_dict_from_jax
+    from reid_gan_torch.models.dual_gan.external_function import VGG19
     from reid_gan_torch.ops.cluster_memory import init_memory
     from reid_gan_torch.ops.transforms import train_augment
 
+    h, w, gh, gw = size
     jmodel = JaxReIDResNet(depth=18, norm=True)
     params, stats = _random_variables(jmodel, np.random.RandomState(20))
-    jgan = jax_gan()
+    jgan = jax_gan(gh=gh, gw=gw, vgg_params=vgg_params)
     G, Dv = gan_variables(jgan, 21)
     rng = np.random.RandomState(22)
     bank = rng.randn(NV, D)
@@ -114,18 +121,23 @@ def joint_setup(monkeypatch, gan_bank=None):
 
     # ---- the port
     model = _port_model(params, stats, torch.float64)
-    gan = AEModel(GANConfig(model="AE", model_gen="Pose"),
-                  gan_height=GH, gan_width=GW, num_feats=32, ngf=8, reid_feat_dim=D,
-                  device="cpu")
+    vgg = {} if vgg_params is None else dict(use_vgg=True, lambda_style=500.0,
+                                             lambda_content=0.5)
+    gan = AEModel(GANConfig(model="AE", model_gen="Pose", **vgg),
+                  gan_height=gh, gan_width=gw, num_feats=32, ngf=8, reid_feat_dim=D,
+                  vgg_params=None if vgg_params is None else state_dict_from_jax(
+                      VGG19(), vgg_params), device="cpu")
     for net, var in ((gan.net_G.double(), G), (gan.net_D.double(), Dv)):
         net.load_state_dict(state_dict_from_jax(net, var["params"], var["batch_stats"]))
-    trainer = ClusterContrastWithGANTrainer(model, gan, height=H, width=W,
+    if gan.vgg is not None:
+        gan.vgg.double()
+    trainer = ClusterContrastWithGANTrainer(model, gan, height=h, width=w,
                                             num_instances=GROUP, device="cpu")
     seen = {}
 
     def augment(img, seed, key_of=lambda s: jax.random.split(jax.random.PRNGKey(s), 3)[0]):
-        draws = _jax_draws(key_of(seed), img.shape[0], H, W)
-        seen["x"] = train_augment(img, torch.from_numpy(draws), H, W)
+        draws = _jax_draws(key_of(seed), img.shape[0], h, w)
+        seen["x"] = train_augment(img, torch.from_numpy(draws), h, w)
         return seen["x"]
 
     trainer.augment = augment
@@ -138,7 +150,7 @@ def joint_setup(monkeypatch, gan_bank=None):
     monkeypatch.setattr(jax_gan_trainers, "gan_input_transform", lambda img, h, w: img)
     with jax.enable_x64(True):
         jt = jax_gan_trainers.ClusterContrastWithGANTrainer(
-            jmodel, jgan, height=H, width=W, num_instances=GROUP)
+            jmodel, jgan, height=h, width=w, num_instances=GROUP)
         jt.tx = optax.chain(_capture(), jt.tx)
         jgan.tx_G = optax.chain(_capture(), jgan.tx_G)
         jgan.tx_D = optax.chain(_capture(), jgan.tx_D)
@@ -148,7 +160,7 @@ def joint_setup(monkeypatch, gan_bank=None):
         jstate = jt.init_state({"params": to64(params), "batch_stats": to64(stats)},
                                jgs, jax_init_memory(bank, k_pad=K_PAD, gan_centroids=gan_bank))
     return SimpleNamespace(model=model, gan=gan, trainer=trainer, state=state, jt=jt,
-                           jstate=jstate, seen=seen, augment=augment)
+                           jstate=jstate, seen=seen, augment=augment, size=size)
 
 
 def _port_grads(module):
@@ -169,9 +181,10 @@ def train_all_step_matches_jax(s, step_i, seed, batch, conf):
     from reid_gan_torch.ops.pose import batch_cords_to_map
     from reid_gan_torch.ops.transforms import gan_input_transform
 
+    _, _, gh, gw = s.size
     dev = {k: torch.from_numpy(v) for k, v in batch.items()}
-    xs = gan_input_transform(dev["Xs"], GH, GW)
-    ps = batch_cords_to_map(dev["keypoints"], dev["old_size"], GH, GW)
+    xs = gan_input_transform(dev["Xs"], gh, gw)
+    ps = batch_cords_to_map(dev["keypoints"], dev["old_size"], gh, gw)
     s.state, errs = s.trainer.train_all_step(s.state, dev, seed, torch.from_numpy(conf))
     with jax.enable_x64(True):
         s.jstate, jerrs = s.jt._get_step("train_all")(

@@ -1340,3 +1340,89 @@ def test_fd_augment_rejects_bad_inputs(card):
         fd_augment(img.float(), torch.zeros((2, 9), device=card))
     with pytest.raises(ValueError, match="reid_fd_augment"):
         fd_augment(img[:0], torch.zeros((0, 9), device=card))
+
+
+@pytest.mark.parametrize("n", [8, 5])
+def test_pose_ae_step_with_k9_k10_matches_plain(card, n):
+    """One standalone step of the PoseAE engine (ngf 8, img_f 32, at 32x16)
+    on uint8 GAN images through K9 and pose maps through K10, against the
+    same step from the same weights through K9's and K10's plain versions,
+    cuDNN's TF32 off: the G and D losses within 1e-4 relative, the fake
+    within 1e-4, G's output conv gradient within 1e-3 relative."""
+    import copy
+
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.models.dual_gan.ae_model import AEModel
+    from reid_gan_torch.ops.pose import batch_cords_to_map, batch_cords_to_map_plain
+    from reid_gan_torch.ops.transforms import gan_input_transform_plain
+
+    torch.manual_seed(n)
+    gan = AEModel(GANConfig(model="AE", model_gen="PoseAE"), gan_height=32, gan_width=16,
+                  num_feats=32, ngf=8, device=card)
+    g = torch.Generator(device=card).manual_seed(n)
+    xs = torch.randint(0, 256, (n, 32, 16, 3), dtype=torch.uint8, device=card, generator=g)
+    old = torch.tensor([[256.0, 128.0]], device=card).expand(n, 2).contiguous()
+    cords = (torch.rand((n, 18, 2), device=card, generator=g) * old[:, None, :]).contiguous()
+    cords[0, :4] = -1
+    snap = [copy.deepcopy(m.state_dict()) for m in (gan.net_G, gan.net_D)]
+    tf32, torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.allow_tf32, False
+    out = []
+    try:
+        for plain in (False, True):
+            for m, sd in zip((gan.net_G, gan.net_D), snap):
+                m.load_state_dict(sd)
+            state = gan.init_state()
+            if plain:
+                ps = batch_cords_to_map_plain(cords, old, 32, 16)
+                _, errs, fake = gan.step(state, gan_input_transform_plain(xs), pose=ps)
+            else:
+                ps = batch_cords_to_map(cords, old, 32, 16)
+                _, errs, fake = gan.optimize_parameters(state, xs, pose=ps)
+            out.append((float(errs["G"]), float(errs["D"]), fake,
+                        gan.net_G.decoder.outconv.conv1.conv.weight.grad.clone()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (gk, dk, fk, wk), (gp, dp, fp, wp) = out
+    assert abs(gk - gp) <= 1e-4 * abs(gp) and abs(dk - dp) <= 1e-4 * abs(dp)
+    assert float((fk - fp).abs().max()) <= 1e-4
+    assert float((wk - wp).abs().max()) <= 1e-3 * float(wp.abs().max())
+
+
+@pytest.mark.parametrize("n,h,w", [(4, 32, 16), (3, 128, 64)])
+def test_vgg_loss_on_the_card_matches_the_cpu(card, n, h, w):
+    """``VGGLoss`` on the card (fp32, TF32 off) against the same weights and
+    inputs on the CPU: every tap the loss reads within 1e-4 of its largest
+    value, content within 1e-4 relative, style (a mean |Δ| of Gram
+    matrices that nearly cancel on random taps) within 1e-4 of the Gram
+    entries it subtracts, and the input gradient of content + style within
+    1e-3 of its norm (a ReLU whose input is near 0 may switch between the
+    two sides); the weights get no gradient."""
+    from reid_gan_torch.models.dual_gan.external_function import VGGLoss, compute_gram
+
+    torch.manual_seed(h)
+    cpu = VGGLoss()
+    dev = VGGLoss(cpu.model.state_dict()).to(card)
+    x = torch.tanh(torch.randn(n, 3, h, w))
+    y = torch.tanh(torch.randn(n, 3, h, w))
+    tf32, torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.allow_tf32, False
+    out = []
+    try:
+        for loss, d in ((cpu, "cpu"), (dev, card)):
+            xt = x.to(d).detach().requires_grad_(True)
+            content, style = loss(xt, y.to(d))
+            (content + style).backward()
+            with torch.no_grad():
+                taps = {k: v.cpu() for k, v in loss.model(x.to(d), loss.last).items()}
+            out.append((content.item(), style.item(), xt.grad.cpu(), taps))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (cc, sc, gc, tc), (cd, sd, gd, td) = out
+    e_tap = max(float((td[k] - tc[k]).abs().max() / tc[k].abs().max()) for k in tc)
+    gram = np.mean([float(compute_gram(tc[k]).abs().mean()) for k in VGGLoss.STYLE])
+    e_grad = float((gd - gc).norm() / gc.norm())
+    msg = (f"taps {e_tap:.3g}, content {abs(cd - cc) / abs(cc):.3g}, style {abs(sd - sc):.3g} "
+           f"of Gram entries {gram:.3g}, gradient {e_grad:.3g}")
+    print(f"[vgg card vs cpu] n {n} {h}x{w}: {msg}")
+    assert e_tap <= 1e-4 and abs(cd - cc) <= 1e-4 * abs(cc), msg
+    assert abs(sd - sc) <= 1e-4 * gram and e_grad <= 1e-3, msg
+    assert all(p.grad is None for p in dev.parameters())
