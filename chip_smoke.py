@@ -186,6 +186,29 @@ the script exits non-zero without printing a result:
    and warm times, finite); one standalone ``PoseAE`` step through K9 and
    K10 held against their plain versions as phase 12's step, then 3 timed
    with the peak memory;
+14e. ``[fp16]``: ``--fp16`` (bf16 compute as the JAX package's
+   ``dtype=jnp.bfloat16``: bf16 convolutions and dense layers, fp32 norms,
+   heads, parameters and optimiser state) at the recipe's width: the USL
+   step (phase 4's ResNet-50), the joint ``train_all`` step (phase 10's
+   nets) and the warm-up step (phase 12's), each step's kernels held
+   against their plain versions on the step's own tensors (the bf16
+   backbone run once; a whole bf16 step moves by a bf16 rounding wherever
+   an input moves by an ulp) and launching once a step (10 steps each), with
+   warm steps in bf16 and fp32 in turns on the same weights and their
+   peaks, and the bf16 USL step traced (convolutions, BatchNorm,
+   elementwise, the casts as a group of their own) beside the fp32 step;
+   then one epoch of ``cli/train_usl.run --fp16`` (``[fp16_usl]``, phase
+   5's set and launch counts, which join the kernels line) and phase 3's
+   extraction with the bf16 backbone (``[fp16_main]``);
+14f. ``[msgpack]``: a full-width ResNet-50 written in the JAX package's
+   flax msgpack layout by the port's writer, and a DSBN checkpoint whose
+   source and target BatchNorm stats differ; ``cli/test.run`` with
+   ``--resume``, ``--dsbn`` and ``--dsbn --test-source`` on phase 3's eval
+   set, each held against the model in memory (batch 0's features
+   bit-equal, CMC and mAP equal; the target domain apart); the host seconds
+   to read the file; then ``cli/train_gan_usl.run --continue-train`` from
+   per-net ``latest_net_{G,D}.msgpack`` files for 2 joint steps, the loaded
+   nets bit-equal to those written. Its launches join the kernels line;
 15. FD-GAN stage I (``[fd_stage1]``): ``SiameseTrainer`` on a random
    ResNet-50 Siamese net (last stride 2, average pool, the square-difference
    head) at 256x128, batches of 256 pairs from ``RandomPairSampler`` over an
@@ -218,8 +241,8 @@ the script exits non-zero without printing a result:
    and K14 must have launched;
 18. a JSON line with every kernel's launches (the sum over the two whole
    joint loops, phases 13 and 14, ``[gan_clusters]``, ``[vgg_joint]``'s two
-   epochs, the FD-GAN chain, phase 17, ``[cuhk03]`` and the headline
-   recipe's loop, phase 8), error,
+   epochs, ``[fp16_usl]``, ``[msgpack]``, the FD-GAN chain, phase 17,
+   ``[cuhk03]`` and the headline recipe's loop, phase 8), error,
    times and bound; K5's and K6's entries carry ``forward_ms``,
    ``backward_ms`` and ``autograd_ms`` (``ms`` is forward + backward;
    ``autograd_ms`` adds autograd's accumulation into ``x.grad``), K6's
@@ -1199,7 +1222,7 @@ PROFILE_GROUPS = (
     ("Adam (multi-tensor)", ("multi_tensor_apply",)),
     ("attention softmax", ("softmax",)),
     ("convolution and matmul", ("xmma", "gemm", "conv", "implicit", "dgrad", "wgrad",
-                                "cutlass", "sm90")),
+                                "cutlass", "sm90", "nvjet")),
     ("max pool", ("max_pool",)),
     ("reduction", ("reduce_kernel",)),
     ("elementwise (ReLU, add, casts)", ("elementwise_kernel",)),
@@ -1270,9 +1293,9 @@ def _split_by_marks(marks, steps):
     return ", ".join(f"{k} {v:.3f} ({v / total:.1%})" for k, v in split.items())
 
 
-def phase_main_path(counts, arch="resnet50", label="main"):
-    """The eval main path on a random ``arch``; returns the warm extraction
-    rate in img/s."""
+def phase_main_path(counts, arch="resnet50", label="main", dtype=None):
+    """The eval main path on a random ``arch`` (its backbone in bf16 with
+    ``dtype``, ``--fp16``); returns the warm extraction rate in img/s."""
     from reid_gan_torch import kernels
     from reid_gan_torch.engine.evaluators import (
         Evaluator,
@@ -1288,7 +1311,7 @@ def phase_main_path(counts, arch="resnet50", label="main"):
     torch.backends.cudnn.allow_tf32 = True   # as cli/test.py sets it
     batches, query, gallery = _eval_set()
     torch.manual_seed(0)
-    model = create(arch)                     # GeM, last stride 1, fp32
+    model = create(arch, dtype=dtype)        # GeM, last stride 1, fp32 weights
     extractor = FeatureExtractor(model, height=256, width=128, batch_size=256,
                                  device="cuda")
 
@@ -1314,10 +1337,11 @@ def phase_main_path(counts, arch="resnet50", label="main"):
     features, _ = extract_features(extractor, batches)
     torch.cuda.synchronize()
     ext = time.perf_counter() - t0
-    print(f"[{label}] extraction (warm): {n_img / ext:.1f} img/s ({arch})")
+    print(f"[{label}] extraction (warm): {n_img / ext:.1f} img/s ({arch}"
+          f"{', bf16 backbone' if dtype is not None else ''})")
     ibn = arch.startswith("resnet_ibn")
     profile_device(f"extraction ({arch})", lambda: extract_features(extractor, batches),
-                   groups=IBN_GROUPS if ibn else (),
+                   groups=IBN_GROUPS if ibn else (FP16_GROUPS if dtype is not None else ()),
                    ops=("aten::instance_norm", "aten::cat") if ibn else ())
     if ibn:
         _ibn_cost(label, extractor.model, train=False)
@@ -1851,11 +1875,12 @@ def _changed_points(a, b):
     return int(changed)
 
 
-def phase_usl(counts, arch="resnet50", use_hard=False, label="usl"):
+def phase_usl(counts, arch="resnet50", use_hard=False, label="usl", fp16=False):
     """The whole USL epoch through ``cli/train_usl.run``: extraction (K1,
     K2), kNN (K8), Jaccard and DBSCAN (host C++), the bank, 20 P×K steps
     (K4-K7, K7 hard with ``use_hard``), eval (K1-K3) and the checkpoint, on
-    a random ``arch``."""
+    a random ``arch``; with ``fp16`` the ``--fp16`` run, without the labels'
+    check against the exact kNN."""
     import tempfile
 
     from reid_gan_torch import kernels
@@ -1871,10 +1896,11 @@ def phase_usl(counts, arch="resnet50", use_hard=False, label="usl"):
     dataset, imgs = _usl_set()
     cache = _InMemoryImages(imgs)
     cfg = Config()                     # the recipe: eps 0.4, min_samples 4, k1 30, k2 6
-    cfg.model.arch, cfg.cluster.use_hard = arch, use_hard
+    cfg.model.arch, cfg.cluster.use_hard, cfg.train.fp16 = arch, use_hard, fp16
     cfg.data.workers = 4
     cfg.train.epochs, cfg.train.iters, cfg.train.eval_step = 1, 20, 1
-    print(f"[{label}] --arch {arch}{' --use-hard' if use_hard else ''} --eps "
+    print(f"[{label}] --arch {arch}{' --use-hard' if use_hard else ''}"
+          f"{' --fp16' if fp16 else ''} --eps "
           f"{cfg.cluster.eps} --k1 {cfg.cluster.k1} --k2 {cfg.cluster.k2}, batch "
           f"{cfg.data.batch_size} of {cfg.data.num_instances} instances")
     print(f"[{label}] data: {len(dataset.train)} train images of 751 ids, "
@@ -1931,6 +1957,9 @@ def phase_usl(counts, arch="resnet50", use_hard=False, label="usl"):
     print(f"[{label}] projected {full}-step epoch: clustering {cluster_s:.2f} s + {full} steps "
           f"{full * step_s:.2f} s ({step_s:.3f} s a step, the {steps}' mean) + eval "
           f"{split['eval']:.2f} s")
+    if fp16:
+        print(f"[{label}] phase wall time {time.perf_counter() - t_phase:.1f} s")
+        return
 
     # the labels run() made through K8 against those of the exact (fp64)
     # kNN on the same features, and the plain fp32 version's beside them: on
@@ -2096,14 +2125,15 @@ def _compare_joint_step(trainer, state, batch, label="joint"):
                                 "versions")
 
 
-def _joint_trainer(gan_bank=False, iters=400, seed=1, use_vgg=False):
+def _joint_trainer(gan_bank=False, iters=400, seed=1, use_vgg=False, dtype=None):
     """The joint step at the recipe's width: a random ResNet-50 (GeM, last
     stride 1, norm on) at 256x128, the pose generator and the discriminator
     at 128x64, from seed 0; a bank of 700 unit rows padded to 768, with a
     GAN half of as many rows with ``gan_bank``; a ``with_gan`` loader of
     ``iters`` batches of 256 (16 ids x 16) over phase 4's set with keypoints;
     with ``use_vgg`` the VGG19 perceptual loss (random taps from seed 0, the
-    AE defaults' λ_style 500 and λ_content 0.5). Returns (trainer, state,
+    AE defaults' λ_style 500 and λ_content 0.5); with ``dtype`` bf16 the
+    encoder, G and D compute in bf16 (``--fp16``). Returns (trainer, state,
     loader)."""
     import tempfile
 
@@ -2125,8 +2155,9 @@ def _joint_trainer(gan_bank=False, iters=400, seed=1, use_vgg=False):
                          device="cuda")
     torch.manual_seed(0)
     gan = create_gan(GANConfig(model="AE", model_gen="Pose", use_vgg=use_vgg),
-                     gan_height=128, gan_width=64, reid_feat_dim=2048, device="cuda")
-    model = create("resnet50", norm=True)
+                     gan_height=128, gan_width=64, reid_feat_dim=2048, device="cuda",
+                     dtype=dtype)
+    model = create("resnet50", norm=True, dtype=dtype)
     trainer = ClusterContrastWithGANTrainer(model, gan, height=256, width=128,
                                             num_instances=16, device="cuda")
     state = trainer.init_state(memory, gan.init_state())
@@ -2961,10 +2992,11 @@ def _torchvision_vgg19_file(vgg, path):
     return path
 
 
-def _turns(label, fn, unit, n, sides=(False, True, True, False)):
+def _turns(label, fn, unit, n, sides=(False, True, True, False), what="VGG"):
     """``fn(side)`` (``n`` ``unit``s) for each side in turns, each timed on
-    the host clock (synchronised) with its peak device memory. Prints and
-    returns ({side: [ms per unit]}, {side: peak GiB})."""
+    the host clock (synchronised) with its peak device memory; side True is
+    the run with ``what``. Prints and returns ({side: [ms per unit]}, {side:
+    peak GiB})."""
     ms, peak, order = {}, {}, []
     for side in sides:
         torch.cuda.synchronize()
@@ -2975,7 +3007,7 @@ def _turns(label, fn, unit, n, sides=(False, True, True, False)):
         order.append((time.perf_counter() - t0) * 1e3 / n)
         ms.setdefault(side, []).append(order[-1])
         peak[side] = max(peak.get(side, 0.0), torch.cuda.max_memory_allocated() / 2**30)
-    print(f"[{label}] {n} warm {unit}s a turn, without / with VGG in turns: "
+    print(f"[{label}] {n} warm {unit}s a turn, without / with {what} in turns: "
           + ", ".join(f"{v:.2f}" for v in order)
           + f" ms per {unit}; means {np.mean(ms[False]):.2f} / {np.mean(ms[True]):.2f} "
           f"(with / without {np.mean(ms[True]) / np.mean(ms[False]):.4f}); peak device "
@@ -3897,6 +3929,444 @@ KERNEL_CHECKS = {
 }
 
 
+# the --fp16 profiles' extra group, matched ahead of PROFILE_GROUPS: the
+# casts to bf16 run as bfloat16_copy kernels, those to fp32 (and any layout
+# copy) as direct_copy kernels
+FP16_GROUPS = (("casts and copies (bfloat16_copy, direct_copy)",
+                ("bfloat16_copy_kernel", "direct_copy_kernel")),)
+
+
+def _snapshot_loads(module, into):
+    """Wrap ``module.load_networks`` so each call's nets are copied (state
+    dicts on the CPU) into ``into`` right after they load; returns the
+    wrapped original, for the caller to put back."""
+    real = module.load_networks
+
+    def wrapped(nets, save_dir, which_epoch):
+        out = real(nets, save_dir, which_epoch)
+        into.append({name: {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+                     for name, net in nets.items()})
+        return out
+
+    module.load_networks = wrapped
+    return real
+
+
+def phase_msgpack(counts, root):
+    """The JAX package's flax msgpack checkpoints on the card: a full-width
+    ResNet-50 written in flax's layout by the port's writer and inverse
+    converter, and a DSBN checkpoint whose d0 and d1 BatchNorm stats
+    differ; ``cli/test.run`` with ``--resume``, ``--dsbn`` and ``--dsbn
+    --test-source`` on ``[main]``'s eval set (K1-K3), each held against the
+    model in memory: features bit-equal and CMC/mAP equal, the source domain
+    equal to the model, the target apart; the host seconds to write and read
+    the file. Then ``cli/train_gan_usl.run --continue-train`` from per-net
+    ``latest_net_{G,D}.msgpack`` files (the pose G and D at 128x64) for 2
+    joint steps on a small keypoint set, the loaded nets bit-equal to the
+    nets written."""
+    from types import SimpleNamespace
+
+    from reid_gan_torch import kernels
+    from reid_gan_torch.cli import test as test_cli
+    from reid_gan_torch.cli import train_gan_usl
+    from reid_gan_torch.config import Config
+    from reid_gan_torch.engine.evaluators import Evaluator, FeatureExtractor, extract_features
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.convert import flax_variables_from_model
+    from reid_gan_torch.models.dsbn import convert_dsbn, update_domain
+    from reid_gan_torch.models.dual_gan.models import create_model as create_gan
+    from reid_gan_torch.utils.serialization import load_msgpack_checkpoint, save_msgpack_checkpoint
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True   # as cli/test.py sets it
+    batches, query, gallery = _eval_set()
+    dataset = SimpleNamespace(query=query, gallery=gallery)
+    cache = _InMemoryImages(np.concatenate([b["img"] for b in batches]))
+    torch.manual_seed(0)
+    src = create("resnet50")
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        src.gap.p.fill_(3.0)
+        for name, b in src.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(torch.randn(b.shape, generator=g) * 0.1)
+            elif name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=g) + 0.5)
+    tree = flax_variables_from_model(src)
+    path = os.path.join(root, "model_best.msgpack")
+    t0 = time.perf_counter()
+    save_msgpack_checkpoint(dict(tree, epoch=np.asarray(7), best_mAP=np.asarray(0.25)),
+                            False, path)
+    write_s = time.perf_counter() - t0
+    reads = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        load_msgpack_checkpoint(path)
+        reads.append(time.perf_counter() - t0)
+    rng = np.random.default_rng(4)
+    target = {"params": tree["params"], "batch_stats": _map_tree(
+        lambda a: (a * (1 + 0.2 * rng.random(a.shape)) + 0.05).astype(np.float32),
+        tree["batch_stats"])}
+    dsbn_path = os.path.join(root, "dsbn.msgpack")
+    save_msgpack_checkpoint({"dsbn": update_domain(convert_dsbn(tree), 1, target),
+                             "epoch": np.asarray(7), "best_mAP": np.asarray(0.25)},
+                            False, dsbn_path)
+    print(f"[msgpack] ResNet-50 in flax's layout: {os.path.getsize(path) / 2**20:.1f} MiB "
+          f"written in {write_s:.3f} s, read in "
+          + ", ".join(f"{r:.4f}" for r in reads) + " s (host clock, warm page cache); "
+          f"the DSBN file {os.path.getsize(dsbn_path) / 2**20:.1f} MiB")
+
+    ref_ex = FeatureExtractor(src, height=256, width=128, batch_size=256, device="cuda")
+    ref_cmc, ref_map = Evaluator(ref_ex).evaluate(batches, query, gallery, cmc_flag=True)
+    ref_feats = extract_features(ref_ex, batches[:1])[0]
+    cfg = Config()
+    cfg.data.workers = 4
+    kernels.reset_launch_counts()
+    got, made, create_model = {}, [], test_cli.create_model
+
+    def creating(*args, **kwargs):       # keep the model run() loads into
+        made.append(create_model(*args, **kwargs))
+        return made[-1]
+
+    for name, extra, fpath in (("resume", {}, path),
+                               ("dsbn target", dict(dsbn=True), dsbn_path),
+                               ("dsbn source", dict(dsbn=True, test_source=True), dsbn_path)):
+        cfg.train.resume = fpath
+        test_cli.create_model = creating
+        try:
+            cmc, mAP = test_cli.run(cfg, dataset, device="cuda", image_cache=cache, **extra)
+        finally:
+            test_cli.create_model = create_model
+        feats = extract_features(
+            FeatureExtractor(made[-1], height=256, width=128, batch_size=256, device="cuda"),
+            batches[:1])[0]
+        same = all(np.array_equal(feats[f], ref_feats[f]) for f in ref_feats)
+        got[name] = (cmc, mAP, same)
+        print(f"[msgpack] cli/test.run {name}: mAP {mAP:.6f} top-1 {cmc[0]:.6f} (in memory "
+              f"{ref_map:.6f}, {ref_cmc[0]:.6f}); batch 0 features bit-equal to the model "
+              f"in memory: {same}")
+    launches = kernels.launch_counts()
+    print(f"[msgpack] cli/test.run launches: {kernels.phase_launch_counts()}")
+    for name in ("resume", "dsbn source"):
+        cmc, mAP, same = got[name]
+        check(same and np.array_equal(cmc, ref_cmc) and mAP == ref_map,
+              f"{name}: the loaded model evaluates otherwise than the model in memory")
+    cmc, mAP, same = got["dsbn target"]
+    check(not same and (mAP != ref_map or not np.array_equal(cmc, ref_cmc)),
+          "the target domain's BatchNorm stats did not change the evaluation")
+
+    # per-net G/D files of the JAX layout → --continue-train, 2 joint steps
+    dataset, imgs = _usl_set(n_train=2048, ids=128, n_query=256, n_gallery=768, eval_ids=64)
+    cfg = Config()
+    cfg.data.workers = 4
+    cfg.train.epochs, cfg.train.iters, cfg.train.eval_step = 1, 2, 1
+    cfg.cluster.cluster_backend, cfg.cluster.eps = "infomap", 0.5
+    cfg.cluster.k1, cfg.cluster.k2 = 15, 4
+    cfg.gan.model, cfg.gan.model_gen, cfg.gan.continue_train = "AE", "Pose", True
+    cfg.gan.save_dir = os.path.join(root, "ckpt")
+    cfg.train.logs_dir = os.path.join(root, "logs")
+    nets_dir = os.path.join(cfg.gan.save_dir, cfg.gan.name)
+    torch.manual_seed(5)
+    written = create_gan(cfg.gan, gan_height=128, gan_width=64, reid_feat_dim=2048,
+                         device="cpu", seed=5)
+    for name, net in (("G", written.net_G), ("D", written.net_D)):
+        save_msgpack_checkpoint(flax_variables_from_model(net), False,
+                                os.path.join(nets_dir, f"latest_net_{name}.msgpack"))
+    dataset.train_pose_dir = _write_pose_csv(dataset.train, os.path.join(root, "poses.csv"), 14)
+    loaded = []
+    real = _snapshot_loads(train_gan_usl, loaded)
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        best = train_gan_usl.run(cfg, dataset, device="cuda",
+                                 image_cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train_gan_usl.load_networks = real
+    run_launches = kernels.launch_counts()
+    for k, v in launches.items():
+        counts[k] = v + run_launches[k]
+    equal = {name: all(torch.equal(net.state_dict()[k].cpu(), loaded[0][name][k])
+                       for k in net.state_dict() if not k.endswith("num_batches_tracked"))
+             for name, net in (("G", written.net_G), ("D", written.net_D))}
+    print(f"[msgpack] cli/train_gan_usl.run --continue-train from latest_net_{{G,D}}.msgpack: "
+          f"{wall:.2f} s, {cfg.train.iters} joint steps on {len(dataset.train)} images, best "
+          f"mAP {best:.4f}; loaded nets bit-equal to the written ones: {equal}")
+    print(f"[msgpack] run() launches: {kernels.phase_launch_counts()}")
+    check(all(equal.values()), "the per-net msgpack files did not load bit-equal")
+    check(np.isfinite(best) and run_launches["gan_feat_l2n"] == cfg.train.iters
+          and run_launches["pose_maps"] == cfg.train.iters,
+          f"the continued joint epoch did not run its steps: {run_launches}")
+    print(f"[msgpack] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def _map_tree(fn, tree):
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _hold_bf16_kernels(label, batch, mode, trainer=None, state=None, gan=None):
+    """The kernels of one ``--fp16`` step against their plain versions on
+    the step's own tensors: K4 on the uint8 batch (and K9, K10 in the joint
+    and warm-up steps, on the GAN images and keypoints); then the encoder's
+    bf16 backbone runs once on K4's image, and the train head (K5), InfoNCE
+    (K6, through its gradient into the map and GeM's p) and the fold (K7),
+    and K11 on the map, take that one map on both sides. A whole bf16 step
+    cannot be held so: wherever an input moves by an fp32 ulp a bf16
+    rounding may flip, and 50 layers carry the flip to the output (``[fp16]
+    USL`` measured 0.11 of the feature gradient and 0.028 of the bank
+    between the kernels' and the plain step of one batch). ``mode``:
+    "usl" or "train_all" (``trainer`` and its ``state``), or "warmup"
+    (``gan``, the engine)."""
+    import copy
+
+    from reid_gan_torch.models.resnet import ResNetBackbone, gan_feat, gan_feat_plain
+    from reid_gan_torch.ops.cluster_memory import (
+        memory_loss,
+        memory_loss_plain,
+        update_memory,
+        update_memory_plain,
+    )
+    from reid_gan_torch.ops.pose import batch_cords_to_map, batch_cords_to_map_plain
+    from reid_gan_torch.ops.transforms import (
+        gan_input_transform,
+        gan_input_transform_plain,
+        sample_augment_params,
+        train_augment,
+        train_augment_plain,
+    )
+
+    errs, tols = {}, {}
+    if mode == "train_all":
+        gan = trainer.gan
+    if mode == "warmup":
+        xs = torch.from_numpy(np.ascontiguousarray(batch["Xs"])).cuda()
+        errs["K9"] = float((gan_input_transform(xs, gan.h, gan.w)
+                            - gan_input_transform_plain(xs)).abs().max())
+        tols["K9"] = 1e-6   # as [K9]
+    else:
+        if mode == "train_all":
+            d = trainer._to_device(batch, "train_all")
+        else:
+            d = {"img": torch.from_numpy(np.ascontiguousarray(batch["img"])).cuda(),
+                 "pid": torch.from_numpy(np.asarray(batch["pid"], np.int32)).cuda()}
+        model, h, w = trainer.model, trainer.height, trainer.width
+        params = sample_augment_params(d["img"].shape[0], h, w,
+                                       torch.Generator(device="cuda").manual_seed(99))
+        x = train_augment(d["img"], params, h, w)
+        errs["K4"] = float((x - train_augment_plain(d["img"], params)).abs().max())
+        tols["K4"] = 1e-5   # as [K4]
+        if mode == "train_all":
+            xs, gh, gw = d["Xs"], gan.h, gan.w
+            errs["K9"] = float((gan_input_transform(xs, gh, gw)
+                                - gan_input_transform_plain(xs)).abs().max())
+            errs["K10"] = float((batch_cords_to_map(d["keypoints"], d["old_size"], gh, gw)
+                                 - batch_cords_to_map_plain(d["keypoints"], d["old_size"],
+                                                            gh, gw)).abs().max())
+            tols["K9"], tols["K10"] = 1e-6, 1e-6   # as [K9], [K10]
+        snap = copy.deepcopy(model.state_dict())
+        model.train()
+        with torch.no_grad():
+            fmap = ResNetBackbone.forward(model, x)
+        if mode == "train_all":
+            errs["K11"] = float((gan_feat(fmap) - gan_feat_plain(fmap)).abs().max())
+            tols["K11"] = 1e-6   # as [K11]
+        y, out = d["pid"], []
+        try:
+            for plain in (False, True):
+                model.load_state_dict(snap)
+                fm = fmap.clone().requires_grad_()
+                mem = state.memory._replace(features=state.memory.features.clone(),
+                                            gan_features=state.memory.gan_features.clone())
+                if plain:
+                    with _plain_heads():
+                        feat = model._train_head(fm)
+                else:
+                    feat = model._train_head(fm)
+                loss = (memory_loss_plain if plain else memory_loss)(feat, y, mem)[0].mean()
+                model.zero_grad(set_to_none=True)
+                loss.backward()
+                (update_memory_plain if plain else update_memory)(
+                    mem, feat.detach(), y, use_hard=trainer.use_hard)
+                out.append((float(loss.detach()), fm.grad, model.gap.p.grad.clone(),
+                            mem.features))
+        finally:
+            model.load_state_dict(snap)
+            model.zero_grad(set_to_none=True)
+        (lk, gk, pk, bk), (lp, gp, pp, bp) = out
+        errs["K5-K6 loss"] = abs(lk - lp) / abs(lp)
+        errs["K5-K6 map grad"] = float((gk - gp).abs().max() / gp.abs().max())
+        errs["K5 p grad"] = float((pk - pp).norm() / pp.norm())
+        errs["K7 bank"] = float((bk - bp).abs().max())
+        # [train]'s step tolerances (fp32 heads on one map: K5's lg2/ex2,
+        # K6's 3xTF32, sums in other orders, temperature 0.05)
+        tols.update({"K5-K6 loss": 1e-3, "K5-K6 map grad": 1e-3, "K5 p grad": 1e-3,
+                     "K7 bank": 1e-4})
+    print(f"[{label}] the step's kernels against their plain versions on its own tensors "
+          "(max abs err; heads relative): "
+          + ", ".join(f"{k} {errs[k]:.3g} (tol {tols[k]:.3g})" for k in errs))
+    check(all(errs[k] <= tols[k] for k in errs),
+          f"a kernel of the --fp16 step differs from its plain version: {errs}")
+
+
+def phase_fp16(counts):
+    """``--fp16`` at the recipe's width: bf16 compute as the JAX package's
+    ``dtype=jnp.bfloat16`` (``models/precision.py``: bf16 convolutions and
+    dense layers, fp32 norms, heads, parameters and optimiser state). One
+    USL step (ResNet-50 at 256x128, batch 256), one joint ``train_all`` step
+    (with the pose G and D at 128x64) and one warm-up step (the AE G and D
+    at 128x64), each step's kernels held against their plain versions on
+    its own tensors (``_hold_bf16_kernels``) and launching once a step; warm steps in bf16 and fp32 in
+    turns on the same weights (the compute dtype switched between turns)
+    with their peaks; the device-time split of the bf16 USL step; then one
+    ``cli/train_usl.run --fp16`` epoch of 20 steps (``[fp16_usl]``) and the
+    bf16 extraction rate (``[fp16_main]``)."""
+    from reid_gan_torch import kernels
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.data import IterLoader
+    from reid_gan_torch.data.loader import DataLoader, Preprocessor
+    from reid_gan_torch.engine.gan_trainers import GANTrainer
+    from reid_gan_torch.engine.trainers import ClusterContrastTrainer
+    from reid_gan_torch.engine.usl import bank_rows, make_train_loader
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.dual_gan.models import create_model as create_gan
+    from reid_gan_torch.models.precision import set_compute_dtype
+    from reid_gan_torch.ops.cluster_memory import init_memory
+
+    bf16 = torch.bfloat16
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True   # the fp32 side as the CLIs run it
+
+    def fp32_params(*nets):
+        return all(q.dtype == torch.float32 and (q.grad is None or q.grad.dtype == torch.float32)
+                   for net in nets for q in net.parameters())
+
+    # ---- the USL step
+    items, imgs = _pseudo_set()
+    n_ids = 700
+    g = torch.Generator(device="cuda").manual_seed(0)
+    centers = torch.nn.functional.normalize(
+        torch.randn((n_ids, 2048), device="cuda", generator=g), dim=1)
+    torch.manual_seed(0)
+    model = create("resnet50", norm=True, dtype=bf16)
+    trainer = ClusterContrastTrainer(model, height=256, width=128, num_instances=16,
+                                     device="cuda")
+    state = trainer.init_state(init_memory(centers, k_pad=bank_rows(n_ids), device="cuda"))
+    loader = make_train_loader(items, 256, 128, 256, 16, workers=4, iters=400, seed=1,
+                               cache=_InMemoryImages(imgs))
+    steps = 10
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = trainer.train(state, 0, loader, train_iters=steps, print_freq=steps,
+                                base_seed=1)
+    torch.cuda.synchronize()
+    phases = kernels.phase_launch_counts()
+    print(f"[fp16] USL: {steps} bf16 steps (1st, cuDNN cold): "
+          f"{time.perf_counter() - t0:.2f} s, mean loss {loss:.4f}; launches {phases}")
+    for name in ("train_augment.forward", "gem_pool.forward", "gem_pool.backward",
+                 "infonce.forward", "infonce.backward", "bank_fold.forward"):
+        check(phases[name] == steps, f"{name} launched {phases[name]} times, not once a step")
+    check(np.isfinite(loss) and fp32_params(model), "bf16 USL steps: loss or dtypes")
+    _hold_bf16_kernels("fp16 USL", loader.next(), "usl", trainer, state)
+
+    def usl(side):
+        set_compute_dtype(model, bf16 if side else None)
+        trainer.train(state, 1, loader, train_iters=5, print_freq=5, base_seed=1)
+
+    usl(False)                                # fp32's cuDNN algorithms, warm
+    ms, peak = _turns("fp16 USL", usl, "step", 5, what="bf16 compute")
+    print(f"[fp16] USL warm img/s (batch 256, ResNet-50 at 256x128): fp32 (TF32) "
+          f"{256e3 / np.mean(ms[False]):.1f}, bf16 {256e3 / np.mean(ms[True]):.1f}; bf16 / "
+          f"fp32 step time {np.mean(ms[True]) / np.mean(ms[False]):.4f}, peak "
+          f"{peak[True] / peak[False]:.4f}")
+    set_compute_dtype(model, bf16)
+    profile_device("fp16 USL (3 warm bf16 steps)", lambda: trainer.train(
+        state, 2, loader, train_iters=3, print_freq=3, base_seed=1), groups=FP16_GROUPS)
+    set_compute_dtype(model, None)
+    profile_device("fp16 USL (3 warm fp32 steps, the same call)", lambda: trainer.train(
+        state, 3, loader, train_iters=3, print_freq=3, base_seed=1), groups=FP16_GROUPS)
+    loader.close()
+    del trainer, state, model, loader
+    torch.cuda.empty_cache()
+
+    # ---- the joint train_all step
+    trainer, state, loader = _joint_trainer(dtype=bf16)
+    nets = (trainer.model, trainer.gan.net_G, trainer.gan.net_D)
+    _hold_bf16_kernels("fp16 joint", loader.next(), "train_all", trainer, state)
+    kernels.reset_launch_counts()
+    state, errs = trainer.run_epoch(state, 0, loader, mode="train_all", train_iters=steps,
+                                    print_freq=steps, base_seed=1)
+    phases = kernels.phase_launch_counts()
+    print(f"[fp16] joint: {steps} bf16 train_all steps; mean "
+          + ", ".join(f"{k} {v:.4f}" for k, v in errs.items()) + f"; launches {phases}")
+    for name in ("train_augment.forward", "gem_pool.forward", "infonce.forward",
+                 "bank_fold.forward", "gan_input.forward", "pose_maps.forward",
+                 "gan_feat_l2n.forward"):
+        check(phases[name] == steps, f"{name} launched {phases[name]} times, not once a step")
+    check(all(np.isfinite(v) for v in errs.values()) and fp32_params(*nets),
+          f"bf16 joint steps: losses {errs} or dtypes")
+
+    def joint(side):
+        for net in nets:
+            set_compute_dtype(net, bf16 if side else None)
+        trainer.run_epoch(state, 1, loader, mode="train_all", train_iters=3, print_freq=3,
+                          base_seed=1)
+
+    joint(False)
+    ms, peak = _turns("fp16 joint", joint, "step", 3, what="bf16 compute")
+    print(f"[fp16] joint warm img/s (batch 256, ResNet-50 at 256x128 + pose G and D at "
+          f"128x64): fp32 (TF32) {256e3 / np.mean(ms[False]):.1f}, bf16 "
+          f"{256e3 / np.mean(ms[True]):.1f}; bf16 / fp32 step time "
+          f"{np.mean(ms[True]) / np.mean(ms[False]):.4f}, peak {peak[True] / peak[False]:.4f}")
+    loader.close()
+    del trainer, state, loader, nets
+    torch.cuda.empty_cache()
+
+    # ---- the warm-up step
+    torch.manual_seed(0)
+    gan = create_gan(GANConfig(model="AE", model_gen="AE"), gan_height=128, gan_width=64,
+                     device="cuda", dtype=bf16)
+    pre = Preprocessor(items, mode="only_gan", gan_height=128, gan_width=64,
+                       cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+    it = IterLoader(DataLoader(pre, batch_size=256, shuffle=True, num_workers=4,
+                               drop_last=True, seed=1))
+    it.new_epoch()
+    _hold_bf16_kernels("fp16 warmup", it.next(), "warmup", gan=gan)
+    gtrainer = GANTrainer(gan, print_freq=steps, device="cuda")
+    gstate = gan.init_state()
+    kernels.reset_launch_counts()
+    gstate, errs = gtrainer.train_gan(gstate, 0, it, train_iters=steps, base_seed=1)
+    launches = kernels.launch_counts()
+    print(f"[fp16] warm-up: {steps} bf16 D->G iterations; mean "
+          + ", ".join(f"{k} {v:.4f}" for k, v in errs.items()) + f"; launches {launches}")
+    check(launches["gan_input"] == steps
+          and all(v == 0 for k, v in launches.items() if k != "gan_input")
+          and all(np.isfinite(v) for v in errs.values())
+          and fp32_params(gan.net_G, gan.net_D), "bf16 warm-up iterations")
+
+    def warmup(side):
+        for net in (gan.net_G, gan.net_D):
+            set_compute_dtype(net, bf16 if side else None)
+        gtrainer.train_gan(gstate, 1, it, train_iters=5, base_seed=1)
+
+    warmup(False)
+    ms, peak = _turns("fp16 warmup", warmup, "iteration", 5, what="bf16 compute")
+    print(f"[fp16] warm-up warm img/s (batch 256, AE G and D at 128x64): fp32 (TF32) "
+          f"{256e3 / np.mean(ms[False]):.1f}, bf16 {256e3 / np.mean(ms[True]):.1f}; bf16 / "
+          f"fp32 {np.mean(ms[True]) / np.mean(ms[False]):.4f}, peak "
+          f"{peak[True] / peak[False]:.4f}")
+    it.close()
+    del gan, gtrainer, gstate, it
+    torch.cuda.empty_cache()
+    print(f"[fp16] steps phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+    phase_usl(counts, label="fp16_usl", fp16=True)
+    torch.cuda.synchronize()
+    rate = phase_main_path({}, label="fp16_main", dtype=bf16)
+    print(f"[fp16_main] warm bf16 extraction: {rate:.1f} img/s")
+
+
 def time_kernels(names, root):
     """``--kernels K4,K14 ROOT``: phases 1 and 2 for the named kernels only
     (their checks against the plain versions and their times), on the
@@ -4007,6 +4477,13 @@ def main(argv=None):
     torch.cuda.synchronize()
     import tempfile
 
+    fp16_counts, msgpack_counts = {}, {}
+    phase_fp16(fp16_counts)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_msgpack(msgpack_counts, tmp)
+    torch.cuda.synchronize()
+
     fd_counts, chain_counts, cuhk03_counts = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         fd_set = _fd_set(os.path.join(tmp, "set"))
@@ -4025,7 +4502,8 @@ def main(argv=None):
          "replaces": k.replaces,
          "launches": sum(c[k.name] for c in (joint_counts, hardmix_counts, chain_counts,
                                              ibn_counts, gan_clusters_counts,
-                                             vgg_joint_counts, cuhk03_counts)),
+                                             vgg_joint_counts, cuhk03_counts,
+                                             fp16_counts, msgpack_counts)),
          "library_ms": None, **report[k.name]}
         for k in kernels.KERNELS]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

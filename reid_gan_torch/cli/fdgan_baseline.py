@@ -14,7 +14,8 @@ query's top 100, 20 with ``--debug``) and writes ``checkpoint.pth.tar``
 (``{"state_dict", "epoch", "best_mAP"}``, copied to ``model_best.pth.tar``),
 the file ``cli/fdgan_train --stage 1 --netE-pretrain`` reads. ``--debug``:
 ResNet-18, one epoch of 2 iterations. ``--resume`` reads the port's
-``.pth.tar``; a flax ``.msgpack`` raises. Runs on the card unless
+``.pth.tar`` or the JAX package's flax ``.msgpack`` (the Siamese net's
+variables, fdgan_baseline.py:51), strictly. Runs on the card unless
 ``--device cpu`` is given. ``--dataset cuhk03`` and ``--dataset json`` read
 an open-reid tree (``meta.json``, ``splits.json``, ``images/``), whose image
 names resolve under its ``images/``; cuhk03 is scored under its own CMC
@@ -36,7 +37,7 @@ from ..engine.evaluators import FeatureExtractor
 from ..engine.fdgan import CascadeEvaluator, SiameseTrainer
 from ..models import siamese_baseline
 from ..utils import Logger
-from ..utils.serialization import load_checkpoint, save_checkpoint
+from ..utils.serialization import resume_checkpoint, save_checkpoint
 
 SECTIONS = ("data", "model", "optim", "train")
 
@@ -54,10 +55,6 @@ def main(argv=None):
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=SECTIONS)
     device = resolve_device(ns.device)
-    if cfg.train.resume.endswith(".msgpack"):
-        raise NotImplementedError(
-            "--resume of a flax msgpack checkpoint is not ported yet "
-            "(ROADMAP A: msgpack checkpoints); resume from the port's checkpoint.pth.tar")
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
     sys.stdout = logger
     try:
@@ -95,7 +92,7 @@ def run(cfg, dataset, device=None, image_cache=None, depth=50):
     torch.manual_seed(cfg.train.seed)
     model = siamese_baseline(depth=depth)
     if cfg.train.resume:
-        model.load_state_dict(load_checkpoint(cfg.train.resume)["state_dict"])
+        resume_checkpoint(cfg.train.resume, model)
     model = model.to(device, memory_format=torch.channels_last)
     h, w = cfg.data.height, cfg.data.width
     query, gallery = list(dataset.query), list(dataset.gallery)

@@ -3,10 +3,17 @@ CC/examples/test.py:57-89): load a checkpoint → mAP/CMC.
 
     python -m reid_gan_torch.cli.test --dataset market1501 --data-dir ./data \
         --resume-torch logs/model_best.pth.tar [--rerank] [--device cuda]
+    python -m reid_gan_torch.cli.test ... --resume logs/model_best.msgpack \
+        [--dsbn [--test-source]]
 
 Runs on the card unless ``--device cpu`` is given. ``--resume-torch`` reads
-``cli/train_usl``'s checkpoints. Not ported yet: ``--resume`` of a flax
-msgpack checkpoint (ROADMAP A: msgpack checkpoints) and ``--dsbn`` (ROADMAP A: `--dsbn`).
+``cli/train_usl``'s checkpoints (or a CC reference checkpoint);
+``--resume`` reads a whole checkpoint strictly: the port's ``.pth.tar`` or
+the JAX package's flax ``.msgpack`` (test.py:62-67). With ``--dsbn`` the
+msgpack checkpoint holds domain-specific BatchNorms (``{"dsbn": {"domains":
+{"d0", "d1"}}}``) and the eval runs with the target domain's, or with
+``--test-source`` the source domain's (test.py:48-61;
+CC/examples/test.py:71-81).
 """
 
 import argparse
@@ -21,6 +28,8 @@ from ..device import resolve_device
 from ..engine.evaluators import Evaluator, FeatureExtractor
 from ..models import create as create_model
 from ..models.convert import normalize_reference_state_dict
+from ..models.dsbn import convert_bn
+from ..utils.serialization import load_flax_state, load_msgpack_checkpoint, resume_checkpoint
 
 
 def main(argv=None):
@@ -34,8 +43,8 @@ def main(argv=None):
                             "(CC save_checkpoint layout, or a state_dict of "
                             "this package's ReIDResNet)")
     extra.add_argument("--dsbn", action="store_true",
-                       help="checkpoint carries domain-specific BNs (not "
-                            "ported yet)")
+                       help="checkpoint carries domain-specific BNs "
+                            "(UDA; reference CC/examples/test.py:71-81)")
     extra.add_argument("--test-source", action="store_true",
                        help="evaluate with the SOURCE domain BN stats "
                             "(with --dsbn)")
@@ -45,16 +54,23 @@ def main(argv=None):
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=("data", "model", "cluster", "train"))
     device = resolve_device(ns.device)
-    if ns.dsbn:
-        raise NotImplementedError(
-            "--dsbn is not ported yet: domain-specific BN checkpoints wait "
-            "for models/dsbn.py (ROADMAP A: `--dsbn`)")
-    if cfg.train.resume:
-        raise NotImplementedError(
-            "--resume (flax msgpack checkpoint) is not ported yet: it waits "
-            "for utils/serialization.py (ROADMAP A: msgpack checkpoints); use "
-            "--resume-torch")
+    if ns.dsbn and not cfg.train.resume.endswith(".msgpack"):
+        raise ValueError("--dsbn reads a domain-specific BN checkpoint of the "
+                         "JAX package: give it with --resume <file>.msgpack")
+    dataset = create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True)
+    return run(cfg, dataset, device, resume_torch=ns.resume_torch, dsbn=ns.dsbn,
+               test_source=ns.test_source, rerank=ns.rerank)
 
+
+def run(cfg, dataset, device=None, image_cache=None, resume_torch="", dsbn=False,
+        test_source=False, rerank=False):
+    """The evaluation (test.py:62-88) of ``cfg.model.arch`` on ``dataset``
+    (``.query`` and ``.gallery`` lists of ``(fname, pid, camid)``), on
+    ``device`` (default: the card), with the weights of ``cfg.train.resume``
+    (with ``dsbn``, the target or with ``test_source`` the source domain's),
+    or of ``resume_torch``. ``image_cache`` goes to the ``Preprocessor``
+    (default: the shared decode cache). Returns (CMC, mAP)."""
+    device = resolve_device(device)
     # Convolutions run in TF32 on the card (cudnn.allow_tf32 = True): the
     # input is already rounded to bf16, and the JAX package's convolutions
     # at default precision run on the TPU's bf16 matrix unit, so TF32 keeps
@@ -62,23 +78,30 @@ def main(argv=None):
     # product that orders the ranking stays full fp32
     # (ops/distance.py::squared_euclidean).
     torch.backends.cudnn.allow_tf32 = True
-
-    dataset = create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True)
     torch.manual_seed(0)
     model = create_model(cfg.model.arch, num_features=cfg.model.features,
                          norm=cfg.model.norm, pooling_type=cfg.model.pooling_type)
-    if ns.resume_torch:
-        load_torch_reference_checkpoint(ns.resume_torch, model)
+    if cfg.train.resume and dsbn:
+        print("==> Load the model with domain-specific BNs")
+        ckpt = load_msgpack_checkpoint(cfg.train.resume)
+        print("==> Test with {}-domain BNs".format("source" if test_source else "target"))
+        load_flax_state(model, convert_bn(ckpt["dsbn"], use_target=not test_source),
+                        f"'{cfg.train.resume}'")
+    elif cfg.train.resume:
+        resume_checkpoint(cfg.train.resume, model)
+    elif resume_torch:
+        load_torch_reference_checkpoint(resume_torch, model)
 
     extractor = FeatureExtractor(model, height=cfg.data.height,
                                  width=cfg.data.width,
                                  batch_size=cfg.data.batch_size, device=device)
     pre = Preprocessor(list(dataset.query) + list(dataset.gallery), mode="reid",
-                       height=cfg.data.height, width=cfg.data.width)
+                       height=cfg.data.height, width=cfg.data.width,
+                       cache="default" if image_cache is None else image_cache)
     loader = DataLoader(pre, batch_size=cfg.data.batch_size, drop_last=False,
                         num_workers=cfg.data.workers)
     return Evaluator(extractor).evaluate(loader, dataset.query, dataset.gallery,
-                                         cmc_flag=True, rerank=ns.rerank)
+                                         cmc_flag=True, rerank=rerank)
 
 
 def load_torch_reference_checkpoint(fpath, model):

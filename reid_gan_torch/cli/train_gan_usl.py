@@ -34,9 +34,16 @@ weighs each sample by ``compute_conf_weight`` (K9, K10). As in the JAX
 loop, the weights are computed under ``--no-gan-train`` too, where the
 hard-mix step does not read them.
 
+``--resume`` restores the encoder and the epoch counter (the later of its
+and ``iter.txt``'s) from the port's ``.pth.tar`` or the JAX package's flax
+``.msgpack``; ``--continue-train`` loads each GAN net from
+``{which_epoch}_net_{G,D}.pth`` or the JAX package's ``.msgpack``
+(train_gan_usl.py:106-133). ``--fp16`` runs the encoder's backbone and the
+GAN nets in bf16 as the JAX package does (``models/precision.py``), in every
+mode; VGG19 stays fp32.
+
 Not ported yet, and raising with their ROADMAP items: ``--bipath`` and
-``--learnable-memory`` (the bip and learnable-memory modes), ``--fp16`` and
-``--resume`` of a flax msgpack checkpoint.
+``--learnable-memory`` (the bip and learnable-memory modes).
 """
 
 import argparse
@@ -62,6 +69,7 @@ from ..utils import Logger, Timer
 from ..utils.serialization import (
     load_checkpoint,
     load_networks,
+    resume_checkpoint,
     save_checkpoint,
     save_networks,
 )
@@ -127,12 +135,6 @@ def _refuse_unported(cfg):
         (cfg.gan.learnable_memory, "--learnable-memory (the train_all_with_memory "
                                    "mode) is not ported yet "
                                    "(ROADMAP A: bip and learnable-memory modes)"),
-        (cfg.train.fp16, "--fp16 (bf16 parameters) is not ported yet "
-                         "(ROADMAP A: `--fp16`)"),
-        (cfg.train.resume.endswith(".msgpack"),
-         "--resume of a flax msgpack checkpoint is not ported yet "
-         "(ROADMAP A: msgpack checkpoints); "
-         "resume from the port's checkpoint.pth.tar"),
     )
     for bad, msg in unported:
         if bad:
@@ -205,9 +207,10 @@ def run(cfg, dataset, device=None, image_cache=None):
     torch.manual_seed(cfg.train.seed)
 
     feat_dim = 512 if any(d in cfg.model.arch for d in ("18", "34")) else 2048
+    dtype = torch.bfloat16 if cfg.train.fp16 else None
     gan = create_gan(cfg.gan, gan_height=cfg.data.gan_height,
                      gan_width=cfg.data.gan_width, reid_feat_dim=feat_dim,
-                     seed=cfg.train.seed, device=device)
+                     seed=cfg.train.seed, device=device, dtype=dtype)
     save_dir = osp.join(cfg.gan.save_dir, cfg.gan.name)
     iter_path = osp.join(save_dir, "iter.txt")
     start_epoch = 0
@@ -221,11 +224,9 @@ def run(cfg, dataset, device=None, image_cache=None):
     gan_state = gan.init_state()
 
     model = create_model(cfg.model.arch, norm=cfg.model.norm,
-                         pooling_type=cfg.model.pooling_type)
+                         pooling_type=cfg.model.pooling_type, dtype=dtype)
     if cfg.train.resume:
-        ckpt = load_checkpoint(cfg.train.resume)
-        model.load_state_dict(ckpt["state_dict"])
-        start_epoch = max(start_epoch, int(ckpt["epoch"]))
+        start_epoch = max(start_epoch, resume_checkpoint(cfg.train.resume, model)[0])
 
     extractor = FeatureExtractor(model, height=cfg.data.height, width=cfg.data.width,
                                  batch_size=cfg.data.batch_size, device=device,

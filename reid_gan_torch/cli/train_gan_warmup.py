@@ -12,7 +12,9 @@ images of the train set alone (the ``only_gan`` loader, shuffled, batch
 1 epoch of 4 iterations). After each epoch the mean losses go to
 ``loss_log.txt`` and the nets to ``<save-dir>/<name>/latest_net_{G,D}.pth``,
 which ``cli/train_gan_usl --continue-train`` loads. ``--continue-train``
-here starts from them too. ``--use-vgg`` adds the VGG19 perceptual loss to
+here starts from them too, or from the JAX package's
+``{which_epoch}_net_{G,D}.msgpack`` (train_gan_warmup.py:49-53). ``--fp16``
+runs G and D in bf16 as the JAX package does (``models/precision.py``). ``--use-vgg`` adds the VGG19 perceptual loss to
 the G step, with the torchvision-layout weights of ``--vgg-weights`` or
 random taps. Runs on the card unless ``--device cpu`` is given.
 
@@ -20,8 +22,7 @@ The standalone step drives the AE generator: the other generators raise
 ``ValueError`` before any work, where the JAX CLI fails in its first step
 (ROADMAP C, reference side): ``Pose``, ``DEC`` and ``FD`` are not stepped
 standalone, and ``PoseAE`` and ``--model DPTN`` need pose maps, which the
-``only_gan`` batches do not carry (they carry keypoints). ``--fp16`` is not
-ported yet (ROADMAP A: `--fp16`).
+``only_gan`` batches do not carry (they carry keypoints).
 """
 
 import argparse
@@ -45,9 +46,6 @@ SECTIONS = ("data", "model", "optim", "cluster", "train", "gan")
 
 
 def _check(cfg):
-    if cfg.train.fp16:
-        raise NotImplementedError("--fp16 (bf16 parameters) is not ported yet "
-                                  "(ROADMAP A: `--fp16`)")
     gen = cfg.gan.model_gen
     if cfg.gan.model == "DPTN" or gen == "PoseAE":
         what = "--model DPTN" if cfg.gan.model == "DPTN" else "--model-gen PoseAE"
@@ -101,7 +99,8 @@ def run(cfg, dataset, device=None, image_cache=None):
     torch.backends.cudnn.allow_tf32 = True
     torch.manual_seed(cfg.train.seed)
     gan = create_gan(cfg.gan, gan_height=cfg.data.gan_height,
-                     gan_width=cfg.data.gan_width, seed=cfg.train.seed, device=device)
+                     gan_width=cfg.data.gan_width, seed=cfg.train.seed, device=device,
+                     dtype=torch.bfloat16 if cfg.train.fp16 else None)
     gan_state = gan.init_state()
     save_dir = osp.join(cfg.gan.save_dir, cfg.gan.name)
     if cfg.gan.continue_train:

@@ -9,9 +9,12 @@ cluster_contrast_train_usl_infomap.py, ``--cluster-backend infomap``):
 Each epoch re-clusters the train set (extraction, kNN, Jaccard, DBSCAN, the
 centroid bank), trains ``--iters`` P×K steps, and every ``--eval-step``
 epochs evaluates and writes ``checkpoint.pth.tar`` (and
-``model_best.pth.tar``, which ``cli/test.py --resume-torch`` reads). Runs on
-the card unless ``--device cpu`` is given. Not ported yet: ``--resume`` of a
-flax msgpack checkpoint (ROADMAP A: msgpack checkpoints) and ``--fp16`` (ROADMAP A: `--fp16`).
+``model_best.pth.tar``, which ``cli/test.py --resume`` reads). Runs on
+the card unless ``--device cpu`` is given. ``--resume`` restores the weights
+and the epoch counter from the port's ``.pth.tar`` or the JAX package's flax
+``.msgpack`` (train_usl.py:53-62). ``--fp16`` runs the backbone in bf16 as
+the JAX package does (``models/precision.py``: bf16 convolutions, fp32
+BatchNorm, heads, parameters and optimiser state).
 """
 
 import argparse
@@ -30,7 +33,7 @@ from ..engine.trainers import ClusterContrastTrainer
 from ..engine.usl import cluster_epoch, make_train_loader
 from ..models import create as create_model
 from ..utils import Logger, Timer
-from ..utils.serialization import load_checkpoint, save_checkpoint
+from ..utils.serialization import load_checkpoint, resume_checkpoint, save_checkpoint
 
 SECTIONS = ("data", "model", "optim", "cluster", "train")
 
@@ -47,14 +50,6 @@ def main(argv=None):
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=SECTIONS)
     device = resolve_device(ns.device)
-    if cfg.train.fp16:
-        raise NotImplementedError(
-            "--fp16 (bf16 parameters) is not ported yet "
-            "(ROADMAP A: `--fp16`)")
-    if cfg.train.resume.endswith(".msgpack"):
-        raise NotImplementedError(
-            "--resume of a flax msgpack checkpoint is not ported yet "
-            "(ROADMAP A: msgpack checkpoints); resume from the port's checkpoint.pth.tar")
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
     sys.stdout = logger
     try:
@@ -87,14 +82,12 @@ def run(cfg, dataset, device=None, image_cache=None, on_cluster=None):
     torch.manual_seed(cfg.train.seed)
     model = create_model(cfg.model.arch, num_features=cfg.model.features,
                          norm=cfg.model.norm, dropout=cfg.model.dropout,
-                         pooling_type=cfg.model.pooling_type)
+                         pooling_type=cfg.model.pooling_type,
+                         dtype=torch.bfloat16 if cfg.train.fp16 else None)
     start_epoch = 0
     if cfg.train.resume:
-        ckpt = load_checkpoint(cfg.train.resume)
-        model.load_state_dict(ckpt["state_dict"])
-        start_epoch = int(ckpt["epoch"])
-        print(f"=> Resumed from epoch {start_epoch} "
-              f"(best mAP {float(ckpt['best_mAP']):.1%})")
+        start_epoch, best = resume_checkpoint(cfg.train.resume, model)
+        print(f"=> Resumed from epoch {start_epoch} (best mAP {best:.1%})")
 
     extractor = FeatureExtractor(model, height=cfg.data.height, width=cfg.data.width,
                                  batch_size=cfg.data.batch_size, device=device)

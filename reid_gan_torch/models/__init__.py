@@ -3,6 +3,7 @@ FD/reid/models/__init__.py:19-52)."""
 
 from .embedding import EltwiseSubEmbed
 from .multi_branch import SiameseNet, siamese_baseline
+from .precision import set_compute_dtype
 from .resnet import (
     FDResNet,
     ReIDResNet,
@@ -43,11 +44,15 @@ def names():
     return sorted(__factory.keys())
 
 
-def create(name, *args, **kwargs):
-    """Create a model by name (an ``nn.Module`` in fp32 on the CPU)."""
+def create(name, *args, dtype=None, **kwargs):
+    """Create a model by name (an ``nn.Module`` in fp32 on the CPU). With
+    ``dtype=torch.bfloat16`` (``--fp16``) the backbone computes in bf16 as
+    the JAX package's ``dtype=jnp.bfloat16`` does (``precision.py``): its
+    convolutions in bf16, its BatchNorms and the heads in fp32, the
+    parameters fp32."""
     if name not in __factory:
         raise KeyError(f"Unknown model: {name}")
-    return __factory[name](*args, **kwargs)
+    return set_compute_dtype(__factory[name](*args, **kwargs), dtype)
 
 
 __all__ = ["EltwiseSubEmbed", "FDResNet", "PredictorMLP", "ReIDResNet", "ResNetBackbone",

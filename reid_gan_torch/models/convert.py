@@ -1,14 +1,26 @@
 """Weight conversion between the JAX package's trees and the port's
-``state_dict`` layout, and reference-checkpoint key normalisation."""
+``state_dict`` layout, both ways, and reference-checkpoint key
+normalisation.
+
+``state_dict_from_flax`` routes a flax variables tree (a decoded msgpack
+checkpoint) to the converter of the model it is loaded into;
+``flax_variables_from_model`` is its inverse, used to write a checkpoint in
+the JAX package's layout (the mapping ``reid_gan_tpu/models/resnet.py::
+import_torch_resnet`` spells out, :263-347)."""
 
 import re
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _t(a):
-    """At least float32; float64 stays float64 (the fp64 parity tests)."""
+    """At least float32; float64 stays float64 (the fp64 parity tests). A
+    torch tensor (a bfloat16 leaf of a msgpack file) is widened the same
+    way."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(torch.promote_types(a.dtype, torch.float32)).clone()
     a = np.asarray(a)
     return torch.tensor(a.astype(np.promote_types(a.dtype, np.float32)))
 
@@ -153,3 +165,132 @@ def normalize_reference_state_dict(state_dict):
             k = ".".join([head] + parts[2:])
         out[k] = v
     return out, gem_p
+
+
+# ---------------------------------------------------------------------------
+# state dict → flax variables (the writer's side)
+# ---------------------------------------------------------------------------
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _put(tree, path, leaf):
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = leaf
+
+
+def flax_scope(parts):
+    """The port's module path (a list of names) → the flax scope path: the
+    inverse of ``_torch_child``: ``layerI.J`` → ``layerI_J``, a stage scope's
+    ``<scope>.J`` → ``<scope>/layerK_J`` (K 3 for ``*_l3``, else 4),
+    ``downsample.{0,1}`` → ``downsample_{conv,bn}``."""
+    out, i = [], 0
+    while i < len(parts):
+        p, nxt = parts[i], parts[i + 1] if i + 1 < len(parts) else None
+        if re.fullmatch(r"layer[1-4]", p) and nxt is not None:
+            out.append(f"{p}_{nxt}")
+            i += 2
+        elif p in _STAGE_SCOPES and nxt is not None:
+            out += [p, f"layer{3 if p.endswith('_l3') else 4}_{nxt}"]
+            i += 2
+        elif p == "downsample" and nxt is not None:
+            out.append(("downsample_conv", "downsample_bn")[int(nxt)])
+            i += 2
+        else:
+            out.append(p)
+            i += 1
+    return out
+
+
+def _module_to_flax(params, stats, path, m, scale_only=False):
+    """One leaf module's parameters and stats into the flax trees at
+    ``path``: a convolution's kernel OIHW → HWIO, a Linear's (out, in) →
+    (in, out), a BatchNorm's weight/bias/running stats → scale/bias/mean/var
+    (no bias when ``scale_only``, the JAX heads' ``use_bias=False``), an
+    instance norm's weight/bias → scale/bias, a GeM's ``p``."""
+    if isinstance(m, nn.Conv2d):
+        _put(params, path + ["kernel"], np.ascontiguousarray(_np(m.weight).transpose(2, 3, 1, 0)))
+        if m.bias is not None:
+            _put(params, path + ["bias"], _np(m.bias))
+    elif isinstance(m, nn.Linear):
+        _put(params, path + ["kernel"], np.ascontiguousarray(_np(m.weight).T))
+        if m.bias is not None:
+            _put(params, path + ["bias"], _np(m.bias))
+    elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+        _put(params, path + ["scale"], _np(m.weight))
+        if not scale_only:
+            _put(params, path + ["bias"], _np(m.bias))
+        _put(stats, path + ["mean"], _np(m.running_mean))
+        _put(stats, path + ["var"], _np(m.running_var))
+    elif isinstance(m, nn.InstanceNorm2d):
+        _put(params, path + ["scale"], _np(m.weight))
+        _put(params, path + ["bias"], _np(m.bias))
+    elif isinstance(getattr(m, "p", None), nn.Parameter):
+        _put(params, path + ["p"], _np(m.p))
+
+
+def _resnet_to_flax(model, params, stats, prefix=(), scale_only=("feat_bn",)):
+    """A ``ReIDResNet``/``FDResNet``/variant's leaves into the trees: the
+    stem and stages of a ``ReIDResNet``/``FDResNet`` under ``base``."""
+    in_base = ("conv1", "bn1", "layer1", "layer2", "layer3", "layer4")
+    own_base = not hasattr(model, "base")
+    for name, m in model.named_modules():
+        if list(m.parameters(recurse=False)) or list(m.buffers(recurse=False)):
+            parts = name.split(".")
+            scope = flax_scope(parts)
+            if own_base and parts[0] in in_base:
+                scope = ["base"] + scope
+            _module_to_flax(params, stats, list(prefix) + scope, m,
+                            parts[-1].startswith(scale_only))
+
+
+def flax_variables_from_model(model):
+    """The port's model → ``{"params", "batch_stats"}`` numpy trees in the
+    JAX package's layout, with its key set and shapes: the inverse of
+    ``state_dict_from_flax`` for the ResNet family (``ReIDResNet``,
+    ``FDResNet``), the variants, FD-GAN's ``SiameseNet`` and the dual_gan
+    and FD-GAN generators and discriminators."""
+    from .multi_branch import SiameseNet
+    from .resnet import FDResNet, ReIDResNet
+    from .resnet_variants import ResNetBip, ResNetBipD, ResNetMP
+
+    params, stats = {}, {}
+    if isinstance(model, SiameseNet):
+        _resnet_to_flax(model.base_model, params, stats, ("base_model",), scale_only=())
+        em = model.embed_model
+        for name in ("bn", "classifier"):
+            if getattr(em, name, None) is not None:
+                _module_to_flax(params, stats, ["embed_model", name], getattr(em, name))
+    elif isinstance(model, FDResNet):
+        _resnet_to_flax(model, params, stats, scale_only=())
+    elif isinstance(model, (ReIDResNet, ResNetBip, ResNetBipD, ResNetMP)):
+        _resnet_to_flax(model, params, stats)
+    else:
+        from .dual_gan.convert import state_dict_to_jax
+
+        return state_dict_to_jax(model)
+    return {"params": params, "batch_stats": stats}
+
+
+def state_dict_from_flax(model, variables):
+    """A flax variables tree ``{"params", "batch_stats"}`` (numpy leaves, as
+    a decoded msgpack checkpoint holds them) → the ``state_dict`` of the
+    port's ``model``, through the converter of its kind: the ResNet family,
+    the variants, FD-GAN's ``SiameseNet``, or any dual_gan / FD-GAN
+    generator or discriminator."""
+    from .multi_branch import SiameseNet
+    from .resnet import FDResNet, ReIDResNet
+    from .resnet_variants import ResNetBip, ResNetBipD, ResNetMP
+
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    if isinstance(model, SiameseNet):
+        return siamese_state_dict_from_jax(params, stats)
+    if isinstance(model, (ReIDResNet, FDResNet)):
+        return resnet_state_dict_from_jax(params, stats)
+    if isinstance(model, (ResNetBip, ResNetBipD, ResNetMP)):
+        return variant_state_dict_from_jax(params, stats)
+    from .dual_gan.convert import state_dict_from_jax
+
+    return state_dict_from_jax(model, params, stats)

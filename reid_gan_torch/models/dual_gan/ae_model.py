@@ -35,6 +35,7 @@ import torch
 
 from ...ops.cluster_memory import _l2n
 from ...ops.transforms import gan_input_transform
+from ..precision import set_compute_dtype
 from .external_function import VGGLoss, cal_gradient_penalty, gan_loss
 from .networks import define_D, define_G
 
@@ -94,14 +95,15 @@ class GANEngine:
     (``vgg_params``: a ``VGG19`` state dict; without it random taps drawn
     from ``seed``, which leave torch's global generator as it was), else
     ``vgg`` None (ae_model.py:63-94; AE_model.py:66-101). The keywords are
-    the JAX engines'."""
+    the JAX engines'. ``dtype`` (``torch.bfloat16`` under ``--fp16``) is G's
+    and D's compute dtype (``precision.py``); VGG19 stays fp32."""
 
     MODEL_GEN = None
 
     def __init__(self, cfg, gan_height=128, gan_width=64, num_feats=256, ngf=64,
                  layers_g=3, num_blocks=3, dis_layers=3, use_spect_g=False,
                  use_spect_d=True, norm="batch", vgg_params=None, reid_feat_dim=2048,
-                 seed=0, device=None):
+                 seed=0, device=None, dtype=None):
         self.cfg = cfg
         self.h, self.w = gan_height, gan_width
         self.reid_feat_dim = reid_feat_dim
@@ -113,6 +115,8 @@ class GANEngine:
                               reid_nc=reid_feat_dim)
         self.net_D = define_D(input_nc=3, ndf=32, img_f=128, layers=dis_layers,
                               use_spect=use_spect_d)
+        for net in (self.net_G, self.net_D):
+            set_compute_dtype(net, dtype)
         self.vgg = VGGLoss(vgg_params, seed) if cfg.use_vgg else None
         self.to(device)
 

@@ -24,11 +24,27 @@ differ:
   ``weight``/``bias``;
 - ``use_coord`` appends ``linspace(-1, 1, H)`` and ``linspace(-1, 1, W)``
   channels after the input's, before the convolution.
+
+Mixed precision (``--fp16``, base_function.py:13-19; ``precision.py``):
+each convolution, transposed convolution and dense layer takes a compute
+dtype (``precision.set_compute_dtype``) and runs in it; the norm layers
+reduce in and emit fp32; spectral norm's power iteration runs on the fp32
+kernel before the cast; ``Output``'s ``tanh`` leaves in at least fp32.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..precision import (
+    BatchNorm2d,
+    Conv2d,
+    ConvTranspose2d,
+    InstanceNorm2d,
+    _Compute,
+    promote,
+    widen,
+)
 
 
 def get_nonlinearity(activation_type="LeakyReLU"):
@@ -83,7 +99,7 @@ def add_coords(x):
                       xx[None, None, None, :].expand(n, 1, h, w)], dim=1)
 
 
-class SpectralConv(_SpectralMixin, nn.Module):
+class SpectralConv(_SpectralMixin, _Compute, nn.Module):
     """Conv with optional spectral normalisation and coordinate channels
     (base_function.py:49-78): with ``use_coord`` the convolution takes
     ``in_c + 2`` channels (``add_coords``)."""
@@ -108,10 +124,10 @@ class SpectralConv(_SpectralMixin, nn.Module):
         if self.use_spect:
             w = self._normalized(w, w.reshape(w.shape[0], -1))
         c = self.conv
-        return F.conv2d(x, w, c.bias, c.stride, c.padding)
+        return self._run(F.conv2d, x, w, c.bias, c.stride, c.padding)
 
 
-class SpectralConvTranspose(_SpectralMixin, nn.Module):
+class SpectralConvTranspose(_SpectralMixin, _Compute, nn.Module):
     """flax ``ConvTranspose(padding="SAME")`` with optional spectral
     normalisation (base_function.py:81-99). The weight is torch's
     (in, out, kH, kW) layout holding the flax kernel flipped; the transposed
@@ -141,18 +157,19 @@ class SpectralConvTranspose(_SpectralMixin, nn.Module):
         if self.use_spect:
             w = self._normalized(w, w.transpose(0, 1).reshape(w.shape[1], -1))
         s = self.conv.stride
-        y = F.conv_transpose2d(x, w, self.conv.bias, s)
+        y = self._run(F.conv_transpose2d, x, w, self.conv.bias, s)
         return y[:, :, :x.shape[2] * s[0], :x.shape[3] * s[1]]
 
 
 def make_norm(norm, c):
     """'batch' | 'instance' | 'none' → module or None (base_function.py:
     102-131). Instance norm: per sample and channel over H and W, biased
-    variance, eps 1e-5, affine, no running stats."""
+    variance, eps 1e-5, affine, no running stats. Both widen their input to
+    fp32."""
     if norm == "batch":
-        return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+        return BatchNorm2d(c, eps=1e-5, momentum=0.1)
     if norm == "instance":
-        return nn.InstanceNorm2d(c, eps=1e-5, affine=True, track_running_stats=False)
+        return InstanceNorm2d(c, eps=1e-5, affine=True, track_running_stats=False)
     if norm == "none" or norm is None:
         return None
     raise NotImplementedError(norm)
@@ -254,7 +271,7 @@ class FeatureAdaptBlock(nn.Module):
     def __init__(self, in_c, out_c, up_size=(8, 4), norm="batch", activation="LeakyReLU"):
         super().__init__()
         self.act = get_nonlinearity(activation)
-        self.conv1 = nn.ConvTranspose2d(in_c, out_c, up_size)
+        self.conv1 = ConvTranspose2d(in_c, out_c, up_size)
         nn.init.orthogonal_(self.conv1.weight)
         nn.init.zeros_(self.conv1.bias)
         self.norm1 = make_norm(norm, out_c)
@@ -272,7 +289,7 @@ class FeatureAdaptBlock1(nn.Module):
     def __init__(self, in_c, out_c, norm="batch", activation="LeakyReLU"):
         super().__init__()
         self.act = get_nonlinearity(activation)
-        self.conv1 = nn.Conv2d(in_c, out_c, 1)
+        self.conv1 = Conv2d(in_c, out_c, 1)
         nn.init.orthogonal_(self.conv1.weight)
         nn.init.zeros_(self.conv1.bias)
         self.norm1 = make_norm(norm, out_c)
@@ -381,7 +398,7 @@ class Output(nn.Module):
     def forward(self, x):
         y = self.act(_apply(self.norm1, x))
         y = F.pad(y, (self.pad,) * 4, mode="reflect")
-        return torch.tanh(self.conv1(y))
+        return widen(torch.tanh(self.conv1(y)))
 
 
 class AutoAttn(nn.Module):
@@ -395,7 +412,7 @@ class AutoAttn(nn.Module):
 
     def __init__(self, in_c, pre_c=None, norm="batch"):
         super().__init__()
-        self.query_conv = nn.Conv2d(in_c, in_c // 4, 1)
+        self.query_conv = Conv2d(in_c, in_c // 4, 1)
         nn.init.orthogonal_(self.query_conv.weight)
         nn.init.zeros_(self.query_conv.bias)
         self.gamma = nn.Parameter(torch.zeros(1))
@@ -407,10 +424,12 @@ class AutoAttn(nn.Module):
         n, c, h, w = x.shape
         q = self.query_conv(x).flatten(2).transpose(1, 2)            # (N, HW, C/4)
         attention = torch.softmax(q @ q.transpose(1, 2), dim=-1)
-        out = (attention @ x.flatten(2).transpose(1, 2)).transpose(1, 2)
+        a, v = promote(attention, x.flatten(2).transpose(1, 2))
+        out = (a @ v).transpose(1, 2)
         out = self.gamma * out.reshape(n, c, h, w) + x
         if pre is not None:
-            flow = (attention @ pre.flatten(2).transpose(1, 2)).transpose(1, 2)
+            a, v = promote(attention, pre.flatten(2).transpose(1, 2))
+            flow = (a @ v).transpose(1, 2)
             flow = self.alpha * (1 - mask) * flow.reshape(pre.shape) + mask * pre
             out = self.model(torch.cat([out, flow], dim=1))
         return out, attention

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from ..convert import _t
+from .ptm import MultiHeadAttention
 
 
 def _leaves(tree, prefix=()):
@@ -78,3 +79,52 @@ def state_dict_from_jax(net, params, batch_stats=None):
                 sd[".".join(path[:-1] + ("num_batches_tracked",))] = torch.tensor(0)
         sd[key] = _t(a)
     return sd
+
+
+def _kernel_to_jax(module, parent, name, w):
+    """The inverse of ``_param``: the port's leaf → the flax leaf."""
+    if isinstance(module, nn.ConvTranspose2d) and name == "weight":
+        return np.flip(w.transpose(2, 3, 0, 1), (0, 1))
+    if isinstance(module, nn.Conv2d) and name == "weight":
+        return w.transpose(2, 3, 1, 0)
+    if not isinstance(module, nn.Linear):
+        return w
+    if not isinstance(parent, MultiHeadAttention):
+        return w.T if name == "weight" else w
+    heads = (parent.nhead, parent.head_dim)
+    if module is parent.out:      # (heads, head_dim, d_model) kernel, (d_model,) bias
+        return w.T.reshape(*heads, -1) if name == "weight" else w
+    return w.T.reshape(-1, *heads) if name == "weight" else w.reshape(heads)
+
+
+def state_dict_to_jax(net):
+    """The inverse of ``state_dict_from_jax``: ``net``'s weights →
+    ``{"params", "batch_stats"}`` numpy trees in the JAX package's layout
+    (path by path; spectral norm's ``u``/``sigma`` buffers →
+    ``SpectralNorm_0/conv/kernel/{u,sigma}``; ``num_batches_tracked``
+    dropped)."""
+    params, stats = {}, {}
+
+    def put(tree, path, leaf):
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = np.array(leaf, order="C")
+
+    modules = dict(net.named_modules())
+    for key, t in list(net.named_parameters()) + list(net.named_buffers()):
+        path = key.split(".")
+        owner = ".".join(path[:-1])
+        module, leaf = modules[owner], path[-1]
+        parent = modules[".".join(path[:-2])] if len(path) > 1 else None
+        a = t.detach().cpu().numpy()
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("u", "sigma"):
+            put(stats, path[:-1] + ["SpectralNorm_0", f"conv/kernel/{leaf}"], a)
+        elif leaf in ("running_mean", "running_var"):
+            put(stats, path[:-1] + [leaf[len("running_"):]], a)
+        else:
+            weighted = isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))
+            name = {"weight": "kernel" if weighted else "scale"}.get(leaf, leaf)
+            put(params, path[:-1] + [name], _kernel_to_jax(module, parent, leaf, a))
+    return {"params": params, "batch_stats": stats}

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.transforms import cubic_resize
+from ..precision import ConvTranspose2d, Linear, widen
 from .base_function import (
     EncoderBlock,
     EncoderBlockOptimized,
@@ -229,20 +230,20 @@ class FDGenerator(nn.Module):
             feat_c = reid_nc + noise_in
         elif fuse_mode == "add":
             feat_c = max(reid_feature_nc, noise_nc)
-            self.W_reid = nn.Linear(reid_nc, feat_c, bias=False)
-            self.W_noise = nn.Linear(noise_in, feat_c, bias=False)
+            self.W_reid = Linear(reid_nc, feat_c, bias=False)
+            self.W_noise = Linear(noise_in, feat_c, bias=False)
         elif fuse_mode == "none":
             feat_c = reid_feature_nc
-            self.W_reid = nn.Linear(reid_nc, feat_c, bias=False)
+            self.W_reid = Linear(reid_nc, feat_c, bias=False)
         else:
             raise ValueError(f"fuse_mode {fuse_mode!r}")
         self.fuse_mode = fuse_mode
-        self.de_avg_conv = nn.ConvTranspose2d(feat_c, ngf * 8, bottleneck_hw, bias=False)
+        self.de_avg_conv = ConvTranspose2d(feat_c, ngf * 8, bottleneck_hw, bias=False)
         self.de_avg_bn = make_norm("batch", ngf * 8)
         cin = ngf * 8
         for i, c in enumerate((ngf * 8, ngf * 4, ngf * 2, ngf, output_nc)):
             self.add_module(f"de_conv{5 - i}_conv",
-                            nn.ConvTranspose2d(cin, c, 4, 2, 1, bias=False))
+                            ConvTranspose2d(cin, c, 4, 2, 1, bias=False))
             if i < 4:
                 self.add_module(f"de_conv{5 - i}_bn", make_norm("batch", c))
             cin = c
@@ -260,7 +261,7 @@ class FDGenerator(nn.Module):
         y = self.de_avg_bn(self.de_avg_conv(F.relu(feat)[:, :, None, None]))
         for i in range(5, 1, -1):
             y = getattr(self, f"de_conv{i}_bn")(getattr(self, f"de_conv{i}_conv")(F.relu(y)))
-        return torch.tanh(self.de_conv1_conv(F.relu(y)))
+        return widen(torch.tanh(self.de_conv1_conv(F.relu(y))))
 
 
 class PoseAEGenerator(nn.Module):
@@ -339,7 +340,8 @@ class DPTNGenerator(nn.Module):
 
 class ResDiscriminator(nn.Module):
     """Spectral-norm residual discriminator (networks.py:432-461): (N, 3, H,
-    W) → (N, 1, H/2^layers, W/2^layers) scores."""
+    W) → (N, 1, H/2^layers, W/2^layers) scores, in at least fp32
+    (networks.py:461)."""
 
     def __init__(self, input_nc=3, ndf=64, img_f=1024, layers=3, norm="none",
                  activation="LeakyReLU", use_spect=True):
@@ -358,7 +360,8 @@ class ResDiscriminator(nn.Module):
         self.layers = layers
 
     def forward(self, x):
-        return self.conv(self.act(_run(self, "encoder", self.layers - 1, self.block0(x))))
+        return widen(self.conv(self.act(_run(self, "encoder", self.layers - 1,
+                                             self.block0(x)))))
 
 
 def define_G(model_gen="Pose", image_nc=3, pose_nc=18, ngf=64, img_f=256,

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..precision import BatchNorm1d, Linear, widen
 from .base_function import get_nonlinearity
 
 
@@ -32,7 +33,7 @@ class _SeqNorm(nn.Module):
             raise NotImplementedError(f"sequence norm {norm!r}")
         self.norm = norm
         if norm == "batch":
-            self.bn = nn.BatchNorm1d(c, eps=1e-5, momentum=0.1, affine=affine)
+            self.bn = BatchNorm1d(c, eps=1e-5, momentum=0.1, affine=affine)
         elif affine:
             self.weight = nn.Parameter(torch.ones(c))
             self.bias = nn.Parameter(torch.zeros(c))
@@ -40,6 +41,7 @@ class _SeqNorm(nn.Module):
             self.weight = self.bias = None
 
     def forward(self, x):
+        x = widen(x)   # norms reduce in and emit fp32 (ptm.py:39)
         b, l, c = x.shape
         if self.norm == "batch":
             return self.bn(x.reshape(b * l, c)).reshape(b, l, c)
@@ -49,7 +51,7 @@ class _SeqNorm(nn.Module):
 
 
 def _xavier_linear(in_f, out_f):
-    lin = nn.Linear(in_f, out_f)
+    lin = Linear(in_f, out_f)
     nn.init.xavier_uniform_(lin.weight)
     nn.init.zeros_(lin.bias)
     return lin

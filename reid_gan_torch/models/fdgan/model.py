@@ -138,23 +138,24 @@ class FDGANModel:
     def _bootstrap(self):
         """The ``net*_pretrain`` paths that chain the three stages
         (model.py:89-132): stage 1 loads the stage-I checkpoint (a
-        ``cli/fdgan_baseline`` ``checkpoint.pth.tar``) into E and Di from it
+        ``cli/fdgan_baseline`` ``checkpoint.pth.tar``, or the JAX CLI's
+        ``.msgpack`` of the Siamese variables) into E and Di from it
         (``_di_from_e``); stage 2 loads each net from its stage-1 file
-        (``<which>_net_{E,G,Di,Dp}.pth``)."""
-        from ...utils.serialization import load_checkpoint
+        (``<which>_net_{E,G,Di,Dp}.pth``, or the JAX CLI's ``.msgpack``),
+        strictly."""
+        from ...utils.serialization import load_weights
 
         cfg = self.cfg
         if self.stage == 1:
             if cfg.netE_pretrain:
-                sd = load_checkpoint(cfg.netE_pretrain)["state_dict"]
-                self.net_E.load_state_dict(sd)
-                self.net_Di.load_state_dict(self._di_from_e(sd))
+                load_weights(self.net_E, cfg.netE_pretrain)
+                self.net_Di.load_state_dict(self._di_from_e(self.net_E.state_dict()))
         elif self.stage == 2:
             for net, path in ((self.net_E, cfg.netE_pretrain), (self.net_G, cfg.netG_pretrain),
                               (self.net_Di, cfg.netDi_pretrain),
                               (self.net_Dp, cfg.netDp_pretrain)):
                 if path:
-                    net.load_state_dict(load_checkpoint(path))
+                    load_weights(net, path)
 
     @staticmethod
     def _di_from_e(sd):

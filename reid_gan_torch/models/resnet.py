@@ -29,10 +29,11 @@ from torch import nn
 
 from ..kernels import GAN_FEAT_L2N
 from .pooling import build_pooling_layer, eval_l2_head, l2n
+from .precision import BatchNorm2d, Conv2d, widen
 
 
 def _conv(cin, cout, k, stride=1):
-    return nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=False)
+    return Conv2d(cin, cout, k, stride, padding=k // 2, bias=False)
 
 
 class IBN(nn.Module):
@@ -41,7 +42,9 @@ class IBN(nn.Module):
     scale and shift (the JAX package's one-channel-a-group ``GroupNorm``,
     eps 1e-5; no running stats, so train and eval normalise alike), the
     second half through BatchNorm, concatenated. The output keeps the
-    input's memory format: a channels_last block stays channels_last."""
+    input's memory format: a channels_last block stays channels_last. Both
+    halves normalise the input widened to fp32, as the JAX package's
+    ``GroupNorm`` and ``TorchBatchNorm`` do under ``--fp16``."""
 
     def __init__(self, planes):
         super().__init__()
@@ -51,6 +54,7 @@ class IBN(nn.Module):
         self.BN = nn.BatchNorm2d(planes - self.half)
 
     def forward(self, x):
+        x = widen(x)
         # torch.cat and the copy back to channels_last, not writes of the
         # halves into one output: the writes save a pass forward but their
         # backward costs more (PERF.md §6, the IBN-a entry)
@@ -61,7 +65,7 @@ class IBN(nn.Module):
 
 
 def _bn1(planes, ibn):
-    return IBN(planes) if ibn else nn.BatchNorm2d(planes)
+    return IBN(planes) if ibn else BatchNorm2d(planes)
 
 
 class BasicBlock(nn.Module):
@@ -72,12 +76,12 @@ class BasicBlock(nn.Module):
         self.conv1 = _conv(inplanes, planes, 3, stride)
         self.bn1 = _bn1(planes, ibn)
         self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(_conv(inplanes, planes, 1, stride),
-                                            nn.BatchNorm2d(planes))
+                                            BatchNorm2d(planes))
 
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
@@ -95,14 +99,14 @@ class Bottleneck(nn.Module):
         self.conv1 = _conv(inplanes, planes, 1)
         self.bn1 = _bn1(planes, ibn)
         self.conv2 = _conv(planes, planes, 3, stride)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = _conv(planes, out, 1)
-        self.bn3 = nn.BatchNorm2d(out)
+        self.bn3 = BatchNorm2d(out)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or inplanes != out:
             self.downsample = nn.Sequential(_conv(inplanes, out, 1, stride),
-                                            nn.BatchNorm2d(out))
+                                            BatchNorm2d(out))
 
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
@@ -143,13 +147,17 @@ def make_stage(depth, stage, stride, ibn=False):
 
 class ResNetBackbone(nn.Module):
     """conv1 → maxpool → layer1..``stop_at_stage`` (NCHW in, NCHW out);
-    IBN-a in stages 1-3 with ``ibn`` (stage 4 never has it, resnet.py:146)."""
+    IBN-a in stages 1-3 with ``ibn`` (stage 4 never has it, resnet.py:146).
+    Under a bf16 compute dtype (``precision.set_compute_dtype``, the
+    ``--fp16`` flag) conv1 casts the input to bf16 (resnet.py:137-138), each
+    convolution runs in bf16 and each BatchNorm reduces in and emits fp32,
+    so the map leaves in fp32."""
 
     def __init__(self, depth=50, last_stride=1, ibn=False, stop_at_stage=4):
         super().__init__()
         self.stop_at_stage = stop_at_stage
         self.conv1 = _conv(3, 64, 7, 2)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         for i in range(stop_at_stage):

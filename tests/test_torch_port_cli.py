@@ -124,12 +124,17 @@ def test_rank_metrics_refuse_the_cpu_unless_asked(monkeypatch):
     assert mAP == 1.0
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """``--resume`` and ``--dsbn`` are ported (test_torch_port_dsbn.py): a
+    missing msgpack checkpoint raises the JAX CLI's ``ValueError``, and
+    ``--dsbn`` without a msgpack ``--resume`` raises before any work."""
     from reid_gan_torch.cli.test import main
 
-    for flag in (["--resume", "ckpt.msgpack"], ["--dsbn"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--device", "cpu"] + flag)
+    with pytest.raises(ValueError, match="No checkpoint found"):
+        main(["--device", "cpu", "--dataset", "synthetic", "--data-dir", str(tmp_path),
+              "--arch", "resnet18", "--resume", str(tmp_path / "ckpt.msgpack")])
+    with pytest.raises(ValueError, match="--dsbn reads a domain-specific BN"):
+        main(["--device", "cpu", "--dsbn"])
 
 
 def _port_sources():

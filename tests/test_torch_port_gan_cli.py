@@ -95,8 +95,6 @@ def test_save_and_load_networks_round_trip(tmp_path, capsys):
 @pytest.mark.parametrize("flag,item", [
     (["--bipath"], "ROADMAP A: bip and learnable-memory modes"),
     (["--learnable-memory"], "ROADMAP A: bip and learnable-memory modes"),
-    (["--fp16"], "ROADMAP A: `--fp16`"),
-    (["--resume", "logs/checkpoint.msgpack"], "ROADMAP A: msgpack checkpoints"),
     (["--model-gen", "DEC", "--dataset", "synthetic"], "--model-gen DEC with the GAN trained"),
     (["--model-gen", "FD", "--dataset", "synthetic"], "--model-gen FD with the GAN trained"),
     (["--model-gen", "PoseAE", "--dataset", "synthetic"],
@@ -113,6 +111,68 @@ def test_unported_options_raise(tmp_path, flag, item):
         main(["--device", "cpu", "--data-dir", str(tmp_path), "--logs-dir",
               str(tmp_path / "logs")] + flag)
     assert not (tmp_path / "logs").exists()
+
+
+class _Stop(Exception):
+    pass
+
+
+def _stub_gan(monkeypatch, seen):
+    """``create_gan`` of ``cli/train_gan_usl`` replaced by a stub that keeps
+    its ``dtype`` and returns a GAN engine with nothing to load."""
+    import types
+
+    from reid_gan_torch.cli import train_gan_usl
+
+    def create_gan(*args, dtype=None, **kwargs):
+        seen["gan"] = dtype
+        return types.SimpleNamespace(init_state=lambda: None)
+
+    monkeypatch.setattr(train_gan_usl, "create_gan", create_gan)
+
+
+@pytest.mark.parametrize("flag,dtype", [(["--fp16"], torch.bfloat16), ([], None)])
+def test_fp16_reaches_the_encoder_and_the_gan(monkeypatch, flag, dtype):
+    """``--fp16`` builds both the GAN engine and the encoder with the bf16
+    compute dtype (JAX ``train_gan_usl.py:101,122``); without it, neither."""
+    from reid_gan_torch.cli import train_gan_usl
+    from reid_gan_torch.config import parse_config
+
+    seen = {}
+    _stub_gan(monkeypatch, seen)
+
+    def create_model(*args, dtype=None, **kwargs):
+        seen["encoder"] = dtype
+        raise _Stop
+
+    monkeypatch.setattr(train_gan_usl, "create_model", create_model)
+    cfg = parse_config(_GAN + flag, sections=train_gan_usl.SECTIONS)
+    with pytest.raises(_Stop):
+        train_gan_usl.run(cfg, None, "cpu")
+    assert seen == {"gan": dtype, "encoder": dtype}
+
+
+def test_msgpack_resume_with_a_missing_key_raises(monkeypatch, tmp_path):
+    """``--resume`` of a JAX ``.msgpack`` whose tree lacks a leaf of the
+    encoder raises ``ValueError`` naming it, as flax's ``from_state_dict``
+    does, before any training."""
+    import numpy as np
+
+    from reid_gan_torch.cli import train_gan_usl
+    from reid_gan_torch.config import parse_config
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.convert import flax_variables_from_model
+    from reid_gan_torch.utils.serialization import save_msgpack_checkpoint
+
+    tree = dict(flax_variables_from_model(create("resnet18")), epoch=np.asarray(3))
+    del tree["params"]["base"]["layer2_1"]["conv1"]
+    path = str(tmp_path / "checkpoint.msgpack")
+    save_msgpack_checkpoint(tree, False, path)
+    _stub_gan(monkeypatch, {})
+    cfg = parse_config(_GAN + ["-a", "resnet18", "--resume", path],
+                       sections=train_gan_usl.SECTIONS)
+    with pytest.raises(ValueError, match="missing.*layer2.1.conv1"):
+        train_gan_usl.run(cfg, None, "cpu")
 
 
 def test_train_gan_usl_refuses_the_cpu_unless_asked(monkeypatch):

@@ -159,7 +159,7 @@ def test_warmup_then_hard_mix_cli_end_to_end(tmp_path, capsys):
     ("train_gan_usl", ["--model", "DPTN"], ValueError, "DPTN engine does not have"),
     ("train_gan_usl", ["--model", "DPTN", "--no-gan-train"], ValueError,
      "DPTN engine does not have"),
-    ("train_gan_warmup", ["--fp16"], NotImplementedError, "ROADMAP A: `--fp16`")])
+    ("train_gan_warmup", ["--fp16", "--model-gen", "Pose"], ValueError, "AE generator")])
 def test_generator_pairings_and_unported_options_raise(tmp_path, cli, flags, err, match):
     """The joint CLI's modes need their generators, and the DPTN engine has
     neither mode's synthesis; the warm-up trains the AE generator (the DEC

@@ -1426,3 +1426,196 @@ def test_vgg_loss_on_the_card_matches_the_cpu(card, n, h, w):
     assert e_tap <= 1e-4 and abs(cd - cc) <= 1e-4 * abs(cc), msg
     assert abs(sd - sc) <= 1e-4 * gram and e_grad <= 1e-3, msg
     assert all(p.grad is None for p in dev.parameters())
+
+
+def test_msgpack_round_trip_of_a_cuda_model(card, tmp_path):
+    """A resnet18 on the card (random BatchNorm stats, GeM p 3.2) written in
+    the JAX package's flax msgpack layout and resumed into a fresh model on
+    the card: every state-dict entry and the extracted features (K1, K2)
+    bit-equal."""
+    from reid_gan_torch.engine.evaluators import FeatureExtractor
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.convert import flax_variables_from_model
+    from reid_gan_torch.utils.serialization import resume_checkpoint, save_msgpack_checkpoint
+
+    torch.manual_seed(0)
+    src = create("resnet18").to(card).eval()
+    with torch.no_grad():
+        src.gap.p.fill_(3.2)
+        for name, b in src.named_buffers():
+            if "running" in name:
+                b.uniform_(0.5, 1.5)
+    path = str(tmp_path / "model_best.msgpack")
+    save_msgpack_checkpoint(dict(flax_variables_from_model(src), epoch=np.asarray(3),
+                                 best_mAP=np.asarray(0.5)), False, path)
+    dst = create("resnet18").to(card).eval()
+    assert resume_checkpoint(path, dst) == (3, 0.5)
+    for k, v in src.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(v, dst.state_dict()[k]), k
+    img = np.random.RandomState(0).randint(0, 256, (4, 64, 32, 3)).astype(np.uint8)
+    feats = [FeatureExtractor(m, height=64, width=32, batch_size=4, device=card)(img)
+             for m in (src, dst)]
+    assert np.array_equal(*feats)
+
+
+@pytest.mark.parametrize("use_hard", [False, True])
+def test_fp16_usl_step_holds_kernels_against_plain(card, use_hard):
+    """One ``--fp16`` USL step (resnet18 computing in bf16 at 64x32, batch 32
+    = 8 ids x 4): K4 against its plain version on the uint8 batch (within
+    1e-5); the bf16 backbone then runs once on K4's image, and the train
+    head (K5), InfoNCE (K6) and the fold (K7) take that one map on both
+    sides, cuDNN's TF32 off: the loss within 1e-3 relative, the map's
+    gradient within 1e-3 of its largest entry, GeM p's gradient within 1e-3
+    relative, the folded bank within 1e-4; the parameters and their
+    gradients fp32. (A whole bf16 step moves by a bf16 rounding wherever its
+    input moves by an ulp, so the backbone is shared.)"""
+    import copy
+
+    from reid_gan_torch.engine.trainers import ClusterContrastTrainer
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.pooling import gem_pool_plain, l2n
+    from reid_gan_torch.models.resnet import ResNetBackbone
+    from reid_gan_torch.ops.cluster_memory import (
+        init_memory,
+        memory_loss,
+        memory_loss_plain,
+        update_memory,
+        update_memory_plain,
+    )
+    from reid_gan_torch.ops.transforms import (
+        sample_augment_params,
+        train_augment,
+        train_augment_plain,
+    )
+
+    torch.manual_seed(1)
+    model = create("resnet18", norm=True, dtype=torch.bfloat16)
+    trainer = ClusterContrastTrainer(model, height=64, width=32, num_instances=4,
+                                     use_hard=use_hard, device=card)
+    g = torch.Generator(device=card).manual_seed(2)
+    centers = torch.nn.functional.normalize(torch.randn((8, 512), device=card, generator=g),
+                                            dim=1)
+    state = trainer.init_state(init_memory(centers, k_pad=64, device=card))
+    img = torch.randint(0, 256, (32, 64, 32, 3), dtype=torch.uint8, device=card, generator=g)
+    y = torch.arange(8, device=card, dtype=torch.int32).repeat_interleave(4)
+    params = sample_augment_params(32, 64, 32, g)
+    x = train_augment(img, params, 64, 32)
+    assert float((x - train_augment_plain(img, params)).abs().max()) <= 1e-5
+    snap = copy.deepcopy(model.state_dict())
+    tf32, torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.allow_tf32, False
+    out = []
+    try:
+        model.train()
+        fmap = ResNetBackbone.forward(model, x)
+        assert fmap.dtype == torch.float32
+        for plain in (False, True):
+            model.load_state_dict(snap)
+            fm = fmap.detach().clone().requires_grad_()
+            mem = state.memory._replace(features=state.memory.features.clone())
+            if plain:
+                feat = l2n(model.feat_bn(gem_pool_plain(fm, model.gap.p)))
+            else:
+                feat = model._train_head(fm)
+            loss = (memory_loss_plain if plain else memory_loss)(feat, y, mem)[0].mean()
+            model.zero_grad(set_to_none=True)
+            loss.backward()
+            (update_memory_plain if plain else update_memory)(mem, feat.detach(), y,
+                                                              use_hard=use_hard)
+            out.append((float(loss.detach()), fm.grad, model.gap.p.grad.clone(),
+                        mem.features))
+        model.zero_grad(set_to_none=True)
+        ResNetBackbone.forward(model, x).sum().backward()
+        assert all(q.grad.dtype == torch.float32 for q in model.parameters()
+                   if q.grad is not None)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (lk, fk, pk, bk), (lp, fp, pp, bp) = out
+    assert abs(lk - lp) <= 1e-3 * abs(lp)
+    assert float((fk - fp).abs().max()) <= 1e-3 * float(fp.abs().max())
+    assert float((pk - pp).norm()) <= 1e-3 * float(pp.norm())
+    assert float((bk - bp).abs().max()) <= 1e-4
+    assert all(q.dtype == torch.float32 for q in model.parameters())
+
+
+BF16_FACTOR = 2.0   # test_torch_port_fp16.FACTOR
+
+
+def _bf16_case(kind):
+    """(nets, inputs, forward) of a ``--fp16`` case with random weights:
+    resnet18 (train forward, ``feat`` and ``gan_feat``) at 64x32, batch 8;
+    or the pose G (ngf 8) and D at 16x8, batch 8, D scoring G's image."""
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.dual_gan.networks import define_D, define_G
+
+    torch.manual_seed(3)
+    rng = np.random.RandomState(4)
+    if kind == "resnet18":
+        nets = (create("resnet18", norm=True),)
+        x = (rng.rand(8, 3, 64, 32) * 2 - 1,)
+
+        def forward(nets, x):
+            out = nets[0](*x)
+            return out["feat"], out["gan_feat"]
+    else:
+        nets = (define_G("Pose", pose_nc=18, ngf=8, img_f=32, reid_nc=512, num_blocks=1),
+                define_D())
+        x = (rng.rand(8, 512, 2, 1), rng.rand(8, 18, 16, 8))
+
+        def forward(nets, x):
+            fake = nets[0](*x)
+            return fake, nets[1](fake)
+    return nets, tuple(torch.from_numpy(a.astype(np.float32)) for a in x), forward
+
+
+def _bf16_step(case, dtype, device):
+    """One forward in train mode and the gradients of a fixed random linear
+    function of its outputs, on channels_last copies of the case's nets
+    computing in ``dtype`` on ``device``: (outputs, gradients), on the CPU
+    in fp32."""
+    import copy
+
+    from reid_gan_torch.models.precision import set_compute_dtype
+
+    nets, x, forward = case
+    cl = torch.channels_last   # as the trainers hold the nets and their inputs
+    nets = [set_compute_dtype(copy.deepcopy(n), dtype).to(device, memory_format=cl).train()
+            for n in nets]
+    outs = forward(nets, [t.to(device).contiguous(memory_format=cl) for t in x])
+    g = torch.Generator().manual_seed(5)
+    weights = [torch.randn(o.shape, generator=g).to(device) for o in outs]
+    sum((o * w).sum() for o, w in zip(outs, weights)).backward()
+    assert all(q.dtype == torch.float32 for n in nets for q in n.parameters())
+    return ([o.detach().cpu() for o in outs],
+            {f"{i}.{k}": q.grad.cpu().double() for i, n in enumerate(nets)
+             for k, q in n.named_parameters() if q.grad is not None})
+
+
+def _tree_gap(a, b):
+    num = sum(float((a[k] - b[k]).pow(2).sum()) for k in b)
+    return (num / sum(float(v.pow(2).sum()) for v in b.values())) ** 0.5
+
+
+@pytest.mark.parametrize("kind", ["resnet18", "pose"])
+def test_bf16_on_the_card_matches_the_cpu_path(card, kind):
+    """``--fp16`` on the card (cuDNN and cuBLAS in bf16) against the CPU
+    path the JAX parity tests hold (fp32 products of the bf16-rounded
+    operands, rounded once to bf16), same weights and inputs: each output,
+    fp32 on both, within ``BF16_FACTOR`` times the CPU path's own gap to
+    its fp32 run (max |.|); the gradients of one step (relative L2 over the
+    tree, the same key set) within that factor times the CPU path's gap,
+    and under 0.5 (a zero tree reads 1)."""
+    case = _bf16_case(kind)
+    ref_out, ref_grad = _bf16_step(case, None, "cpu")
+    cpu_out, cpu_grad = _bf16_step(case, torch.bfloat16, "cpu")
+    got_out, got_grad = _bf16_step(case, torch.bfloat16, card)
+    for i, (got, cpu, ref) in enumerate(zip(got_out, cpu_out, ref_out)):
+        assert got.dtype == cpu.dtype == torch.float32, (i, got.dtype)
+        own = float((cpu - ref).abs().max())
+        gap = float((got - cpu).abs().max())
+        assert 0 < own and gap <= BF16_FACTOR * own, \
+            f"{kind} output {i}: card - cpu {gap:.3g}, cpu bf16 - fp32 {own:.3g}"
+    assert sorted(got_grad) == sorted(cpu_grad) == sorted(ref_grad)
+    own, gap = _tree_gap(cpu_grad, ref_grad), _tree_gap(got_grad, cpu_grad)
+    assert 0 < own and gap <= min(BF16_FACTOR * own, 0.5), \
+        f"{kind} gradients: card - cpu {gap:.3g}, cpu bf16 - fp32 {own:.3g}"

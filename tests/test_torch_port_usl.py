@@ -190,13 +190,17 @@ def test_preprocessors_share_one_decode_cache():
     assert Preprocessor([], cache=own).cache is own
 
 
-def test_train_usl_refuses_the_cpu_unless_asked_and_unported_options(monkeypatch):
+def test_train_usl_refuses_the_cpu_unless_asked_and_unported_options(monkeypatch, tmp_path):
+    """``--fp16`` and a msgpack ``--resume`` are ported (test_torch_port_fp16*.py,
+    test_torch_port_resume.py): a missing checkpoint raises the JAX CLI's
+    ``ValueError``, with ``--fp16`` too. Without a card the CLI raises."""
     from reid_gan_torch.cli.train_usl import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A: `--fp16`"):
-        main(["--device", "cpu", "--fp16"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A: msgpack checkpoints"):
-        main(["--device", "cpu", "--resume", "logs/checkpoint.msgpack"])
+    for extra in ([], ["--fp16"]):
+        with pytest.raises(ValueError, match="No checkpoint found"):
+            main(_FLAGS + ["--device", "cpu", "--data-dir", str(tmp_path), "--logs-dir",
+                           str(tmp_path / "logs"), "--resume",
+                           str(tmp_path / "checkpoint.msgpack")] + extra)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--dataset", "synthetic", "--data-dir", "/nonexistent"])
