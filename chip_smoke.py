@@ -172,6 +172,23 @@ the script exits non-zero without printing a result:
    configuration, and a 4-step one with ``--vgg-weights`` pointing at a
    torchvision-layout file of those taps, which the engine must hold. Both
    epochs' launches are counted as phase 13's and join the kernels line;
+14a'. ``[bip_joint]`` and ``[memory_joint]``: the ``train_all_bip`` step
+   (``resnet_bip50`` and the AE generator, ``--bipath``) and the
+   ``train_all_with_memory`` step (ResNet-50 and the pose generator with
+   trainable clusters, ``--learnable-memory``) at phase 10's width. One
+   step each is run twice from the same state, through the kernels and
+   through their plain versions (TF32 off), and held: each K6 call (two in
+   bip, against one bank; one in memory, against the normalised clusters),
+   the G and D losses, the encoder's GeM p and head gradients, a G and a D
+   gradient, the bank after K7 or the clusters after their step; the
+   step's launches (K7 none in memory); bip's K7 plain and hard on the
+   step's own ``feat + feat2`` rows; memory's clusters moved on the touched
+   rows only, each by ``cluster_lr``. Then 10 warm steps timed beside phase
+   10's step and the peak memory, 3 traced through the port's
+   ``utils/profiling.trace`` (the idle share) and split by CUDA events, and
+   one epoch of ``cli/train_gan_usl.run`` with the mode's flag (10 steps,
+   phase 13's set and clustering; G, D and ``iter.txt`` written), whose
+   launches join the kernels line;
 14b. ``[vgg_warmup]``: phase 12's ``GANTrainer.train_gan`` with ``--use-vgg``:
    20 iterations (K9 once an iteration, nothing else), the peak memory, 5
    warm iterations without and with VGG in turns;
@@ -241,7 +258,8 @@ the script exits non-zero without printing a result:
    and K14 must have launched;
 18. a JSON line with every kernel's launches (the sum over the two whole
    joint loops, phases 13 and 14, ``[gan_clusters]``, ``[vgg_joint]``'s two
-   epochs, ``[fp16_usl]``, ``[msgpack]``, the FD-GAN chain, phase 17,
+   epochs, the ``run()`` epochs of ``[bip_joint]`` and ``[memory_joint]``,
+   ``[fp16_usl]``, ``[msgpack]``, the FD-GAN chain, phase 17,
    ``[cuhk03]`` and the headline recipe's loop, phase 8), error,
    times and bound; K5's and K6's entries carry ``forward_ms``,
    ``backward_ms`` and ``autograd_ms`` (``ms`` is forward + backward;
@@ -1249,6 +1267,12 @@ def profile_device(label, fn, groups=(), ops=()):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return report_profile(label, prof, groups, ops)
+
+
+def report_profile(label, prof, groups=(), ops=()):
+    """``profile_device``'s report of a finished ``torch.profiler`` run
+    ``prof``. Returns the busy ms, or None when it saw no device events."""
     dev = sorted(((e.time_range.start, e.time_range.end, e.name)
                   for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA))
@@ -2125,16 +2149,17 @@ def _compare_joint_step(trainer, state, batch, label="joint"):
                                 "versions")
 
 
-def _joint_trainer(gan_bank=False, iters=400, seed=1, use_vgg=False, dtype=None):
-    """The joint step at the recipe's width: a random ResNet-50 (GeM, last
-    stride 1, norm on) at 256x128, the pose generator and the discriminator
-    at 128x64, from seed 0; a bank of 700 unit rows padded to 768, with a
-    GAN half of as many rows with ``gan_bank``; a ``with_gan`` loader of
-    ``iters`` batches of 256 (16 ids x 16) over phase 4's set with keypoints;
-    with ``use_vgg`` the VGG19 perceptual loss (random taps from seed 0, the
-    AE defaults' λ_style 500 and λ_content 0.5); with ``dtype`` bf16 the
-    encoder, G and D compute in bf16 (``--fp16``). Returns (trainer, state,
-    loader)."""
+def _joint_trainer(gan_bank=False, iters=400, seed=1, use_vgg=False, dtype=None,
+                   arch="resnet50", model_gen="Pose"):
+    """The joint step at the recipe's width: a random ``arch`` (ResNet-50:
+    GeM, last stride 1, norm on) at 256x128, the ``model_gen`` generator
+    (the pose generator) and the discriminator at 128x64, from seed 0; a
+    bank of 700 unit rows padded to 768, with a GAN half of as many rows
+    with ``gan_bank``; a ``with_gan`` loader of ``iters`` batches of 256 (16
+    ids x 16) over phase 4's set with keypoints; with ``use_vgg`` the VGG19
+    perceptual loss (random taps from seed 0, the AE defaults' λ_style 500
+    and λ_content 0.5); with ``dtype`` bf16 the encoder, G and D compute in
+    bf16 (``--fp16``). Returns (trainer, state, loader)."""
     import tempfile
 
     from reid_gan_torch.config import GANConfig
@@ -2154,10 +2179,10 @@ def _joint_trainer(gan_bank=False, iters=400, seed=1, use_vgg=False, dtype=None)
     memory = init_memory(centers, k_pad=bank_rows(n_ids), gan_centroids=gan_centers,
                          device="cuda")
     torch.manual_seed(0)
-    gan = create_gan(GANConfig(model="AE", model_gen="Pose", use_vgg=use_vgg),
+    gan = create_gan(GANConfig(model="AE", model_gen=model_gen, use_vgg=use_vgg),
                      gan_height=128, gan_width=64, reid_feat_dim=2048, device="cuda",
                      dtype=dtype)
-    model = create("resnet50", norm=True, dtype=dtype)
+    model = create(arch, norm=True, dtype=dtype)
     trainer = ClusterContrastWithGANTrainer(model, gan, height=256, width=128,
                                             num_instances=16, device="cuda")
     state = trainer.init_state(memory, gan.init_state())
@@ -2173,7 +2198,7 @@ def _joint_trainer(gan_bank=False, iters=400, seed=1, use_vgg=False, dtype=None)
 def phase_joint(counts):
     """The joint main path: ``ClusterContrastWithGANTrainer.run_epoch`` in
     ``train_all`` mode on ResNet-50, the pose generator and the
-    discriminator."""
+    discriminator. Returns the warm step's wall ms."""
     from reid_gan_torch import kernels
 
     t0 = time.perf_counter()
@@ -2240,15 +2265,23 @@ def phase_joint(counts):
     print("[joint] device time by phase (CUDA events, mean of 3 steps, ms): "
           + _split_by_marks(marks, 3))
     loader.close()
+    return dt / warm * 1e3
 
 
-def phase_joint_run(counts, label="joint", iters=20, vgg_weights=None):
+JOINT_RUN_OFF = ("diff_transform", "pose_peaks", "fd_augment")
+
+
+def phase_joint_run(counts, label="joint", iters=20, vgg_weights=None, flags=None,
+                    off=JOINT_RUN_OFF):
     """One epoch of ``cli/train_gan_usl.run`` on the ``[usl]`` set with
     keypoints: extraction (K1, K2), Infomap on K8's inner-product kNN, the
     bank, ``iters`` joint steps (K4-K7, K9-K11), eval (K1-K3), the
     checkpoints and the GAN nets' files. ``vgg_weights``: with ``--use-vgg``,
     random taps ("") or the torchvision-layout file at that path, which the
-    engine ``run()`` built must then hold. Returns the engine."""
+    engine ``run()`` built must then hold. ``flags``: other ``cfg.model`` and
+    ``cfg.gan`` fields (``arch``, ``model_gen``, ``bipath``,
+    ``learnable_memory``). Every kernel but those in ``off`` must launch,
+    those in ``off`` not. Returns the engine."""
     import tempfile
 
     from reid_gan_torch import kernels
@@ -2266,6 +2299,8 @@ def phase_joint_run(counts, label="joint", iters=20, vgg_weights=None):
     cfg.gan.model, cfg.gan.model_gen = "AE", "Pose"
     if vgg_weights is not None:
         cfg.gan.use_vgg, cfg.gan.vgg_weights = True, vgg_weights
+    for k, v in (flags or {}).items():
+        setattr(cfg.model if k == "arch" else cfg.gan, k, v)
     created, create_gan = [], train_gan_usl.create_gan
 
     def creating(*args, **kwargs):
@@ -2279,6 +2314,7 @@ def phase_joint_run(counts, label="joint", iters=20, vgg_weights=None):
         cfg.gan.save_dir = os.path.join(tmp, "ckpt")
         vgg = "" if vgg_weights is None else (
             f"; --use-vgg with {'--vgg-weights' if vgg_weights else 'random taps'}")
+        vgg += "".join(f"; {k} {v}" for k, v in (flags or {}).items())
         print(f"[{label}] run(): data {len(dataset.train)} train images of 751 ids with "
               f"keypoints, {len(dataset.query)} + {len(dataset.gallery)} eval; Infomap "
               f"(eps 0.5, k1 15); depth cut: 1 epoch of {cfg.train.iters} steps{vgg}")
@@ -2301,10 +2337,9 @@ def phase_joint_run(counts, label="joint", iters=20, vgg_weights=None):
     counts.update(launches)
     print(f"[{label}] run(): {wall:.2f} s, best mAP {best:.4f}; wrote {saved}")
     print(f"[{label}] run() launches: {kernels.phase_launch_counts()}")
-    off = ("diff_transform", "pose_peaks", "fd_augment")
     check(all(v > 0 for k, v in launches.items() if k not in off)
           and all(launches[k] == 0 for k in off),
-          f"K1-K11 must launch, K12-K14 not: {launches}")
+          f"all kernels but {', '.join(off)} must launch, those not: {launches}")
     check(np.isfinite(best) and {"checkpoint.pth.tar", "latest_net_G.pth",
                                  "latest_net_D.pth", "iter.txt"} <= set(saved),
           "no finite mAP or a missing checkpoint")
@@ -3077,6 +3112,273 @@ def phase_vgg_joint(counts):
     check(same, "--vgg-weights did not load the file's taps")
     counts.update({k: run_counts[k] + weights_counts[k] for k in run_counts})
     print(f"[vgg_joint] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+# The two joint modes past train_all: the phase, the mode, the encoder and
+# the generator, and the kernels their run() epoch must not launch (the AE
+# generator reads no pose maps; neither step pools the GAN map; the memory
+# mode folds no bank)
+MODE_PHASES = {
+    "bip_joint": ("train_all_bip", "resnet_bip50", "AE", {"bipath": True},
+                  ("pose_maps", "gan_feat_l2n") + JOINT_RUN_OFF),
+    "memory_joint": ("train_all_with_memory", "resnet50", "Pose",
+                     {"learnable_memory": True},
+                     ("bank_fold", "gan_feat_l2n") + JOINT_RUN_OFF),
+}
+
+# Each mode's launches in one step
+MODE_STEP_LAUNCHES = {
+    "train_all_bip": {"train_augment.forward": 1, "gan_input.forward": 1,
+                      "gem_pool.forward": 2, "gem_pool.backward": 2,
+                      "infonce.forward": 2, "infonce.backward": 2,
+                      "bank_fold.forward": 1, "pose_maps.forward": 0,
+                      "gan_feat_l2n.forward": 0},
+    "train_all_with_memory": {"train_augment.forward": 1, "gan_input.forward": 1,
+                              "pose_maps.forward": 1, "gem_pool.forward": 1,
+                              "gem_pool.backward": 1, "infonce.forward": 1,
+                              "infonce.backward": 1, "bank_fold.forward": 0,
+                              "gan_feat_l2n.forward": 0},
+}
+
+
+def _mode_step(trainer, state, gmem, batch, seed, cluster_lr=0.1):
+    """One step of ``trainer.mode`` on a device batch. Returns (state, gmem,
+    losses)."""
+    if trainer.mode == "train_all_bip":
+        state, errs = trainer.train_all_bip_step(state, batch, seed)
+        return state, gmem, errs
+    return trainer.train_all_with_memory_step(state, gmem, batch, seed, cluster_lr)
+
+
+def _hold_mode_step(label, trainer, state, gmem, batch, cluster_lr=0.1):
+    """One bip or learnable-memory step (``trainer.mode``) run twice from the
+    same weights, optimiser states, bank or clusters and draws, with cuDNN's
+    TF32 off: through the kernels, then with every kernel wrapper the step
+    calls swapped for its plain version (K4, K9, K10, K5 in the heads, K6,
+    K7). Held: each K6 call's mean loss, the G and D losses, the encoder's
+    GeM p and head-BatchNorm gradients (K5's and K6's backward), a G and a D
+    gradient, the bank after K7 (bip) or the clusters after their step
+    (memory); the step's launches; for bip, K7 plain and ``--use-hard`` on
+    the step's own ``feat + feat2`` rows against their plain versions; for
+    memory, the clusters moved on the touched rows only, each by
+    ``cluster_lr`` in norm. Everything is restored after."""
+    import contextlib
+    import copy
+    from unittest import mock
+
+    from reid_gan_torch import kernels
+    from reid_gan_torch.engine import gan_trainers as gt
+    from reid_gan_torch.ops import cluster_memory as cm
+    from reid_gan_torch.ops.pose import batch_cords_to_map_plain
+    from reid_gan_torch.ops.transforms import (
+        gan_input_transform_plain,
+        sample_augment_params,
+        train_augment,
+        train_augment_plain,
+    )
+
+    model, gan, dev, mode = trainer.model, trainer.gan, trainer.device, trainer.mode
+    h, w = trainer.height, trainer.width
+    d = trainer._to_device(batch, mode)
+    y = d["pid"]
+    params = sample_augment_params(y.shape[0], h, w,
+                                   torch.Generator(device=dev).manual_seed(99))
+    nets = (model, gan.net_G, gan.net_D)
+    opts = (state.optimizer, state.gan.opt_G, state.gan.opt_D)
+    snap = [copy.deepcopy(m.state_dict()) for m in nets]
+    osnap = [copy.deepcopy(o.state_dict()) for o in opts]
+    ssnap = copy.deepcopy(state.scheduler.state_dict())
+    bank0 = state.memory.features.clone()
+    grad_names = [n for n, p in model.named_parameters() if p.requires_grad and (
+        n.rsplit(".", 1)[-1] == "p" or n.startswith("feat_bn"))]
+    g_name = [n for n, _ in gan.net_G.named_parameters()][-2]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    results = []
+    try:
+        for plain in (False, True):
+            for m, sd in zip(nets, snap):
+                m.load_state_dict(sd)
+            for o, sd in zip(opts, osnap):
+                o.load_state_dict(copy.deepcopy(sd))
+            state.scheduler.load_state_dict(ssnap)
+            state.memory.features.copy_(bank0)
+            calls, folds = [], []
+            loss_fn = cm.memory_loss_plain if plain else cm.memory_loss
+            fold_fn = cm.update_memory_plain if plain else cm.update_memory
+
+            def recorded_loss(*args, **kw):
+                out = loss_fn(*args, **kw)
+                calls.append(float(out[0].detach().double().mean()))
+                return out
+
+            def recorded_fold(mem, x, t, momentum=0.2, use_hard=False, gan_x=None,
+                              group_size=None):
+                folds.append((mem.features.clone(), x.detach().clone(), t, momentum))
+                return fold_fn(mem, x, t, momentum, use_hard, gan_x)
+
+            with contextlib.ExitStack() as stack:
+                patch = lambda mod, name, fn: stack.enter_context(  # noqa: E731
+                    mock.patch.object(mod, name, fn))
+                if plain:
+                    stack.enter_context(_plain_heads())
+                    patch(gt, "gan_input_transform",
+                          lambda img, hh, ww: gan_input_transform_plain(img))
+                    patch(gt, "batch_cords_to_map", batch_cords_to_map_plain)
+                    patch(trainer, "augment", lambda img, seed: train_augment_plain(
+                        img, params))
+                else:
+                    patch(trainer, "augment", lambda img, seed: train_augment(
+                        img, params, h, w))
+                patch(gt, "memory_loss", recorded_loss)
+                patch(cm, "memory_loss", recorded_loss)
+                patch(gt, "update_memory", recorded_fold)
+                kernels.reset_launch_counts()
+                _, g2, errs = _mode_step(trainer, state, gmem, d, 0, cluster_lr)
+                torch.cuda.synchronize()
+                launches = kernels.phase_launch_counts()
+            named = dict(model.named_parameters())
+            results.append(dict(
+                calls=calls, folds=folds, launches=launches,
+                G=float(errs["G"]), D=float(errs["D"]),
+                enc=torch.cat([named[n].grad.flatten() for n in grad_names]),
+                g=dict(gan.net_G.named_parameters())[g_name].grad.clone(),
+                d=gan.net_D.conv.conv.weight.grad.clone(),
+                bank=state.memory.features.clone(),
+                clusters=None if g2 is None else g2.clusters))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        for m, sd in zip(nets, snap):
+            m.load_state_dict(sd)
+            m.zero_grad(set_to_none=True)
+        for o, sd in zip(opts, osnap):
+            o.load_state_dict(sd)
+        state.scheduler.load_state_dict(ssnap)
+        state.memory.features.copy_(bank0)
+    k, p = results
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    want = MODE_STEP_LAUNCHES[mode]
+    got = {n: k["launches"][n] for n in want}
+    print(f"[{label}] one step's launches: {got}")
+    check(got == want, f"the {mode} step launched {got}, not {want}")
+    e_calls = max(abs(a - b) / abs(b) for a, b in zip(k["calls"], p["calls"]))
+    e_loss = max(e_calls, abs(k["G"] - p["G"]) / abs(p["G"]),
+                 abs(k["D"] - p["D"]) / abs(p["D"]))
+    e_grad = max(rel(k["enc"], p["enc"]), rel(k["g"], p["g"]), rel(k["d"], p["d"]))
+    e_bank = float((k["bank"] - p["bank"]).abs().max())
+    tol_loss, tol_grad, tol_bank = 1e-3, 1e-3, 1e-4          # [joint]'s
+    print(f"[{label}] one step, kernels vs plain versions (TF32 off): K6 mean losses "
+          + ", ".join(f"{a:.6f} vs {b:.6f}" for a, b in zip(k["calls"], p["calls"]))
+          + f", G {k['G']:.6f} vs {p['G']:.6f}, D {k['D']:.6f} vs {p['D']:.6f} (max rel "
+          f"err {e_loss:.3g}, tol {tol_loss:.3g}); encoder GeM p / head BN ({len(grad_names)}"
+          f" tensors), G {g_name}, D conv grads max rel err {rel(k['enc'], p['enc']):.3g} "
+          f"/ {rel(k['g'], p['g']):.3g} / {rel(k['d'], p['d']):.3g} (tol {tol_grad:.3g}); "
+          f"bank after the step max_abs_err {e_bank:.3g} (tol {tol_bank:.3g})")
+    n_calls = 2 if mode == "train_all_bip" else 1
+    check(len(k["calls"]) == len(p["calls"]) == n_calls and e_loss <= tol_loss
+          and e_grad <= tol_grad and e_bank <= tol_bank,
+          f"the {mode} step through the kernels differs from the plain versions")
+    if mode == "train_all_bip":
+        bank, x, t, momentum = k["folds"][0]
+        errs = []
+        for hard in (False, True):
+            a = state.memory._replace(features=bank.clone())
+            b = state.memory._replace(features=bank.clone())
+            cm.update_memory(a, x, t, momentum, use_hard=hard)
+            cm.update_memory_plain(b, x, t, momentum, use_hard=hard)
+            errs.append(float((a.features - b.features).abs().max()))
+        norms = x.norm(dim=1)
+        print(f"[{label}] K7 on the step's own feat + feat2 rows (norms "
+              f"{float(norms.min()):.4f}-{float(norms.max()):.4f}): plain fold max_abs_err "
+              f"{errs[0]:.3g}, hard fold {errs[1]:.3g} (tol {tol_bank:.3g})")
+        check(len(k["folds"]) == 1 and max(errs) <= tol_bank,
+              "K7 on the bip step's rows differs from its plain version")
+    else:
+        c0, ck, cp = gmem.clusters, k["clusters"], p["clusters"]
+        touched = torch.zeros(c0.shape[0], dtype=torch.bool, device=dev)
+        touched[y.long()] = True
+        moved = (ck - c0).norm(dim=1)
+        e_moved = float((moved[touched] - cluster_lr).abs().max())
+        e_clusters = float((ck - cp).abs().max())
+        still = bool(torch.equal(ck[~touched], c0[~touched]))
+        print(f"[{label}] clusters: {int(touched.sum())} touched rows moved by "
+              f"cluster_lr {cluster_lr} in norm (max err {e_moved:.3g}, tol 1e-5), the "
+              f"{int((~touched).sum())} others bit-equal: {still}; kernels vs plain "
+              f"max_abs_err {e_clusters:.3g} (tol {tol_bank:.3g}); folds {len(k['folds'])}, "
+              f"bank unchanged: {bool(torch.equal(k['bank'], bank0))}")
+        check(e_moved <= 1e-5 and still and e_clusters <= tol_bank and not k["folds"]
+              and torch.equal(k["bank"], bank0),
+              "the learnable-memory step's clusters or bank are wrong")
+
+
+def phase_mode_joint(counts, label, joint_ms=None):
+    """``[bip_joint]`` or ``[memory_joint]`` (``MODE_PHASES``) at the
+    recipe's width (256x128, batch 256 as 16 x 16, the bank of 700 rows
+    padded to 768, G and D at 128x64): one step held against the plain
+    versions (``_hold_mode_step``); the peak memory and 10 warm steps timed
+    beside ``[joint]``'s ``train_all`` step (``joint_ms``, this call); 3
+    steps traced through the port's ``utils/profiling.trace`` (the idle
+    share, the device time by kernel group) and split by CUDA events; then
+    one ``cli/train_gan_usl.run`` epoch of 10 steps with the mode's flag,
+    whose launches go to ``counts``."""
+    import tempfile
+
+    from reid_gan_torch.ops.cluster_memory import init_gradient_memory
+    from reid_gan_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    mode, arch, model_gen, flags, off = MODE_PHASES[label]
+    trainer, state, loader = _joint_trainer(iters=80, seed=7, arch=arch,
+                                            model_gen=model_gen)
+    trainer.mode = mode
+    memory = state.memory
+    gmem = init_gradient_memory(memory.features, k_pad=memory.features.shape[0],
+                                device=memory.features.device)._replace(
+        num_valid=memory.num_valid) \
+        if mode == "train_all_with_memory" else None
+    print(f"[{label}] {mode}: {arch} at 256x128 and the {model_gen} generator with the "
+          f"discriminator at 128x64, batch 256 (16 ids x 16), bank "
+          f"{tuple(memory.features.shape)} ({int(memory.num_valid)} live)")
+    _hold_mode_step(label, trainer, state, gmem, loader.next())
+
+    def steps(n, epoch):
+        nonlocal state, gmem
+        out = trainer.run_epoch(state, epoch, loader, mode=mode, train_iters=n,
+                                print_freq=n, base_seed=7, gmem=gmem)
+        state, errs = (out[0], out[2]) if gmem is not None else out
+        gmem = out[1] if gmem is not None else None
+        check(all(np.isfinite(v) for v in errs.values()), f"losses not finite: {errs}")
+
+    steps(2, 0)                                     # cuDNN warm
+    torch.cuda.reset_peak_memory_stats()
+    warm = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(warm, 1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / warm * 1e3
+    vs = f"; [joint] train_all step {joint_ms:.2f} ms this call, ratio " \
+        f"{ms / joint_ms:.3f}" if joint_ms else ""
+    print(f"[{label}] warm: {ms:.2f} ms a step, {256e3 / ms:.1f} img/s (batch 256, fp32 "
+          f"weights, TF32 convolutions){vs}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    trainer.marks = []
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            steps(3, 2)
+        size = os.path.getsize(prof.trace_path)
+    marks, trainer.marks = trainer.marks, None
+    print(f"[{label}] utils/profiling.trace wrote a Chrome trace of {size} bytes")
+    check(size > 0, "profiling.trace wrote no trace")
+    busy = report_profile(f"{label} (3 warm steps, utils/profiling.trace)", prof)
+    if busy:
+        print(f"[{label}] device busy {busy / 3:.3f} ms a step")
+    print(f"[{label}] device time by phase (CUDA events, mean of 3 steps, ms): "
+          + _split_by_marks(marks, 3))
+    loader.close()
+    phase_joint_run(counts, label=label, iters=10,
+                    flags={"arch": arch, "model_gen": model_gen, **flags}, off=off)
+    print(f"[{label}] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_vgg_warmup():
@@ -4452,7 +4754,7 @@ def main(argv=None):
     torch.cuda.synchronize()            # join the line's launches
     phase_variants()
     torch.cuda.synchronize()
-    phase_joint(counts)
+    joint_ms = phase_joint(counts)
     torch.cuda.synchronize()
     phase_hardmix()
     torch.cuda.synchronize()
@@ -4468,6 +4770,11 @@ def main(argv=None):
     torch.cuda.synchronize()
     vgg_joint_counts = {}
     phase_vgg_joint(vgg_joint_counts)
+    torch.cuda.synchronize()
+    bip_counts, memory_counts = {}, {}
+    phase_mode_joint(bip_counts, "bip_joint", joint_ms)
+    torch.cuda.synchronize()
+    phase_mode_joint(memory_counts, "memory_joint", joint_ms)
     torch.cuda.synchronize()
     phase_vgg_warmup()
     torch.cuda.synchronize()
@@ -4502,7 +4809,8 @@ def main(argv=None):
          "replaces": k.replaces,
          "launches": sum(c[k.name] for c in (joint_counts, hardmix_counts, chain_counts,
                                              ibn_counts, gan_clusters_counts,
-                                             vgg_joint_counts, cuhk03_counts,
+                                             vgg_joint_counts, bip_counts,
+                                             memory_counts, cuhk03_counts,
                                              fp16_counts, msgpack_counts)),
          "library_ms": None, **report[k.name]}
         for k in kernels.KERNELS]}

@@ -1,9 +1,10 @@
 """Joint GAN + unsupervised re-ID training CLI (port of
 ``reid_gan_tpu/cli/train_gan_usl.py``; parity: CC/examples/
-cluster_contrast_gan_train_usl_infomap.py). Two recipes: the live joint
-command ``--model AE --model-gen Pose``, and the AE hard-mix command
-``--model AE --model-gen AE --no-gan-train``, usually after the GAN warm-up
-(``cli/train_gan_warmup``) with ``--continue-train``:
+cluster_contrast_gan_train_usl_infomap.py). The live joint command
+``--model AE --model-gen Pose``, and the AE hard-mix command ``--model AE
+--model-gen AE --no-gan-train``, usually after the GAN warm-up
+(``cli/train_gan_warmup``) with ``--continue-train`` (the bip and
+learnable-memory commands are below):
 
     python -m reid_gan_torch.cli.train_gan_usl --dataset market1501 \\
         --data-dir ./data --model AE --model-gen Pose --cluster-backend infomap \\
@@ -13,16 +14,27 @@ command ``--model AE --model-gen Pose``, and the AE hard-mix command
 
 Per epoch: re-clustering and the bank (as ``cli/train_usl``), then the
 mode: ``train_reid`` (the USL step) for the first ``--warmup-epo`` epochs,
-then ``train_all`` (the joint step, ``engine/gan_trainers.py``), or with
+then, with the GAN trained, ``train_all_bip`` with ``--bipath``, else
+``train_all_with_memory`` with ``--learnable-memory`` (trainable clusters
+rebuilt each epoch from the bank, stepped with ``--cluster-lr``), else
+``train_all`` (the joint steps, ``engine/gan_trainers.py``), or with
 ``--no-gan-train`` ``train`` (the hard-mix step, G frozen); every
-``--eval-step`` epochs eval and ``checkpoint.pth.tar``; after a joint
-``train_all`` epoch the GAN nets' ``latest_net_{G,D}.pth`` and ``iter.txt``
-under ``<save-dir>/<name>``, the linear learning-rate decay of G and D, and
-the epoch's losses in ``loss_log.txt``. ``--continue-train`` reloads the nets
-and the epoch counter. Runs on the card unless ``--device cpu`` is given.
-``train_all`` needs the pose generator and ``train`` the AE generator;
-another pairing, and ``--model DPTN`` (whose engine has neither mode's
-synthesis), raises ``ValueError``. ``--use-vgg`` adds the VGG19 perceptual
+``--eval-step`` epochs eval and ``checkpoint.pth.tar``; after each epoch of a
+mode that trains the GAN, the GAN nets' ``latest_net_{G,D}.pth`` and
+``iter.txt`` under ``<save-dir>/<name>``, the linear learning-rate decay of G
+and D, and the epoch's losses in ``loss_log.txt``. ``--continue-train``
+reloads the nets and the epoch counter. Runs on the card unless ``--device
+cpu`` is given. ``train_all`` and ``train_all_with_memory`` need the pose
+generator, ``train_all_bip`` the AE generator and a ``resnet_bip*`` encoder,
+``train`` the AE generator; another pairing, and ``--model DPTN`` (whose
+engine has none of the modes' synthesis), raises ``ValueError``:
+
+    python -m reid_gan_torch.cli.train_gan_usl --dataset market1501 \\
+        --data-dir ./data --arch resnet_bip50 --model AE --model-gen AE --bipath
+    python -m reid_gan_torch.cli.train_gan_usl --dataset market1501 \\
+        --data-dir ./data --model AE --model-gen Pose --learnable-memory
+
+``--use-vgg`` adds the VGG19 perceptual
 loss of the fake against the GAN image to the joint step's G loss, with the
 torchvision-layout weights of ``--vgg-weights`` or random taps.
 
@@ -31,8 +43,8 @@ the evals) also pools the encoder's GAN map (kernel K11), the bank gets a
 GAN half of the clusters' mean GAN features, folded each step beside the
 main one (K7), and from the epoch after ``--warmup-epo`` on the joint loss
 weighs each sample by ``compute_conf_weight`` (K9, K10). As in the JAX
-loop, the weights are computed under ``--no-gan-train`` too, where the
-hard-mix step does not read them.
+loop, the weights are computed under ``--no-gan-train``, ``--bipath`` and
+``--learnable-memory`` too, where those modes' steps do not read them.
 
 ``--resume`` restores the encoder and the epoch counter (the later of its
 and ``iter.txt``'s) from the port's ``.pth.tar`` or the JAX package's flax
@@ -41,9 +53,6 @@ and ``iter.txt``'s) from the port's ``.pth.tar`` or the JAX package's flax
 (train_gan_usl.py:106-133). ``--fp16`` runs the encoder's backbone and the
 GAN nets in bf16 as the JAX package does (``models/precision.py``), in every
 mode; VGG19 stays fp32.
-
-Not ported yet, and raising with their ROADMAP items: ``--bipath`` and
-``--learnable-memory`` (the bip and learnable-memory modes).
 """
 
 import argparse
@@ -63,6 +72,7 @@ from ..engine.gan_trainers import ClusterContrastWithGANTrainer
 from ..engine.usl import cluster_epoch, make_train_loader
 from ..models import create as create_model
 from ..models.dual_gan.models import create_model as create_gan
+from ..ops.cluster_memory import init_gradient_memory
 from ..ops.pose import batch_cords_to_map
 from ..ops.transforms import gan_input_transform
 from ..utils import Logger, Timer
@@ -128,40 +138,49 @@ def compute_conf_weight(gan, pseudo_dataset, memory, cfg, pose_file=None,
     return conf
 
 
-def _refuse_unported(cfg):
-    unported = (
-        (cfg.gan.bipath, "--bipath (the train_all_bip mode) is not ported yet "
-                         "(ROADMAP A: bip and learnable-memory modes)"),
-        (cfg.gan.learnable_memory, "--learnable-memory (the train_all_with_memory "
-                                   "mode) is not ported yet "
-                                   "(ROADMAP A: bip and learnable-memory modes)"),
-    )
-    for bad, msg in unported:
-        if bad:
-            raise NotImplementedError(msg)
-
-
 def _check_generator(cfg):
-    """The joint modes' generators: ``train_all`` renders from the encoder's
-    GAN map and pose maps (the pose generator), ``train`` encodes and decodes
-    the GAN images (the AE generator). The JAX step fails on the other
-    pairings too (in ``synthesize_p`` and ``synthesize_fc``), and on the
-    DPTN engine, which has neither (ROADMAP C, reference side)."""
-    gen = cfg.gan.model_gen
+    """The joint modes' generators and encoders: ``train_all`` and
+    ``train_all_with_memory`` render from a feature map and pose maps (the
+    pose generator), ``train_all_bip`` reconstructs the GAN images (the AE
+    generator; JAX's ``apply_G(G, xs)``, gan_trainers.py:423, passes no
+    pose) from a bi-path encoder's two branches (``fuse=False``, which only
+    ``ResNetBip`` takes, :413-416), ``train`` encodes and decodes the GAN
+    images (the AE generator). The JAX step fails on the other pairings (in
+    ``synthesize_p``, ``apply_G``, ``synthesize_fc`` or the encoder's call),
+    and on the DPTN engine, which has none of them (ROADMAP C, reference
+    side)."""
+    gen, arch = cfg.gan.model_gen, cfg.model.arch
     if cfg.gan.model == "DPTN":
         raise ValueError("--model DPTN: the joint modes render through the AE "
                          "engine's synthesize_p / synthesize_fc and "
                          "get_loss_G_train, which the DPTN engine does not have; "
                          "use --model AE")
-    if cfg.gan.gan_train and gen != "Pose":
+    if not cfg.gan.gan_train:
+        if gen != "AE":
+            raise ValueError(f"--no-gan-train runs the hard-mix 'train' mode, which "
+                             f"encodes and decodes the GAN images: it needs "
+                             f"--model-gen AE, not {gen}")
+        return
+    if cfg.gan.bipath:
+        if gen != "AE":
+            raise ValueError(f"--bipath with --model-gen {gen}: the 'train_all_bip' "
+                             f"mode reconstructs the GAN images with one input and "
+                             f"needs --model-gen AE")
+        if not arch.startswith("resnet_bip") or arch.startswith("resnet_bipd"):
+            raise ValueError(f"--bipath with --arch {arch}: the 'train_all_bip' mode "
+                             f"reads both branches of a bi-path encoder (fuse=False) "
+                             f"and needs a resnet_bip* arch such as resnet_bip50")
+        if cfg.gan.cluster_with_gan_features:
+            raise ValueError("--bipath with --cluster-with-gan-features: the "
+                             "extraction's test_all forward (the pooled GAN map) is "
+                             "not in the bi-path encoder, on which the JAX extractor "
+                             "fails too (evaluators.py:49, resnet_variants.py:55)")
+    elif gen != "Pose":
+        mode = "train_all_with_memory" if cfg.gan.learnable_memory else "train_all"
         raise ValueError(f"--model-gen {gen} with the GAN trained jointly: the "
-                         f"'train_all' mode renders from pose maps and needs "
+                         f"'{mode}' mode renders from pose maps and needs "
                          f"--model-gen Pose; the AE generator runs the hard-mix "
-                         f"'train' mode (--no-gan-train)")
-    if not cfg.gan.gan_train and gen != "AE":
-        raise ValueError(f"--no-gan-train runs the hard-mix 'train' mode, which "
-                         f"encodes and decodes the GAN images: it needs "
-                         f"--model-gen AE, not {gen}")
+                         f"'train' mode (--no-gan-train) or --bipath")
 
 
 def main(argv=None):
@@ -176,7 +195,6 @@ def main(argv=None):
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=SECTIONS)
     device = resolve_device(ns.device)
-    _refuse_unported(cfg)
     _check_generator(cfg)
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
     sys.stdout = logger
@@ -196,7 +214,6 @@ def run(cfg, dataset, device=None, image_cache=None):
     it has one), on ``device`` (default: the card). ``image_cache`` goes to
     every ``Preprocessor`` the loop builds (default: the shared decode
     cache). Returns the best mAP."""
-    _refuse_unported(cfg)
     _check_generator(cfg)
     device = resolve_device(device)
     start = time.monotonic()
@@ -266,11 +283,16 @@ def run(cfg, dataset, device=None, image_cache=None):
                 conf_weight = compute_conf_weight(gan, pseudo_dataset, memory, cfg,
                                                   pose_file, cache)
 
-        # the mode (...infomap.py:450-466): the USL step while warming up,
-        # then the joint or the hard-mix step on the with_gan loader
+        # the mode (...infomap.py:450-466; train_gan_usl.py:187-228): the USL
+        # step while warming up, then a joint or the hard-mix step on the
+        # with_gan loader
         joint = (epoch + 1) > cfg.gan.warmup_epo
-        mode = ("train_all" if cfg.gan.gan_train else "train") if joint \
-            else "train_reid"
+        mode = "train_reid"
+        if joint and not cfg.gan.gan_train:
+            mode = "train"
+        elif joint:
+            mode = "train_all_bip" if cfg.gan.bipath else \
+                "train_all_with_memory" if cfg.gan.learnable_memory else "train_all"
         pre_kw = dict(mode="with_gan", gan_height=cfg.data.gan_height,
                       gan_width=cfg.data.gan_width, pose_file=pose_file,
                       flip_all=True) if joint else {}
@@ -278,12 +300,15 @@ def run(cfg, dataset, device=None, image_cache=None):
                                    cfg.data.batch_size, cfg.data.num_instances,
                                    workers=cfg.data.workers, iters=iters,
                                    seed=cfg.train.seed + epoch, cache=cache, **pre_kw)
+        # trainable clusters from this epoch's bank (train_gan_usl.py:212-221)
+        gmem = init_gradient_memory(memory.features, k_pad=k_pad, device=device)._replace(
+            num_valid=memory.num_valid) if mode == "train_all_with_memory" else None
         with Timer("train"):
-            state, errs = trainer.run_epoch(state, epoch, loader, mode=mode,
-                                            train_iters=iters,
-                                            print_freq=cfg.train.print_freq,
-                                            base_seed=cfg.train.seed,
-                                            conf_weight=conf_weight)
+            out = trainer.run_epoch(state, epoch, loader, mode=mode, train_iters=iters,
+                                    print_freq=cfg.train.print_freq,
+                                    base_seed=cfg.train.seed, conf_weight=conf_weight,
+                                    gmem=gmem, cluster_lr=cfg.gan.cluster_lr)
+        state, errs = (out[0], out[2]) if gmem is not None else out
         loader.close()
 
         if (epoch + 1) % cfg.train.eval_step == 0 or epoch == epochs - 1:
@@ -297,7 +322,7 @@ def run(cfg, dataset, device=None, image_cache=None):
             print(f"\n * Finished epoch {epoch:3d}  model mAP: {mAP:5.1%} "
                   f" best: {best_map:5.1%}{' *' if is_best else ''}\n")
 
-        if mode == "train_all":
+        if joint and cfg.gan.gan_train:     # train_gan_usl.py:249-258
             save_networks({"G": gan.net_G, "D": gan.net_D}, save_dir, "latest")
             np.savetxt(iter_path, [(epoch + 1, 0)], delimiter=",", fmt="%d")
             # LambdaLR linear decay after niter epochs (train_gan_usl.py:253-257)

@@ -1,8 +1,11 @@
 """Batch samplers (copies of ``reid_gan_tpu/data/sampler.py``'s
-``RandomMultipleGallerySampler``, :46-93, parity: CC/clustercontrast/utils/
-data/sampler.py:47-107; and ``RandomPairSampler``, :132-163, parity:
-FD/reid/utils/data/sampler.py:24-54). Host-side index generation from a
-numpy ``RandomState``, drawn in the same order as the JAX package's
+``RandomIdentitySampler``, :22-43, parity: CC/clustercontrast/utils/data/
+sampler.py:20-44; ``RandomMultipleGallerySampler``, :46-93, parity:
+sampler.py:47-107; ``RandomMultipleGallerySamplerNoCam``, :96-113, parity:
+sampler.py:110-155; ``ShardedSampler``, :116-129, the host-sharding
+replacement of sampler.py:157-265; and ``RandomPairSampler``, :132-163,
+parity: FD/reid/utils/data/sampler.py:24-54). Host-side index generation
+from a numpy ``RandomState``, drawn in the same order as the JAX package's
 samplers, so the same seed gives the same index stream."""
 
 from collections import defaultdict
@@ -12,6 +15,30 @@ import numpy as np
 
 def _no_index(a, b):
     return [i for i, j in enumerate(a) if j != b]
+
+
+class RandomIdentitySampler:
+    """For each pid, in a random order, ``num_instances`` of its samples
+    (drawn with replacement where it has fewer)."""
+
+    def __init__(self, data_source, num_instances, seed=None):
+        self.index_dic = defaultdict(list)
+        for index, (_, pid, _) in enumerate(data_source):
+            self.index_dic[pid].append(index)
+        self.pids = list(self.index_dic.keys())
+        self.num_instances = num_instances
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return len(self.pids) * self.num_instances
+
+    def __iter__(self):
+        ret = []
+        for i in self.rng.permutation(len(self.pids)):
+            t = self.index_dic[self.pids[i]]
+            replace = len(t) < self.num_instances
+            ret.extend(self.rng.choice(t, size=self.num_instances, replace=replace))
+        return iter(ret)
 
 
 class RandomMultipleGallerySampler:
@@ -61,6 +88,43 @@ class RandomMultipleGallerySampler:
                                               replace=replace)
                 ret.extend(index[kk] for kk in ind_indexes)
         return iter(ret)
+
+
+class RandomMultipleGallerySamplerNoCam(RandomMultipleGallerySampler):
+    """The P×K sampler without the camera preference: an anchor of the pid,
+    then ``num_instances - 1`` of its other images."""
+
+    def __iter__(self):
+        ret = []
+        for kid in self.rng.permutation(len(self.pids)):
+            pid = self.pids[kid]
+            i = int(self.rng.choice(self.pid_index[pid]))
+            ret.append(i)
+            index = self.pid_index[pid]
+            select_indexes = _no_index(index, i)
+            if not select_indexes:
+                continue
+            replace = len(select_indexes) < self.num_instances
+            ind_indexes = self.rng.choice(select_indexes, size=self.num_instances - 1,
+                                          replace=replace)
+            ret.extend(index[kk] for kk in ind_indexes)
+        return iter(ret)
+
+
+class ShardedSampler:
+    """Every ``num_shards``-th index of ``sampler``, from ``shard`` on: one
+    host's share of a data-parallel epoch."""
+
+    def __init__(self, sampler, shard, num_shards):
+        self.sampler = sampler
+        self.shard = shard
+        self.num_shards = num_shards
+
+    def __len__(self):
+        return len(self.sampler) // self.num_shards
+
+    def __iter__(self):
+        return iter(list(self.sampler)[self.shard::self.num_shards])
 
 
 class RandomPairSampler:

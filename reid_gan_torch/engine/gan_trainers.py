@@ -45,8 +45,33 @@ One ``train`` (AE hard-mix) step, G frozen (gan_trainers.py:91-139):
    group (K6), its backward, the encoder's Adam and the bank fold (K7).
 
 The ``train_reid`` warm-up step is the USL step (``ClusterContrastTrainer``).
-The ``train_all_bip`` and ``train_all_with_memory`` modes are not ported yet
-(ROADMAP A: bip and learnable-memory modes).
+
+One ``train_all_bip`` step (gan_trainers.py:392-466), the bi-path encoder
+(``ResNetBip``) and the AE generator:
+
+1. the re-ID image through K4, the GAN image through K9;
+2. the encoder's train forward with ``fuse=False``: both branches' ``feat``
+   and ``feat2`` (K5 on each);
+3. G in train mode reconstructs the GAN image; the G loss against the
+   pre-update D; InfoNCE of each branch against the same bank (K6 twice),
+   ``loss_cl`` their means' half-sum; the joint backward;
+4. the D step on the detached fake, the encoder's and G's Adam;
+5. the fold of the unnormalised ``feat + feat2`` into the bank (K7, which
+   normalises each row first).
+
+One ``train_all_with_memory`` step (gan_trainers.py:290-390), the pose
+generator and trainable clusters (a ``GradientMemoryState``) in place of the
+momentum bank, which stays as it is (no K7):
+
+1. K4, K9 and K10 on the inputs;
+2. the encoder's train forward (K5);
+3. G renders each sample's cluster, L2-normalised and broadcast to the GAN
+   map's (h/8, w/8), in the sample's pose, in train mode; the G loss
+   against the pre-update D; InfoNCE against the normalised, detached
+   clusters (K6); the joint backward reaches the encoder, G and, through G
+   only, the clusters;
+4. the D step, the encoder's and G's Adam, and the clusters' SGD step on
+   the rows the batch touched (``update_gradient_clusters``).
 """
 
 import time
@@ -56,13 +81,19 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.cluster_memory import MemoryState, memory_loss, update_memory
+from ..ops.cluster_memory import (
+    MemoryState,
+    gradient_memory_loss,
+    memory_loss,
+    update_gradient_clusters,
+    update_memory,
+)
 from ..ops.pose import batch_cords_to_map
 from ..ops.transforms import diff_transform, gan_input_transform
 from ..utils import AverageMeter
-from .trainers import ClusterContrastTrainer, make_optimizer
+from .trainers import ClusterContrastTrainer, make_optimizer, zero_missing_grads
 
-MODES = ("train", "train_all", "train_reid")
+MODES = ("train", "train_all", "train_reid", "train_all_bip", "train_all_with_memory")
 
 
 def _drain(buf, meters):
@@ -178,21 +209,7 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         loss_cl = (losses_cl * conf.to(losses_cl.dtype)).mean()
         loss = loss_cl + loss_G
         self._mark("InfoNCE (K6)")
-        state.optimizer.zero_grad(set_to_none=True)
-        gs.opt_G.zero_grad(set_to_none=True)
-        loss.backward()
-        self._mark("joint backward (encoder, G, D input)")
-
-        gs.opt_D.zero_grad(set_to_none=True)
-        loss_D = gan.d_loss(xs, fake)
-        loss_D.backward()
-        gs.opt_D.step()
-        self._mark("D step")
-
-        state.optimizer.step()
-        state.scheduler.step()
-        gs.opt_G.step()
-        self._mark("Adam (encoder, G)")
+        loss_D = self._joint_update(state, loss, xs, fake)
         # the parallel GAN bank, where there is one, takes the pooled GAN map
         # (gan_trainers.py:241-249)
         gan_x = out["gan_feat"].mean(dim=(2, 3)) \
@@ -203,32 +220,137 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         state = state._replace(step=state.step + 1,
                                gan=gs._replace(step=gs.step + 1))
         return state, {"loss": loss.detach(), "loss_cl": loss_cl.detach(),
-                       "G": loss_G.detach(), "D": loss_D.detach()}
+                       "G": loss_G.detach(), "D": loss_D}
+
+    def train_all_bip_step(self, state, batch, seed):
+        """One bi-path step (the steps in the module's docstring) on a batch
+        of device tensors (``img``, ``pid``, ``Xs``). Returns (state, losses
+        on the device)."""
+        gan, gs = self.gan, state.gan
+        targets = batch["pid"]
+        enc_dtype = next(self.model.parameters()).dtype
+        gan_dtype = next(gan.net_G.parameters()).dtype
+        self._mark("start")
+        x = self.augment(batch["img"], seed).to(enc_dtype)
+        xs = gan_input_transform(batch["Xs"], gan.h, gan.w).to(gan_dtype)
+        self._mark("inputs (K4, K9)")
+        self.model.train()
+        out = self.model(x, fuse=False)
+        f1, f2 = out["feat"], out["feat2"]
+        self._mark("encoder forward (K5 twice)")
+        fake = gan.apply_G(xs, train=True)
+        self._mark("G forward")
+        loss_G = gan.get_loss_G_train(fake, xs)
+        self._mark("G loss (D forward)")
+        l1, _ = memory_loss(f1, targets, state.memory, temp=self.temp)
+        l2, _ = memory_loss(f2, targets, state.memory, temp=self.temp)
+        loss_cl = 0.5 * (l1.mean() + l2.mean())
+        loss = loss_cl + loss_G
+        self._mark("InfoNCE (K6 twice)")
+        loss_D = self._joint_update(state, loss, xs, fake)
+        update_memory(state.memory, (f1 + f2).detach(), targets, momentum=self.momentum,
+                      use_hard=self.use_hard, group_size=self.num_instances)
+        self._mark("bank fold (K7)")
+        state = state._replace(step=state.step + 1, gan=gs._replace(step=gs.step + 1))
+        return state, {"loss": loss.detach(), "loss_cl": loss_cl.detach(),
+                       "G": loss_G.detach(), "D": loss_D}
+
+    def render_from_clusters(self, clusters, targets, ps):
+        """G's train-mode render of each sample's cluster (a row of
+        ``clusters`` L2-normalised with ``rsqrt(Σc² + 1e-12)``, broadcast to
+        (B, D, h/8, w/8)) in its pose maps ``ps`` (gan_trainers.py:322-334)."""
+        gan = self.gan
+        cf = clusters * torch.rsqrt(torch.sum(clusters * clusters, -1, keepdim=True)
+                                    + 1e-12)
+        feats = cf[targets.long()]
+        fmap = feats[:, :, None, None].expand(-1, -1, gan.h // 8, gan.w // 8)
+        return gan.synthesize_p(fmap.to(ps.dtype), ps, train=True)  # ps: G's dtype
+
+    def train_all_with_memory_step(self, state, gmem, batch, seed, cluster_lr=0.1):
+        """One learnable-memory step (the steps in the module's docstring) on
+        a batch of device tensors (``img``, ``pid``, ``Xs``, ``keypoints``,
+        ``old_size``) and the clusters ``gmem`` (a ``GradientMemoryState``).
+        Returns (state, the new ``gmem``, losses on the device)."""
+        gan, gs = self.gan, state.gan
+        targets = batch["pid"]
+        enc_dtype = next(self.model.parameters()).dtype
+        gan_dtype = next(gan.net_G.parameters()).dtype
+        self._mark("start")
+        x = self.augment(batch["img"], seed).to(enc_dtype)
+        xs = gan_input_transform(batch["Xs"], gan.h, gan.w).to(gan_dtype)
+        ps = batch_cords_to_map(batch["keypoints"], batch["old_size"], gan.h,
+                                gan.w).to(gan_dtype)
+        self._mark("inputs (K4, K9, K10)")
+        self.model.train()
+        f_out = self.model(x, with_gan_feat=False)["feat"]
+        self._mark("encoder forward (K5)")
+        clusters = gmem.clusters.detach().requires_grad_(True)
+        fake = self.render_from_clusters(clusters, targets, ps)
+        self._mark("G forward (from the clusters)")
+        loss_G = gan.get_loss_G_train(fake, xs)
+        self._mark("G loss (D forward)")
+        loss_cl, _ = gradient_memory_loss(f_out, targets, gmem._replace(clusters=clusters),
+                                          temp=self.temp)
+        loss = loss_cl + loss_G
+        self._mark("InfoNCE (K6)")
+        loss_D = self._joint_update(state, loss, xs, fake)
+        touched = torch.zeros(clusters.shape[0], dtype=torch.bool,
+                              device=clusters.device).index_fill_(0, targets.long(), True)
+        gmem = update_gradient_clusters(gmem, clusters.grad, touched, cluster_lr)
+        self._mark("cluster SGD")
+        state = state._replace(step=state.step + 1, gan=gs._replace(step=gs.step + 1))
+        return state, gmem, {"loss": loss.detach(), "loss_cl": loss_cl.detach(),
+                             "G": loss_G.detach(), "D": loss_D}
+
+    def _joint_update(self, state, loss, xs, fake):
+        """The two joint modes' updates: the joint backward (encoder, G and
+        whatever else ``loss`` reaches), the D step on the detached fake from
+        the ``u`` the G loss left, then the encoder's Adam (a parameter the
+        loss missed gets a zero gradient) with its schedule and G's Adam.
+        Returns the D loss, detached."""
+        gs = state.gan
+        state.optimizer.zero_grad(set_to_none=True)
+        gs.opt_G.zero_grad(set_to_none=True)
+        loss.backward()
+        self._mark("joint backward (encoder, G, D input)")
+        gs.opt_D.zero_grad(set_to_none=True)
+        loss_D = self.gan.d_loss(xs, fake)
+        loss_D.backward()
+        gs.opt_D.step()
+        self._mark("D step")
+        zero_missing_grads(state.optimizer)
+        state.optimizer.step()
+        state.scheduler.step()
+        gs.opt_G.step()
+        self._mark("Adam (encoder, G)")
+        return loss_D.detach()
 
     def _to_device(self, batch, mode):
         dev = self.device
         out = {"img": torch.from_numpy(np.ascontiguousarray(batch["img"])).to(dev),
                "pid": torch.from_numpy(np.asarray(batch["pid"], np.int32)).to(dev)}
-        if mode in ("train", "train_all"):
+        if mode != "train_reid":
             out["Xs"] = torch.from_numpy(np.ascontiguousarray(batch["Xs"])).to(dev)
-        if mode == "train_all":
+        if mode in ("train_all", "train_all_with_memory"):
             for k in ("keypoints", "old_size"):
                 out[k] = torch.from_numpy(np.asarray(batch[k], np.float32)).to(dev)
         return out
 
     def run_epoch(self, state, epoch, data_loader, mode="train_all", train_iters=400,
-                  print_freq=10, base_seed=0, conf_weight=None):
+                  print_freq=10, base_seed=0, conf_weight=None, gmem=None,
+                  cluster_lr=0.1):
         """Drive one epoch in ``mode`` (gan_trainers.py:485-561). Step i
         draws from seed ``base_seed + epoch * train_iters + i``.
         ``conf_weight``: optional (N_dataset,) host array of per-sample
-        confidence weights, indexed by the batch's ``index``. The losses stay
-        on the card and are fetched once a print window. Returns (state,
-        the epoch's mean of each loss)."""
+        confidence weights, indexed by the batch's ``index`` (``train_all``
+        only). ``gmem``: the clusters of ``train_all_with_memory``, stepped
+        with ``cluster_lr``. The losses stay on the card and are fetched
+        once a print window. Returns (state, the epoch's mean of each loss),
+        and for ``train_all_with_memory`` (state, gmem, means)."""
         if mode not in MODES:
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (ROADMAP A: bip and learnable-memory modes); "
-                f"the port runs "
-                f"{MODES}")
+            raise ValueError(f"unknown mode {mode!r}; the modes are {MODES}")
+        if mode == "train_all_with_memory" and gmem is None:
+            raise ValueError("train_all_with_memory needs the clusters (gmem)")
         meters = {}
         batch_time, data_time = AverageMeter(), AverageMeter()
         errs_buf = []
@@ -245,6 +367,11 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
                     state, dev, seed, torch.from_numpy(conf).to(self.device))
             elif mode == "train":
                 state, errs = self.train_step(state, dev, seed)
+            elif mode == "train_all_bip":
+                state, errs = self.train_all_bip_step(state, dev, seed)
+            elif mode == "train_all_with_memory":
+                state, gmem, errs = self.train_all_with_memory_step(
+                    state, gmem, dev, seed, cluster_lr)
             else:
                 state, loss = self.step(state, dev["img"], dev["pid"], seed)
                 errs = {"loss": loss}
@@ -262,7 +389,10 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
                       f"Time {batch_time.val:.3f} ({batch_time.avg:.3f})\t"
                       f"Data {data_time.val:.3f} ({data_time.avg:.3f})\t{msg}")
         _drain(errs_buf, meters)
-        return state, {k: m.avg for k, m in meters.items()}
+        avg = {k: m.avg for k, m in meters.items()}
+        if mode == "train_all_with_memory":
+            return state, gmem, avg
+        return state, avg
 
 
 class GANTrainer:

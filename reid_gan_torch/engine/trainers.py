@@ -49,6 +49,16 @@ def make_optimizer(params, lr=3.5e-4, weight_decay=5e-4, step_size=20,
     return opt, sched
 
 
+def zero_missing_grads(optimizer):
+    """Give a parameter the loss did not reach (a variant's second branch,
+    GAN projection or predictor) a zero gradient, as the JAX step does, so
+    that Adam's coupled weight decay moves it all the same."""
+    for group in optimizer.param_groups:
+        for q in group["params"]:
+            if q.grad is None:
+                q.grad = torch.zeros_like(q)
+
+
 class ClusterContrastTrainer:
     """USL trainer: a re-clustered memory bank per epoch and a 400-step
     InfoNCE loop (CC/clustercontrast/trainers.py:213-270).
@@ -96,13 +106,7 @@ class ClusterContrastTrainer:
         loss = losses.mean()
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        # a parameter the loss does not reach (a variant's second branch,
-        # GAN projection or predictor) gets a zero gradient, as in the JAX
-        # step, so that Adam's coupled weight decay moves it all the same
-        for group in state.optimizer.param_groups:
-            for q in group["params"]:
-                if q.grad is None:
-                    q.grad = torch.zeros_like(q)
+        zero_missing_grads(state.optimizer)
         state.optimizer.step()
         state.scheduler.step()
         update_memory(state.memory, out["feat"].detach(), targets,

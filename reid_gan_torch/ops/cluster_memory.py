@@ -15,8 +15,11 @@ device, so no call waits on the card.
 
 Unlike the JAX function, ``update_memory`` updates the bank in place (the
 JAX function returns a new state): that saves a copy of the bank per step.
-The gradient-memory functions (cm.py:140-193) are not ported yet
-(ROADMAP A: bip and learnable-memory modes).
+
+The gradient memory (ClusterMemory_Gradient, cm.py:140-193) keeps trainable,
+unnormalised clusters: ``gradient_memory_loss`` is K6 against the clusters
+L2-normalised and detached, and ``update_gradient_clusters`` their SGD step
+(plain PyTorch, returning a new state as the JAX functions do).
 """
 
 from typing import NamedTuple
@@ -289,3 +292,56 @@ def update_memory(state, x, targets, momentum=0.2, use_hard=False, gan_x=None,
                         targets.to(torch.int32).contiguous(), momentum, use_hard,
                         None if gan_x is None else gan_x.detach().contiguous())
     return state
+
+
+# ---------------------------------------------------------------------------
+# The gradient memory (ClusterMemory_Gradient) and memory_step
+# ---------------------------------------------------------------------------
+
+class GradientMemoryState(NamedTuple):
+    clusters: torch.Tensor      # (K_pad, D) trainable centroids, not normalised
+    num_valid: torch.Tensor     # () int32: live clusters <= K_pad
+
+
+def init_gradient_memory(centroids, k_pad=None, device=None):
+    """A GradientMemoryState from per-epoch centroids, zero-padded to
+    ``k_pad`` rows, on ``device`` (default: the card) (cluster_memory.py:
+    213-218). The clusters are at least float32; float64 centroids stay
+    float64 (the JAX function casts them to float32)."""
+    state = init_memory(centroids, k_pad, device=device)
+    return GradientMemoryState(state.features, state.num_valid)
+
+
+def gradient_memory_loss(x, targets, state, temp=0.05, ex_f=None, group_size=1):
+    """The mean InfoNCE against the clusters L2-normalised and detached
+    (cluster_memory.py:221-230; cm.py:158-182), with an empty GAN bank:
+    ``memory_loss``, so K6 on the card. The clusters get no gradient from
+    it. Returns (mean loss, logits)."""
+    normed = _l2n(state.clusters.detach()).contiguous()
+    proxy = MemoryState(normed, normed.new_zeros((0, normed.shape[1])),
+                        state.num_valid)
+    loss, logits = memory_loss(x, targets, proxy, temp, ex_f, group_size)
+    return loss.mean(), logits
+
+
+def update_gradient_clusters(state, grads, p_ids, cluster_lr=0.1, eps=1e-16):
+    """The clusters' SGD step (cm.py:184-193; cluster_memory.py:233-240):
+    the rows flagged in the (K,) bool ``p_ids`` step along their gradient
+    divided by its norm plus ``eps``, the others along their gradient as it
+    is. Returns a new state."""
+    with torch.no_grad():
+        norms = torch.linalg.vector_norm(grads, dim=1, keepdim=True) + eps
+        g = torch.where(p_ids[:, None], grads / norms, grads)
+        return state._replace(clusters=state.clusters.detach() - cluster_lr * g)
+
+
+def memory_step(x, targets, state, temp=0.05, momentum=0.2, use_hard=False,
+                gan_x=None):
+    """The per-sample loss and the bank fold in one call (cluster_memory.py:
+    243-251): ``memory_loss`` (K6), then ``update_memory`` (K7, under no
+    gradient, in place). For training, call ``memory_loss`` before the
+    backward and ``update_memory`` after the optimizer step. Returns
+    (per-sample loss, state)."""
+    loss, _ = memory_loss(x, targets, state, temp)
+    update_memory(state, x, targets, momentum, use_hard, gan_x)
+    return loss, state

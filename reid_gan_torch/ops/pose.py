@@ -29,6 +29,21 @@ from ..kernels import POSE_MAPS, POSE_PEAKS
 
 MISSING_VALUE = -1.0
 
+# COCO-18 skeleton and joint colours (CC/clustercontrast/utils/data/
+# pose_utils.py:14-20), for ``data/pose_viz.py``
+LIMB_SEQ = [
+    [1, 2], [1, 5], [2, 3], [3, 4], [5, 6], [6, 7], [1, 8], [8, 9],
+    [9, 10], [1, 11], [11, 12], [12, 13], [1, 0], [0, 14], [14, 16],
+    [0, 15], [15, 17], [2, 16], [5, 17],
+]
+
+COLORS = [
+    [255, 0, 0], [255, 85, 0], [255, 170, 0], [255, 255, 0], [170, 255, 0],
+    [85, 255, 0], [0, 255, 0], [0, 255, 85], [0, 255, 170], [0, 255, 255],
+    [0, 170, 255], [0, 85, 255], [0, 0, 255], [85, 0, 255], [170, 0, 255],
+    [255, 0, 255], [255, 0, 170], [255, 0, 85],
+]
+
 
 def batch_cords_to_map_plain(cords, old_size, height=128, width=64, sigma=6.0):
     """Plain PyTorch version of K10: (N, K, 2) fp32 keypoints and (N, 2) fp32

@@ -1,7 +1,8 @@
 """``cli/train_gan_usl`` end to end on the CPU on the synthetic dataset
 (resnet18 at 64x32, the pose generator at 32x16): the checkpoints, the GAN
 nets' ``latest`` files and ``iter.txt``, ``--continue-train`` from them, the
-per-net save/load round trip, and the options that are not ported yet."""
+per-net save/load round trip, and the pairings the joint modes cannot
+run."""
 
 import os.path as osp
 
@@ -93,21 +94,29 @@ def test_save_and_load_networks_round_trip(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--bipath"], "ROADMAP A: bip and learnable-memory modes"),
-    (["--learnable-memory"], "ROADMAP A: bip and learnable-memory modes"),
+    (["--bipath", "--arch", "resnet_bip50", "--model-gen", "Pose"],
+     "--bipath with --model-gen Pose"),
+    (["--bipath", "--arch", "resnet50", "--model-gen", "AE"], "--bipath with --arch resnet50"),
+    (["--bipath", "--arch", "resnet_bip50", "--model-gen", "AE",
+      "--cluster-with-gan-features"], "--bipath with --cluster-with-gan-features"),
+    (["--learnable-memory", "--model-gen", "AE"],
+     "--model-gen AE with the GAN trained jointly: the 'train_all_with_memory' mode"),
     (["--model-gen", "DEC", "--dataset", "synthetic"], "--model-gen DEC with the GAN trained"),
     (["--model-gen", "FD", "--dataset", "synthetic"], "--model-gen FD with the GAN trained"),
     (["--model-gen", "PoseAE", "--dataset", "synthetic"],
      "--model-gen PoseAE with the GAN trained")])
 def test_unported_options_raise(tmp_path, flag, item):
-    """The options not ported yet raise ``NotImplementedError`` naming their
-    ROADMAP items; the DEC, FD and PoseAE generators with the GAN trained
-    jointly raise the pairing ``ValueError`` (``train_all`` renders with the
-    pose generator), before any work."""
+    """The pairings the joint modes cannot run raise ``ValueError`` before
+    any work, as the JAX step fails on them: ``--bipath`` with the pose
+    generator (``apply_G(G, xs)`` passes no pose, JAX gan_trainers.py:423),
+    with an encoder other than ``ResNetBip`` (``fuse=False``, :413-416) or
+    with GAN-feature clustering (the bi-path encoder has no ``test_all``
+    forward, evaluators.py:49); ``--learnable-memory`` with the AE generator
+    (``synthesize_p``, :334); the DEC, FD and PoseAE generators with the GAN
+    trained jointly (``train_all`` renders with the pose generator)."""
     from reid_gan_torch.cli.train_gan_usl import main
 
-    err = NotImplementedError if item.startswith("ROADMAP") else ValueError
-    with pytest.raises(err, match=item):
+    with pytest.raises(ValueError, match=item):
         main(["--device", "cpu", "--data-dir", str(tmp_path), "--logs-dir",
               str(tmp_path / "logs")] + flag)
     assert not (tmp_path / "logs").exists()

@@ -13,7 +13,9 @@ column tile, D under the tensor cores' depth and off the stage and the D
 slice, num_valid on and one past a tile, stage and slice edge, a bank of
 30,720 rows, and extra negatives (``ex_f``) of 1, 16 and 33 rows in
 groups of 1 and of the whole batch, against banks of 768 and 30,720 rows
-(K6); the same bits on a second run (K5, K6); one label for the whole
+(K6), called twice in one graph against one bank (the bip step) and
+against trainable clusters (the learnable-memory step); the same bits on a
+second run (K5, K6); one label for the whole
 batch, all labels distinct and exact ties in the hard fold (K7); sets smaller than a tile, D off the stage and off the
 vector width, k of 1, 64, 65, 128, 256 and 300 (the register lists and the
 lists in scratch), exact ties and the inner product (K8); odd
@@ -658,6 +660,72 @@ def test_memory_loss_rejects_bad_inputs(card):
     with pytest.raises(ValueError, match="at least one row"):
         memory_loss(torch.ones((2, 8), device=card), y,
                     state._replace(features=torch.zeros((0, 8), device=card)))
+
+
+def test_memory_loss_twice_in_one_graph_matches_plain(card):
+    """The bip step's two calls against one bank (batch 256, D 2048, 700 of
+    768 rows live) in one graph, on two branches of one input: each call's
+    saved state is its own, so the half-sum's gradients at both branches and
+    at their common input match the plain version's autograd in fp64 within
+    1e-6, and each loss within 1e-4."""
+    from reid_gan_torch.ops.cluster_memory import (
+        init_memory,
+        memory_loss,
+        memory_loss_plain,
+    )
+
+    g = torch.Generator(device=card).manual_seed(17)
+    centers = torch.nn.functional.normalize(
+        torch.randn((700, 2048), device=card, generator=g), dim=1)
+    state = init_memory(centers, k_pad=768, device=card)
+    y = torch.randint(0, 700, (256,), device=card, generator=g, dtype=torch.int32)
+    root0 = centers[y.long()] + 0.5 * torch.randn((256, 2048), device=card, generator=g)
+    mix = torch.randn((2048,), device=card, generator=g)
+    grads, losses = [], []
+    for fn, root, s in ((memory_loss, root0.clone().requires_grad_(True), state),
+                        (memory_loss_plain, root0.double().requires_grad_(True),
+                         state._replace(features=state.features.double()))):
+        f1, f2 = root * mix, root + mix
+        f1.retain_grad()
+        f2.retain_grad()
+        l1, l2 = fn(f1, y, s)[0], fn(f2, y, s)[0]
+        (0.5 * (l1.mean() + l2.mean())).backward()
+        grads.append((f1.grad, f2.grad, root.grad))
+        losses.append((l1.detach(), l2.detach()))
+    torch.cuda.synchronize()
+    for a, b in zip(*losses):
+        assert float((a.double() - b).abs().max()) <= 1e-4
+    for a, b in zip(*grads):
+        assert float((a.double() - b).abs().max()) <= 1e-6
+
+
+def test_gradient_memory_loss_on_the_card_matches_plain(card):
+    """K6 against trainable clusters (not unit rows, normalised and detached
+    inside): the mean loss within 1e-4 and dL/dx within 1e-6 of the plain
+    version's in fp64, and no gradient at the clusters."""
+    from reid_gan_torch.ops.cluster_memory import (
+        MemoryState,
+        gradient_memory_loss,
+        init_gradient_memory,
+        memory_loss_plain,
+    )
+
+    g = torch.Generator(device=card).manual_seed(18)
+    raw = torch.randn((700, 2048), device=card, generator=g) * 3.0
+    gmem = init_gradient_memory(raw, k_pad=768, device=card)
+    clusters = gmem.clusters.clone().requires_grad_(True)
+    y = torch.randint(0, 700, (256,), device=card, generator=g, dtype=torch.int32)
+    x = torch.randn((256, 2048), device=card, generator=g).requires_grad_(True)
+    loss, _ = gradient_memory_loss(x, y, gmem._replace(clusters=clusters))
+    loss.backward()
+    bank = torch.nn.functional.normalize(gmem.clusters.double(), dim=1)
+    x64 = x.detach().double().requires_grad_(True)
+    ref = memory_loss_plain(x64, y, MemoryState(bank, bank[:0], gmem.num_valid))[0].mean()
+    ref.backward()
+    torch.cuda.synchronize()
+    assert clusters.grad is None
+    assert abs(float(loss) - float(ref)) <= 1e-4
+    assert float((x.grad.double() - x64.grad).abs().max()) <= 1e-6
 
 
 @pytest.mark.parametrize("b,d,k_pad,nv,t,group", [
