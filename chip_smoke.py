@@ -189,6 +189,23 @@ the script exits non-zero without printing a result:
    one epoch of ``cli/train_gan_usl.run`` with the mode's flag (10 steps,
    phase 13's set and clustering; G, D and ``iter.txt`` written), whose
    launches join the kernels line;
+14a''. ``[ddp]``: the data mesh (``reid_gan_torch/parallel``) over
+   ``min(4, cards)`` ranks, NCCL: one rank in this process with a
+   ``file://`` store on one card, else one spawned process a card. The
+   world size and backend; ``ops/norm.py``'s global BatchNorm on a CUDA
+   tensor (one ResNet-50 layer's map, 64 channels at 128x64, the rank's
+   share of 256 images) against torch's ``SyncBatchNorm`` (output, running
+   stats, input gradient); one USL step (phase 4's ResNet-50, bank and
+   batch of 256) under the mesh held against the same step without it, TF32
+   off (loss; the gradient all-reduce against the fp64 mean of the ranks'
+   own gradients; each parameter's gradient; bank; running stats), then
+   warm steps with and without the mesh in turns; a sharded
+   ``Evaluator.evaluate`` of phase 3's eval set held against the unsharded
+   one (CMC, mAP); then, with launch counts zeroed just before and read
+   just after, a 2-step ``cli/train_usl.run`` and a 2-step ``train_all``
+   epoch of ``cli/train_gan_usl.run`` under the mesh on a smaller two-colour
+   set (2,048 train images of 128 ids, 256 + 768 eval, Infomap): K1-K11
+   must launch, K12-K14 not; their launches join the kernels line;
 14b. ``[vgg_warmup]``: phase 12's ``GANTrainer.train_gan`` with ``--use-vgg``:
    20 iterations (K9 once an iteration, nothing else), the peak memory, 5
    warm iterations without and with VGG in turns;
@@ -259,6 +276,7 @@ the script exits non-zero without printing a result:
 18. a JSON line with every kernel's launches (the sum over the two whole
    joint loops, phases 13 and 14, ``[gan_clusters]``, ``[vgg_joint]``'s two
    epochs, the ``run()`` epochs of ``[bip_joint]`` and ``[memory_joint]``,
+   ``[ddp]``'s two ``run()`` epochs,
    ``[fp16_usl]``, ``[msgpack]``, the FD-GAN chain, phase 17,
    ``[cuhk03]`` and the headline recipe's loop, phase 8), error,
    times and bound; K5's and K6's entries carry ``forward_ms``,
@@ -3381,6 +3399,319 @@ def phase_mode_joint(counts, label, joint_ms=None):
     print(f"[{label}] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+DDP_RUN_OFF = ("diff_transform", "pose_peaks", "fd_augment")
+
+
+def phase_ddp(counts):
+    """``[ddp]``: the data mesh over ``min(4, cards)`` ranks (the phase list
+    in the module's docstring). One card: one rank in this process, with a
+    ``file://`` store. The launches of the two ``run()`` epochs go to
+    ``counts`` (rank 0's)."""
+    import tempfile
+
+    from reid_gan_torch.parallel import destroy_mesh, get_mesh, launch
+
+    t_phase = time.perf_counter()
+    world = min(4, torch.cuda.device_count())
+    if world == 1:
+        with tempfile.TemporaryDirectory() as tmp:
+            mesh = get_mesh(1, 0, init_method=f"file://{tmp}/store")
+            try:
+                out = _ddp_rank(mesh)
+            finally:
+                destroy_mesh()
+    else:
+        out = launch(_ddp_rank, world)
+    counts.update(out)
+    print(f"[ddp] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def _ddp_rank(mesh):
+    """The ``[ddp]`` checks on one rank; only rank 0 prints. Returns rank
+    0's launch counts of the two ``run()`` epochs."""
+    from reid_gan_torch.parallel.mesh import main_prints
+
+    with main_prints(mesh):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60)
+        print(f"[ddp] world size {mesh.world_size}, backend {mesh.backend}, "
+              f"rank 0 on {mesh.device}; {smi.stdout.strip().splitlines()[0]}")
+        _ddp_global_bn(mesh)
+        _ddp_step(mesh)
+        _ddp_eval(mesh)
+        return _ddp_runs(mesh)
+
+
+def _ddp_global_bn(mesh, n=256, c=64, h=128, w=64):
+    """``ops/norm.py``'s global BatchNorm (all-reduces of [Σx, n] and
+    Σ(x − mean)², its gradient written out) against torch's
+    ``SyncBatchNorm`` (its gathers on several ranks, cuDNN's BatchNorm on
+    one) on the rank's share of a layer's channels_last map: output, running
+    stats, input gradient."""
+    from reid_gan_torch.ops.norm import GlobalBatchNorm
+    from reid_gan_torch.parallel import shard_batch
+
+    g = torch.Generator(device=mesh.device).manual_seed(3)
+    x = shard_batch(mesh, torch.randn((n, c, h, w), device=mesh.device, generator=g)
+                    * 2.0 + 1.5).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(x.shape, device=mesh.device, generator=g)
+    bn = GlobalBatchNorm(c).to(mesh.device).train()
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.normal_(0, 0.1, generator=g)
+    ref = torch.nn.SyncBatchNorm(c).to(mesh.device).train()
+    ref.load_state_dict(bn.state_dict())
+    xs = x.clone().requires_grad_(True)
+    ys = bn(xs)
+    (ys * dy).sum().backward()
+    xp = x.clone().requires_grad_(True)
+    yp = ref(xp)
+    (yp * dy).sum().backward()
+    e_y = float((ys - yp).detach().abs().max())
+    e_m = float((bn.running_mean - ref.running_mean).abs().max())
+    e_v = float(((bn.running_var - ref.running_var).abs() / ref.running_var).max())
+    e_g = float((xs.grad - xp.grad).abs().max() / xp.grad.abs().max())
+    tol_y, tol_m, tol_v, tol_g = 1e-4, 1e-5, 1e-5, 1e-4
+    print(f"[ddp] global BatchNorm on ({x.shape[0]} of {n}, {c}, {h}, {w}) a rank "
+          f"against torch's SyncBatchNorm: output max_abs_err {e_y:.3g} (tol "
+          f"{tol_y:.3g}), running mean {e_m:.3g} (tol {tol_m:.3g}), running var rel "
+          f"{e_v:.3g} (tol {tol_v:.3g}), input grad rel {e_g:.3g} (tol {tol_g:.3g})")
+    check(e_y <= tol_y and e_m <= tol_m and e_v <= tol_v and e_g <= tol_g,
+          "the global BatchNorm and torch's SyncBatchNorm differ")
+
+
+def _ddp_trainer(mesh):
+    """Phase 4's ResNet-50, bank and trainer, under ``mesh`` or (None) on
+    the rank's card alone."""
+    from reid_gan_torch.engine.trainers import ClusterContrastTrainer
+    from reid_gan_torch.engine.usl import bank_rows
+    from reid_gan_torch.models import create
+    from reid_gan_torch.ops.cluster_memory import init_memory
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(0)
+    centers = torch.nn.functional.normalize(
+        torch.randn((700, 2048), device=dev, generator=g), dim=1)
+    torch.manual_seed(0)
+    trainer = ClusterContrastTrainer(create("resnet50", norm=True), height=256,
+                                     width=128, num_instances=16,
+                                     device=None if mesh else dev, mesh=mesh)
+    state = trainer.init_state(init_memory(centers, k_pad=bank_rows(700), device=dev))
+    return trainer, state
+
+
+def _ddp_step(mesh, warm=5):
+    """One USL step under the mesh against the same step without it (rank
+    0, the whole batch), TF32 off, and the gradient all-reduce of that step
+    against the mean of the ranks' own gradients; then warm steps of both in
+    turns."""
+    from reid_gan_torch.engine import trainers as trainers_module
+    from reid_gan_torch.engine.usl import make_train_loader
+    from reid_gan_torch.parallel import all_gather_rows
+
+    items, imgs = _pseudo_set()
+    loaders = [make_train_loader(items, 256, 128, 256, 16, workers=4, iters=20, seed=1,
+                                 cache=_InMemoryImages(imgs), shard=shard)
+               for shard in (mesh, None)]
+    sides = [_ddp_trainer(mesh), _ddp_trainer(None) if mesh.rank == 0 else None]
+
+    def step(i, seed):
+        trainer, state = sides[i]
+        batch = loaders[i].next()
+        img = torch.from_numpy(np.ascontiguousarray(batch["img"])).to(trainer.device)
+        y = torch.from_numpy(batch["pid"].astype(np.int32)).to(trainer.device)
+        state, loss = trainer.step(state, img, y, seed)
+        sides[i] = (trainer, state)
+        return loss
+
+    # the rank's own gradients, as the trainer hands them to the all-reduce
+    real_all_reduce, own = trainers_module.all_reduce_grads, []
+
+    def recording_all_reduce(m, params):
+        own.extend(p.grad.detach().clone() for p in params if p.grad is not None)
+        real_all_reduce(m, params)
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    trainers_module.all_reduce_grads = recording_all_reduce
+    try:
+        loss_m = float(step(0, 99))
+        trainers_module.all_reduce_grads = real_all_reduce
+        if mesh.rank == 0:
+            loss_s = float(step(1, 99))
+    finally:
+        trainers_module.all_reduce_grads = real_all_reduce
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    # the all-reduce: each leaf against the fp64 mean of every rank's own
+    # gradient, relative to the largest rank's 2-norm of the leaf
+    reduced = [q.grad for q in trainers_module.optimizer_params(sides[0][1].optimizer)
+               if q.grad is not None]
+    flat = torch.cat([g.flatten() for g in own])
+    ranks = all_gather_rows(mesh, flat[None]).double()
+    e_reduce, at = 0.0, 0
+    for g in reduced:
+        part = ranks[:, at:at + g.numel()]
+        at += g.numel()
+        e_reduce = max(e_reduce, float((g.flatten().double() - part.mean(0)).norm()
+                                       / part.norm(dim=1).max().clamp_min(1e-30)))
+    del own, flat, ranks
+    if mesh.rank == 0:
+        (tm, sm), (ts, ss) = sides
+        # the gradients Adam took (left in .grad by the step): under the mesh,
+        # the ranks' mean after all_reduce_grads; each leaf's relative 2-norm,
+        # held at 0.1: fp32 gradients of ResNet-50 at init move by 1-3% a
+        # leaf between two BatchNorm algorithms (one rank too; the global
+        # BatchNorm's own hold against fp64 is on the CPU), while a sum in
+        # place of the mean is off by the mesh size less one
+        pm, ps = dict(tm.model.named_parameters()), dict(ts.model.named_parameters())
+        errs = {k: float((pm[k].grad - ps[k].grad).norm()
+                         / ps[k].grad.norm().clamp_min(1e-30))
+                for k in ps if ps[k].grad is not None}
+        head = {k: v for k, v in errs.items()
+                if k.startswith(("layer4.", "gap.", "feat.", "feat_bn."))}
+        e_head, w_head = max((v, k) for k, v in head.items())
+        e_grad, worst = max((v, k) for k, v in errs.items())
+        bm, bs = dict(tm.model.named_buffers()), dict(ts.model.named_buffers())
+        e_stats = max(float(((bm[k] - bs[k]).abs() / bs[k].abs().clamp_min(1e-3)).max())
+                      for k in bs if "running" in k)
+        e_bank = float((sm.memory.features - ss.memory.features).abs().max())
+        e_loss = abs(loss_m - loss_s)
+        tol_loss, tol_reduce, tol_grad, tol_bank, tol_stats = 1e-3, 1e-5, 0.1, 1e-4, 1e-3
+        print(f"[ddp] one USL step under the mesh vs without (TF32 off, batch 256, "
+              f"{256 // mesh.world_size} a rank): loss {loss_m:.6f} vs {loss_s:.6f} (err "
+              f"{e_loss:.3g}, tol {tol_loss:.3g}); the gradient all-reduce against the "
+              f"fp64 mean of the ranks' own, {len(reduced)} leaves: at most "
+              f"{e_reduce:.3g} (tol {tol_reduce:.3g}); the mesh's gradients against the "
+              f"step's without it, relative 2-norm a leaf: all at most {e_grad:.3g} "
+              f"({worst}; tol {tol_grad:.3g}), median "
+              f"{float(np.median(list(errs.values()))):.3g}, head ({len(head)} leaves) "
+              f"at most {e_head:.3g} ({w_head}); bank max_abs_err {e_bank:.3g} (tol "
+              f"{tol_bank:.3g}); running stats rel {e_stats:.3g} (tol {tol_stats:.3g})")
+        check(e_loss <= tol_loss and e_reduce <= tol_reduce and e_grad <= tol_grad
+              and e_bank <= tol_bank and e_stats <= tol_stats,
+              "the USL step under the mesh differs from the step without it")
+
+    # warm steps (TF32 convolutions, as [train]) in turns: without, with, with, without
+    ms = {0: [], 1: []}
+    for i in (1, 0, 0, 1):
+        if i == 1 and not mesh.rank == 0:
+            continue
+        step(i, 100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(warm):
+            step(i, 101 + k)
+        torch.cuda.synchronize()
+        ms[i].append((time.perf_counter() - t0) / warm * 1e3)
+    for loader in loaders:
+        loader.close()
+    if mesh.rank == 0:
+        with_mesh, without = np.mean(ms[0]), np.mean(ms[1])
+        print(f"[ddp] warm step, this call (TF32 convolutions, batch 256): under the mesh "
+              f"{with_mesh:.2f} ms ({ms[0][0]:.2f}, {ms[0][1]:.2f}), without "
+              f"{without:.2f} ms ({ms[1][0]:.2f}, {ms[1][1]:.2f}); ratio "
+              f"{with_mesh / without:.4f}")
+
+
+def _ddp_eval(mesh):
+    """A sharded ``Evaluator.evaluate`` of phase 3's eval set against the
+    unsharded one on rank 0 (the same ResNet-50): CMC and mAP."""
+    from reid_gan_torch.engine.evaluators import Evaluator, FeatureExtractor
+    from reid_gan_torch.models import create
+    from reid_gan_torch.parallel import pad_to_multiple, shard_batch
+
+    torch.backends.cudnn.allow_tf32 = True   # as cli/test.py sets it
+    batches, query, gallery = _eval_set()
+    torch.manual_seed(0)
+    model = create("resnet50")
+
+    def local(b):
+        img, _ = pad_to_multiple(b["img"], mesh.world_size)
+        return dict(b, img=shard_batch(mesh, img))
+
+    t0 = time.perf_counter()
+    ext = FeatureExtractor(model, height=256, width=128, batch_size=256, mesh=mesh)
+    cmc, mAP = Evaluator(ext).evaluate([local(b) for b in batches], query, gallery,
+                                       cmc_flag=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not mesh.rank == 0:
+        return
+    ref = FeatureExtractor(model, height=256, width=128, batch_size=256,
+                           device=mesh.device)
+    cmc_1, map_1 = Evaluator(ref).evaluate(batches, query, gallery, cmc_flag=True)
+    tol = 1e-6 if mesh.world_size == 1 else 1e-3
+    e_cmc, e_map = float(np.abs(cmc - cmc_1).max()), abs(mAP - map_1)
+    print(f"[ddp] sharded Evaluator.evaluate ({len(query)} + {len(gallery)} images, "
+          f"{mesh.world_size} rank(s)): {wall:.2f} s; mAP {mAP:.6f} vs unsharded "
+          f"{map_1:.6f}, top-1 {cmc[0]:.6f} vs {cmc_1[0]:.6f}; CMC max err {e_cmc:.3g}, "
+          f"mAP err {e_map:.3g} (tol {tol:.3g})")
+    check(e_cmc <= tol and e_map <= tol, "the sharded eval differs from the unsharded one")
+
+
+def _ddp_runs(mesh):
+    """A 2-step ``cli/train_usl.run`` and a 2-step ``train_all`` epoch of
+    ``cli/train_gan_usl.run`` under the mesh, with the launch counts zeroed
+    just before and read just after (rank 0's). Returns them."""
+    import tempfile
+
+    from reid_gan_torch import kernels
+    from reid_gan_torch.cli import train_gan_usl, train_usl
+    from reid_gan_torch.config import Config
+
+    dataset, imgs = _usl_set(n_train=2048, ids=128, n_query=256, n_gallery=768,
+                             eval_ids=64)
+
+    def config(logs):
+        cfg = Config()
+        cfg.data.workers = 4
+        cfg.train.epochs, cfg.train.iters, cfg.train.eval_step = 1, 2, 1
+        cfg.cluster.cluster_backend, cfg.cluster.eps = "infomap", 0.5
+        cfg.cluster.k1, cfg.cluster.k2 = 15, 4
+        cfg.train.logs_dir = logs
+        return cfg
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dataset.train_pose_dir = _write_pose_csv(dataset.train,
+                                                 os.path.join(tmp, "poses.csv"), 14)
+        usl = config(os.path.join(tmp, "usl"))
+        joint = config(os.path.join(tmp, "joint"))
+        joint.gan.model, joint.gan.model_gen = "AE", "Pose"
+        joint.gan.save_dir = os.path.join(tmp, "ckpt")
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best_usl = train_usl.run(usl, dataset, image_cache=_InMemoryImages(imgs),
+                                 mesh=mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        best_joint = train_gan_usl.run(joint, dataset, mesh=mesh, image_cache=
+                                       _InMemoryImages(imgs, imgs[:, ::2, ::2]))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = kernels.launch_counts()
+        saved = sorted(os.listdir(usl.train.logs_dir)) + sorted(
+            os.listdir(joint.train.logs_dir)) + sorted(
+            os.listdir(os.path.join(joint.gan.save_dir, "experiment"))) \
+            if mesh.rank == 0 else []
+    print(f"[ddp] cli/train_usl.run under the mesh: {t1 - t0:.2f} s, best mAP "
+          f"{best_usl:.4f}; cli/train_gan_usl.run (train_all): {t2 - t1:.2f} s, best "
+          f"mAP {best_joint:.4f}; rank 0 wrote {saved}")
+    print(f"[ddp] run() launches (rank 0): {kernels.phase_launch_counts()}")
+    if mesh.rank == 0:
+        check(all(v > 0 for k, v in launches.items() if k not in DDP_RUN_OFF)
+              and all(launches[k] == 0 for k in DDP_RUN_OFF),
+              f"all kernels but {', '.join(DDP_RUN_OFF)} must launch, those not: "
+              f"{launches}")
+        check(np.isfinite(best_usl) and np.isfinite(best_joint)
+              and {"checkpoint.pth.tar", "model_best.pth.tar", "latest_net_G.pth",
+                   "latest_net_D.pth", "iter.txt"} <= set(saved),
+              "no finite mAP or a missing file")
+    return launches
+
+
 def phase_vgg_warmup():
     """``--use-vgg`` on the GAN warm-up's path: ``GANTrainer.train_gan`` with
     the AE generator and VGG19 at ``[warmup]``'s configuration (batch 256,
@@ -4776,6 +5107,9 @@ def main(argv=None):
     torch.cuda.synchronize()
     phase_mode_joint(memory_counts, "memory_joint", joint_ms)
     torch.cuda.synchronize()
+    ddp_counts = {}
+    phase_ddp(ddp_counts)
+    torch.cuda.synchronize()
     phase_vgg_warmup()
     torch.cuda.synchronize()
     phase_dptn()
@@ -4810,8 +5144,9 @@ def main(argv=None):
          "launches": sum(c[k.name] for c in (joint_counts, hardmix_counts, chain_counts,
                                              ibn_counts, gan_clusters_counts,
                                              vgg_joint_counts, bip_counts,
-                                             memory_counts, cuhk03_counts,
-                                             fp16_counts, msgpack_counts)),
+                                             memory_counts, ddp_counts,
+                                             cuhk03_counts, fp16_counts,
+                                             msgpack_counts)),
          "library_ms": None, **report[k.name]}
         for k in kernels.KERNELS]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

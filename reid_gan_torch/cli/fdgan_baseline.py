@@ -33,6 +33,7 @@ from ..data.datasets import create as create_dataset
 from ..data.loader import DataLoader, Preprocessor
 from ..data.sampler import RandomPairSampler
 from ..device import resolve_device
+from ..parallel.mesh import refuse_mesh
 from ..engine.evaluators import FeatureExtractor
 from ..engine.fdgan import CascadeEvaluator, SiameseTrainer
 from ..models import siamese_baseline
@@ -42,11 +43,13 @@ from ..utils.serialization import resume_checkpoint, save_checkpoint
 SECTIONS = ("data", "model", "optim", "train")
 
 
-def main(argv=None):
+def main(argv=None, mesh=None):
     """Parse the flags (JAX's, plus ``--device``), tee stdout to
     ``<logs-dir>/log.txt``, write ``opt.txt``, load the dataset and train.
     Returns the best mAP (the evaluation's (top-1, mAP) with
-    ``--evaluate``)."""
+    ``--evaluate``). ``mesh``: a ``Mesh``, or
+    None with more than one card visible, raises ``NotImplementedError`` (no
+    data-mesh path yet); False, or one card, runs as before."""
     argv = sys.argv[1:] if argv is None else argv
     extra = argparse.ArgumentParser(allow_abbrev=False)
     extra.add_argument("--device", default="cuda",
@@ -55,6 +58,7 @@ def main(argv=None):
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=SECTIONS)
     device = resolve_device(ns.device)
+    refuse_mesh("cli/fdgan_baseline (FD-GAN stage I)", mesh, device)
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
     sys.stdout = logger
     try:

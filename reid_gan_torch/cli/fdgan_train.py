@@ -35,6 +35,7 @@ from ..data.datasets import create as create_dataset
 from ..data.loader import DataLoader, Preprocessor
 from ..data.sampler import RandomPairSampler
 from ..device import resolve_device
+from ..parallel.mesh import refuse_mesh
 from ..models.fdgan.model import FDGANModel
 from ..utils import AverageMeter, Logger
 from ..utils.serialization import load_networks, save_networks
@@ -44,10 +45,12 @@ from .fdgan_baseline import _limit, make_cascade_evaluator
 SECTIONS = ("data", "model", "optim", "train", "gan", "fdgan")
 
 
-def main(argv=None):
+def main(argv=None, mesh=None):
     """Parse the flags (JAX's, plus ``--device``), tee stdout to
     ``<logs-dir>/log.txt``, write ``opt.txt``, load the dataset and train.
-    Returns the engine."""
+    Returns the engine. ``mesh``: a ``Mesh``, or
+    None with more than one card visible, raises ``NotImplementedError`` (no
+    data-mesh path yet); False, or one card, runs as before."""
     argv = sys.argv[1:] if argv is None else argv
     extra = argparse.ArgumentParser(allow_abbrev=False)
     extra.add_argument("--device", default="cuda",
@@ -56,6 +59,7 @@ def main(argv=None):
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=SECTIONS)
     device = resolve_device(ns.device)
+    refuse_mesh("cli/fdgan_train (FD-GAN stages II and III)", mesh, device)
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
     sys.stdout = logger
     try:

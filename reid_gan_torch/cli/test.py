@@ -14,6 +14,13 @@ msgpack checkpoint holds domain-specific BatchNorms (``{"dsbn": {"domains":
 {"d0", "d1"}}}``) and the eval runs with the target domain's, or with
 ``--test-source`` the source domain's (test.py:48-61;
 CC/examples/test.py:71-81).
+
+Several cards (test.py:71-80): with more than one card visible and no
+``--device cpu``, ``main`` runs one process a card over all of them; each
+rank extracts its slice of each batch and ranks its share of the query
+chunks (``engine/evaluators.py``), and only rank 0 prints. ``main(argv,
+mesh=False)`` keeps one card. ``--dsbn`` under a mesh raises
+``NotImplementedError`` before any work.
 """
 
 import argparse
@@ -29,10 +36,23 @@ from ..engine.evaluators import Evaluator, FeatureExtractor
 from ..models import create as create_model
 from ..models.convert import normalize_reference_state_dict
 from ..models.dsbn import convert_bn
+from ..parallel.mesh import (
+    is_main,
+    launch,
+    local_device_count,
+    main_first,
+    main_prints,
+    mesh_device,
+    replicate,
+    wants_mesh,
+)
 from ..utils.serialization import load_flax_state, load_msgpack_checkpoint, resume_checkpoint
 
 
-def main(argv=None):
+def main(argv=None, mesh=None):
+    """Parse the flags, load the dataset and evaluate. Returns (CMC, mAP).
+    ``mesh``: None spans every card when more than one is visible, False
+    keeps one, a ``Mesh`` is this rank's."""
     argv = sys.argv[1:] if argv is None else argv
     # allow_abbrev=False: parse_known_args must not prefix-match flags meant
     # for the main config parser (e.g. --resume would bind to --resume-torch)
@@ -57,20 +77,47 @@ def main(argv=None):
     if ns.dsbn and not cfg.train.resume.endswith(".msgpack"):
         raise ValueError("--dsbn reads a domain-specific BN checkpoint of the "
                          "JAX package: give it with --resume <file>.msgpack")
-    dataset = create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True)
-    return run(cfg, dataset, device, resume_torch=ns.resume_torch, dsbn=ns.dsbn,
-               test_source=ns.test_source, rerank=ns.rerank)
+    if wants_mesh(device, mesh):
+        _check_mesh(ns.dsbn, True)
+        return launch(_main_on_rank, local_device_count(), args=(argv,))
+    mesh = mesh or None
+    _check_mesh(ns.dsbn, mesh)
+    with main_prints(mesh):
+        dataset = main_first(mesh, lambda: create_dataset(
+            cfg.data.dataset, cfg.data.data_dir, verbose=is_main(mesh)))
+    return run(cfg, dataset, None if mesh else device, resume_torch=ns.resume_torch,
+               dsbn=ns.dsbn, test_source=ns.test_source, rerank=ns.rerank, mesh=mesh)
+
+
+def _main_on_rank(mesh, argv):
+    return main(argv, mesh=mesh)
+
+
+def _check_mesh(dsbn, mesh):
+    if mesh and dsbn:
+        raise NotImplementedError("--dsbn under a data mesh of several cards is not "
+                                  "ported yet; run on one card (CUDA_VISIBLE_DEVICES, "
+                                  "or mesh=False)")
 
 
 def run(cfg, dataset, device=None, image_cache=None, resume_torch="", dsbn=False,
-        test_source=False, rerank=False):
+        test_source=False, rerank=False, mesh=None):
     """The evaluation (test.py:62-88) of ``cfg.model.arch`` on ``dataset``
     (``.query`` and ``.gallery`` lists of ``(fname, pid, camid)``), on
     ``device`` (default: the card), with the weights of ``cfg.train.resume``
     (with ``dsbn``, the target or with ``test_source`` the source domain's),
     or of ``resume_torch``. ``image_cache`` goes to the ``Preprocessor``
-    (default: the shared decode cache). Returns (CMC, mAP)."""
-    device = resolve_device(device)
+    (default: the shared decode cache). With ``mesh`` (a ready ``Mesh``, on
+    every rank) the eval is sharded over it and only rank 0 prints. Returns
+    (CMC, mAP)."""
+    _check_mesh(dsbn, mesh)
+    with main_prints(mesh):
+        return _run(cfg, dataset, mesh_device(mesh, device), image_cache, resume_torch,
+                    dsbn, test_source, rerank, mesh)
+
+
+def _run(cfg, dataset, device, image_cache, resume_torch, dsbn, test_source, rerank,
+         mesh):
     # Convolutions run in TF32 on the card (cudnn.allow_tf32 = True): the
     # input is already rounded to bf16, and the JAX package's convolutions
     # at default precision run on the TPU's bf16 matrix unit, so TF32 keeps
@@ -94,12 +141,14 @@ def run(cfg, dataset, device=None, image_cache=None, resume_torch="", dsbn=False
 
     extractor = FeatureExtractor(model, height=cfg.data.height,
                                  width=cfg.data.width,
-                                 batch_size=cfg.data.batch_size, device=device)
+                                 batch_size=cfg.data.batch_size, device=device,
+                                 mesh=mesh)
+    replicate(mesh, model)           # rank 0's weights, on the rank's card
     pre = Preprocessor(list(dataset.query) + list(dataset.gallery), mode="reid",
                        height=cfg.data.height, width=cfg.data.width,
                        cache="default" if image_cache is None else image_cache)
     loader = DataLoader(pre, batch_size=cfg.data.batch_size, drop_last=False,
-                        num_workers=cfg.data.workers)
+                        num_workers=cfg.data.workers, shard=mesh)
     return Evaluator(extractor).evaluate(loader, dataset.query, dataset.gallery,
                                          cmc_flag=True, rerank=rerank)
 

@@ -53,6 +53,15 @@ and ``iter.txt``'s) from the port's ``.pth.tar`` or the JAX package's flax
 (train_gan_usl.py:106-133). ``--fp16`` runs the encoder's backbone and the
 GAN nets in bf16 as the JAX package does (``models/precision.py``), in every
 mode; VGG19 stays fp32.
+
+Several cards (train_gan_usl.py:88-93): with more than one card visible and
+no ``--device cpu``, ``main`` runs one process a card over all of them, a
+data mesh for the modes ``train_reid`` and ``train_all`` (the default joint
+command; ``engine/gan_trainers.py``); ``main(argv, mesh=False)`` keeps one
+card. Only rank 0 prints and writes the logs, the checkpoints,
+``latest_net_{G,D}.pth`` and ``iter.txt``. Under a mesh ``--no-gan-train``
+(``train``), ``--bipath``, ``--learnable-memory``, ``--fp16`` and ``--gan-mode
+wgangp`` raise ``NotImplementedError`` before any work.
 """
 
 import argparse
@@ -68,23 +77,33 @@ from ..data.datasets import create as create_dataset
 from ..data.loader import DataLoader, Preprocessor
 from ..device import resolve_device
 from ..engine.evaluators import Evaluator, FeatureExtractor
-from ..engine.gan_trainers import ClusterContrastWithGANTrainer
+from ..engine.gan_trainers import ClusterContrastWithGANTrainer, check_mesh_mode
+from ..engine.trainers import check_mesh_precision
 from ..engine.usl import cluster_epoch, make_train_loader
 from ..models import create as create_model
 from ..models.dual_gan.models import create_model as create_gan
 from ..ops.cluster_memory import init_gradient_memory
 from ..ops.pose import batch_cords_to_map
 from ..ops.transforms import gan_input_transform
+from ..parallel.mesh import (
+    broadcast_object,
+    is_main,
+    launch,
+    local_device_count,
+    main_first,
+    main_prints,
+    mesh_device,
+    wants_mesh,
+)
 from ..utils import Logger, Timer
 from ..utils.serialization import (
-    load_checkpoint,
     load_networks,
     resume_checkpoint,
     save_checkpoint,
     save_networks,
 )
 from ..utils.visualizer import Visualizer
-from .train_usl import _checkpoint
+from .train_usl import _checkpoint, load_best
 
 SECTIONS = ("data", "model", "optim", "cluster", "train", "gan")
 
@@ -183,10 +202,12 @@ def _check_generator(cfg):
                          f"'train' mode (--no-gan-train) or --bipath")
 
 
-def main(argv=None):
+def main(argv=None, mesh=None):
     """Parse the flags (JAX's, plus ``--device``), tee stdout to
     ``<logs-dir>/log.txt``, write ``train_opt.txt``, load the dataset and
-    run the loop. Returns the best mAP."""
+    run the loop. Returns the best mAP. ``mesh``: None spans every card
+    when more than one is visible, False keeps one, a ``Mesh`` is this
+    rank's (the module's docstring)."""
     argv = sys.argv[1:] if argv is None else argv
     extra = argparse.ArgumentParser(allow_abbrev=False)
     extra.add_argument("--device", default="cuda",
@@ -196,26 +217,66 @@ def main(argv=None):
     cfg = parse_config(rest, sections=SECTIONS)
     device = resolve_device(ns.device)
     _check_generator(cfg)
-    logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
-    sys.stdout = logger
+    if wants_mesh(device, mesh):
+        _check_mesh(cfg, True)
+        return launch(_main_on_rank, local_device_count(), args=(argv,))
+    mesh = mesh or None
+    _check_mesh(cfg, mesh)
+    logger = Logger(osp.join(cfg.train.logs_dir, "log.txt")) if is_main(mesh) else None
+    if logger is not None:
+        sys.stdout = logger
     try:
-        dump_config(cfg, cfg.train.logs_dir, sections=SECTIONS)
-        dataset = create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True)
-        return run(cfg, dataset, device)
+        with main_prints(mesh):
+            if is_main(mesh):
+                dump_config(cfg, cfg.train.logs_dir, sections=SECTIONS)
+            dataset = main_first(mesh, lambda: create_dataset(
+                cfg.data.dataset, cfg.data.data_dir, verbose=is_main(mesh)))
+        return run(cfg, dataset, None if mesh else device, mesh=mesh)
     finally:
-        sys.stdout = logger.console
-        logger.close()
+        if logger is not None:
+            sys.stdout = logger.console
+            logger.close()
 
 
-def run(cfg, dataset, device=None, image_cache=None):
+def _main_on_rank(mesh, argv):
+    return main(argv, mesh=mesh)
+
+
+def _check_mesh(cfg, mesh):
+    """Under a mesh only the ``train_reid`` and ``train_all`` modes run, not
+    with ``--fp16`` or the WGAN-GP penalty: the other flags raise
+    ``NotImplementedError`` before any work."""
+    if not mesh:
+        return
+    check_mesh_precision(True, cfg.train.fp16)
+    if cfg.gan.warmup_epo < (1 if cfg.train.debug else cfg.train.epochs):
+        check_mesh_mode(True, _joint_mode(cfg), cfg.gan.gan_mode)
+
+
+def _joint_mode(cfg):
+    """The mode of the epochs after the warm-up (...infomap.py:450-466)."""
+    if not cfg.gan.gan_train:
+        return "train"
+    return "train_all_bip" if cfg.gan.bipath else \
+        "train_all_with_memory" if cfg.gan.learnable_memory else "train_all"
+
+
+def run(cfg, dataset, device=None, image_cache=None, mesh=None):
     """The epoch loop and the final best-model eval (train_gan_usl.py:
     83-279) on ``dataset`` (``.train``, ``.query``, ``.gallery`` lists of
     ``(fname, pid, camid)``, and ``.train_pose_dir``, the keypoint CSV, where
     it has one), on ``device`` (default: the card). ``image_cache`` goes to
     every ``Preprocessor`` the loop builds (default: the shared decode
-    cache). Returns the best mAP."""
+    cache). With ``mesh`` (a ready ``Mesh``, on every rank) the loop runs on
+    the rank's card over the mesh; only rank 0 prints and writes files.
+    Returns the best mAP."""
     _check_generator(cfg)
-    device = resolve_device(device)
+    _check_mesh(cfg, mesh)
+    with main_prints(mesh):
+        return _run(cfg, dataset, mesh_device(mesh, device), image_cache, mesh)
+
+
+def _run(cfg, dataset, device, image_cache, mesh):
     start = time.monotonic()
     cache = "default" if image_cache is None else image_cache
     pose_file = getattr(dataset, "train_pose_dir", None)
@@ -247,20 +308,23 @@ def run(cfg, dataset, device=None, image_cache=None):
 
     extractor = FeatureExtractor(model, height=cfg.data.height, width=cfg.data.width,
                                  batch_size=cfg.data.batch_size, device=device,
-                                 extra_features=cfg.gan.cluster_with_gan_features)
+                                 extra_features=cfg.gan.cluster_with_gan_features,
+                                 mesh=mesh)
     evaluator = Evaluator(extractor)
     test_pre = Preprocessor(list(dataset.query) + list(dataset.gallery), mode="reid",
                             height=cfg.data.height, width=cfg.data.width, cache=cache)
     test_loader = DataLoader(test_pre, batch_size=cfg.data.batch_size,
-                             drop_last=False, num_workers=cfg.data.workers)
+                             drop_last=False, num_workers=cfg.data.workers, shard=mesh)
+    # the trainer replicates the encoder, G and D at its first init_state
     trainer = ClusterContrastWithGANTrainer(
         model, gan, height=cfg.data.height, width=cfg.data.width,
         temp=cfg.cluster.temp, momentum=cfg.cluster.momentum,
         use_hard=cfg.cluster.use_hard, lr=cfg.optim.lr,
         weight_decay=cfg.optim.weight_decay, step_size=cfg.optim.step_size,
         iters_per_epoch=cfg.train.iters, num_instances=cfg.data.num_instances,
-        device=device)
-    visualizer = Visualizer(cfg.train.logs_dir, name=cfg.gan.name)
+        device=device, mesh=mesh)
+    visualizer = Visualizer(cfg.train.logs_dir, name=cfg.gan.name) \
+        if is_main(mesh) else None
 
     epochs = 1 if cfg.train.debug else cfg.train.epochs
     iters = 8 if cfg.train.debug else cfg.train.iters
@@ -279,27 +343,24 @@ def run(cfg, dataset, device=None, image_cache=None):
         # (train_gan_usl.py:182-185; config.py's gating note)
         conf_weight = None
         if cfg.gan.cluster_with_gan_features and epoch > cfg.gan.warmup_epo:
-            with Timer("conf"):
-                conf_weight = compute_conf_weight(gan, pseudo_dataset, memory, cfg,
-                                                  pose_file, cache)
+            with Timer("conf"):   # on rank 0, then broadcast
+                conf_weight = broadcast_object(mesh, compute_conf_weight(
+                    gan, pseudo_dataset, memory, cfg, pose_file, cache)
+                    if is_main(mesh) else None)
 
         # the mode (...infomap.py:450-466; train_gan_usl.py:187-228): the USL
         # step while warming up, then a joint or the hard-mix step on the
         # with_gan loader
         joint = (epoch + 1) > cfg.gan.warmup_epo
-        mode = "train_reid"
-        if joint and not cfg.gan.gan_train:
-            mode = "train"
-        elif joint:
-            mode = "train_all_bip" if cfg.gan.bipath else \
-                "train_all_with_memory" if cfg.gan.learnable_memory else "train_all"
+        mode = _joint_mode(cfg) if joint else "train_reid"
         pre_kw = dict(mode="with_gan", gan_height=cfg.data.gan_height,
                       gan_width=cfg.data.gan_width, pose_file=pose_file,
                       flip_all=True) if joint else {}
         loader = make_train_loader(pseudo_dataset, cfg.data.height, cfg.data.width,
                                    cfg.data.batch_size, cfg.data.num_instances,
                                    workers=cfg.data.workers, iters=iters,
-                                   seed=cfg.train.seed + epoch, cache=cache, **pre_kw)
+                                   seed=cfg.train.seed + epoch, cache=cache,
+                                   shard=mesh, **pre_kw)
         # trainable clusters from this epoch's bank (train_gan_usl.py:212-221)
         gmem = init_gradient_memory(memory.features, k_pad=k_pad, device=device)._replace(
             num_valid=memory.num_valid) if mode == "train_all_with_memory" else None
@@ -317,25 +378,26 @@ def run(cfg, dataset, device=None, image_cache=None):
                                          cmc_flag=False)
             is_best = mAP > best_map
             best_map = max(mAP, best_map)
-            save_checkpoint(_checkpoint(model, epoch + 1, best_map), is_best,
-                            osp.join(logs_dir, "checkpoint.pth.tar"))
+            if is_main(mesh):
+                save_checkpoint(_checkpoint(model, epoch + 1, best_map), is_best,
+                                osp.join(logs_dir, "checkpoint.pth.tar"))
             print(f"\n * Finished epoch {epoch:3d}  model mAP: {mAP:5.1%} "
                   f" best: {best_map:5.1%}{' *' if is_best else ''}\n")
 
         if joint and cfg.gan.gan_train:     # train_gan_usl.py:249-258
-            save_networks({"G": gan.net_G, "D": gan.net_D}, save_dir, "latest")
-            np.savetxt(iter_path, [(epoch + 1, 0)], delimiter=",", fmt="%d")
+            if is_main(mesh):
+                save_networks({"G": gan.net_G, "D": gan.net_D}, save_dir, "latest")
+                np.savetxt(iter_path, [(epoch + 1, 0)], delimiter=",", fmt="%d")
+                visualizer.print_current_errors(epoch, iters, errs)
             # LambdaLR linear decay after niter epochs (train_gan_usl.py:253-257)
             niter = max(1, epochs // 2)
             mult = 1.0 - max(0, epoch + 2 - niter) / float(epochs - niter + 1)
             state = state._replace(gan=gan.set_epoch_lr(state.gan, max(mult, 0.0)))
-            visualizer.print_current_errors(epoch, iters, errs)
 
     # the final full-CMC eval with the best checkpoint (...infomap.py:518-521)
-    best_path = osp.join(logs_dir, "model_best.pth.tar")
-    if osp.isfile(best_path) and state is not None:
+    if state is not None and load_best(model, osp.join(logs_dir, "model_best.pth.tar"),
+                                       mesh):
         print("==> Test with the best model:")
-        model.load_state_dict(load_checkpoint(best_path)["state_dict"])
         evaluator.evaluate(test_loader, dataset.query, dataset.gallery, cmc_flag=True)
 
     dt = time.monotonic() - start

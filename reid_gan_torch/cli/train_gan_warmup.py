@@ -36,6 +36,7 @@ from ..data import IterLoader
 from ..data.datasets import create as create_dataset
 from ..data.loader import DataLoader, Preprocessor
 from ..device import resolve_device
+from ..parallel.mesh import refuse_mesh
 from ..engine.gan_trainers import GANTrainer
 from ..models.dual_gan.models import create_model as create_gan
 from ..utils import Logger
@@ -62,10 +63,12 @@ def _check(cfg):
                          f"generator (--model-gen AE)")
 
 
-def main(argv=None):
+def main(argv=None, mesh=None):
     """Parse the flags (JAX's, plus ``--device``), tee stdout to
     ``<logs-dir>/log.txt``, write ``train_opt.txt``, load the dataset and
-    run the warm-up. Returns the engine's state."""
+    run the warm-up. Returns the engine's state. ``mesh``: a ``Mesh``, or
+    None with more than one card visible, raises ``NotImplementedError`` (no
+    data-mesh path yet); False, or one card, runs as before."""
     argv = sys.argv[1:] if argv is None else argv
     extra = argparse.ArgumentParser(allow_abbrev=False)
     extra.add_argument("--device", default="cuda",
@@ -74,6 +77,7 @@ def main(argv=None):
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=SECTIONS)
     device = resolve_device(ns.device)
+    refuse_mesh("cli/train_gan_warmup (the GAN warm-up, GANTrainer)", mesh, device)
     _check(cfg)
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
     sys.stdout = logger

@@ -15,6 +15,15 @@ and the epoch counter from the port's ``.pth.tar`` or the JAX package's flax
 ``.msgpack`` (train_usl.py:53-62). ``--fp16`` runs the backbone in bf16 as
 the JAX package does (``models/precision.py``: bf16 convolutions, fp32
 BatchNorm, heads, parameters and optimiser state).
+
+Several cards (train_usl.py:41-44): with more than one card visible and no
+``--device cpu``, ``main`` runs one process a card over all of them
+(``parallel.launch``, NCCL), a data mesh whose steps, extraction and rank
+pass are those of one device on the whole batch (``engine/trainers.py``,
+``engine/evaluators.py``); ``main(argv, mesh=False)`` keeps one card, and
+``CUDA_VISIBLE_DEVICES`` picks the cards. Only rank 0 prints and writes
+``log.txt``, ``train_opt.txt`` and the checkpoints. ``--fp16`` under a mesh
+raises ``NotImplementedError`` before any work.
 """
 
 import argparse
@@ -29,19 +38,32 @@ from ..data.datasets import create as create_dataset
 from ..data.loader import DataLoader, Preprocessor
 from ..device import resolve_device
 from ..engine.evaluators import Evaluator, FeatureExtractor
-from ..engine.trainers import ClusterContrastTrainer
+from ..engine.trainers import ClusterContrastTrainer, check_mesh_precision
 from ..engine.usl import cluster_epoch, make_train_loader
 from ..models import create as create_model
+from ..parallel.mesh import (
+    broadcast_object,
+    is_main,
+    launch,
+    local_device_count,
+    main_first,
+    main_prints,
+    mesh_device,
+    replicate,
+    wants_mesh,
+)
 from ..utils import Logger, Timer
 from ..utils.serialization import load_checkpoint, resume_checkpoint, save_checkpoint
 
 SECTIONS = ("data", "model", "optim", "cluster", "train")
 
 
-def main(argv=None):
+def main(argv=None, mesh=None):
     """Parse the flags (JAX's, plus ``--device``), tee stdout to
     ``<logs-dir>/log.txt``, write ``train_opt.txt``, load the dataset and
-    run the loop. Returns the best mAP."""
+    run the loop. Returns the best mAP. ``mesh``: None spans every card
+    when more than one is visible, False keeps one, a ``Mesh`` is this
+    rank's (the module's docstring)."""
     argv = sys.argv[1:] if argv is None else argv
     extra = argparse.ArgumentParser(allow_abbrev=False)
     extra.add_argument("--device", default="cuda",
@@ -50,16 +72,41 @@ def main(argv=None):
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=SECTIONS)
     device = resolve_device(ns.device)
-    logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
-    sys.stdout = logger
+    if wants_mesh(device, mesh):
+        check_mesh_precision(True, cfg.train.fp16)
+        return launch(_main_on_rank, local_device_count(), args=(argv,))
+    mesh = mesh or None
+    check_mesh_precision(mesh, cfg.train.fp16)
+    logger = Logger(osp.join(cfg.train.logs_dir, "log.txt")) if is_main(mesh) else None
+    if logger is not None:
+        sys.stdout = logger
     try:
-        dump_config(cfg, cfg.train.logs_dir, sections=SECTIONS)
-        print("==> Config written; starting USL training")
-        dataset = create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True)
-        return run(cfg, dataset, device)
+        with main_prints(mesh):
+            if is_main(mesh):
+                dump_config(cfg, cfg.train.logs_dir, sections=SECTIONS)
+            print("==> Config written; starting USL training")
+            dataset = main_first(mesh, lambda: create_dataset(
+                cfg.data.dataset, cfg.data.data_dir, verbose=is_main(mesh)))
+        return run(cfg, dataset, None if mesh else device, mesh=mesh)
     finally:
-        sys.stdout = logger.console
-        logger.close()
+        if logger is not None:
+            sys.stdout = logger.console
+            logger.close()
+
+
+def _main_on_rank(mesh, argv):
+    return main(argv, mesh=mesh)
+
+
+def load_best(model, best_path, mesh=None):
+    """Load ``best_path`` into ``model`` where rank 0 finds it, on every
+    rank (rank 0's weights, ``replicate``). Returns whether it was found."""
+    found = broadcast_object(mesh, osp.isfile(best_path))
+    if found:
+        if is_main(mesh):
+            model.load_state_dict(load_checkpoint(best_path)["state_dict"])
+        replicate(mesh, model)
+    return found
 
 
 def _checkpoint(model, epoch, best_map):
@@ -67,14 +114,22 @@ def _checkpoint(model, epoch, best_map):
             "epoch": epoch, "best_mAP": best_map}
 
 
-def run(cfg, dataset, device=None, image_cache=None, on_cluster=None):
+def run(cfg, dataset, device=None, image_cache=None, on_cluster=None, mesh=None):
     """The epoch loop and the final best-model eval (train_usl.py:86-159)
     on ``dataset`` (``.train``, ``.query``, ``.gallery`` lists of
     ``(fname, pid, camid)``), on ``device`` (default: the card).
     ``image_cache`` goes to every ``Preprocessor`` the loop builds (default:
     the shared decode cache); ``on_cluster`` to every ``cluster_epoch``.
+    With ``mesh`` (a ready ``Mesh``, on every rank) the loop runs on the
+    rank's card over the mesh; only rank 0 prints and writes files.
     Returns the best mAP, or the eval's (cmc, mAP) with ``--evaluate``."""
-    device = resolve_device(device)
+    check_mesh_precision(mesh, cfg.train.fp16)
+    with main_prints(mesh):
+        return _run(cfg, dataset, mesh_device(mesh, device), image_cache, on_cluster,
+                    mesh)
+
+
+def _run(cfg, dataset, device, image_cache, on_cluster, mesh):
     start = time.monotonic()
     cache = "default" if image_cache is None else image_cache
     # TF32 convolutions as in cli/test.py; every distance product stays fp32
@@ -90,12 +145,14 @@ def run(cfg, dataset, device=None, image_cache=None, on_cluster=None):
         print(f"=> Resumed from epoch {start_epoch} (best mAP {best:.1%})")
 
     extractor = FeatureExtractor(model, height=cfg.data.height, width=cfg.data.width,
-                                 batch_size=cfg.data.batch_size, device=device)
+                                 batch_size=cfg.data.batch_size, device=device,
+                                 mesh=mesh)
+    replicate(mesh, model)           # rank 0's weights, on the rank's card
     evaluator = Evaluator(extractor)
     test_pre = Preprocessor(list(dataset.query) + list(dataset.gallery), mode="reid",
                             height=cfg.data.height, width=cfg.data.width, cache=cache)
     test_loader = DataLoader(test_pre, batch_size=cfg.data.batch_size,
-                             drop_last=False, num_workers=cfg.data.workers)
+                             drop_last=False, num_workers=cfg.data.workers, shard=mesh)
 
     if cfg.train.evaluate:
         return evaluator.evaluate(test_loader, dataset.query, dataset.gallery,
@@ -106,7 +163,7 @@ def run(cfg, dataset, device=None, image_cache=None, on_cluster=None):
         momentum=cfg.cluster.momentum, use_hard=cfg.cluster.use_hard,
         lr=cfg.optim.lr, weight_decay=cfg.optim.weight_decay,
         step_size=cfg.optim.step_size, iters_per_epoch=cfg.train.iters,
-        num_instances=cfg.data.num_instances, device=device)
+        num_instances=cfg.data.num_instances, device=device, mesh=mesh)
 
     epochs = 1 if cfg.train.debug else cfg.train.epochs
     iters = 8 if cfg.train.debug else cfg.train.iters
@@ -126,7 +183,8 @@ def run(cfg, dataset, device=None, image_cache=None, on_cluster=None):
         loader = make_train_loader(pseudo_dataset, cfg.data.height, cfg.data.width,
                                    cfg.data.batch_size, cfg.data.num_instances,
                                    workers=cfg.data.workers, iters=iters,
-                                   seed=cfg.train.seed + epoch, cache=cache)
+                                   seed=cfg.train.seed + epoch, cache=cache,
+                                   shard=mesh)
         with Timer("train"):
             state, _ = trainer.train(state, epoch, loader, train_iters=iters,
                                      print_freq=cfg.train.print_freq,
@@ -139,17 +197,17 @@ def run(cfg, dataset, device=None, image_cache=None, on_cluster=None):
                                          cmc_flag=False)
             is_best = mAP > best_map
             best_map = max(mAP, best_map)
-            save_checkpoint(_checkpoint(model, epoch + 1, best_map), is_best,
-                            osp.join(logs_dir, "checkpoint.pth.tar"))
+            if is_main(mesh):
+                save_checkpoint(_checkpoint(model, epoch + 1, best_map), is_best,
+                                osp.join(logs_dir, "checkpoint.pth.tar"))
             print(f"\n * Finished epoch {epoch:3d}  model mAP: {mAP:5.1%} "
                   f" best: {best_map:5.1%}{' *' if is_best else ''}\n")
 
     # the final full-CMC eval with the best checkpoint (parity:
     # ...infomap.py:518-521 'Test with the best model')
-    best_path = osp.join(logs_dir, "model_best.pth.tar")
-    if osp.isfile(best_path) and state is not None:
+    if state is not None and load_best(model, osp.join(logs_dir, "model_best.pth.tar"),
+                                       mesh):
         print("==> Test with the best model:")
-        model.load_state_dict(load_checkpoint(best_path)["state_dict"])
         evaluator.evaluate(test_loader, dataset.query, dataset.gallery, cmc_flag=True)
 
     dt = time.monotonic() - start

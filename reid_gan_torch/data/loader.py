@@ -244,21 +244,23 @@ class Preprocessor:
                 gt_label=np.asarray([int(b.split("_", 1)[0]) for b in bases]),
                 keypoints=np.stack([self._keypoints(b) for b in bases]))
 
-    def get_batch(self, indices):
+    def get_batch(self, indices, rows=slice(None)):
         """Collated batch via vectorised gathers; field-for-field identical
-        to the per-item path."""
+        to the per-item path. ``rows`` (a slice or positions, which may
+        repeat) keeps those rows of the batch, with the whole batch's flip
+        draws (a data mesh rank's share)."""
         if self._packed is None:
             self._pack()
         p = self._packed
         idx = np.asarray(indices)
+        flips = self.rng.rand(len(idx)) < 0.5 if self.draws_flips() else \
+            np.zeros(len(idx), bool)
+        idx, flips = idx[rows], flips[rows]
         if self.mode == "only_gan":
             out = {"pid": p["pid"][idx], "index": idx}
-            flips = np.zeros(len(idx), bool)
         else:
             out = {"img": p["img"][idx], "fname": [p["fname"][i] for i in idx],
                    "pid": p["pid"][idx], "camid": p["camid"][idx], "index": idx}
-            flips = self.rng.rand(len(idx)) < 0.5 if \
-                self.mode == "with_gan" and self.flip_all else np.zeros(len(idx), bool)
             if self.mode == "with_gan":
                 out["flip"] = flips
         if self.mode != "reid":
@@ -266,6 +268,10 @@ class Preprocessor:
                        keypoints=p["keypoints"][idx], gt_label=p["gt_label"][idx],
                        gan_flip=flips, Xs_path=[p["Xs_path"][i] for i in idx])
         return out
+
+    def draws_flips(self):
+        """Whether each item draws a flip from ``rng``."""
+        return self.mode == "with_gan" and self.flip_all
 
     def _gan_item(self, fname, flip):
         base = osp.basename(fname)
@@ -316,7 +322,7 @@ class Preprocessor:
         item = {"img": self._read(fname), "fname": fname, "pid": pid,
                 "camid": camid, "index": index}
         if self.mode == "with_gan":
-            flip = bool(self.rng.rand() < 0.5) if self.flip_all else False
+            flip = bool(self.rng.rand() < 0.5) if self.draws_flips() else False
             item["flip"] = flip
             item.update(self._gan_item(fname, flip))
         return item
@@ -355,11 +361,26 @@ class DataLoader:
     Decodes items with a thread pool and keeps ``prefetch`` collated batches
     ready. Decode errors are re-raised in the consumer; abandoning the
     iterator mid-epoch stops the producer thread and joins it.
+
+    With ``shard`` (a ``parallel.Mesh``), every rank walks the same batches
+    (the sampler runs alike on each from the same seed) and decodes only its
+    contiguous slice of each: a batch of n indices is padded to a multiple
+    of the mesh size by repeating its last index, and rank r takes rows
+    [r·s, (r+1)·s) of it, s = ceil(n / size), as ``shard_batch`` places them.
+    The decoded fields hold those s rows; the index fields (``fname``,
+    ``pid``, ``camid``, ``index``) hold the whole batch's n, which every rank
+    needs for the bank fold and the feature keys. The ``with_gan`` flips are
+    the whole batch's draws, each rank taking its rows'. The pair modes are not
+    sharded.
     """
 
     def __init__(self, preprocessor, sampler=None, batch_size=64, num_workers=4,
-                 drop_last=True, shuffle=False, prefetch=2, seed=None):
+                 drop_last=True, shuffle=False, prefetch=2, seed=None, shard=None):
+        if shard is not None and preprocessor.mode in ("pair", "fdgan_pose"):
+            raise NotImplementedError(f"the {preprocessor.mode!r} loader under a data "
+                                      f"mesh (FD-GAN's stages)")
         self.pre = preprocessor
+        self.shard = shard
         self.sampler = sampler
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
@@ -379,6 +400,34 @@ class DataLoader:
     def __len__(self):
         n = len(self._indices()) if self.sampler is not None else len(self.pre)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _shard_batch(self, b, pool):
+        """This rank's decoded rows of the batch of indices ``b`` and the
+        whole batch's index fields (the class docstring)."""
+        size, rank = self.shard.world_size, self.shard.rank
+        s = -(-len(b) // size)
+        padded = list(b) + [b[-1]] * (s * size - len(b))
+        if self.pre.batchable():
+            rows = np.minimum(np.arange(rank * s, (rank + 1) * s), len(b) - 1)
+            batch = self.pre.get_batch(b, rows)
+        else:
+            # skip the flip draws of the other ranks' rows, so that each rank
+            # draws its rows' share of the whole batch's (padding rows draw
+            # their own)
+            draws = self.pre.draws_flips()
+            if draws:
+                self.pre.rng.rand(min(rank * s, len(b)))
+            batch = _collate(list(pool.map(self.pre.__getitem__,
+                                           padded[rank * s:(rank + 1) * s])))
+            if draws:
+                self.pre.rng.rand(max(0, len(b) - (rank + 1) * s))
+        ds = self.pre.dataset
+        whole = {"fname": [ds[i][0] for i in b],
+                 "pid": np.asarray([ds[i][1] for i in b]),
+                 "camid": np.asarray([ds[i][2] for i in b]),
+                 "index": np.asarray(b)}
+        batch.update((k, v) for k, v in whole.items() if k in batch)
+        return batch
 
     def __iter__(self):
         indices = self._indices()
@@ -407,7 +456,9 @@ class DataLoader:
                 for b in batches:
                     if stop.is_set():
                         return
-                    if packed:
+                    if self.shard is not None:
+                        batch = self._shard_batch(b, pool)
+                    elif packed:
                         batch = self.pre.get_batch(b)
                     else:
                         batch = _collate(list(pool.map(self.pre.__getitem__, b)))

@@ -8,6 +8,14 @@ the distance product (cuBLAS) and the rank pass (K3) run without a host
 round trip. With re-ranking, the three distance matrices come to the host
 for the k-reciprocal re-ranking (host C++), and the rank pass (K3) runs on
 the re-ranked matrix, sent back in chunks.
+
+Under a data mesh (JAX ``evaluators.py:29-77``, ``:139-212``) each rank runs
+K1 → encoder → K2 on its slice of each batch (the loader pads the last one,
+``DataLoader(shard=)``), and the features are gathered in rank order and
+trimmed, so every rank holds all of them; the rank pass deals the query
+chunks over the ranks (``metrics.py``). Re-ranking is host-bound: rank 0
+computes the distance matrices, the re-ranking and both rank passes, and
+broadcasts the result.
 """
 
 import time
@@ -16,10 +24,10 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..ops.distance import pairwise_distance as _pairwise
 from ..ops.jaccard import re_ranking
 from ..ops.transforms import eval_transform
+from ..parallel.mesh import all_gather_rows, broadcast_object, is_main, mesh_device
 from ..utils import AverageMeter
 from .metrics import rank_metrics, rank_metrics_features
 
@@ -35,12 +43,14 @@ class FeatureExtractor:
     dtype. With ``extra_features`` the model runs its ``test_all`` forward
     and each image also gets its GAN map's spatial mean in fp32 (a plain
     ``torch.mean``, as the JAX extractor leaves it to XLA,
-    evaluators.py:48-56).
+    evaluators.py:48-56). With ``mesh`` it runs on the rank's card and
+    rows (the module's docstring).
     """
 
     def __init__(self, model, height=256, width=128, batch_size=256,
-                 device=None, dtype=torch.bfloat16, extra_features=False):
-        self.device = resolve_device(device)
+                 device=None, dtype=torch.bfloat16, extra_features=False, mesh=None):
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
         self.param_dtype = next(self.model.parameters()).dtype
         self.height, self.width = height, width
@@ -48,18 +58,27 @@ class FeatureExtractor:
         self.dtype = dtype
         self.extra = extra_features
 
-    def dispatch(self, img_u8):
+    def dispatch(self, img_u8, n=None):
         """Enqueue the forward of a host (B, H, W, 3) uint8 batch and return
         the device features (with ``extra_features``, the pair of features
-        and pooled GAN features) and B, without waiting for the card."""
+        and pooled GAN features) and B, without waiting for the card. Under
+        a mesh ``img_u8`` is the rank's rows of a batch of ``n``, and the
+        features are every rank's, gathered and trimmed to ``n``."""
         x = torch.from_numpy(np.ascontiguousarray(img_u8)).to(self.device)
         self.model.eval()
         with torch.inference_mode():
             x = eval_transform(x, self.height, self.width, self.dtype).to(self.param_dtype)
             if not self.extra:
-                return self.model(x), img_u8.shape[0]
-            out = self.model(x, test_all=True)
-            return (out["feat"], out["gan_feat"].float().mean(dim=(2, 3))), img_u8.shape[0]
+                out = self.model(x)
+            else:
+                t = self.model(x, test_all=True)
+                out = (t["feat"], t["gan_feat"].float().mean(dim=(2, 3)))
+            if self.mesh is None:
+                return out, img_u8.shape[0]
+            n = img_u8.shape[0] * self.mesh.world_size if n is None else n
+            if not self.extra:
+                return all_gather_rows(self.mesh, out, n), n
+            return tuple(all_gather_rows(self.mesh, t, n) for t in out), n
 
     def __call__(self, img_u8):
         out, _ = self.dispatch(img_u8)
@@ -98,7 +117,7 @@ def extract_features(extractor, data_loader, print_freq=50, max_pending=8):
     end = time.time()
     for i, batch in enumerate(data_loader):
         data_time.update(time.time() - end)
-        out, _ = extractor.dispatch(batch["img"])
+        out, _ = extractor.dispatch(batch["img"], len(batch["fname"]))
         pending.append((out, batch["fname"]))
         if len(pending) >= max_pending:
             drain_one()
@@ -147,14 +166,15 @@ def evaluate_all(distmat, query, gallery, cmc_topk=(1, 5, 10), cmc_flag=False,
 
 
 def evaluate_all_features(x, y, query, gallery, cmc_topk=(1, 5, 10),
-                          cmc_flag=False, device=None):
+                          cmc_flag=False, device=None, mesh=None):
     """mAP + market1501 CMC from query features ``x`` and gallery features
     ``y`` on ``device`` (default: the card; raises if there is none); the
-    (m, n) distance matrix never leaves the device."""
+    (m, n) distance matrix never leaves the device. Under ``mesh`` the query
+    chunks are dealt over the ranks."""
     scores, mAP = rank_metrics_features(
         x, y, [pid for _, pid, _ in query], [pid for _, pid, _ in gallery],
         [cam for _, _, cam in query], [cam for _, _, cam in gallery],
-        device=device)
+        device=device, mesh=mesh)
     return _print_scores(scores, mAP, cmc_topk, cmc_flag)
 
 
@@ -166,18 +186,30 @@ class Evaluator:
 
     def evaluate(self, data_loader, query, gallery, cmc_flag=False, rerank=False):
         """(evaluators.py:199-214) Without ``rerank`` no host distance
-        matrix exists; with it, the metrics before and after re-ranking."""
+        matrix exists; with it, the metrics before and after re-ranking.
+        Under the extractor's mesh, ``data_loader`` is sharded over it."""
         device = self.extractor.device
+        mesh = getattr(self.extractor, "mesh", None)
         features = extract_features(self.extractor, data_loader)[0]
         if not rerank:
             x = np.stack([features[f] for f, _, _ in query])
             y = np.stack([features[f] for f, _, _ in gallery])
             return evaluate_all_features(x, y, query, gallery, cmc_flag=cmc_flag,
-                                         device=device)
-        distmat, _, _ = pairwise_distance(features, query, gallery, device)
-        evaluate_all(distmat, query, gallery, cmc_flag=cmc_flag, device=device)
-        print("Applying person re-ranking ...")
-        distmat_qq, _, _ = pairwise_distance(features, query, query, device)
-        distmat_gg, _, _ = pairwise_distance(features, gallery, gallery, device)
-        distmat = re_ranking(distmat, distmat_qq, distmat_gg)
-        return evaluate_all(distmat, query, gallery, cmc_flag=cmc_flag, device=device)
+                                         device=device, mesh=mesh)
+        if mesh is not None:
+            out = _rerank(features, query, gallery, cmc_flag, device) \
+                if is_main(mesh) else None
+            return broadcast_object(mesh, out)
+        return _rerank(features, query, gallery, cmc_flag, device)
+
+
+def _rerank(features, query, gallery, cmc_flag, device):
+    """The metrics of the plain distance matrix, then of the re-ranked one
+    (evaluators.py:205-212)."""
+    distmat, _, _ = pairwise_distance(features, query, gallery, device)
+    evaluate_all(distmat, query, gallery, cmc_flag=cmc_flag, device=device)
+    print("Applying person re-ranking ...")
+    distmat_qq, _, _ = pairwise_distance(features, query, query, device)
+    distmat_gg, _, _ = pairwise_distance(features, gallery, gallery, device)
+    distmat = re_ranking(distmat, distmat_qq, distmat_gg)
+    return evaluate_all(distmat, query, gallery, cmc_flag=cmc_flag, device=device)

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.transforms import fd_augment, sample_fd_augment_params
+from ..parallel.mesh import refuse_mesh
 from ..utils import AverageMeter
 from .evaluators import extract_features, pairwise_distance
 from .metrics import accuracy, cmc, rank_metrics
@@ -37,7 +38,8 @@ class SiameseTrainer:
     card). ``seed`` seeds the ``torch.Generator`` of the augmentation draws."""
 
     def __init__(self, model, lr=0.01, momentum=0.9, weight_decay=5e-4, step_size=40,
-                 device=None, seed=0):
+                 device=None, seed=0, mesh=None):
+        refuse_mesh("SiameseTrainer (FD-GAN stage I)", mesh)
         self.device = resolve_device(device)
         self.model = model.to(self.device, memory_format=torch.channels_last)
         self.base_lr = lr
@@ -160,6 +162,8 @@ class CascadeEvaluator:
     swap."""
 
     def __init__(self, extractor, embed_model, embed_dist_fn="softmax0"):
+        refuse_mesh("CascadeEvaluator (FD-GAN's evaluation)",
+                    getattr(extractor, "mesh", None))
         self.extractor = extractor
         self.embed_model = embed_model.to(extractor.device)
         self.embed_dist_fn = embed_dist_fn

@@ -46,6 +46,16 @@ One ``train`` (AE hard-mix) step, G frozen (gan_trainers.py:91-139):
 
 The ``train_reid`` warm-up step is the USL step (``ClusterContrastTrainer``).
 
+Under a data mesh (JAX ``gan_trainers.py:63-76,498-560``) the modes
+``train_reid`` and ``train_all`` run on each rank's contiguous slice of the
+batch (K4 with the whole batch's draws, sliced; K9, K10 on the rank's
+rows); the encoder, G and D are replicated from rank 0 and their BatchNorms
+normalise over the whole batch (``ops/norm.py``); the encoder's and G's
+gradients are averaged over the ranks after the joint backward, D's after
+its own, each before its optimizer step; both banks fold every rank's rows,
+gathered in the batch's order, in K7's one launch; the logged losses are the
+ranks' means. The other modes raise ``NotImplementedError`` under a mesh.
+
 One ``train_all_bip`` step (gan_trainers.py:392-466), the bi-path encoder
 (``ResNetBip``) and the AE generator:
 
@@ -88,12 +98,37 @@ from ..ops.cluster_memory import (
     update_gradient_clusters,
     update_memory,
 )
+from ..ops.norm import convert_global_bn
 from ..ops.pose import batch_cords_to_map
 from ..ops.transforms import diff_transform, gan_input_transform
+from ..parallel.mesh import all_reduce_grads, all_reduce_mean, refuse_mesh, replicate
 from ..utils import AverageMeter
-from .trainers import ClusterContrastTrainer, make_optimizer, zero_missing_grads
+from .trainers import (
+    ClusterContrastTrainer,
+    check_mesh_precision,
+    computes_bf16,
+    make_optimizer,
+    optimizer_params,
+    zero_missing_grads,
+)
 
 MODES = ("train", "train_all", "train_reid", "train_all_bip", "train_all_with_memory")
+MESH_MODES = ("train_reid", "train_all")
+
+
+def check_mesh_mode(mesh, mode, gan_mode=None):
+    """The modes a data mesh runs (``MESH_MODES``, and ``train_all`` not with
+    the WGAN-GP penalty, whose interpolation draws are per rank); another
+    raises ``NotImplementedError`` naming it."""
+    if mesh is None:
+        return
+    if mode not in MESH_MODES:
+        raise NotImplementedError(f"the {mode!r} mode under a data mesh of several "
+                                  f"cards is not ported yet; run on one card "
+                                  f"(CUDA_VISIBLE_DEVICES, or mesh=False)")
+    if mode == "train_all" and gan_mode == "wgangp":
+        raise NotImplementedError("the 'train_all' mode with --gan-mode wgangp under "
+                                  "a data mesh is not ported yet; run on one card")
 
 
 def _drain(buf, meters):
@@ -119,15 +154,19 @@ class JointState(NamedTuple):
 
 class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
     """The joint trainer: ``model`` (a ``ReIDResNet``) and ``gan`` (an
-    ``AEModel``) are trained in place on ``device`` (default: the card)."""
+    ``AEModel``) are trained in place on ``device`` (default: the card), or
+    on the rank's card of ``mesh`` (the module's docstring)."""
 
     def __init__(self, model, gan, height=256, width=128, temp=0.05, momentum=0.2,
                  use_hard=False, lr=3.5e-4, weight_decay=5e-4, step_size=20,
-                 iters_per_epoch=400, num_instances=16, device=None):
+                 iters_per_epoch=400, num_instances=16, device=None, mesh=None):
+        check_mesh_precision(mesh, computes_bf16(gan.net_G, gan.net_D))
         super().__init__(model, height, width, temp, momentum, use_hard, lr,
                          weight_decay, step_size, iters_per_epoch, num_instances,
-                         device)
+                         device, mesh)
         self.gan = gan
+        gan.net_G = convert_global_bn(gan.net_G, mesh)
+        gan.net_D = convert_global_bn(gan.net_D, mesh)
         gan.to(self.device)
         # a list to collect (phase, CUDA event) pairs at the joint step's
         # phase boundaries, for a device-time split; None records nothing
@@ -140,8 +179,12 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
             self.marks.append((phase, event))
 
     def init_state(self, memory, gan_state):
+        """The encoder's fresh optimiser, ``memory`` and ``gan_state``; under
+        a mesh the encoder, G, D and the bank are rank 0's."""
+        for net in (self.model, self.gan.net_G, self.gan.net_D):
+            replicate(self.mesh, net)
         opt, sched = make_optimizer(self.model.parameters(), **self.opt_args)
-        return JointState(opt, sched, memory, 0, gan_state)
+        return JointState(opt, sched, replicate(self.mesh, memory), 0, gan_state)
 
     def train_step(self, state, batch, seed):
         """One hard-mix ``train`` step (the steps in the module's docstring)
@@ -185,7 +228,9 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
     def train_all_step(self, state, batch, seed, conf):
         """One joint step on a batch of device tensors (``img``, ``pid``,
         ``Xs``, ``keypoints``, ``old_size``) with per-sample confidence
-        weights ``conf``. Returns (state, losses on the device)."""
+        weights ``conf``. Under a mesh ``pid`` and ``conf`` are the whole
+        batch's and the rest the rank's rows. Returns (state, losses on the
+        device)."""
         gan, gs = self.gan, state.gan
         targets = batch["pid"]
         enc_dtype = next(self.model.parameters()).dtype
@@ -205,22 +250,31 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         self._mark("G forward")
         loss_G = gan.get_loss_G_train(fake, xs)
         self._mark("G loss (D forward)")
-        losses_cl, _ = memory_loss(f_out, targets, state.memory, temp=self.temp)
-        loss_cl = (losses_cl * conf.to(losses_cl.dtype)).mean()
+        losses_cl, _ = memory_loss(f_out, self.local(targets), state.memory,
+                                   temp=self.temp)
+        loss_cl = (losses_cl * self.local(conf).to(losses_cl.dtype)).mean()
         loss = loss_cl + loss_G
         self._mark("InfoNCE (K6)")
         loss_D = self._joint_update(state, loss, xs, fake)
         # the parallel GAN bank, where there is one, takes the pooled GAN map
         # (gan_trainers.py:241-249)
-        gan_x = out["gan_feat"].mean(dim=(2, 3)) \
+        gan_x = self.gathered(out["gan_feat"].mean(dim=(2, 3))) \
             if state.memory.gan_features.shape[0] else None
-        update_memory(state.memory, f_out.detach(), targets, momentum=self.momentum,
-                      use_hard=self.use_hard, gan_x=gan_x, group_size=self.num_instances)
+        update_memory(state.memory, self.gathered(f_out.detach()), targets,
+                      momentum=self.momentum, use_hard=self.use_hard, gan_x=gan_x,
+                      group_size=self.num_instances)
         self._mark("bank fold (K7)")
         state = state._replace(step=state.step + 1,
                                gan=gs._replace(step=gs.step + 1))
-        return state, {"loss": loss.detach(), "loss_cl": loss_cl.detach(),
-                       "G": loss_G.detach(), "D": loss_D}
+        errs = {"loss": loss.detach(), "loss_cl": loss_cl.detach(),
+                "G": loss_G.detach(), "D": loss_D}
+        if self.mesh is not None:    # the ranks' means, in one reduction
+            dtype = loss.dtype
+            for v in errs.values():
+                dtype = torch.promote_types(dtype, v.dtype)
+            errs = dict(zip(errs, all_reduce_mean(self.mesh, torch.stack(
+                [v.to(dtype) for v in errs.values()]))))
+        return state, errs
 
     def train_all_bip_step(self, state, batch, seed):
         """One bi-path step (the steps in the module's docstring) on a batch
@@ -312,10 +366,15 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         state.optimizer.zero_grad(set_to_none=True)
         gs.opt_G.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            zero_missing_grads(state.optimizer)
+            all_reduce_grads(self.mesh, optimizer_params(state.optimizer) +
+                             optimizer_params(gs.opt_G))
         self._mark("joint backward (encoder, G, D input)")
         gs.opt_D.zero_grad(set_to_none=True)
         loss_D = self.gan.d_loss(xs, fake)
         loss_D.backward()
+        all_reduce_grads(self.mesh, optimizer_params(gs.opt_D))
         gs.opt_D.step()
         self._mark("D step")
         zero_missing_grads(state.optimizer)
@@ -349,6 +408,7 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         and for ``train_all_with_memory`` (state, gmem, means)."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; the modes are {MODES}")
+        check_mesh_mode(self.mesh, mode, self.gan.gan_mode)
         if mode == "train_all_with_memory" and gmem is None:
             raise ValueError("train_all_with_memory needs the clusters (gmem)")
         meters = {}
@@ -360,7 +420,7 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
             data_time.update(time.time() - end)
             dev = self._to_device(batch, mode)
             seed = (base_seed + epoch * train_iters + i) & 0x7FFFFFFF
-            if mode == "train_all":
+            if mode == "train_all":   # the whole batch's weights (``index``)
                 conf = np.ones(len(batch["pid"]), np.float32) if conf_weight is None \
                     else np.asarray(conf_weight[np.asarray(batch["index"])], np.float32)
                 state, errs = self.train_all_step(
@@ -403,7 +463,8 @@ class GANTrainer:
     ``only_gan`` batches do not carry) per batch, on ``device`` (default:
     the card)."""
 
-    def __init__(self, gan, print_freq=100, device=None):
+    def __init__(self, gan, print_freq=100, device=None, mesh=None):
+        refuse_mesh("GANTrainer (the GAN warm-up)", mesh)
         self.gan = gan
         self.print_freq = print_freq
         self.device = resolve_device(device)

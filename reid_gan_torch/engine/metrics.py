@@ -16,6 +16,11 @@ number of valid matches and, for the all-shots CMC, the query's histogram
 row, in the JAX backend's order (stable by distance, then gallery index);
 ``separate_camera_set`` drops the query's camera from the valid set. Only
 the (topk,) histogram and two scalars leave the card.
+
+Under a data mesh (JAX ``metrics.py:309-345``, where the chunk's rows are
+sharded against the replicated gallery) the query chunks are dealt over the
+ranks in turn, each rank ranks its chunks against the whole gallery with K3,
+and the histograms, AP sums and valid counts are summed over the ranks.
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import RANK_STATS
 from ..ops.distance import squared_euclidean
+from ..parallel.mesh import all_reduce_sum
 from ..utils import to_numpy
 
 RANK_STATS_MAX_N = 1 << 21   # K3 keeps a counter's two halves in 16 bits (csrc/rank_stats.cu)
@@ -132,12 +138,15 @@ def _default_ids_cams(m, n, query_ids, gallery_ids, query_cams, gallery_cams):
 
 
 def _rank_chunks(block, m, n, query_ids, gallery_ids, query_cams, gallery_cams,
-                 topk, chunk, device, separate_camera_set=False, first_match_break=True):
+                 topk, chunk, device, separate_camera_set=False, first_match_break=True,
+                 mesh=None):
     """The chunk loop shared by both entries: ``block(s, e)`` gives the
     (e - s, n) device distance block of queries s..e, ranked by K3 (its
     plain version on the CPU) as it is: a short last chunk is not padded to
     ``chunk`` rows. The all-shots rows are summed in float64 in query order.
-    Only the (topk,) histogram and two scalars leave the device."""
+    Only the (topk,) histogram and two scalars leave the device. Under
+    ``mesh`` rank r ranks chunks r, r + size, ... and the sums are the
+    ranks'."""
     query_ids, gallery_ids, query_cams, gallery_cams = _default_ids_cams(
         m, n, query_ids, gallery_ids, query_cams, gallery_cams)
     gids = torch.as_tensor(np.asarray(gallery_ids, np.int32)).to(device)
@@ -145,7 +154,10 @@ def _rank_chunks(block, m, n, query_ids, gallery_ids, query_cams, gallery_cams,
     hist = torch.zeros(topk, dtype=torch.float64, device=device)
     ap_sum = torch.zeros((), dtype=torch.float64, device=device)
     valid_q = torch.zeros((), dtype=torch.int64, device=device)
-    for s in range(0, m, chunk):
+    starts = range(0, m, chunk)
+    if mesh is not None:
+        starts = starts[mesh.rank::mesh.world_size]
+    for s in starts:
         e = min(s + chunk, m)
         d = block(s, e)
         qid = np.asarray(query_ids[s:e], np.int32)
@@ -163,6 +175,10 @@ def _rank_chunks(block, m, n, query_ids, gallery_ids, query_cams, gallery_cams,
             hist += stats[3].to(torch.float64).sum(dim=0)
         ap_sum += torch.where(has, ap, 0.0).sum().to(torch.float64)
         valid_q += has.sum()
+    if mesh is not None:
+        sums = all_reduce_sum(mesh, torch.cat([hist, ap_sum[None],
+                                               valid_q[None].to(torch.float64)]))
+        hist, ap_sum, valid_q = sums[:topk], sums[topk], sums[topk + 1]
     valid_q = int(valid_q)
     if valid_q == 0:
         raise RuntimeError("No valid query")
@@ -172,11 +188,11 @@ def _rank_chunks(block, m, n, query_ids, gallery_ids, query_cams, gallery_cams,
 def rank_metrics_features(query_feats, gallery_feats, query_ids=None,
                           gallery_ids=None, query_cams=None,
                           gallery_cams=None, topk=100, chunk=1024,
-                          device=None):
+                          device=None, mesh=None):
     """Fused CMC (market1501: same-id-same-camera entries dropped, first
     match breaks) + mAP from (m, d) query and (n, d) gallery features, on
     ``device`` (default: the card; raises if there is none); no distance
-    matrix leaves the device.
+    matrix leaves the device. Under ``mesh`` the ranks share the chunks.
 
     Returns (cmc (topk,) float64, mAP float). Raises if no query has a valid
     match."""
@@ -185,7 +201,7 @@ def rank_metrics_features(query_feats, gallery_feats, query_ids=None,
     gf = torch.as_tensor(np.asarray(gallery_feats, np.float32)).to(device)
     return _rank_chunks(lambda s, e: squared_euclidean(qf[s:e].to(device), gf),
                         qf.shape[0], gf.shape[0], query_ids, gallery_ids,
-                        query_cams, gallery_cams, topk, chunk, device)
+                        query_cams, gallery_cams, topk, chunk, device, mesh=mesh)
 
 
 def rank_metrics(distmat, query_ids=None, gallery_ids=None, query_cams=None,

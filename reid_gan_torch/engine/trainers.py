@@ -9,6 +9,17 @@ cuDNN) → Adam with coupled weight decay → momentum fold of the detached
 ``trainers.py:79-85``. The loop never waits on the card within a print
 window: losses stay on the device and are fetched in one transfer every
 ``print_freq`` steps.
+
+Under a data mesh (``mesh``, one rank a card; JAX ``trainers.py:91-130``)
+each rank holds the model, the optimiser and the bank, replicated from rank
+0, and takes its contiguous slice of each P×K batch. The augmentation draws
+are those of the whole batch from the step's seed, sliced (K4 runs on the
+rank's rows); every BatchNorm normalises over the whole batch
+(``ops/norm.py``); the loss is the rank's rows' mean and the gradients are
+averaged over the ranks before Adam, so the update is one device's on the
+whole batch. K7 folds every rank's detached ``feat``, gathered in rank
+order (the batch's order), with the whole batch's labels, on every rank,
+so the banks stay equal. The logged loss is the mean over the ranks.
 """
 
 import time
@@ -17,9 +28,17 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..ops.cluster_memory import MemoryState, memory_loss, update_memory
+from ..ops.norm import convert_global_bn
 from ..ops.transforms import sample_augment_params, train_augment
+from ..parallel.mesh import (
+    all_gather_rows,
+    all_reduce_grads,
+    all_reduce_mean,
+    mesh_device,
+    replicate,
+    shard_batch,
+)
 from ..utils import AverageMeter
 
 
@@ -49,6 +68,26 @@ def make_optimizer(params, lr=3.5e-4, weight_decay=5e-4, step_size=20,
     return opt, sched
 
 
+def optimizer_params(optimizer):
+    return [q for group in optimizer.param_groups for q in group["params"]]
+
+
+def check_mesh_precision(mesh, fp16):
+    """``--fp16`` (a bf16 compute dtype, ``models/precision.py``) is not
+    ported to the data mesh yet: under ``mesh`` it raises. The CLIs call this
+    with their flag before any work, the trainers with ``computes_bf16``."""
+    if mesh and fp16:
+        raise NotImplementedError("--fp16 (bf16 compute) under a data mesh of "
+                                  "several cards is not ported yet; run on one "
+                                  "card (CUDA_VISIBLE_DEVICES, or mesh=False)")
+
+
+def computes_bf16(*nets):
+    """Whether a module of ``nets`` has a compute dtype (``--fp16``)."""
+    return any(getattr(m, "compute_dtype", None) is not None
+               for net in nets for m in net.modules())
+
+
 def zero_missing_grads(optimizer):
     """Give a parameter the loss did not reach (a variant's second branch,
     GAN projection or predictor) a zero gradient, as the JAX step does, so
@@ -64,13 +103,19 @@ class ClusterContrastTrainer:
     InfoNCE loop (CC/clustercontrast/trainers.py:213-270).
 
     ``model`` is moved to ``device`` (default: the card; raises if there is
-    none) in channels_last memory and trained in place."""
+    none) in channels_last memory and trained in place. With ``mesh`` the
+    device is the rank's and the model's BatchNorms become global
+    (``ops/norm.py``); the steps take the rank's rows of each batch and the
+    whole batch's labels (the module's docstring)."""
 
     def __init__(self, model, height=256, width=128, temp=0.05, momentum=0.2,
                  use_hard=False, lr=3.5e-4, weight_decay=5e-4, step_size=20,
-                 iters_per_epoch=400, num_instances=None, device=None):
-        self.device = resolve_device(device)
-        self.model = model.to(self.device, memory_format=torch.channels_last)
+                 iters_per_epoch=400, num_instances=None, device=None, mesh=None):
+        check_mesh_precision(mesh, computes_bf16(model))
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
+        self.model = convert_global_bn(model, mesh).to(self.device,
+                                                       memory_format=torch.channels_last)
         self.height, self.width = height, width
         self.temp = temp
         self.momentum = momentum
@@ -81,41 +126,66 @@ class ClusterContrastTrainer:
         self._gen = torch.Generator(device=self.device)
 
     def init_state(self, memory):
+        """A fresh optimiser over the model and ``memory``; under a mesh the
+        model and the bank are rank 0's (``replicate``)."""
+        replicate(self.mesh, self.model)
         opt, sched = make_optimizer(self.model.parameters(), **self.opt_args)
-        return ReIDTrainState(opt, sched, memory, 0)
+        return ReIDTrainState(opt, sched, replicate(self.mesh, memory), 0)
 
     def set_memory(self, state, memory):
         """Swap in the freshly re-clustered bank at epoch start
-        (CC/examples/...usl.py:357-372 rebuilds ClusterMemory per epoch)."""
-        return state._replace(memory=memory)
+        (CC/examples/...usl.py:357-372 rebuilds ClusterMemory per epoch);
+        under a mesh, rank 0's."""
+        return state._replace(memory=replicate(self.mesh, memory))
+
+    def draws(self, n, seed):
+        """The augmentation draws of a batch of ``n`` images from ``seed``."""
+        self._gen.manual_seed(seed)
+        return sample_augment_params(n, self.height, self.width, self._gen)
 
     def augment(self, img_u8, seed):
         """The train augmentation of a device uint8 batch, with draws seeded
-        by ``seed``."""
-        self._gen.manual_seed(seed)
-        params = sample_augment_params(img_u8.shape[0], self.height, self.width,
-                                       self._gen)
+        by ``seed``; under a mesh ``img_u8`` is the rank's rows and the draws
+        are the whole batch's, sliced."""
+        n = img_u8.shape[0] * (self.mesh.world_size if self.mesh else 1)
+        params = self.draws(n, seed)
+        if self.mesh is not None:
+            params = shard_batch(self.mesh, params)
         return train_augment(img_u8, params, self.height, self.width)
+
+    def local(self, t):
+        """The rank's rows of a whole-batch tensor (``t`` without a mesh)."""
+        return t if self.mesh is None else shard_batch(self.mesh, t)
+
+    def gathered(self, t):
+        """Every rank's rows of ``t`` in the batch's order (``t`` without a
+        mesh)."""
+        return all_gather_rows(self.mesh, t)
 
     def update(self, state, x, targets):
         """Forward, backward, Adam and the bank fold on an augmented batch
-        ``x`` (N, 3, H, W). Returns (state, loss on the device)."""
+        ``x`` (N, 3, H, W); under a mesh ``x`` is the rank's rows and
+        ``targets`` the whole batch's. Returns (state, loss on the device)."""
         self.model.train()
         out = self.model(x, with_gan_feat=False)
-        losses, _ = memory_loss(out["feat"], targets, state.memory, temp=self.temp)
+        losses, _ = memory_loss(out["feat"], self.local(targets), state.memory,
+                                temp=self.temp)
         loss = losses.mean()
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         zero_missing_grads(state.optimizer)
+        all_reduce_grads(self.mesh, optimizer_params(state.optimizer))
         state.optimizer.step()
         state.scheduler.step()
-        update_memory(state.memory, out["feat"].detach(), targets,
+        update_memory(state.memory, self.gathered(out["feat"].detach()), targets,
                       momentum=self.momentum, use_hard=self.use_hard,
                       group_size=self.num_instances)
-        return state._replace(step=state.step + 1), loss.detach()
+        return state._replace(step=state.step + 1), \
+            all_reduce_mean(self.mesh, loss.detach())
 
     def step(self, state, img_u8, targets, seed):
-        """One train step on a device uint8 batch and int32 targets."""
+        """One train step on a device uint8 batch and int32 targets (under a
+        mesh, the rank's rows and the whole batch's targets)."""
         x = self.augment(img_u8, seed)
         param_dtype = next(self.model.parameters()).dtype
         return self.update(state, x.to(param_dtype), targets)

@@ -88,8 +88,12 @@ class FDGANModel:
     ``FDGANConfig``. ``depth``: the Siamese ResNets' (50, or 18 for
     ``--debug``). ``seed`` seeds ``generator``, the draws' stream."""
 
-    def __init__(self, cfg, height=256, width=128, depth=50, device=None, seed=0):
+    def __init__(self, cfg, height=256, width=128, depth=50, device=None, seed=0,
+                 mesh=None):
         from ...device import resolve_device
+        from ...parallel.mesh import refuse_mesh
+
+        refuse_mesh("FDGANModel (FD-GAN stages II and III)", mesh)
 
         self.cfg = cfg
         self.device = resolve_device(device)

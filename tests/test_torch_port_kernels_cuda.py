@@ -35,7 +35,10 @@ joints and flips on odd frames (K13); erase rectangles at the borders with
 flips, every image flipped, none, or erased, widths on and off the float4
 path, one image and odd frames (K14); the same bits on a second launch
 (K1, K4, K12, K14 as K5, K6); and the raise on inputs a kernel does not
-take, a C entry's size checks as a ValueError (K4, K14).
+take, a C entry's size checks as a ValueError (K4, K14). Beside the
+kernels: ``ops/norm.py``'s global BatchNorm against torch's
+``SyncBatchNorm`` on a mesh of one rank, odd channel counts, one image a
+rank.
 
 Needs a CUDA card; skips without one. This file imports no JAX, so it runs
 on a machine without it, with the JAX test harness left out:
@@ -1687,3 +1690,52 @@ def test_bf16_on_the_card_matches_the_cpu_path(card, kind):
     own, gap = _tree_gap(cpu_grad, ref_grad), _tree_gap(got_grad, cpu_grad)
     assert 0 < own and gap <= min(BF16_FACTOR * own, 0.5), \
         f"{kind} gradients: card - cpu {gap:.3g}, cpu bf16 - fp32 {own:.3g}"
+
+
+@pytest.mark.parametrize("shape,channels_last", [((1, 7, 5, 3), True),
+                                                 ((1, 33, 4, 2), False)])
+def test_global_batch_norm_plain_matches_sync_batch_norm(card, tmp_path, shape,
+                                                         channels_last):
+    """``GlobalBatchNorm`` in train mode on the card (all-reduces of [Σx, n]
+    and Σ(x − mean)² over an NCCL mesh of one rank, a ``file://`` store)
+    against torch's ``SyncBatchNorm`` on the same CUDA tensor, with an odd channel
+    count and one image a rank: the output and the input's and parameters'
+    gradients within 1e-5 of their largest value, the running stats within
+    1e-6 relative; in eval mode, the BatchNorm of the running stats."""
+    from reid_gan_torch.ops.norm import GlobalBatchNorm
+    from reid_gan_torch.parallel import destroy_mesh, get_mesh
+
+    mesh = get_mesh(1, 0, init_method=f"file://{tmp_path}/store")
+    try:
+        g = torch.Generator(device=card).manual_seed(5)
+        c = shape[1]
+        x = torch.randn(shape, device=card, generator=g) * 3.0 + 2.0
+        if channels_last:
+            x = x.contiguous(memory_format=torch.channels_last)
+        dy = torch.randn(shape, device=card, generator=g)
+        bn = GlobalBatchNorm(c).to(card).train()
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=g)
+            bn.bias.normal_(0, 0.1, generator=g)
+        ref_bn = torch.nn.SyncBatchNorm(c).to(card).train()
+        ref_bn.load_state_dict(bn.state_dict())
+        xs, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        ys = bn(xs)
+        (ys * dy).sum().backward()
+        yp = ref_bn(xp)
+        (yp * dy).sum().backward()
+        for got, ref in ((ys, yp), (xs.grad, xp.grad), (bn.weight.grad, ref_bn.weight.grad),
+                         (bn.bias.grad, ref_bn.bias.grad)):
+            assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        torch.testing.assert_close(bn.running_mean, ref_bn.running_mean, rtol=1e-6,
+                                   atol=1e-7)
+        torch.testing.assert_close(bn.running_var, ref_bn.running_var, rtol=1e-6,
+                                   atol=1e-7)
+        bn.eval()
+        rm, rv = bn.running_mean, bn.running_var
+        with torch.no_grad():
+            ref = (x - rm[:, None, None]) * torch.rsqrt(rv[:, None, None] + bn.eps) \
+                * bn.weight[:, None, None] + bn.bias[:, None, None]
+            torch.testing.assert_close(bn(x), ref, rtol=1e-5, atol=1e-5)
+    finally:
+        destroy_mesh()
