@@ -47,7 +47,9 @@ the script exits non-zero without printing a result:
    128, 64) with missing joints, an image without joints and joints on the
    frame's corners (the same bits on a second launch); K11 ``gan_feat_l2n`` at (256, 2048, 16, 8), beside
    ``F.normalize`` as its library time; K6 once more with the hard-mix
-   step's 16 extra negatives (groups of 16) against the 768-row bank; K12
+   step's 16 extra negatives (groups of 16) against the 768-row bank (a
+   digest of its outputs), and on the last rank's 64 rows of a mesh of four
+   from ``row0`` 192, each row masked for its global group; K12
    ``diff_transform`` at (16, 3, 128, 64) -> 256x128, one image of -1/+1
    extremes so the renormalised edge taps see full swings, against the
    plain version and its fp64 arithmetic, edge rows and columns apart, and
@@ -201,11 +203,21 @@ the script exits non-zero without printing a result:
    own gradients; each parameter's gradient; bank; running stats), then
    warm steps with and without the mesh in turns; a sharded
    ``Evaluator.evaluate`` of phase 3's eval set held against the unsharded
-   one (CMC, mAP); then, with launch counts zeroed just before and read
-   just after, a 2-step ``cli/train_usl.run`` and a 2-step ``train_all``
-   epoch of ``cli/train_gan_usl.run`` under the mesh on a smaller two-colour
-   set (2,048 train images of 128 ids, 256 + 768 eval, Infomap): K1-K11
-   must launch, K12-K14 not; their launches join the kernels line;
+   one (CMC, mAP); the hard-mix ``train``, ``train_all_bip`` and
+   ``train_all_with_memory`` steps (``[joint]``'s nets: ResNet-50 or
+   ``resnet_bip50``, the AE or pose generator and D at 128x64, batch 256)
+   and the warm-up's ``GANTrainer.train_gan`` iteration under the mesh, each
+   held against the same step without it, TF32 off (the losses; the
+   gradient all-reduces against the fp64 mean of the ranks' own gradients;
+   the memory mode's clusters, bit-equal on every rank), then warm steps
+   with and without the mesh in turns; then, each with launch counts
+   zeroed just before and read just after, a 2-step ``cli/train_usl.run``
+   (K1-K8), 2-step epochs of ``cli/train_gan_usl.run`` in ``train_all``
+   (K1-K11), ``--no-gan-train`` (K1-K9, K12), ``--bipath`` (K1-K9) and
+   ``--learnable-memory`` (K1-K6, K8-K10) under the mesh on a smaller
+   two-colour set (2,048 train images of 128 ids, 256 + 768 eval,
+   Infomap), and 2 iterations of ``cli/train_gan_warmup.run`` (K9); their
+   launches join the kernels line;
 14b. ``[vgg_warmup]``: phase 12's ``GANTrainer.train_gan`` with ``--use-vgg``:
    20 iterations (K9 once an iteration, nothing else), the peak memory, 5
    warm iterations without and with VGG in turns;
@@ -276,7 +288,7 @@ the script exits non-zero without printing a result:
 18. a JSON line with every kernel's launches (the sum over the two whole
    joint loops, phases 13 and 14, ``[gan_clusters]``, ``[vgg_joint]``'s two
    epochs, the ``run()`` epochs of ``[bip_joint]`` and ``[memory_joint]``,
-   ``[ddp]``'s two ``run()`` epochs,
+   ``[ddp]``'s ``run()`` epochs,
    ``[fp16_usl]``, ``[msgpack]``, the FD-GAN chain, phase 17,
    ``[cuhk03]`` and the headline recipe's loop, phase 8), error,
    times and bound; K5's and K6's entries carry ``forward_ms``,
@@ -295,11 +307,13 @@ the script exits non-zero without printing a result:
 
 import functools
 import importlib
+import inspect
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -758,7 +772,7 @@ def _k6_inputs(k_pad, nv, seed, t=0, group=16, b=256, d=2048):
     return state, y, x0, ex
 
 
-def _time_k6(label, state, y, x0, ex=None, group=16, reps=10):
+def _time_k6(label, state, y, x0, ex=None, group=16, reps=10, **row0):
     """K6's forward and backward apart (``_time_phases``), its plain version
     (forward + backward) and cuBLAS's two fp32 products alone
     (``torch.matmul``, TF32 off, on the padded bank as the plain version
@@ -773,10 +787,11 @@ def _time_k6(label, state, y, x0, ex=None, group=16, reps=10):
     t = 0 if ex is None else ex.shape[0]
     gl = torch.full((b,), 1.0 / b, device="cuda")
     x = x0.detach().requires_grad_(True)
-    times = _time_phases(lambda: memory_loss(x, y, state, ex_f=ex, group_size=group)[0],
-                         (x,), gl, reps)
+    times = _time_phases(lambda: memory_loss(x, y, state, ex_f=ex, group_size=group,
+                                             **row0)[0], (x,), gl, reps)
     plain = device_ms(lambda: torch.autograd.grad(
-        memory_loss_plain(x, y, state, ex_f=ex, group_size=group)[0], x, gl), reps)
+        memory_loss_plain(x, y, state, ex_f=ex, group_size=group, **row0)[0], x, gl),
+        reps)
     rows = state.features if ex is None else torch.cat([state.features, ex])
     dl = torch.randn((b, rows.shape[0]), device="cuda")
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -856,6 +871,7 @@ def _check_k6_extra_negatives():
     loss, logits, dx = run(memory_loss)
     loss_r, logits_r, dx_r = run(memory_loss_plain)
     torch.cuda.synchronize()
+    digest = _digest(loss.detach(), logits, dx)
     masked = (torch.arange(b, device="cuda")[:, None] // group ==
               torch.arange(t, device="cuda")[None])
     lex, lex_r = logits[:, k_pad:], logits_r[:, k_pad:]
@@ -869,10 +885,60 @@ def _check_k6_extra_negatives():
     print(f"[K6] ex_f B {b} D {d} K_pad {k_pad} num_valid {nv} T {t} group {group}: "
           f"max_abs_err logits {e_l:.3g}, loss {e_loss:.3g} (tol {tol:.3g}), dx "
           f"{e_dx:.3g} (tol {tol_dx:.3g}); self-masked columns rel err {e_mask:.3g} "
-          f"(tol {tol_mask:.3g})")
+          f"(tol {tol_mask:.3g}); digest {digest}")
     check(e_l <= tol and e_loss <= tol and e_dx <= tol_dx and e_mask <= tol_mask
           and tuple(logits.shape) == (b, k_pad + t), "K6 with ex_f differs from plain")
-    return max(e_loss, e_l), _time_k6(f"ex_f T {t}", state, y, x0, ex, group)
+    times = _time_k6(f"ex_f T {t}", state, y, x0, ex, group)
+    # a package from before the data mesh's hard-mix step (``--kernels K6
+    # ROOT`` on an older commit) has no row0
+    if "row0" not in inspect.signature(memory_loss).parameters:
+        return max(e_loss, e_l), times
+    e_row0, row0_times = _check_k6_row0(state, y, x0, ex, group)
+    return max(e_loss, e_l, e_row0), dict(times, **{f"row0_{k}": v
+                                                   for k, v in row0_times.items()})
+
+
+def _check_k6_row0(state, y, x0, ex, group, ranks=4):
+    """K6 as the hard-mix step runs it on a rank of a data mesh of ``ranks``
+    cards: the rank's 256 / ``ranks`` rows from ``row0`` = rank · rows (the
+    last rank), the 16 extra negatives of the whole batch, each masked for
+    its global group, against the plain version with the same ``row0``;
+    timed beside the whole batch's call."""
+    from reid_gan_torch.ops.cluster_memory import memory_loss, memory_loss_plain
+
+    b = x0.shape[0] // ranks
+    row0 = (ranks - 1) * b
+    xs, ys = x0[row0:].contiguous(), y[row0:].contiguous()
+    t, k_pad = ex.shape[0], state.features.shape[0]
+
+    def run(fn):
+        x = xs.detach().requires_grad_(True)
+        loss, logits = fn(x, ys, state, ex_f=ex, group_size=group, row0=row0)
+        loss.mean().backward()
+        return loss, logits, x.grad
+
+    loss, logits, dx = run(memory_loss)
+    loss_r, logits_r, dx_r = run(memory_loss_plain)
+    torch.cuda.synchronize()
+    masked = ((row0 + torch.arange(b, device="cuda"))[:, None] // group ==
+              torch.arange(t, device="cuda")[None])
+    lex, lex_r = logits[:, k_pad:], logits_r[:, k_pad:]
+    nv = int(state.num_valid)
+    e_l = max(float((logits[:, :nv] - logits_r[:, :nv]).abs().max()),
+              float(torch.where(masked, 0.0, (lex - lex_r).abs()).max()))
+    e_mask = float(torch.where(masked, (lex - lex_r).abs() / lex_r.abs(), 0.0).max())
+    e_loss = float((loss - loss_r).abs().max())
+    e_dx = float((dx - dx_r).abs().max())
+    tol, tol_dx, tol_mask = 1e-4, 1e-6, 1e-6
+    on_mask = bool((torch.where(masked, lex, 0.0).sum(1) < -1e5).all())
+    print(f"[K6] ex_f on a rank of {ranks}: B {b} from row0 {row0}, T {t} group {group}: "
+          f"max_abs_err logits {e_l:.3g}, loss {e_loss:.3g} (tol {tol:.3g}), dx "
+          f"{e_dx:.3g} (tol {tol_dx:.3g}); self-masked columns rel err {e_mask:.3g} "
+          f"(tol {tol_mask:.3g}), each row's at its global group: {on_mask}")
+    check(on_mask and e_l <= tol and e_loss <= tol and e_dx <= tol_dx
+          and e_mask <= tol_mask, "K6 with row0 differs from plain")
+    return max(e_loss, e_l), _time_k6(f"ex_f T {t} B {b} row0 {row0}", state, ys, xs,
+                                      ex, group, row0=row0)
 
 
 def check_k7(report):
@@ -3405,7 +3471,7 @@ DDP_RUN_OFF = ("diff_transform", "pose_peaks", "fd_augment")
 def phase_ddp(counts):
     """``[ddp]``: the data mesh over ``min(4, cards)`` ranks (the phase list
     in the module's docstring). One card: one rank in this process, with a
-    ``file://`` store. The launches of the two ``run()`` epochs go to
+    ``file://`` store. The launches of the ``run()`` epochs go to
     ``counts`` (rank 0's)."""
     import tempfile
 
@@ -3428,7 +3494,7 @@ def phase_ddp(counts):
 
 def _ddp_rank(mesh):
     """The ``[ddp]`` checks on one rank; only rank 0 prints. Returns rank
-    0's launch counts of the two ``run()`` epochs."""
+    0's launch counts of the ``run()`` epochs."""
     from reid_gan_torch.parallel.mesh import main_prints
 
     with main_prints(mesh):
@@ -3439,6 +3505,7 @@ def _ddp_rank(mesh):
               f"rank 0 on {mesh.device}; {smi.stdout.strip().splitlines()[0]}")
         _ddp_global_bn(mesh)
         _ddp_step(mesh)
+        _ddp_gan_modes(mesh)
         _ddp_eval(mesh)
         return _ddp_runs(mesh)
 
@@ -3508,7 +3575,6 @@ def _ddp_step(mesh, warm=5):
     turns."""
     from reid_gan_torch.engine import trainers as trainers_module
     from reid_gan_torch.engine.usl import make_train_loader
-    from reid_gan_torch.parallel import all_gather_rows
 
     items, imgs = _pseudo_set()
     loaders = [make_train_loader(items, 256, 128, 256, 16, workers=4, iters=20, seed=1,
@@ -3525,38 +3591,17 @@ def _ddp_step(mesh, warm=5):
         sides[i] = (trainer, state)
         return loss
 
-    # the rank's own gradients, as the trainer hands them to the all-reduce
-    real_all_reduce, own = trainers_module.all_reduce_grads, []
-
-    def recording_all_reduce(m, params):
-        own.extend(p.grad.detach().clone() for p in params if p.grad is not None)
-        real_all_reduce(m, params)
-
     flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    trainers_module.all_reduce_grads = recording_all_reduce
     try:
-        loss_m = float(step(0, 99))
-        trainers_module.all_reduce_grads = real_all_reduce
+        with _RecordedReduce(trainers_module) as rec:
+            loss_m = float(step(0, 99))
         if mesh.rank == 0:
             loss_s = float(step(1, 99))
     finally:
-        trainers_module.all_reduce_grads = real_all_reduce
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
-
-    # the all-reduce: each leaf against the fp64 mean of every rank's own
-    # gradient, relative to the largest rank's 2-norm of the leaf
-    reduced = [q.grad for q in trainers_module.optimizer_params(sides[0][1].optimizer)
-               if q.grad is not None]
-    flat = torch.cat([g.flatten() for g in own])
-    ranks = all_gather_rows(mesh, flat[None]).double()
-    e_reduce, at = 0.0, 0
-    for g in reduced:
-        part = ranks[:, at:at + g.numel()]
-        at += g.numel()
-        e_reduce = max(e_reduce, float((g.flatten().double() - part.mean(0)).norm()
-                                       / part.norm(dim=1).max().clamp_min(1e-30)))
-    del own, flat, ranks
+    e_reduce, leaves = rec.error(mesh)
+    del rec
     if mesh.rank == 0:
         (tm, sm), (ts, ss) = sides
         # the gradients Adam took (left in .grad by the step): under the mesh,
@@ -3582,7 +3627,7 @@ def _ddp_step(mesh, warm=5):
         print(f"[ddp] one USL step under the mesh vs without (TF32 off, batch 256, "
               f"{256 // mesh.world_size} a rank): loss {loss_m:.6f} vs {loss_s:.6f} (err "
               f"{e_loss:.3g}, tol {tol_loss:.3g}); the gradient all-reduce against the "
-              f"fp64 mean of the ranks' own, {len(reduced)} leaves: at most "
+              f"fp64 mean of the ranks' own, {leaves} leaves: at most "
               f"{e_reduce:.3g} (tol {tol_reduce:.3g}); the mesh's gradients against the "
               f"step's without it, relative 2-norm a leaf: all at most {e_grad:.3g} "
               f"({worst}; tol {tol_grad:.3g}), median "
@@ -3593,10 +3638,112 @@ def _ddp_step(mesh, warm=5):
               and e_bank <= tol_bank and e_stats <= tol_stats,
               "the USL step under the mesh differs from the step without it")
 
-    # warm steps (TF32 convolutions, as [train]) in turns: without, with, with, without
+    _ddp_turns("USL", mesh, step, warm)   # TF32 convolutions, as [train]
+    for loader in loaders:
+        loader.close()
+
+
+DDP_MODES = {   # [ddp]'s modes: (trainer mode, encoder, generator)
+    "hardmix": ("train", "resnet50", "AE"),
+    "bip": ("train_all_bip", "resnet_bip50", "AE"),
+    "memory": ("train_all_with_memory", "resnet50", "Pose"),
+}
+
+
+def _ddp_mode_trainer(mesh, arch, model_gen):
+    """``[joint]``'s nets for one mode (a random ``arch`` at 256x128 and the
+    ``model_gen`` generator with the discriminator at 128x64, seed 0; the
+    bank of 700 unit rows padded to 768, and trainable clusters from it for
+    the pose generator's memory mode) under ``mesh`` or (None) on the rank's
+    card alone. Returns (trainer, state, gmem)."""
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.engine.gan_trainers import ClusterContrastWithGANTrainer
+    from reid_gan_torch.engine.usl import bank_rows
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.dual_gan.models import create_model as create_gan
+    from reid_gan_torch.ops.cluster_memory import init_gradient_memory, init_memory
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(0)
+    centers = torch.nn.functional.normalize(
+        torch.randn((700, 2048), device=dev, generator=g), dim=1)
+    memory = init_memory(centers, k_pad=bank_rows(700), device=dev)
+    torch.manual_seed(0)
+    gan = create_gan(GANConfig(model="AE", model_gen=model_gen), gan_height=128,
+                     gan_width=64, reid_feat_dim=2048, device=dev)
+    trainer = ClusterContrastWithGANTrainer(create(arch, norm=True), gan, height=256,
+                                            width=128, num_instances=16,
+                                            device=None if mesh else dev, mesh=mesh)
+    state = trainer.init_state(memory, gan.init_state())
+    gmem = init_gradient_memory(memory.features, k_pad=memory.features.shape[0],
+                                device=dev)._replace(num_valid=memory.num_valid) \
+        if model_gen == "Pose" else None
+    return trainer, state, gmem
+
+
+def _ddp_mode_step(trainer, state, gmem, batch, mode, seed):
+    """One step of ``mode`` on a host batch: the whole batch on the card, the
+    rank's rows of it under a mesh (the whole batch's labels). Returns
+    (state, gmem, losses)."""
+    dev = trainer._to_device(batch, mode)
+    dev = {k: v if k == "pid" else trainer.local(v) for k, v in dev.items()}
+    if mode == "train":
+        state, errs = trainer.train_step(state, dev, seed)
+    elif mode == "train_all_bip":
+        state, errs = trainer.train_all_bip_step(state, dev, seed)
+    else:
+        state, gmem, errs = trainer.train_all_with_memory_step(state, gmem, dev, seed)
+    return state, gmem, errs
+
+
+class _RecordedReduce:
+    """Patches ``module.all_reduce_grads`` for a block: each call's
+    parameters and the rank's own gradients, as the step hands them to the
+    all-reduce (before it). ``error(mesh)``: after the step, each reduced
+    leaf against the fp64 mean of every rank's own, relative to the largest
+    rank's 2-norm of the leaf (at most, over the calls)."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, []
+
+    def __enter__(self):
+        self.real = self.module.all_reduce_grads
+
+        def recorded(mesh, params):
+            params = [p for p in params if p.grad is not None]
+            self.calls.append((params, [p.grad.detach().clone() for p in params]))
+            self.real(mesh, params)
+
+        self.module.all_reduce_grads = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.all_reduce_grads = self.real
+
+    def error(self, mesh):
+        from reid_gan_torch.parallel import all_gather_rows
+
+        worst, leaves = 0.0, 0
+        for params, own in self.calls:
+            ranks = all_gather_rows(mesh, torch.cat([g.flatten() for g in own])[None]
+                                    ).double()
+            at = 0
+            for p in params:
+                part = ranks[:, at:at + p.numel()]
+                at += p.numel()
+                worst = max(worst, float((p.grad.flatten().double() - part.mean(0)).norm()
+                                         / part.norm(dim=1).max().clamp_min(1e-30)))
+            leaves += len(params)
+        return worst, leaves
+
+
+def _ddp_turns(label, mesh, step, warm):
+    """Warm steps of ``step(side, seed)`` without (1) and with (0) the mesh
+    in turns (without, with, with, without; the side without on rank 0
+    alone), TF32 convolutions; prints their times."""
     ms = {0: [], 1: []}
     for i in (1, 0, 0, 1):
-        if i == 1 and not mesh.rank == 0:
+        if i == 1 and mesh.rank != 0:
             continue
         step(i, 100)
         torch.cuda.synchronize()
@@ -3605,14 +3752,161 @@ def _ddp_step(mesh, warm=5):
             step(i, 101 + k)
         torch.cuda.synchronize()
         ms[i].append((time.perf_counter() - t0) / warm * 1e3)
-    for loader in loaders:
-        loader.close()
     if mesh.rank == 0:
         with_mesh, without = np.mean(ms[0]), np.mean(ms[1])
-        print(f"[ddp] warm step, this call (TF32 convolutions, batch 256): under the mesh "
-              f"{with_mesh:.2f} ms ({ms[0][0]:.2f}, {ms[0][1]:.2f}), without "
+        print(f"[ddp] {label} warm step, this call (TF32 convolutions, batch 256): under "
+              f"the mesh {with_mesh:.2f} ms ({ms[0][0]:.2f}, {ms[0][1]:.2f}), without "
               f"{without:.2f} ms ({ms[1][0]:.2f}, {ms[1][1]:.2f}); ratio "
               f"{with_mesh / without:.4f}")
+
+
+def _ddp_gan_modes(mesh, warm=3):
+    """The hard-mix, bip and learnable-memory steps (``DDP_MODES``) and the
+    GAN warm-up's iteration under the mesh, each held against the same step
+    without it on rank 0 (the whole batch, the same weights and draws, TF32
+    off): the losses (the ranks' means), the gradient all-reduces against
+    the fp64 mean of the ranks' own gradients, the clusters of the memory
+    mode (against the step without the mesh, and bit-equal on every rank);
+    then warm steps with and without the mesh in turns."""
+    import tempfile
+
+    from reid_gan_torch.engine import gan_trainers
+    from reid_gan_torch.engine.usl import make_train_loader
+    from reid_gan_torch.parallel import all_gather_rows
+
+    items, imgs = _pseudo_set()
+    with tempfile.TemporaryDirectory() as tmp:   # the loader reads the CSV at once
+        loader = make_train_loader(
+            items, 256, 128, 256, 16, workers=4, iters=2 + 4 * (warm + 1), seed=3,
+            cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]), mode="with_gan",
+            gan_height=128, gan_width=64, flip_all=True,
+            pose_file=_write_pose_csv(items, os.path.join(tmp, "poses.csv"), 15))
+    batches = [loader.next() for _ in range(2 + 4 * (warm + 1))]
+    loader.close()
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    for label, (mode, arch, model_gen) in DDP_MODES.items():
+        sides = [list(_ddp_mode_trainer(mesh, arch, model_gen)),
+                 list(_ddp_mode_trainer(None, arch, model_gen)) if mesh.rank == 0 else None]
+        c0 = None if sides[0][2] is None else sides[0][2].clusters.clone()
+
+        def step(i, seed, batch=None):
+            trainer, state, gmem = sides[i]
+            b = batches[2 + (seed - 100) % (len(batches) - 2)] if batch is None else batch
+            state, gmem, errs = _ddp_mode_step(trainer, state, gmem, b, mode, seed)
+            sides[i] = [trainer, state, gmem]
+            return errs
+
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with _RecordedReduce(gan_trainers) as rec:
+                errs_m = {k: float(v) for k, v in step(0, 99, batches[0]).items()}
+            e_reduce, leaves = rec.error(mesh)
+            errs_s = {k: float(v) for k, v in step(1, 99, batches[0]).items()} \
+                if mesh.rank == 0 else None
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        same_clusters, e_clusters = True, 0.0
+        if c0 is not None:
+            cm = sides[0][2].clusters
+            every = all_gather_rows(mesh, cm[None])
+            same_clusters = bool((every == cm[None]).all())
+            if mesh.rank == 0:
+                cs = sides[1][2].clusters
+                e_clusters = float((cm - cs).norm() / (cs - c0).norm().clamp_min(1e-30))
+        del rec
+        if mesh.rank == 0:
+            e_loss = max(abs(errs_m[k] - errs_s[k]) / max(abs(errs_s[k]), 1e-30)
+                         for k in errs_s)
+            tol_loss, tol_reduce, tol_clusters = 1e-3, 1e-5, 0.1
+            extra = f"; clusters against the step without the mesh, relative to their " \
+                f"move: {e_clusters:.3g} (tol {tol_clusters:.3g}), every rank's bit-equal: " \
+                f"{same_clusters}" if c0 is not None else ""
+            print(f"[ddp] {label} ({mode}: {arch}, the {model_gen} generator) one step under "
+                  f"the mesh vs without (TF32 off, batch 256, {256 // mesh.world_size} a "
+                  f"rank): " + ", ".join(f"{k} {errs_m[k]:.6f} vs {errs_s[k]:.6f}"
+                                         for k in errs_s)
+                  + f" (max rel err {e_loss:.3g}, tol {tol_loss:.3g}); the gradient "
+                  f"all-reduces against the fp64 mean of the ranks' own, {leaves} leaves: "
+                  f"at most {e_reduce:.3g} (tol {tol_reduce:.3g}){extra}")
+            check(e_loss <= tol_loss and e_reduce <= tol_reduce
+                  and e_clusters <= tol_clusters and same_clusters,
+                  f"the {mode} step under the mesh differs from the step without it")
+        else:
+            check(same_clusters, "the ranks' clusters differ")
+        _ddp_turns(label, mesh, step, warm)
+        del sides, step
+        torch.cuda.empty_cache()
+    _ddp_warmup(mesh, imgs, warm)
+
+
+def _ddp_warmup(mesh, imgs, warm):
+    """The GAN warm-up's iteration (``GANTrainer.train_gan``: the AE
+    generator and D at 128x64, batch 256) under the mesh against the same
+    iteration without it on rank 0, TF32 off: G and D losses, the two
+    gradient all-reduces; then warm iterations in turns."""
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.engine.gan_trainers import GANTrainer
+    from reid_gan_torch.models.dual_gan import ae_model
+    from reid_gan_torch.models.dual_gan.models import create_model as create_gan
+    from reid_gan_torch.parallel import shard_batch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    xs = [imgs[k * 256:(k + 1) * 256, ::2, ::2] for k in range(warm + 1)]
+
+    def side(m):
+        torch.manual_seed(0)
+        gan = create_gan(GANConfig(model="AE", model_gen="AE"), gan_height=128,
+                         gan_width=64, device=dev)
+        return [GANTrainer(gan, print_freq=1000, device=None if m else dev, mesh=m),
+                gan.init_state()]
+
+    sides = [side(mesh), side(None) if mesh.rank == 0 else None]
+
+    class Batches:
+        def __init__(self, i, seed):
+            self.x = xs[seed % len(xs)]
+            if i == 0:
+                self.x = shard_batch(mesh, self.x)
+
+        def next(self):
+            return {"Xs": np.ascontiguousarray(self.x)}
+
+    def step(i, seed):
+        trainer, state = sides[i]
+        state, errs = trainer.train_gan(state, 0, Batches(i, seed), train_iters=1,
+                                        base_seed=seed)
+        sides[i] = [trainer, state]
+        return errs
+
+    def iteration(i, seed):     # train_gan's work of an iteration, timed
+        trainer, state = sides[i]
+        x = torch.from_numpy(Batches(i, seed).next()["Xs"]).to(dev)
+        sides[i][1] = trainer.gan.optimize_parameters(state, x, mesh=trainer.mesh)[0]
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with _RecordedReduce(ae_model) as rec:
+            errs_m = step(0, 99)
+        e_reduce, leaves = rec.error(mesh)
+        errs_s = step(1, 99) if mesh.rank == 0 else None
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    if mesh.rank == 0:
+        e_loss = max(abs(errs_m[k] - errs_s[k]) / abs(errs_s[k]) for k in errs_s)
+        tol_loss, tol_reduce = 1e-3, 1e-5
+        print(f"[ddp] warm-up (GANTrainer.train_gan: the AE generator and D at 128x64) one "
+              f"iteration under the mesh vs without (TF32 off, batch 256, "
+              f"{256 // mesh.world_size} a rank): "
+              + ", ".join(f"{k} {errs_m[k]:.6f} vs {errs_s[k]:.6f}" for k in errs_s)
+              + f" (max rel err {e_loss:.3g}, tol {tol_loss:.3g}); the gradient "
+              f"all-reduces (D's, then G's) against the fp64 mean of the ranks' own, "
+              f"{leaves} leaves: at most {e_reduce:.3g} (tol {tol_reduce:.3g})")
+        check(e_loss <= tol_loss and e_reduce <= tol_reduce,
+              "the warm-up iteration under the mesh differs from the one without it")
+    _ddp_turns("warm-up", mesh, iteration, warm)
+    del sides
+    torch.cuda.empty_cache()
 
 
 def _ddp_eval(mesh):
@@ -3651,18 +3945,36 @@ def _ddp_eval(mesh):
     check(e_cmc <= tol and e_map <= tol, "the sharded eval differs from the unsharded one")
 
 
+# [ddp]'s run() epochs: (label, the flags on the joint config, kernels that
+# must not launch); every other kernel must
+DDP_RUNS = (
+    ("train_all", {}, DDP_RUN_OFF),
+    ("no_gan_train", {"model_gen": "AE", "gan_train": False},
+     ("pose_maps", "gan_feat_l2n", "pose_peaks", "fd_augment")),
+    ("bipath", {"arch": "resnet_bip50", "model_gen": "AE", "bipath": True},
+     ("pose_maps", "gan_feat_l2n") + DDP_RUN_OFF),
+    ("learnable_memory", {"learnable_memory": True},
+     ("bank_fold", "gan_feat_l2n") + DDP_RUN_OFF),
+)
+
+
 def _ddp_runs(mesh):
-    """A 2-step ``cli/train_usl.run`` and a 2-step ``train_all`` epoch of
-    ``cli/train_gan_usl.run`` under the mesh, with the launch counts zeroed
-    just before and read just after (rank 0's). Returns them."""
+    """Under the mesh, a 2-step ``cli/train_usl.run``, then 2-step epochs of
+    ``cli/train_gan_usl.run`` in ``train_all``, the hard-mix ``train``
+    (``--no-gan-train``), ``train_all_bip`` (``--bipath``) and
+    ``train_all_with_memory`` (``--learnable-memory``), and 2 iterations of
+    ``cli/train_gan_warmup.run``, each with the launch counts zeroed just
+    before and read just after (rank 0's), each held to its kernels. Returns
+    their sum."""
     import tempfile
 
     from reid_gan_torch import kernels
-    from reid_gan_torch.cli import train_gan_usl, train_usl
+    from reid_gan_torch.cli import train_gan_usl, train_gan_warmup, train_usl
     from reid_gan_torch.config import Config
 
     dataset, imgs = _usl_set(n_train=2048, ids=128, n_query=256, n_gallery=768,
                              eval_ids=64)
+    cache = _InMemoryImages(imgs, imgs[:, ::2, ::2])
 
     def config(logs):
         cfg = Config()
@@ -3673,43 +3985,74 @@ def _ddp_runs(mesh):
         cfg.train.logs_dir = logs
         return cfg
 
+    total = {}
+
+    def counted(label, off, run):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        print(f"[ddp] {label} under the mesh: {wall:.2f} s; launches (rank 0): "
+              f"{kernels.phase_launch_counts()}")
+        if mesh.rank == 0:
+            check(all(v > 0 for k, v in launches.items() if k not in off)
+                  and all(launches[k] == 0 for k in off),
+                  f"{label}: all kernels but {', '.join(off)} must launch, those not: "
+                  f"{launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
     with tempfile.TemporaryDirectory() as tmp:
         dataset.train_pose_dir = _write_pose_csv(dataset.train,
                                                  os.path.join(tmp, "poses.csv"), 14)
         usl = config(os.path.join(tmp, "usl"))
-        joint = config(os.path.join(tmp, "joint"))
-        joint.gan.model, joint.gan.model_gen = "AE", "Pose"
-        joint.gan.save_dir = os.path.join(tmp, "ckpt")
-        kernels.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        best_usl = train_usl.run(usl, dataset, image_cache=_InMemoryImages(imgs),
-                                 mesh=mesh)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        best_joint = train_gan_usl.run(joint, dataset, mesh=mesh, image_cache=
-                                       _InMemoryImages(imgs, imgs[:, ::2, ::2]))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        launches = kernels.launch_counts()
-        saved = sorted(os.listdir(usl.train.logs_dir)) + sorted(
-            os.listdir(joint.train.logs_dir)) + sorted(
-            os.listdir(os.path.join(joint.gan.save_dir, "experiment"))) \
-            if mesh.rank == 0 else []
-    print(f"[ddp] cli/train_usl.run under the mesh: {t1 - t0:.2f} s, best mAP "
-          f"{best_usl:.4f}; cli/train_gan_usl.run (train_all): {t2 - t1:.2f} s, best "
-          f"mAP {best_joint:.4f}; rank 0 wrote {saved}")
-    print(f"[ddp] run() launches (rank 0): {kernels.phase_launch_counts()}")
+        best_usl = counted("cli/train_usl.run", DDP_RUN_OFF + (
+            "gan_input", "pose_maps", "gan_feat_l2n"), lambda: train_usl.run(
+                usl, dataset, image_cache=_InMemoryImages(imgs), mesh=mesh))
+        print(f"[ddp] cli/train_usl.run: best mAP {best_usl:.4f}")
+        saved, bests = [], {}
+        for label, flags, off in DDP_RUNS:
+            joint = config(os.path.join(tmp, label))
+            joint.gan.model, joint.gan.model_gen = "AE", "Pose"
+            joint.gan.save_dir = os.path.join(tmp, f"ckpt_{label}")
+            for k, v in flags.items():
+                setattr(joint.model if k == "arch" else joint.gan, k, v)
+            bests[label] = counted(
+                f"cli/train_gan_usl.run ({label})", off,
+                lambda joint=joint: train_gan_usl.run(joint, dataset, mesh=mesh,
+                                                      image_cache=cache))
+            if mesh.rank == 0:
+                files = set(os.listdir(joint.train.logs_dir))
+                if joint.gan.gan_train:
+                    files |= set(os.listdir(os.path.join(joint.gan.save_dir,
+                                                          "experiment")))
+                saved.append((label, sorted(files)))
+                want = {"checkpoint.pth.tar", "model_best.pth.tar"} | (
+                    {"latest_net_G.pth", "latest_net_D.pth", "iter.txt"}
+                    if joint.gan.gan_train else set())
+                check(np.isfinite(bests[label]) and want <= files,
+                      f"{label}: no finite mAP or a missing file ({sorted(files)})")
+        warmup = config(os.path.join(tmp, "warmup"))
+        warmup.gan.model, warmup.gan.model_gen = "AE", "AE"
+        warmup.gan.save_dir = os.path.join(tmp, "ckpt_warmup")
+        small = types.SimpleNamespace(train=dataset.train[:512])   # 2 batches of 256
+        state = counted("cli/train_gan_warmup.run (2 iterations)", tuple(
+            k.name for k in kernels.KERNELS if k.name != "gan_input"),
+            lambda: train_gan_warmup.run(warmup, small, image_cache=cache, mesh=mesh))
+        if mesh.rank == 0:
+            nets = sorted(os.listdir(os.path.join(warmup.gan.save_dir, "experiment")))
+            saved.append(("warmup", nets))
+            check(state.step == 2 and {"latest_net_G.pth", "latest_net_D.pth"} <= set(nets),
+                  f"the warm-up took {state.step} steps, wrote {nets}")
+    print(f"[ddp] cli/train_gan_usl.run best mAP: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in bests.items()) + f"; rank 0 wrote {saved}")
     if mesh.rank == 0:
-        check(all(v > 0 for k, v in launches.items() if k not in DDP_RUN_OFF)
-              and all(launches[k] == 0 for k in DDP_RUN_OFF),
-              f"all kernels but {', '.join(DDP_RUN_OFF)} must launch, those not: "
-              f"{launches}")
-        check(np.isfinite(best_usl) and np.isfinite(best_joint)
-              and {"checkpoint.pth.tar", "model_best.pth.tar", "latest_net_G.pth",
-                   "latest_net_D.pth", "iter.txt"} <= set(saved),
-              "no finite mAP or a missing file")
-    return launches
+        check(np.isfinite(best_usl), "cli/train_usl.run: no finite mAP")
+    return total
 
 
 def phase_vgg_warmup():

@@ -56,12 +56,12 @@ mode; VGG19 stays fp32.
 
 Several cards (train_gan_usl.py:88-93): with more than one card visible and
 no ``--device cpu``, ``main`` runs one process a card over all of them, a
-data mesh for the modes ``train_reid`` and ``train_all`` (the default joint
-command; ``engine/gan_trainers.py``); ``main(argv, mesh=False)`` keeps one
-card. Only rank 0 prints and writes the logs, the checkpoints,
-``latest_net_{G,D}.pth`` and ``iter.txt``. Under a mesh ``--no-gan-train``
-(``train``), ``--bipath``, ``--learnable-memory``, ``--fp16`` and ``--gan-mode
-wgangp`` raise ``NotImplementedError`` before any work.
+data mesh for every mode (``train_reid``, ``train_all`` with either GAN
+loss, the hard-mix ``train`` of ``--no-gan-train``, ``train_all_bip`` and
+``train_all_with_memory``; ``engine/gan_trainers.py``); ``main(argv,
+mesh=False)`` keeps one card. Only rank 0 prints and writes the logs, the
+checkpoints, ``latest_net_{G,D}.pth`` and ``iter.txt``. Under a mesh
+``--fp16`` raises ``NotImplementedError`` before any work.
 """
 
 import argparse
@@ -77,7 +77,7 @@ from ..data.datasets import create as create_dataset
 from ..data.loader import DataLoader, Preprocessor
 from ..device import resolve_device
 from ..engine.evaluators import Evaluator, FeatureExtractor
-from ..engine.gan_trainers import ClusterContrastWithGANTrainer, check_mesh_mode
+from ..engine.gan_trainers import ClusterContrastWithGANTrainer
 from ..engine.trainers import check_mesh_precision
 from ..engine.usl import cluster_epoch, make_train_loader
 from ..models import create as create_model
@@ -218,10 +218,10 @@ def main(argv=None, mesh=None):
     device = resolve_device(ns.device)
     _check_generator(cfg)
     if wants_mesh(device, mesh):
-        _check_mesh(cfg, True)
+        check_mesh_precision(True, cfg.train.fp16)
         return launch(_main_on_rank, local_device_count(), args=(argv,))
     mesh = mesh or None
-    _check_mesh(cfg, mesh)
+    check_mesh_precision(mesh, cfg.train.fp16)
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt")) if is_main(mesh) else None
     if logger is not None:
         sys.stdout = logger
@@ -242,17 +242,6 @@ def _main_on_rank(mesh, argv):
     return main(argv, mesh=mesh)
 
 
-def _check_mesh(cfg, mesh):
-    """Under a mesh only the ``train_reid`` and ``train_all`` modes run, not
-    with ``--fp16`` or the WGAN-GP penalty: the other flags raise
-    ``NotImplementedError`` before any work."""
-    if not mesh:
-        return
-    check_mesh_precision(True, cfg.train.fp16)
-    if cfg.gan.warmup_epo < (1 if cfg.train.debug else cfg.train.epochs):
-        check_mesh_mode(True, _joint_mode(cfg), cfg.gan.gan_mode)
-
-
 def _joint_mode(cfg):
     """The mode of the epochs after the warm-up (...infomap.py:450-466)."""
     if not cfg.gan.gan_train:
@@ -271,7 +260,7 @@ def run(cfg, dataset, device=None, image_cache=None, mesh=None):
     the rank's card over the mesh; only rank 0 prints and writes files.
     Returns the best mAP."""
     _check_generator(cfg)
-    _check_mesh(cfg, mesh)
+    check_mesh_precision(mesh, cfg.train.fp16)
     with main_prints(mesh):
         return _run(cfg, dataset, mesh_device(mesh, device), image_cache, mesh)
 

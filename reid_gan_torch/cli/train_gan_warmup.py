@@ -18,6 +18,14 @@ runs G and D in bf16 as the JAX package does (``models/precision.py``). ``--use-
 the G step, with the torchvision-layout weights of ``--vgg-weights`` or
 random taps. Runs on the card unless ``--device cpu`` is given.
 
+Several cards (train_gan_warmup.py:37-42,66): with more than one card
+visible and no ``--device cpu``, ``main`` runs one process a card over all
+of them, a data mesh (``GANTrainer``: the ``only_gan`` batches sharded, G's
+and D's BatchNorms over the whole batch, their gradients averaged before
+each Adam step); ``main(argv, mesh=False)`` keeps one card. Only rank 0
+prints and writes the logs and ``latest_net_{G,D}.pth``. Under a mesh
+``--fp16`` raises ``NotImplementedError`` before any work.
+
 The standalone step drives the AE generator: the other generators raise
 ``ValueError`` before any work, where the JAX CLI fails in its first step
 (ROADMAP C, reference side): ``Pose``, ``DEC`` and ``FD`` are not stepped
@@ -36,9 +44,18 @@ from ..data import IterLoader
 from ..data.datasets import create as create_dataset
 from ..data.loader import DataLoader, Preprocessor
 from ..device import resolve_device
-from ..parallel.mesh import refuse_mesh
 from ..engine.gan_trainers import GANTrainer
+from ..engine.trainers import check_mesh_precision
 from ..models.dual_gan.models import create_model as create_gan
+from ..parallel.mesh import (
+    is_main,
+    launch,
+    local_device_count,
+    main_first,
+    main_prints,
+    mesh_device,
+    wants_mesh,
+)
 from ..utils import Logger
 from ..utils.serialization import load_networks, save_networks
 from ..utils.visualizer import Visualizer
@@ -66,9 +83,10 @@ def _check(cfg):
 def main(argv=None, mesh=None):
     """Parse the flags (JAX's, plus ``--device``), tee stdout to
     ``<logs-dir>/log.txt``, write ``train_opt.txt``, load the dataset and
-    run the warm-up. Returns the engine's state. ``mesh``: a ``Mesh``, or
-    None with more than one card visible, raises ``NotImplementedError`` (no
-    data-mesh path yet); False, or one card, runs as before."""
+    run the warm-up. Returns the engine's state, or, spanning several cards,
+    the number of steps rank 0 took. ``mesh``: None spans every card when
+    more than one is visible, False keeps one, a ``Mesh`` is this rank's
+    (the module's docstring)."""
     argv = sys.argv[1:] if argv is None else argv
     extra = argparse.ArgumentParser(allow_abbrev=False)
     extra.add_argument("--device", default="cuda",
@@ -77,28 +95,48 @@ def main(argv=None, mesh=None):
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=SECTIONS)
     device = resolve_device(ns.device)
-    refuse_mesh("cli/train_gan_warmup (the GAN warm-up, GANTrainer)", mesh, device)
     _check(cfg)
-    logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
-    sys.stdout = logger
+    if wants_mesh(device, mesh):
+        check_mesh_precision(True, cfg.train.fp16)
+        return launch(_main_on_rank, local_device_count(), args=(argv,))
+    mesh = mesh or None
+    check_mesh_precision(mesh, cfg.train.fp16)
+    logger = Logger(osp.join(cfg.train.logs_dir, "log.txt")) if is_main(mesh) else None
+    if logger is not None:
+        sys.stdout = logger
     try:
-        dump_config(cfg, cfg.train.logs_dir, sections=SECTIONS)
-        dataset = create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True)
-        return run(cfg, dataset, device)
+        with main_prints(mesh):
+            if is_main(mesh):
+                dump_config(cfg, cfg.train.logs_dir, sections=SECTIONS)
+            dataset = main_first(mesh, lambda: create_dataset(
+                cfg.data.dataset, cfg.data.data_dir, verbose=is_main(mesh)))
+        return run(cfg, dataset, None if mesh else device, mesh=mesh)
     finally:
-        sys.stdout = logger.console
-        logger.close()
+        if logger is not None:
+            sys.stdout = logger.console
+            logger.close()
 
 
-def run(cfg, dataset, device=None, image_cache=None):
+def _main_on_rank(mesh, argv):
+    # the nets stay on the ranks' cards: rank 0's step count goes back
+    return main(argv, mesh=mesh).step
+
+
+def run(cfg, dataset, device=None, image_cache=None, mesh=None):
     """The warm-up (train_gan_warmup.py:32-77) on ``dataset`` (``.train``, a
     list of ``(fname, pid, camid)``, and ``.train_pose_dir`` where it has
     one), on ``device`` (default: the card). ``image_cache`` goes to the
-    ``Preprocessor`` (default: the shared decode cache). Returns the
-    engine's state (``AEState``: the nets, trained in place, and their
-    optimizers)."""
+    ``Preprocessor`` (default: the shared decode cache). With ``mesh`` (a
+    ready ``Mesh``, on every rank) it runs on the rank's card over the mesh;
+    only rank 0 prints and writes files. Returns the engine's state
+    (``AEState``: the nets, trained in place, and their optimizers)."""
     _check(cfg)
-    device = resolve_device(device)
+    check_mesh_precision(mesh, cfg.train.fp16)
+    with main_prints(mesh):
+        return _run(cfg, dataset, mesh_device(mesh, device), image_cache, mesh)
+
+
+def _run(cfg, dataset, device, image_cache, mesh):
     # TF32 convolutions as in the training CLIs; every other product stays fp32
     torch.backends.cudnn.allow_tf32 = True
     torch.manual_seed(cfg.train.seed)
@@ -117,11 +155,12 @@ def run(cfg, dataset, device=None, image_cache=None):
                        cache="default" if image_cache is None else image_cache)
     loader = DataLoader(pre, batch_size=cfg.data.batch_size, shuffle=True,
                         num_workers=cfg.data.workers, drop_last=True,
-                        seed=cfg.train.seed)
+                        seed=cfg.train.seed, shard=mesh)
     it = IterLoader(loader)
     it.new_epoch()
-    trainer = GANTrainer(gan, print_freq=cfg.train.print_freq, device=device)
-    visualizer = Visualizer(cfg.train.logs_dir, name=cfg.gan.name)
+    trainer = GANTrainer(gan, print_freq=cfg.train.print_freq, device=device, mesh=mesh)
+    visualizer = Visualizer(cfg.train.logs_dir, name=cfg.gan.name) \
+        if is_main(mesh) else None
 
     epochs = 1 if cfg.train.debug else cfg.train.epochs
     iters = 4 if cfg.train.debug else (len(loader) or cfg.train.iters)
@@ -130,8 +169,9 @@ def run(cfg, dataset, device=None, image_cache=None):
             gan_state, errs = trainer.train_gan(gan_state, epoch, it,
                                                 train_iters=iters,
                                                 base_seed=cfg.train.seed)
-            visualizer.print_current_errors(epoch, iters, errs)
-            save_networks({"G": gan.net_G, "D": gan.net_D}, save_dir, "latest")
+            if is_main(mesh):
+                visualizer.print_current_errors(epoch, iters, errs)
+                save_networks({"G": gan.net_G, "D": gan.net_D}, save_dir, "latest")
     finally:
         it.close()
     return gan_state

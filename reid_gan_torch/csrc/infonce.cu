@@ -11,7 +11,7 @@
 //   r[b]          = 1 / sqrt(sum_d x[b,d]^2 + 1e-12)   (epsilon inside the root)
 //   xh[b]         = x[b] * r[b];  exh[t] = ex[t] / sqrt(sum_d ex[t,d]^2 + 1e-12)
 //   logits[b,k]   = (xh[b] . M[k]) / temp, or -inf for k >= num_valid
-//   logits[b,K+t] = (xh[b] . exh[t] + (b / group == t ? -10000 : 0)) / temp
+//   logits[b,K+t] = (xh[b] . exh[t] + ((row0 + b) / group == t ? -10000 : 0)) / temp
 //   lse[b]        = log sum_k exp(logits[b,k]);  loss[b] = lse[b] - logits[b,y_b]
 // The logits are (B, K + T). Backward, for g = dL/dloss (B,), to x only (ex
 // is a constant):
@@ -342,7 +342,8 @@ __device__ __forceinline__ void my_rows(int& r0, int& r1) {
 // cluster (blockIdx.z, grid z = the cluster). Column tiles below ceil(K /
 // 64) take the bank's rows, of which the first num_valid are live; the
 // tiles after them take the T extra rows ex, all live, with the additive
-// self-mask (row b / group == column t gets -10000), stored from column K
+// self-mask (row b / group == column t gets -10000, b the global row row0 + b
+// under a data mesh, where x is a rank's rows from row0 on), stored from column K
 // of logits rows of K + T floats. The product runs on the raw rows; the
 // norms come from the same tiles: r[b] = 1 / sqrt(sum_d x[b,d]^2 + 1e-12)
 // and likewise rex[t] for an extra row, and
@@ -354,8 +355,8 @@ __device__ __forceinline__ void my_rows(int& r0, int& r1) {
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 infonce_logits_kernel(const float* __restrict__ x, const float* __restrict__ bank,
                       const int* __restrict__ num_valid, int K,
-                      const float* __restrict__ ex, int T, int group, int B, int D,
-                      int fslice, float temp, float* __restrict__ rnorm,
+                      const float* __restrict__ ex, int T, int group, int row0, int B,
+                      int D, int fslice, float temp, float* __restrict__ rnorm,
                       float* __restrict__ rexn, float* __restrict__ logits,
                       float* __restrict__ part_m, float* __restrict__ part_s) {
   extern __shared__ float4 smem4[];
@@ -427,7 +428,7 @@ infonce_logits_kernel(const float* __restrict__ x, const float* __restrict__ ban
       }
       v[h] = k >= nv ? -INFINITY
                      : (is_ex ? a * rb * rex_s[2 * lane + h] +
-                                    (b / group == k ? -10000.0f : 0.0f)
+                                    ((row0 + b) / group == k ? -10000.0f : 0.0f)
                               : a * rb) / temp;
       if (b < B) logits[static_cast<size_t>(b) * ld + col0 + k] = v[h];
     }
@@ -624,16 +625,17 @@ extern "C" long long reid_infonce_scratch(int B, int K, int T, int D, int backwa
 // x: (B, D) fp32; bank: (K, D) fp32; ex: (T, D) fp32 or null with T = 0;
 // all contiguous, 16-byte aligned, D % 4 == 0. num_valid: one int32 on the
 // device; targets: (B,) int32 in [0, K); group: the extra columns' self-mask
-// group (> 0 when T > 0).
+// group (> 0 when T > 0); row0 >= 0: the global index of x's first row (0 but
+// under a data mesh), so that row b is masked for column (row0 + b) / group.
 // Outputs: rnorm (B,) = 1 / |x|, rexn (T,) = 1 / |ex|, logits (B, K + T),
 // lse (B,), loss (B,); a target outside [0, K) gives a NaN loss.
 // part: reid_infonce_scratch(B, K, T, D, 0) fp32.
 extern "C" int reid_infonce_forward(const void* x, const void* bank,
                                     const void* num_valid, const void* targets,
                                     int B, int K, int D, float temp, const void* ex,
-                                    int T, int group, void* rnorm, void* rexn,
-                                    void* logits, void* part, void* lse, void* loss,
-                                    void* stream) {
+                                    int T, int group, int row0, void* rnorm,
+                                    void* rexn, void* logits, void* part, void* lse,
+                                    void* loss, void* stream) {
   const Plan pl = make_plan(B, K, T, D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = cdiv(K, kTile) + cdiv(T, kTile);
@@ -643,8 +645,8 @@ extern "C" int reid_infonce_forward(const void* x, const void* bank,
                            dim3(tiles, cdiv(B, kTile), pl.fsplits), pl.fsplits, st,
                            static_cast<const float*>(x), static_cast<const float*>(bank),
                            static_cast<const int*>(num_valid), K,
-                           static_cast<const float*>(ex), T, group, B, D, pl.fslice, temp,
-                           static_cast<float*>(rnorm), static_cast<float*>(rexn),
+                           static_cast<const float*>(ex), T, group, row0, B, D, pl.fslice,
+                           temp, static_cast<float*>(rnorm), static_cast<float*>(rexn),
                            static_cast<float*>(logits), part_m, part_s);
   if (rc != 0) return rc;
   constexpr int rows_per_block = kRowThreads / reid::kWarp;

@@ -46,15 +46,22 @@ One ``train`` (AE hard-mix) step, G frozen (gan_trainers.py:91-139):
 
 The ``train_reid`` warm-up step is the USL step (``ClusterContrastTrainer``).
 
-Under a data mesh (JAX ``gan_trainers.py:63-76,498-560``) the modes
-``train_reid`` and ``train_all`` run on each rank's contiguous slice of the
-batch (K4 with the whole batch's draws, sliced; K9, K10 on the rank's
-rows); the encoder, G and D are replicated from rank 0 and their BatchNorms
-normalise over the whole batch (``ops/norm.py``); the encoder's and G's
-gradients are averaged over the ranks after the joint backward, D's after
-its own, each before its optimizer step; both banks fold every rank's rows,
-gathered in the batch's order, in K7's one launch; the logged losses are the
-ranks' means. The other modes raise ``NotImplementedError`` under a mesh.
+Under a data mesh (JAX ``gan_trainers.py:63-76,498-560``) every mode runs
+on each rank's contiguous slice of the batch (K4 with the whole batch's
+draws, sliced; K9, K10 on the rank's rows; K6 with the rank's labels); the
+encoder, G and D are replicated from rank 0 and their BatchNorms normalise
+over the whole batch (``ops/norm.py``); the encoder's and G's gradients
+(and the learnable clusters') are averaged over the ranks after the joint
+backward, D's after its own, each before its optimizer step; the banks fold
+every rank's rows, gathered in the batch's order, in K7's one launch; the
+WGAN-GP penalty's mixing weights are the whole batch's, drawn from the
+step's generator on every rank and sliced; the logged losses are the ranks'
+means. The hard-mix step's global pieces are computed alike on every rank:
+``hard_mix`` picks its rows from the gathered ``feat`` and takes them from
+the ranks that own them, G's decoder normalises its G mixed rows (one a
+group) as they are, with no collective, and the re-encode runs on those G
+images, so every rank holds every extra negative; K6 masks each of the
+rank's rows for its global group (``row0``).
 
 One ``train_all_bip`` step (gan_trainers.py:392-466), the bi-path encoder
 (``ResNetBip``) and the AE generator:
@@ -90,7 +97,6 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..ops.cluster_memory import (
     MemoryState,
     gradient_memory_loss,
@@ -101,7 +107,14 @@ from ..ops.cluster_memory import (
 from ..ops.norm import convert_global_bn
 from ..ops.pose import batch_cords_to_map
 from ..ops.transforms import diff_transform, gan_input_transform
-from ..parallel.mesh import all_reduce_grads, all_reduce_mean, refuse_mesh, replicate
+from ..parallel.mesh import (
+    all_reduce_grads,
+    all_reduce_mean,
+    all_reduce_means,
+    mesh_device,
+    replicate,
+    shard_batch,
+)
 from ..utils import AverageMeter
 from .trainers import (
     ClusterContrastTrainer,
@@ -113,22 +126,6 @@ from .trainers import (
 )
 
 MODES = ("train", "train_all", "train_reid", "train_all_bip", "train_all_with_memory")
-MESH_MODES = ("train_reid", "train_all")
-
-
-def check_mesh_mode(mesh, mode, gan_mode=None):
-    """The modes a data mesh runs (``MESH_MODES``, and ``train_all`` not with
-    the WGAN-GP penalty, whose interpolation draws are per rank); another
-    raises ``NotImplementedError`` naming it."""
-    if mesh is None:
-        return
-    if mode not in MESH_MODES:
-        raise NotImplementedError(f"the {mode!r} mode under a data mesh of several "
-                                  f"cards is not ported yet; run on one card "
-                                  f"(CUDA_VISIBLE_DEVICES, or mesh=False)")
-    if mode == "train_all" and gan_mode == "wgangp":
-        raise NotImplementedError("the 'train_all' mode with --gan-mode wgangp under "
-                                  "a data mesh is not ported yet; run on one card")
 
 
 def _drain(buf, meters):
@@ -200,30 +197,34 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         self._mark("inputs (K4, K9)")
         self.model.train()
         f_out = self.model(x, with_gan_feat=False)["feat"]
+        feat = self.gathered(f_out.detach())
         self._mark("encoder forward (K5)")
         with torch.no_grad():
-            fc_image = gan.synthesize_fc(xs, f_out.detach().to(gan_dtype),
-                                         self.num_instances, train=True)
+            fc_image = gan.synthesize_fc(xs, feat.to(gan_dtype), self.num_instances,
+                                         train=True, mesh=self.mesh)
             self._mark("G (encode, hard mix, decode)")
             self.model.eval()
             f_ex = self.model(diff_transform(fc_image, self.height, self.width)
                               .to(enc_dtype))
             self.model.train()
         self._mark("re-encode (K12, K2)")
-        losses, _ = memory_loss(f_out, targets, state.memory, temp=self.temp,
-                                ex_f=f_ex, group_size=self.num_instances)
+        losses, _ = memory_loss(f_out, self.local(targets), state.memory, temp=self.temp,
+                                ex_f=f_ex, group_size=self.num_instances,
+                                row0=self.row0(f_out.shape[0]))
         loss = losses.mean()
         self._mark("InfoNCE (K6)")
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads(self.mesh, optimizer_params(state.optimizer))
         self._mark("backward")
         state.optimizer.step()
         state.scheduler.step()
         self._mark("Adam")
-        update_memory(state.memory, f_out.detach(), targets, momentum=self.momentum,
+        update_memory(state.memory, feat, targets, momentum=self.momentum,
                       use_hard=self.use_hard, group_size=self.num_instances)
         self._mark("bank fold (K7)")
-        return state._replace(step=state.step + 1), {"loss": loss.detach()}
+        return state._replace(step=state.step + 1), \
+            {"loss": all_reduce_mean(self.mesh, loss.detach())}
 
     def train_all_step(self, state, batch, seed, conf):
         """One joint step on a batch of device tensors (``img``, ``pid``,
@@ -266,20 +267,15 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         self._mark("bank fold (K7)")
         state = state._replace(step=state.step + 1,
                                gan=gs._replace(step=gs.step + 1))
-        errs = {"loss": loss.detach(), "loss_cl": loss_cl.detach(),
-                "G": loss_G.detach(), "D": loss_D}
-        if self.mesh is not None:    # the ranks' means, in one reduction
-            dtype = loss.dtype
-            for v in errs.values():
-                dtype = torch.promote_types(dtype, v.dtype)
-            errs = dict(zip(errs, all_reduce_mean(self.mesh, torch.stack(
-                [v.to(dtype) for v in errs.values()]))))
-        return state, errs
+        return state, all_reduce_means(self.mesh, {
+            "loss": loss.detach(), "loss_cl": loss_cl.detach(), "G": loss_G.detach(),
+            "D": loss_D})
 
     def train_all_bip_step(self, state, batch, seed):
         """One bi-path step (the steps in the module's docstring) on a batch
-        of device tensors (``img``, ``pid``, ``Xs``). Returns (state, losses
-        on the device)."""
+        of device tensors (``img``, ``pid``, ``Xs``; under a mesh ``pid`` is
+        the whole batch's and the rest the rank's rows). Returns (state,
+        losses on the device)."""
         gan, gs = self.gan, state.gan
         targets = batch["pid"]
         enc_dtype = next(self.model.parameters()).dtype
@@ -296,18 +292,20 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         self._mark("G forward")
         loss_G = gan.get_loss_G_train(fake, xs)
         self._mark("G loss (D forward)")
-        l1, _ = memory_loss(f1, targets, state.memory, temp=self.temp)
-        l2, _ = memory_loss(f2, targets, state.memory, temp=self.temp)
+        l1, _ = memory_loss(f1, self.local(targets), state.memory, temp=self.temp)
+        l2, _ = memory_loss(f2, self.local(targets), state.memory, temp=self.temp)
         loss_cl = 0.5 * (l1.mean() + l2.mean())
         loss = loss_cl + loss_G
         self._mark("InfoNCE (K6 twice)")
         loss_D = self._joint_update(state, loss, xs, fake)
-        update_memory(state.memory, (f1 + f2).detach(), targets, momentum=self.momentum,
-                      use_hard=self.use_hard, group_size=self.num_instances)
+        update_memory(state.memory, self.gathered((f1 + f2).detach()), targets,
+                      momentum=self.momentum, use_hard=self.use_hard,
+                      group_size=self.num_instances)
         self._mark("bank fold (K7)")
         state = state._replace(step=state.step + 1, gan=gs._replace(step=gs.step + 1))
-        return state, {"loss": loss.detach(), "loss_cl": loss_cl.detach(),
-                       "G": loss_G.detach(), "D": loss_D}
+        return state, all_reduce_means(self.mesh, {
+            "loss": loss.detach(), "loss_cl": loss_cl.detach(), "G": loss_G.detach(),
+            "D": loss_D})
 
     def render_from_clusters(self, clusters, targets, ps):
         """G's train-mode render of each sample's cluster (a row of
@@ -323,7 +321,10 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
     def train_all_with_memory_step(self, state, gmem, batch, seed, cluster_lr=0.1):
         """One learnable-memory step (the steps in the module's docstring) on
         a batch of device tensors (``img``, ``pid``, ``Xs``, ``keypoints``,
-        ``old_size``) and the clusters ``gmem`` (a ``GradientMemoryState``).
+        ``old_size``) and the clusters ``gmem`` (a ``GradientMemoryState``);
+        under a mesh ``pid`` is the whole batch's and the rest the rank's
+        rows, and the clusters' gradient is averaged over the ranks with
+        the encoder's and G's, so every rank steps the same clusters.
         Returns (state, the new ``gmem``, losses on the device)."""
         gan, gs = self.gan, state.gan
         targets = batch["pid"]
@@ -339,40 +340,60 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         f_out = self.model(x, with_gan_feat=False)["feat"]
         self._mark("encoder forward (K5)")
         clusters = gmem.clusters.detach().requires_grad_(True)
-        fake = self.render_from_clusters(clusters, targets, ps)
+        fake = self.render_from_clusters(clusters, self.local(targets), ps)
         self._mark("G forward (from the clusters)")
         loss_G = gan.get_loss_G_train(fake, xs)
         self._mark("G loss (D forward)")
-        loss_cl, _ = gradient_memory_loss(f_out, targets, gmem._replace(clusters=clusters),
-                                          temp=self.temp)
+        loss_cl, _ = gradient_memory_loss(f_out, self.local(targets),
+                                          gmem._replace(clusters=clusters), temp=self.temp)
         loss = loss_cl + loss_G
         self._mark("InfoNCE (K6)")
-        loss_D = self._joint_update(state, loss, xs, fake)
+        loss_D = self._joint_update(state, loss, xs, fake, extra=[clusters])
         touched = torch.zeros(clusters.shape[0], dtype=torch.bool,
                               device=clusters.device).index_fill_(0, targets.long(), True)
         gmem = update_gradient_clusters(gmem, clusters.grad, touched, cluster_lr)
         self._mark("cluster SGD")
         state = state._replace(step=state.step + 1, gan=gs._replace(step=gs.step + 1))
-        return state, gmem, {"loss": loss.detach(), "loss_cl": loss_cl.detach(),
-                             "G": loss_G.detach(), "D": loss_D}
+        return state, gmem, all_reduce_means(self.mesh, {
+            "loss": loss.detach(), "loss_cl": loss_cl.detach(), "G": loss_G.detach(),
+            "D": loss_D})
 
-    def _joint_update(self, state, loss, xs, fake):
-        """The two joint modes' updates: the joint backward (encoder, G and
+    def row0(self, n):
+        """The global index of the rank's first row in a batch of ``n`` rows
+        a rank (0 without a mesh)."""
+        return 0 if self.mesh is None else self.mesh.rank * n
+
+    def gp_draws(self, n, dtype):
+        """The WGAN-GP penalty's mixing weights (n, 1, 1, 1) of a whole batch
+        of ``n``, uniform from the step's generator (seeded by the step's
+        seed, after its augmentation draws), alike on every rank."""
+        return torch.rand((n, 1, 1, 1), generator=self._gen, device=self.device,
+                          dtype=dtype)
+
+    def _joint_update(self, state, loss, xs, fake, extra=()):
+        """The joint modes' updates: the joint backward (encoder, G and
         whatever else ``loss`` reaches), the D step on the detached fake from
         the ``u`` the G loss left, then the encoder's Adam (a parameter the
         loss missed gets a zero gradient) with its schedule and G's Adam.
+        Under a mesh the gradients are averaged over the ranks, with those of
+        the tensors ``extra`` (the learnable clusters), and the WGAN-GP
+        penalty takes the rank's rows of the whole batch's ``gp_draws``.
         Returns the D loss, detached."""
         gs = state.gan
         state.optimizer.zero_grad(set_to_none=True)
         gs.opt_G.zero_grad(set_to_none=True)
         loss.backward()
+        alpha = None
         if self.mesh is not None:
             zero_missing_grads(state.optimizer)
             all_reduce_grads(self.mesh, optimizer_params(state.optimizer) +
-                             optimizer_params(gs.opt_G))
+                             optimizer_params(gs.opt_G) + list(extra))
+            if self.gan.gan_mode == "wgangp":
+                alpha = self.local(self.gp_draws(xs.shape[0] * self.mesh.world_size,
+                                                 xs.dtype))
         self._mark("joint backward (encoder, G, D input)")
         gs.opt_D.zero_grad(set_to_none=True)
-        loss_D = self.gan.d_loss(xs, fake)
+        loss_D = self.gan.d_loss(xs, fake, alpha=alpha)
         loss_D.backward()
         all_reduce_grads(self.mesh, optimizer_params(gs.opt_D))
         gs.opt_D.step()
@@ -408,7 +429,6 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
         and for ``train_all_with_memory`` (state, gmem, means)."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; the modes are {MODES}")
-        check_mesh_mode(self.mesh, mode, self.gan.gan_mode)
         if mode == "train_all_with_memory" and gmem is None:
             raise ValueError("train_all_with_memory needs the clusters (gmem)")
         meters = {}
@@ -461,28 +481,51 @@ class GANTrainer:
     273-335): one D→G iteration of ``gan`` (an ``AEModel`` with the AE
     generator; the PoseAE generator's step takes pose maps, which the
     ``only_gan`` batches do not carry) per batch, on ``device`` (default:
-    the card)."""
+    the card), or on the rank's card of ``mesh``: there each iteration runs
+    on the rank's rows of the batch (a sharded ``only_gan`` loader) with G's
+    and D's BatchNorms over the whole batch, D's and G's gradients averaged
+    over the ranks before their Adam steps, the WGAN-GP mixing weights
+    drawn for the whole batch on every rank and sliced, and the losses the
+    ranks' means (``AEModel.step``)."""
 
     def __init__(self, gan, print_freq=100, device=None, mesh=None):
-        refuse_mesh("GANTrainer (the GAN warm-up)", mesh)
+        check_mesh_precision(mesh, computes_bf16(gan.net_G, gan.net_D))
         self.gan = gan
         self.print_freq = print_freq
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
+        gan.net_G = convert_global_bn(gan.net_G, mesh)
+        gan.net_D = convert_global_bn(gan.net_D, mesh)
         gan.to(self.device)
         self._gen = torch.Generator(device=self.device)
 
+    def gp_draws(self, n, dtype):
+        """The WGAN-GP mixing weights (n, 1, 1, 1) of a whole batch of ``n``
+        from the iteration's generator, as the one-card step draws them."""
+        return torch.rand((n, 1, 1, 1), generator=self._gen, device=self.device,
+                          dtype=dtype)
+
     def train_gan(self, gan_state, epoch, gan_loader, train_iters=400, base_seed=0):
         """``train_iters`` iterations on the uint8 ``Xs`` batches of
-        ``gan_loader`` (an ``only_gan`` loader). Iteration i seeds its draws
-        (the WGAN-GP interpolation) from ``base_seed + epoch · train_iters +
-        i``. The losses stay on the card and are fetched once per
+        ``gan_loader`` (an ``only_gan`` loader; under a mesh, sharded).
+        Iteration i seeds its draws (the WGAN-GP interpolation) from
+        ``base_seed + epoch · train_iters + i``. Under a mesh G and D are
+        rank 0's first. The losses stay on the card and are fetched once per
         ``print_freq``. Returns (state, the epoch's mean of each loss)."""
+        for net in (self.gan.net_G, self.gan.net_D):
+            replicate(self.mesh, net)
         meters, errs_buf = {}, []
         for i in range(train_iters):
             batch = gan_loader.next()
             xs = torch.from_numpy(np.ascontiguousarray(batch["Xs"])).to(self.device)
             self._gen.manual_seed(base_seed + epoch * train_iters + i)
-            gan_state, errs, _ = self.gan.optimize_parameters(gan_state, xs, self._gen)
+            alpha = None
+            if self.mesh is not None and self.gan.gan_mode == "wgangp":
+                alpha = shard_batch(self.mesh, self.gp_draws(
+                    xs.shape[0] * self.mesh.world_size,
+                    next(self.gan.net_G.parameters()).dtype))
+            gan_state, errs, _ = self.gan.optimize_parameters(
+                gan_state, xs, self._gen, mesh=self.mesh, alpha=alpha)
             errs_buf.append(errs)
             if (i + 1) % self.print_freq == 0:
                 _drain(errs_buf, meters)

@@ -223,7 +223,7 @@ GEM_POOL = CudaKernel(
     scratch="reid_gem_pool_backward_scratch")
 INFONCE = CudaKernel(
     "infonce", "reid_infonce_forward",
-    [_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     source="reid_gan_torch/csrc/infonce.cu",
     replaces="reid_gan_tpu/ops/cluster_memory.py:58",
     backward=("reid_infonce_backward",

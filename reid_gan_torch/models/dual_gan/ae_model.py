@@ -34,7 +34,9 @@ from typing import Any, NamedTuple
 import torch
 
 from ...ops.cluster_memory import _l2n
+from ...ops.norm import local_stats
 from ...ops.transforms import gan_input_transform
+from ...parallel.mesh import all_reduce_grads, all_reduce_means, assemble_rows
 from ..precision import set_compute_dtype
 from .external_function import VGGLoss, cal_gradient_penalty, gan_loss
 from .networks import define_D, define_G
@@ -45,6 +47,10 @@ from .networks import define_D, define_G
 LAMBDA_FUS = 0.8
 
 
+def _params(optimizer):
+    return [q for group in optimizer.param_groups for q in group["params"]]
+
+
 class AEState(NamedTuple):
     G: torch.nn.Module
     D: torch.nn.Module
@@ -53,14 +59,17 @@ class AEState(NamedTuple):
     step: Any
 
 
-def hard_mix(f_s, reid_f, group_size):
+def hard_mix(f_s, reid_f, group_size, mesh=None):
     """Per-group hard feature mixing (ae_model.py:42-57; AE_model.py:274-292).
     The anchor of each group of ``group_size`` consecutive samples is the
     L2-normalised mean of its re-ID features ``reid_f`` (N, C); by
     ``exp(anchor · instance)`` it picks the group's farthest member and the
     nearest sample outside the group (the first on a tie) and mixes their
     generator features ``f_s`` (N, ...): ``λ·f_s[in] + (1 − λ)·f_s[out]``
-    with λ = ``LAMBDA_FUS``, one row per group."""
+    with λ = ``LAMBDA_FUS``, one row per group. Under a data mesh ``f_s`` is
+    the rank's rows and ``reid_f`` the whole batch's: the chosen rows come
+    from the ranks that own them (``assemble_rows``), and every rank returns
+    the same mix."""
     n, fdim = reid_f.shape
     num_groups = n // group_size
     anchor = _l2n(reid_f.reshape(num_groups, group_size, fdim).mean(dim=1))
@@ -70,7 +79,8 @@ def hard_mix(f_s, reid_f, group_size):
     id_mask = (col // group_size == row).to(sim.dtype)
     in_id = torch.argmin(id_mask * sim + (1 - id_mask) * sim.max(), dim=1)
     out_id = torch.argmax((1 - id_mask) * sim, dim=1)
-    return LAMBDA_FUS * f_s[in_id] + (1 - LAMBDA_FUS) * f_s[out_id]
+    picked = assemble_rows(mesh, f_s, torch.cat([in_id, out_id]))
+    return LAMBDA_FUS * picked[:num_groups] + (1 - LAMBDA_FUS) * picked[num_groups:]
 
 
 @contextlib.contextmanager
@@ -189,15 +199,25 @@ class AEModel(GANEngine):
         """Features + pose maps → image (AE_model.py:212-214)."""
         return self.apply_G(features, source_pose, train=train)
 
-    def synthesize_fc(self, source_image, reid_f, group_size=16, train=False):
+    def synthesize_fc(self, source_image, reid_f, group_size=16, train=False,
+                      mesh=None):
         """AE generator: encode the GAN images, ``hard_mix`` the features per
         group by the re-ID features, decode one image per group
         (ae_model.py:168-192). In train mode G's BatchNorm folds its running
-        stats at the encoder's and again at the decoder's forward."""
+        stats at the encoder's and again at the decoder's forward.
+
+        Under a data mesh ``source_image`` is the rank's rows and ``reid_f``
+        the whole batch's (gathered): the encoder runs on the rank's rows
+        with G's global BatchNorm, the 2·G mixed rows (G groups) come from
+        the ranks that own them (``hard_mix``), so a group may straddle two
+        ranks, and the decoder runs on all G mixed rows on every rank
+        alike, its BatchNorms over those rows alone (``local_stats``), as
+        JAX's decoder normalises the G rows of the sharded batch. Every rank
+        returns the same G images."""
         f_s = self.apply_G(source_image, train=train, method="forward_enc")
-        mixed = hard_mix(f_s.reshape(f_s.shape[0], -1), reid_f,
-                         group_size).reshape((-1,) + f_s.shape[1:])
-        return self.apply_G(mixed, train=train, method="forward_dec")
+        mixed = hard_mix(f_s, reid_f, group_size, mesh)
+        with local_stats(self.net_G):
+            return self.apply_G(mixed, train=train, method="forward_dec")
 
     def synthesize_mix_p(self, f_gan, f_gan_ex, source_pose, p_idx, train=False):
         """Pose generator's negatives (ae_model.py:194-205; AE_model.py:
@@ -232,7 +252,7 @@ class AEModel(GANEngine):
             loss = loss + loss_style + loss_content
         return loss
 
-    def step(self, state, source, generator=None, pose=None):
+    def step(self, state, source, generator=None, pose=None, mesh=None, alpha=None):
         """The standalone D→G step (ae_model.py:298-359) on a GAN batch
         ``source`` (N, 3, H, W) at the nets' dtype, with the PoseAE
         generator on its pose maps ``pose`` (N, pose_nc, H, W): G's one
@@ -241,8 +261,11 @@ class AEModel(GANEngine):
         the detached fake (real, then fake, each advancing D's ``u``) and
         D's Adam, then the G loss against the updated D in train mode (its
         power iteration persists) and G's Adam. ``generator`` seeds the
-        WGAN-GP draws. Returns (state, {"G", "D"} losses on the device, the
-        fake)."""
+        WGAN-GP draws, or ``alpha`` gives them. Under a data mesh ``mesh``
+        the batch is the rank's rows (G's and D's BatchNorms global), D's
+        and G's gradients are averaged over the ranks before their Adam
+        steps and the losses are the ranks' means. Returns (state, {"G",
+        "D"} losses on the device, the fake)."""
         if self.model_gen == "AE":
             fake = self.apply_G(source, train=True)
         elif self.model_gen == "PoseAE":
@@ -253,25 +276,28 @@ class AEModel(GANEngine):
             raise ValueError(f"optimize_parameters supports AE/PoseAE; "
                              f"{self.model_gen} is driven by the joint trainer")
         state.opt_D.zero_grad(set_to_none=True)
-        loss_D = self.d_loss(source, fake, generator)
+        loss_D = self.d_loss(source, fake, generator, alpha)
         loss_D.backward()
+        all_reduce_grads(mesh, _params(state.opt_D))
         state.opt_D.step()
         state.opt_G.zero_grad(set_to_none=True)
         loss_G = self.get_loss_G_train(fake, source)
         loss_G.backward()
+        all_reduce_grads(mesh, _params(state.opt_G))
         state.opt_G.step()
-        return state._replace(step=state.step + 1), \
-            {"G": loss_G.detach(), "D": loss_D.detach()}, fake.detach()
+        errs = all_reduce_means(mesh, {"G": loss_G.detach(), "D": loss_D.detach()})
+        return state._replace(step=state.step + 1), errs, fake.detach()
 
-    def optimize_parameters(self, state, xs_u8, generator=None, pose=None):
+    def optimize_parameters(self, state, xs_u8, generator=None, pose=None, mesh=None,
+                            alpha=None):
         """One D→G iteration on a device uint8 (N, H, W, 3) GAN batch staged
         at the GAN size (AE_model.py:392-401): the GAN input transform (K9 on
         the card), then ``step``; ``pose``: the PoseAE generator's pose maps
-        (kernel K10's output)."""
+        (kernel K10's output); ``mesh``, ``alpha``: ``step``'s."""
         dtype = next(self.net_G.parameters()).dtype
         source = gan_input_transform(xs_u8, self.h, self.w).to(dtype)
         return self.step(state, source, generator,
-                         None if pose is None else pose.to(dtype))
+                         None if pose is None else pose.to(dtype), mesh, alpha)
 
     def get_L1_loss(self, fake, target, with_dis=False):
         """Per-sample reconstruction loss, the mean L1 · λ_rec, plus with

@@ -68,11 +68,12 @@ def _l2n(x, eps=1e-12):
 # InfoNCE (kernel K6)
 # ---------------------------------------------------------------------------
 
-def memory_loss_plain(x, targets, state, temp=0.05, ex_f=None, group_size=1):
+def memory_loss_plain(x, targets, state, temp=0.05, ex_f=None, group_size=1, row0=0):
     """Plain PyTorch version of K6 (``memory_loss``, cluster_memory.py:
     58-100), differentiable by autograd: returns (per-sample loss (B,),
     logits (B, K_pad[+T])). ``ex_f``: (T, D) extra negatives with the
-    −10000 group self-mask of cm.py:158-182."""
+    −10000 group self-mask of cm.py:158-182, row b's group being
+    ``(row0 + b) // group_size``."""
     x = _l2n(x)
     bank = state.features.detach()
     logits = x @ bank.T
@@ -82,7 +83,7 @@ def memory_loss_plain(x, targets, state, temp=0.05, ex_f=None, group_size=1):
         ex = _l2n(ex_f)
         t = ex.shape[0]
         lex = x @ ex.T
-        row = torch.arange(x.shape[0], device=x.device)[:, None] // group_size
+        row = (row0 + torch.arange(x.shape[0], device=x.device))[:, None] // group_size
         colx = torch.arange(t, device=x.device)[None]
         lex = lex + torch.where(row == colx, -10000.0, 0.0)
         logits = torch.cat([logits, lex], dim=1)
@@ -107,7 +108,7 @@ def _check_ids(t, name, n, device):
         raise ValueError(f"{name} must be ({n},) contiguous int32 on {device}")
 
 
-def _infonce_forward_cuda(x, bank, num_valid, targets, temp, ex, group_size):
+def _infonce_forward_cuda(x, bank, num_valid, targets, temp, ex, group_size, row0):
     dev = x.device
     _check_rows(x, "memory_loss: x", dev)
     _check_rows(bank, "memory_loss: the bank", dev, x.shape[1])
@@ -120,9 +121,9 @@ def _infonce_forward_cuda(x, bank, num_valid, targets, temp, ex, group_size):
     t = 0 if ex is None else ex.shape[0]
     if ex is not None:
         _check_rows(ex, "memory_loss: ex_f", dev, d)
-        if t == 0 or group_size < 1:
-            raise ValueError("memory_loss: ex_f needs at least one row and "
-                             "group_size >= 1")
+        if t == 0 or group_size < 1 or row0 < 0:
+            raise ValueError("memory_loss: ex_f needs at least one row, "
+                             "group_size >= 1 and row0 >= 0")
     if b == 0 or k + t == 0:
         raise ValueError(f"memory_loss: needs at least one row of x and one "
                          f"column of logits, got B {b}, K {k}, T {t}")
@@ -135,7 +136,8 @@ def _infonce_forward_cuda(x, bank, num_valid, targets, temp, ex, group_size):
     loss = torch.empty(b, dtype=torch.float32, device=dev)
     INFONCE(x.data_ptr(), bank.data_ptr(), num_valid.data_ptr(),
             targets.data_ptr(), b, k, d, temp, ex.data_ptr() if t else None, t,
-            int(group_size), rnorm.data_ptr(), rexn.data_ptr() if t else None,
+            int(group_size), int(row0), rnorm.data_ptr(),
+            rexn.data_ptr() if t else None,
             logits.data_ptr(), part.data_ptr(), lse.data_ptr(), loss.data_ptr(),
             device=dev)
     if ex is None:
@@ -170,9 +172,9 @@ class _InfoNCE(torch.autograd.Function):
     x and ex as they are. ``ex`` (or None) gets no gradient."""
 
     @staticmethod
-    def forward(ctx, x, bank, num_valid, targets, temp, ex, group_size):
+    def forward(ctx, x, bank, num_valid, targets, temp, ex, group_size, row0):
         loss, logits, saved = _infonce_forward_cuda(
-            x, bank, num_valid, targets, temp, ex, group_size)
+            x, bank, num_valid, targets, temp, ex, group_size, row0)
         ctx.temp = temp
         ctx.save_for_backward(bank, num_valid, targets, logits, *saved)
         ctx.mark_non_differentiable(logits)
@@ -183,14 +185,17 @@ class _InfoNCE(torch.autograd.Function):
         bank, num_valid, targets, logits, *saved = ctx.saved_tensors
         dx = _infonce_backward_cuda(saved, bank, num_valid, targets, logits, grad,
                                     ctx.temp)
-        return dx, None, None, None, None, None, None
+        return dx, None, None, None, None, None, None, None
 
 
-def memory_loss(x, targets, state, temp=0.05, ex_f=None, group_size=1):
+def memory_loss(x, targets, state, temp=0.05, ex_f=None, group_size=1, row0=0):
     """Per-sample InfoNCE against the bank (cm.py:123-137; kernel K6 forward
     and backward on the card), with optional extra negatives ``ex_f`` (T, D)
     appended after the bank's columns, each masked by −10000 for its own
-    group of ``group_size`` rows (cm.py:158-182). The gradient flows to ``x``
+    group of ``group_size`` rows (cm.py:158-182); under a data mesh ``x`` is
+    a rank's rows and ``row0`` the global index of its first, so that row b
+    is masked for extra column ``(row0 + b) // group_size`` as it is in the
+    whole batch. The gradient flows to ``x``
     only: the logits carry none (no caller of the JAX function
     differentiates them), nor does ``ex_f`` (the JAX step stops it). Returns
     (per-sample loss (B,), logits (B, K_pad[+T])), columns >= num_valid at
@@ -199,9 +204,9 @@ def memory_loss(x, targets, state, temp=0.05, ex_f=None, group_size=1):
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"memory_loss: unsupported device {x.device}")
-        return memory_loss_plain(x, targets, state, temp, ex, group_size)
+        return memory_loss_plain(x, targets, state, temp, ex, group_size, row0)
     return _InfoNCE.apply(x, state.features.detach(), state.num_valid,
-                          targets.to(torch.int32), temp, ex, group_size)
+                          targets.to(torch.int32), temp, ex, group_size, row0)
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +317,8 @@ def init_gradient_memory(centroids, k_pad=None, device=None):
     return GradientMemoryState(state.features, state.num_valid)
 
 
-def gradient_memory_loss(x, targets, state, temp=0.05, ex_f=None, group_size=1):
+def gradient_memory_loss(x, targets, state, temp=0.05, ex_f=None, group_size=1,
+                         row0=0):
     """The mean InfoNCE against the clusters L2-normalised and detached
     (cluster_memory.py:221-230; cm.py:158-182), with an empty GAN bank:
     ``memory_loss``, so K6 on the card. The clusters get no gradient from
@@ -320,7 +326,7 @@ def gradient_memory_loss(x, targets, state, temp=0.05, ex_f=None, group_size=1):
     normed = _l2n(state.clusters.detach()).contiguous()
     proxy = MemoryState(normed, normed.new_zeros((0, normed.shape[1])),
                         state.num_valid)
-    loss, logits = memory_loss(x, targets, proxy, temp, ex_f, group_size)
+    loss, logits = memory_loss(x, targets, proxy, temp, ex_f, group_size, row0)
     return loss.mean(), logits
 
 

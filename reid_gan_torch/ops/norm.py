@@ -24,7 +24,17 @@ loses every digit where a channel's mean is large beside its spread. In
 eval mode it is the plain BatchNorm on the running stats. Without a mesh
 nothing is swapped (``convert_global_bn``), and the single-card path keeps
 cuDNN's BatchNorm.
+
+Rows that every rank holds alike (the hard-mix decoder's one mixed feature
+a group, computed on every rank) are already the whole batch: a global
+reduction over them would count each R times, which leaves the mean and
+the biased variance as they are but folds the running variance with
+Bessel's n/(n−1) for R·n rows. Within ``local_stats(module)`` the global
+BatchNorms under ``module`` normalise over the rank's rows alone, as the
+single-card BatchNorm does, with no collective.
 """
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -94,7 +104,11 @@ class GlobalBatchNorm(nn.modules.batchnorm._BatchNorm):
     statistics are the whole mesh batch's (the module's docstring). Its
     parameters and buffers have ``nn.BatchNorm*d``'s names, so state dicts
     load either way. The input is widened to at least fp32, as
-    ``models.precision``'s BatchNorms do."""
+    ``models.precision``'s BatchNorms do. With ``local`` set
+    (``local_stats``) it is the plain train-mode BatchNorm of the rank's
+    rows."""
+
+    local = False
 
     def _check_input_dim(self, x):
         if x.dim() < 2:
@@ -108,6 +122,9 @@ class GlobalBatchNorm(nn.modules.batchnorm._BatchNorm):
                                 self.bias, False, 0.0, self.eps)
         if self.track_running_stats:
             self.num_batches_tracked.add_(1)
+        if self.local:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, True, self.momentum, self.eps)
         return _GlobalBatchNorm.apply(x, self.weight, self.bias, self.running_mean,
                                       self.running_var, self.momentum, self.eps)
 
@@ -139,3 +156,19 @@ def convert_global_bn(module, mesh):
         if new is not child:
             setattr(module, name, new)
     return module
+
+
+@contextlib.contextmanager
+def local_stats(module):
+    """Within the block every ``GlobalBatchNorm`` under ``module`` normalises
+    its input over the rank's own rows, with no collective (the module's
+    docstring): for rows that every rank holds alike. A module without
+    global BatchNorms (no mesh) runs as it is."""
+    norms = [m for m in module.modules() if isinstance(m, GlobalBatchNorm)]
+    for m in norms:
+        m.local = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.local = False

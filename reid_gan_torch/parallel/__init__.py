@@ -5,8 +5,10 @@ batches, explicit collectives."""
 from .mesh import (
     Mesh,
     all_gather_rows,
+    assemble_rows,
     all_reduce_grads,
     all_reduce_mean,
+    all_reduce_means,
     all_reduce_sum,
     broadcast_object,
     destroy_mesh,
@@ -23,8 +25,10 @@ from .mesh import (
 __all__ = [
     "Mesh",
     "all_gather_rows",
+    "assemble_rows",
     "all_reduce_grads",
     "all_reduce_mean",
+    "all_reduce_means",
     "all_reduce_sum",
     "broadcast_object",
     "destroy_mesh",

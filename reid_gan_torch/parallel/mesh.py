@@ -14,6 +14,8 @@ for the bank fold, clustering and eval). The port runs one process per card
   step of one device on the whole batch, as in the JAX package;
 - ``all_gather_rows``: the ranks' rows in rank order, which is the order of
   the global batch (``shard_batch`` gives each rank a contiguous slice);
+  ``assemble_rows``: chosen rows of the global batch from the ranks that
+  own them, in one sum;
 - ``all_reduce_mean`` / ``all_reduce_sum``: logged losses and the rank
   pass's sums; ``replicate`` and ``broadcast_object``: rank 0's state.
 
@@ -308,6 +310,20 @@ def all_reduce_mean(mesh, t):
     return t if mesh is None else all_reduce_sum(mesh, t) / mesh.world_size
 
 
+def all_reduce_means(mesh, named):
+    """A dict of device scalars (logged losses) with each value's mean over
+    the ranks, in one reduction at their widest dtype; ``named`` itself
+    without a mesh."""
+    if mesh is None:
+        return named
+    values = list(named.values())
+    dtype = values[0].dtype
+    for v in values[1:]:
+        dtype = torch.promote_types(dtype, v.dtype)
+    return dict(zip(named, all_reduce_mean(mesh, torch.stack([v.to(dtype)
+                                                              for v in values]))))
+
+
 def all_gather_rows(mesh, x, n=None):
     """Every rank's ``x`` (the same shape on each) stacked in rank order
     along the leading axis, trimmed to its first ``n`` rows (the padding of
@@ -319,6 +335,23 @@ def all_gather_rows(mesh, x, n=None):
     dist.all_gather(parts, x)
     out = torch.cat(parts)
     return out if n is None else out[:n]
+
+
+def assemble_rows(mesh, x, rows):
+    """The rows ``rows`` (global indices into the whole batch) of a tensor
+    whose leading axis is sharded over the ranks as ``shard_batch`` places
+    it, ``x`` being this rank's slice, on every rank: each rank writes the
+    rows it owns and zeros elsewhere, and one ``all_reduce_sum`` adds them,
+    which is exact (x + 0 = x). ``x[rows]`` without a mesh. No gradient."""
+    if mesh is None:
+        return x[rows]
+    s = x.shape[0]
+    own = (rows >= mesh.rank * s) & (rows < (mesh.rank + 1) * s)
+    local = torch.clamp(rows - mesh.rank * s, 0, s - 1)
+    with torch.no_grad():
+        picked = torch.where(own.view((-1,) + (1,) * (x.dim() - 1)), x[local],
+                             torch.zeros((), dtype=x.dtype, device=x.device))
+    return all_reduce_sum(mesh, picked)
 
 
 def broadcast_object(mesh, obj):

@@ -12,8 +12,9 @@ variants' maps too); one live bank row, a full bank and banks off the
 column tile, D under the tensor cores' depth and off the stage and the D
 slice, num_valid on and one past a tile, stage and slice edge, a bank of
 30,720 rows, and extra negatives (``ex_f``) of 1, 16 and 33 rows in
-groups of 1 and of the whole batch, against banks of 768 and 30,720 rows
-(K6), called twice in one graph against one bank (the bip step) and
+groups of 1 and of the whole batch, against banks of 768 and 30,720 rows,
+on a data-mesh rank's rows from a global ``row0`` (the self-mask at the
+row's global group; ``row0`` 0 the call without it) (K6), called twice in one graph against one bank (the bip step) and
 against trainable clusters (the learnable-memory step); the same bits on a
 second run (K5, K6); one label for the whole
 batch, all labels distinct and exact ties in the hard fold (K7); sets smaller than a tile, D off the stage and off the
@@ -782,6 +783,80 @@ def test_memory_loss_extra_negatives_match_plain(card, b, d, k_pad, nv, t, group
     assert float(torch.where(masked, err / rex.abs(), 0.0).max()) <= 1e-6
     assert float((loss.double() - ref).abs().max()) <= 1e-4
     assert float((x.grad.double() - x64.grad).abs().max()) <= 1e-6
+
+
+def _k6_rank_inputs(card, b, d, k_pad, nv, t, seed):
+    from reid_gan_torch.ops.cluster_memory import init_memory
+
+    g = torch.Generator(device=card).manual_seed(seed)
+    centers = torch.nn.functional.normalize(
+        torch.randn((nv, d), device=card, generator=g), dim=1)
+    state = init_memory(centers, k_pad=k_pad, device=card)
+    y = torch.randint(0, nv, (b,), device=card, generator=g, dtype=torch.int32)
+    x = (centers[y.long()] + 0.5 * torch.randn((b, d), device=card, generator=g))
+    ex = centers[torch.randint(0, nv, (t,), device=card, generator=g)] + \
+        0.3 * torch.randn((t, d), device=card, generator=g)
+    return state, y, x.contiguous(), ex
+
+
+@pytest.mark.parametrize("b,row0", [
+    (64, 64), (64, 192),    # a rank's 64 of the hard-mix batch of 256 on four cards
+    (48, 40),               # groups straddling the rank's first and last rows
+    (37, 3),                # rows off the tile
+])
+def test_memory_loss_row0_matches_plain(card, b, row0):
+    """K6 on a rank's rows under a data mesh: ``row0`` the global index of
+    the first row, T = 16 extra negatives in groups of 16, D 2048, 768 bank
+    rows of which 700 live. The loss within 1e-4 and dL/dx within 1e-6 of
+    the plain version's autograd with the same ``row0`` in fp64; the extra
+    columns within 1e-4, or 1e-6 relative where the self-mask puts them (at
+    column (row0 + b) // 16); the bank's logits and the extra columns
+    masked for the same rows at ``row0`` 0 bit-equal to K6's at ``row0``
+    0, which gives the bits of the call without it."""
+    from reid_gan_torch.ops.cluster_memory import memory_loss, memory_loss_plain
+
+    d, k_pad, nv, t, group = 2048, 768, 700, 16, 16
+    state, y, x0, ex = _k6_rank_inputs(card, b, d, k_pad, nv, t, b + row0)
+
+    def run(**kw):
+        x = x0.detach().requires_grad_(True)
+        loss, logits = memory_loss(x, y, state, ex_f=ex, group_size=group, **kw)
+        loss.mean().backward()
+        return loss.detach(), logits, x.grad
+
+    loss, logits, dx = run(row0=row0)
+    zero, default = run(row0=0), run()
+    x64 = x0.detach().double().requires_grad_(True)
+    s64 = state._replace(features=state.features.double())
+    ref, ref_logits = memory_loss_plain(x64, y, s64, ex_f=ex.double(), group_size=group,
+                                        row0=row0)
+    ref.mean().backward()
+    torch.cuda.synchronize()
+    for a, z in zip(zero, default):
+        assert torch.equal(a, z)
+    rows = torch.arange(b, device=card)[:, None]
+    cols = torch.arange(t, device=card)[None]
+    masked = (row0 + rows) // group == cols
+    masked0 = rows // group == cols
+    assert masked.any() and not torch.equal(masked, masked0)
+    assert torch.equal(logits[:, :k_pad], zero[1][:, :k_pad])
+    same = ~(masked | masked0)
+    assert torch.equal(logits[:, k_pad:][same], zero[1][:, k_pad:][same])
+    lex, rex = logits[:, k_pad:].double(), ref_logits[:, k_pad:]
+    err = (lex - rex).abs()
+    assert float(torch.where(masked, 0.0, err).max()) <= 1e-4
+    assert float(torch.where(masked, err / rex.abs(), 0.0).max()) <= 1e-6
+    assert float((logits[:, :nv].double() - ref_logits[:, :nv]).abs().max()) <= 1e-4
+    assert float((loss.double() - ref).abs().max()) <= 1e-4
+    assert float((dx.double() - x64.grad).abs().max()) <= 1e-6
+
+
+def test_memory_loss_rejects_a_negative_row0(card):
+    from reid_gan_torch.ops.cluster_memory import memory_loss
+
+    state, y, x, ex = _k6_rank_inputs(card, 8, 64, 16, 10, 2, 1)
+    with pytest.raises(ValueError, match="row0"):
+        memory_loss(x, y, state, ex_f=ex, group_size=4, row0=-1)
 
 
 @pytest.mark.parametrize("t", [0, 16])

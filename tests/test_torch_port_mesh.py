@@ -295,12 +295,36 @@ def test_sharded_with_gan_loader_draws_the_whole_batchs_flips(tmp_path, packed):
         np.testing.assert_array_equal(pre.rng.rand(4), after)
 
 
+def test_assemble_rows_means_and_local_stats_on_four_ranks(tmp_path):
+    """On four gloo ranks: ``assemble_rows`` gives every rank the chosen
+    rows of the whole batch (repeated, out of order, owned by any rank) bit
+    for bit; ``all_reduce_means`` the ranks' means at the widest dtype; a
+    global BatchNorm within ``local_stats`` on rows every rank holds alike is
+    the one-card ``nn.BatchNorm2d`` on them (output, running stats with n − 1
+    of those rows, the counter), with no collective, and leaves ``local``
+    off after the block."""
+    import torch_mesh_ranks
+
+    rng = np.random.RandomState(9)
+    x = rng.randn(12, 3, 2, 2)
+    rows = np.array([11, 0, 5, 5, 3, 8, 2])
+    bn_in = rng.randn(3, 4, 2, 2) * 2 + 1
+    got = spawn(torch_mesh_ranks.mesh_pieces, 4, tmp_path, x, rows, bn_in)
+    np.testing.assert_array_equal(got["picked"], x[rows])
+    assert got["means"] == {"a": (1.5, torch.float64), "b": (3.0, torch.float64)}
+    ref = torch.nn.BatchNorm2d(4).double().train()
+    y = ref(torch.from_numpy(bn_in))
+    np.testing.assert_array_equal(got["y"], y.detach().numpy())
+    np.testing.assert_array_equal(got["rm"], ref.running_mean.numpy())
+    np.testing.assert_array_equal(got["rv"], ref.running_var.numpy())
+    assert got["n"] == 1
+
+
 def test_unported_mesh_pairings_raise_before_any_work(tmp_path):
     """Under a mesh, each pairing without a mesh path raises
     ``NotImplementedError`` naming it, before it writes anything: ``--fp16``
-    in the three mesh CLIs and their trainers, ``--dsbn`` in the eval CLI,
-    the ``train``, ``train_all_bip`` and ``train_all_with_memory`` modes and
-    the WGAN-GP penalty in the joint CLI and trainer, the GAN warm-up and
+    in the three training CLIs (the joint CLI in each of its modes) and in
+    the trainers (the GAN warm-up's too), ``--dsbn`` in the eval CLI,
     FD-GAN's CLIs and engines, and the pair loaders."""
     from reid_gan_torch.cli import (
         fdgan_baseline,
@@ -330,13 +354,12 @@ def test_unported_mesh_pairings_raise_before_any_work(tmp_path):
         (train_usl, ["--fp16"], "--fp16"),
         (test, ["--dsbn", "--resume", "x.msgpack"], "--dsbn"),
         (train_gan_usl, ["--model-gen", "Pose", "--fp16"], "--fp16"),
-        (train_gan_usl, ["--model-gen", "AE", "--no-gan-train"], "'train' mode"),
-        (train_gan_usl, ["--model-gen", "AE", "--arch", "resnet_bip50", "--bipath"],
-         "'train_all_bip'"),
-        (train_gan_usl, ["--model-gen", "Pose", "--learnable-memory"],
-         "'train_all_with_memory'"),
-        (train_gan_usl, ["--model-gen", "Pose", "--gan-mode", "wgangp"], "wgangp"),
-        (train_gan_warmup, ["--model-gen", "AE"], "cli/train_gan_warmup"),
+        (train_gan_usl, ["--model-gen", "AE", "--no-gan-train", "--fp16"], "--fp16"),
+        (train_gan_usl, ["--model-gen", "AE", "--arch", "resnet_bip50", "--bipath",
+                         "--fp16"], "--fp16"),
+        (train_gan_usl, ["--model-gen", "Pose", "--learnable-memory", "--fp16"],
+         "--fp16"),
+        (train_gan_warmup, ["--model-gen", "AE", "--fp16"], "--fp16"),
         (fdgan_baseline, [], "cli/fdgan_baseline"),
         (fdgan_train, ["--stage", "1"], "cli/fdgan_train"),
     ]
@@ -348,22 +371,82 @@ def test_unported_mesh_pairings_raise_before_any_work(tmp_path):
     with pytest.raises(NotImplementedError, match="--fp16"):
         ClusterContrastTrainer(create("resnet18", dtype=torch.bfloat16), device="cpu",
                                mesh=mesh)
-    gan = AEModel(GANConfig(model="AE", model_gen="Pose"), gan_height=16, gan_width=8,
-                  num_feats=32, ngf=8, reid_feat_dim=512, device="cpu")
-    trainer = ClusterContrastWithGANTrainer(create("resnet18"), gan, height=32, width=16,
-                                            device="cpu", mesh=mesh)
-    for mode in ("train", "train_all_bip", "train_all_with_memory"):
-        with pytest.raises(NotImplementedError, match=mode):
-            trainer.run_epoch(None, 0, None, mode=mode)
-    with pytest.raises(NotImplementedError, match="GANTrainer"):
-        GANTrainer(gan, device="cpu", mesh=mesh)
+    kw = dict(gan_height=16, gan_width=8, num_feats=32, ngf=8, reid_feat_dim=512,
+              device="cpu")
+    bf16 = AEModel(GANConfig(model="AE", model_gen="AE"), dtype=torch.bfloat16, **kw)
+    with pytest.raises(NotImplementedError, match="--fp16"):
+        ClusterContrastWithGANTrainer(create("resnet18"), bf16, height=32, width=16,
+                                      device="cpu", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="--fp16"):
+        GANTrainer(bf16, device="cpu", mesh=mesh)
     with pytest.raises(NotImplementedError, match="SiameseTrainer"):
         SiameseTrainer(create("resnet18"), device="cpu", mesh=mesh)
     with pytest.raises(NotImplementedError, match="FDGANModel"):
         FDGANModel(FDGANConfig(), device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="'pair' loader"):
-        DataLoader(Preprocessor([], mode="pair"), shard=mesh)
+    for mode in ("pair", "fdgan_pose"):
+        with pytest.raises(NotImplementedError, match=f"'{mode}' loader"):
+            DataLoader(Preprocessor([], mode=mode), shard=mesh)
     assert not osp.exists(tmp_path / "d")
+
+
+class _Reached(Exception):
+    """Raised where a run gets to its first piece of work."""
+
+
+def test_ported_mesh_pairings_run_past_their_checks(tmp_path, monkeypatch):
+    """Under a mesh the joint CLI's hard-mix, bip, learnable-memory and
+    WGAN-GP pairings and the GAN warm-up no longer raise before work: each
+    CLI gets to its dataset (``main_first``, stopped there), the joint
+    trainer to its first batch in every mode, and the warm-up trainer is
+    built and gets to its first batch."""
+    from reid_gan_torch.cli import train_gan_usl, train_gan_warmup
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.engine.gan_trainers import (
+        MODES,
+        ClusterContrastWithGANTrainer,
+        GANTrainer,
+    )
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.dual_gan.ae_model import AEModel
+
+    def reached(*args, **kwargs):
+        raise _Reached
+
+    mesh = _fake_mesh(0, 2)
+    base = ["--dataset", "synthetic", "--data-dir", str(tmp_path / "d"), "--arch",
+            "resnet18", "--device", "cpu"]
+    cases = [
+        (train_gan_usl, ["--model-gen", "AE", "--no-gan-train"]),
+        (train_gan_usl, ["--model-gen", "AE", "--arch", "resnet_bip50", "--bipath"]),
+        (train_gan_usl, ["--model-gen", "Pose", "--learnable-memory"]),
+        (train_gan_usl, ["--model-gen", "Pose", "--gan-mode", "wgangp"]),
+        (train_gan_warmup, ["--model-gen", "AE"]),
+        (train_gan_warmup, ["--model-gen", "AE", "--gan-mode", "wgangp"]),
+    ]
+    for i, (cli, extra) in enumerate(cases):
+        monkeypatch.setattr(cli, "main_first", reached)
+        with pytest.raises(_Reached):
+            cli.main(base + extra + ["--logs-dir", str(tmp_path / f"logs{i}")], mesh=mesh)
+    assert not (tmp_path / "d").exists()
+
+    class Loader:
+        def next(self):
+            raise _Reached
+
+    for gen, gan_mode in (("AE", "lsgan"), ("Pose", "wgangp")):
+        gan = AEModel(GANConfig(model="AE", model_gen=gen, gan_mode=gan_mode),
+                      gan_height=16, gan_width=8, num_feats=32, ngf=8, reid_feat_dim=512,
+                      device="cpu")
+        trainer = ClusterContrastWithGANTrainer(create("resnet18"), gan, height=32,
+                                                width=16, device="cpu", mesh=mesh)
+        for mode in MODES:
+            with pytest.raises(_Reached):
+                trainer.run_epoch(None, 0, Loader(), mode=mode, gmem=object())
+    warm = GANTrainer(gan, device="cpu", mesh=mesh)
+    monkeypatch.setattr("reid_gan_torch.engine.gan_trainers.replicate",
+                        lambda m, tree: tree)
+    with pytest.raises(_Reached):
+        warm.train_gan(gan.init_state(), 0, Loader(), train_iters=1)
 
 
 @pytest.mark.parametrize("rerank", [False, True], ids=["plain", "rerank"])

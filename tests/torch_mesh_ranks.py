@@ -170,7 +170,9 @@ def cli_main(mesh, cli, argv, out_dir):
     writers = [n for n in ("Logger", "dump_config", "save_checkpoint", "save_networks",
                            "Visualizer") if hasattr(mod, n)]
     _record_writes(mod, mesh.rank, out_dir, writers)
-    return mod.main(argv, mesh=mesh)
+    out = mod.main(argv, mesh=mesh)
+    # the warm-up returns its nets and optimisers: their step count goes back
+    return out.step if hasattr(out, "step") else out
 
 
 def joint_step(mesh, enc_state, gan_states, bank, gan_bank, batch, conf, seed,
@@ -204,3 +206,172 @@ def joint_step(mesh, enc_state, gan_states, bank, gan_bank, batch, conf, seed,
             "G": sd(gan.net_G), "D": sd(gan.net_D),
             "bank": state.memory.features.numpy(),
             "gan_bank": state.memory.gan_features.numpy()}
+
+
+def _load(net, state_dict):
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+    return net
+
+
+def _numpy_state(module):
+    return {k: v.numpy() for k, v in module.state_dict().items()}
+
+
+def mode_step(mesh, spec):
+    """One fp64 step of the port's joint trainer in ``spec["mode"]``
+    (``train``, ``train_all``, ``train_all_bip`` or ``train_all_with_memory``)
+    on the rank's rows of ``spec["batch"]`` (the whole batch's ``pid`` and
+    ``conf``), from ``spec``'s state dicts: the encoder ``enc`` (resnet18,
+    or a depth-18 ``ResNetBip`` with ``bip``), the generator ``gen``'s ``G``
+    and ``D`` at ``sizes`` (h, w, gh, gw), the bank (and ``gan_bank``), the
+    clusters of the memory mode, with ``gan_mode``. ``alpha``, where given,
+    is the whole batch's WGAN-GP draws (the trainer's ``gp_draws``). Returns
+    rank 0's losses, the three nets' state dicts, both banks and, for the
+    memory mode, every rank's clusters."""
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.engine.gan_trainers import ClusterContrastWithGANTrainer
+    from reid_gan_torch.models.dual_gan.ae_model import AEModel
+    from reid_gan_torch.models.resnet import ReIDResNet
+    from reid_gan_torch.models.resnet_variants import ResNetBip
+    from reid_gan_torch.ops.cluster_memory import init_gradient_memory, init_memory
+    from reid_gan_torch.parallel import all_gather_rows, shard_batch
+
+    h, w, gh, gw = spec["sizes"]
+    bank = spec["bank"]
+    model = _load(ResNetBip(depth=18) if spec.get("bip") else
+                  ReIDResNet(depth=18, norm=True), spec["enc"]).double()
+    gan = AEModel(GANConfig(model="AE", model_gen=spec["gen"],
+                            gan_mode=spec.get("gan_mode", "lsgan")),
+                  gan_height=gh, gan_width=gw, num_feats=32, ngf=8,
+                  reid_feat_dim=bank.shape[1], device="cpu")
+    _load(gan.net_G.double(), spec["G"])
+    _load(gan.net_D.double(), spec["D"])
+    trainer = ClusterContrastWithGANTrainer(model, gan, height=h, width=w,
+                                            num_instances=spec["group"], device="cpu",
+                                            mesh=mesh)
+    if spec.get("alpha") is not None:
+        def gp_draws(n, dtype):
+            assert n == len(spec["alpha"])
+            return torch.from_numpy(spec["alpha"]).to(dtype)
+
+        trainer.gp_draws = gp_draws
+    state = trainer.init_state(init_memory(bank, k_pad=256,
+                                           gan_centroids=spec.get("gan_bank"),
+                                           device="cpu"), gan.init_state())
+    dev = {k: torch.from_numpy(v if k == "pid" or mesh is None else shard_batch(mesh, v))
+           for k, v in spec["batch"].items()}
+    mode, seed, gmem = spec["mode"], spec["seed"], None
+    if mode == "train":
+        state, errs = trainer.train_step(state, dev, seed)
+    elif mode == "train_all":
+        state, errs = trainer.train_all_step(state, dev, seed,
+                                             torch.from_numpy(spec["conf"]))
+    elif mode == "train_all_bip":
+        state, errs = trainer.train_all_bip_step(state, dev, seed)
+    else:
+        gmem = init_gradient_memory(spec["clusters"], k_pad=256, device="cpu")
+        state, gmem, errs = trainer.train_all_with_memory_step(
+            state, gmem, dev, seed, spec["cluster_lr"])
+    out = {"errs": {k: float(v) for k, v in errs.items()}, "enc": _numpy_state(model),
+           "G": _numpy_state(gan.net_G), "D": _numpy_state(gan.net_D),
+           "bank": state.memory.features.numpy(),
+           "gan_bank": state.memory.gan_features.numpy()}
+    if gmem is not None:
+        out["clusters"] = all_gather_rows(mesh, gmem.clusters[None]).numpy() \
+            if mesh is not None else gmem.clusters[None].numpy()
+    return out
+
+
+class _Batches:
+    def __init__(self, batches):
+        self.batches = iter(batches)
+
+    def next(self):
+        return next(self.batches)
+
+
+def warmup_steps(mesh, spec):
+    """``GANTrainer.train_gan`` in fp64 over ``spec["xs"]`` (a list of whole
+    uint8 GAN batches, the rank's rows of each taken here) from the AE
+    generator's and D's state dicts ``G``, ``D`` at (gh, gw) with
+    ``gan_mode``; ``alphas``, where given, are each iteration's whole-batch
+    WGAN-GP draws (the trainer's ``gp_draws``). Returns rank 0's losses of
+    each iteration, both nets' state dicts and the step count."""
+    from reid_gan_torch.config import GANConfig
+    from reid_gan_torch.engine.gan_trainers import GANTrainer
+    from reid_gan_torch.models.dual_gan.ae_model import AEModel
+    from reid_gan_torch.parallel import shard_batch
+
+    gh, gw = spec["sizes"]
+    gan = AEModel(GANConfig(model="AE", model_gen="AE",
+                            gan_mode=spec.get("gan_mode", "lsgan")),
+                  gan_height=gh, gan_width=gw, num_feats=32, ngf=8, reid_feat_dim=64,
+                  device="cpu")
+    _load(gan.net_G.double(), spec["G"])
+    _load(gan.net_D.double(), spec["D"])
+    trainer = GANTrainer(gan, print_freq=100, device="cpu", mesh=mesh)
+    steps, optimize = [], gan.optimize_parameters
+
+    def recorded(*args, **kwargs):      # each iteration's losses, in fp64
+        out = optimize(*args, **kwargs)
+        steps.append({k: float(v) for k, v in out[1].items()})
+        return out
+
+    gan.optimize_parameters = recorded
+    if spec.get("alphas") is not None:
+        alphas = iter(spec["alphas"])
+
+        def gp_draws(n, dtype):
+            a = next(alphas)
+            assert n == len(a)
+            return torch.from_numpy(a).to(dtype)
+
+        trainer.gp_draws = gp_draws
+    local = [{"Xs": x if mesh is None else shard_batch(mesh, x)} for x in spec["xs"]]
+    state, _ = trainer.train_gan(gan.init_state(), 0, _Batches(local),
+                                 train_iters=len(local), base_seed=spec["seed"])
+    return {"errs": steps, "G": _numpy_state(gan.net_G), "D": _numpy_state(gan.net_D),
+            "step": state.step}
+
+
+def cli_main_bip18(mesh, cli, argv, out_dir):
+    """``cli_main`` with ``cli/train_gan_usl``'s ``resnet_bip50`` built at
+    depth 18 (the smallest ``ResNetBip``), so that a CPU run stays short."""
+    from reid_gan_torch.cli import train_gan_usl
+    from reid_gan_torch.models.resnet_variants import ResNetBip
+
+    create = train_gan_usl.create_model
+
+    def create_model(name, *args, dtype=None, **kwargs):
+        if name != "resnet_bip50":
+            return create(name, *args, dtype=dtype, **kwargs)
+        return ResNetBip(18, *args, **kwargs)
+
+    train_gan_usl.create_model = create_model
+    return cli_main(mesh, cli, argv, out_dir)
+
+
+def mesh_pieces(mesh, x, rows, bn_in):
+    """``assemble_rows`` of the whole-batch rows ``rows`` from the rank's
+    slice of ``x``; ``all_reduce_means`` of rank-dependent scalars; and a
+    global BatchNorm (converted from ``nn.BatchNorm2d``) in train mode
+    within ``local_stats`` on ``bn_in``, which every rank holds alike:
+    its output, running stats and counter."""
+    from reid_gan_torch.ops.norm import GlobalBatchNorm, convert_global_bn, local_stats
+    from reid_gan_torch.parallel import all_reduce_means, assemble_rows, shard_batch
+
+    picked = assemble_rows(mesh, shard_batch(mesh, torch.from_numpy(x)),
+                           torch.from_numpy(rows)).numpy()
+    r = mesh.rank
+    means = all_reduce_means(mesh, {"a": torch.tensor(float(r)),
+                                    "b": torch.tensor(2.0 * r, dtype=torch.float64)})
+    net = convert_global_bn(torch.nn.Sequential(torch.nn.BatchNorm2d(bn_in.shape[1])),
+                            mesh).double().train()
+    assert isinstance(net[0], GlobalBatchNorm)
+    with local_stats(net):
+        y = net(torch.from_numpy(bn_in))
+    assert not net[0].local
+    return {"picked": picked, "means": {k: (float(v), v.dtype) for k, v in means.items()},
+            "y": y.detach().numpy(), "rm": net[0].running_mean.numpy(),
+            "rv": net[0].running_var.numpy(),
+            "n": int(net[0].num_batches_tracked)}
