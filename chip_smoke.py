@@ -217,7 +217,21 @@ the script exits non-zero without printing a result:
    ``--learnable-memory`` (K1-K6, K8-K10) under the mesh on a smaller
    two-colour set (2,048 train images of 128 ids, 256 + 768 eval,
    Infomap), and 2 iterations of ``cli/train_gan_warmup.run`` (K9); their
-   launches join the kernels line;
+   launches join the kernels line. Besides these, the bf16 (``--fp16``)
+   USL step and the bf16 ``train_all`` step under the mesh held against the
+   same steps without it, then warm in turns; FD-GAN's stage-I Siamese step
+   (ResNet-50, 256 pairs) and one ``FDGANModel`` step of stage II and of
+   stage III at full width (256 pairs; E, Di ResNet-50 at 256x128, G, Dp)
+   under the mesh, each held against the same step without it, TF32 off and
+   cuDNN deterministic (the losses, the ranks' means; the gradient
+   all-reduces against the fp64 mean of the ranks' own; each gradient;
+   the train-mode nets' running stats), then warm in turns; the sharded
+   ``CascadeEvaluator`` against the unsharded one on phase 3's eval set;
+   ``cli/test.run --dsbn`` (target and source domains) under the mesh
+   against the run without it; and, counted as the ``run()`` epochs are, a
+   2-step ``cli/fdgan_baseline.run`` (K1, K3, K14), then 2-step
+   ``cli/fdgan_train.run`` of stage 1 (K13, K14) and stage 2 (K1, K3,
+   K13, K14), each from the one before;
 14b. ``[vgg_warmup]``: phase 12's ``GANTrainer.train_gan`` with ``--use-vgg``:
    20 iterations (K9 once an iteration, nothing else), the peak memory, 5
    warm iterations without and with VGG in turns;
@@ -3504,9 +3518,13 @@ def _ddp_rank(mesh):
         print(f"[ddp] world size {mesh.world_size}, backend {mesh.backend}, "
               f"rank 0 on {mesh.device}; {smi.stdout.strip().splitlines()[0]}")
         _ddp_global_bn(mesh)
+        _ddp_global_bn_bf16(mesh)
         _ddp_step(mesh)
+        _ddp_step(mesh, warm=3, dtype=torch.bfloat16)
         _ddp_gan_modes(mesh)
         _ddp_eval(mesh)
+        _ddp_fd(mesh)
+        _ddp_dsbn(mesh)
         return _ddp_runs(mesh)
 
 
@@ -3548,9 +3566,62 @@ def _ddp_global_bn(mesh, n=256, c=64, h=128, w=64):
           "the global BatchNorm and torch's SyncBatchNorm differ")
 
 
-def _ddp_trainer(mesh):
-    """Phase 4's ResNet-50, bank and trainer, under ``mesh`` or (None) on
-    the rank's card alone."""
+def _ddp_global_bn_bf16(mesh, n=256, c=64, h=128, w=64):
+    """The ``--fp16`` path's BatchNorm: a ``precision.BatchNorm2d`` swapped by
+    ``convert_global_bn`` on the rank's rows of a bf16 map, against the same
+    module unconverted on the whole map (every rank makes it from one seed):
+    the fp32 output, the running stats, and the input gradient, which the
+    widening cast hands back to the convolution in bf16. Each image's mean
+    steps with its row, so the statistics of a rank's rows alone are far
+    off the whole batch's. The two compute in fp32 on the same bf16 inputs
+    and differ only in algorithm: the output within 1e-4 (max abs), the
+    running stats within 1e-5, the bf16 input gradient within one bf16 ulp
+    (2^-8) as a relative 2-norm, as the roundings of a few elements flip."""
+    import copy
+
+    from reid_gan_torch.models import precision
+    from reid_gan_torch.ops.norm import GlobalBatchNorm, convert_global_bn
+    from reid_gan_torch.parallel import all_gather_rows, shard_batch
+
+    dev = mesh.device
+    g = torch.Generator(device=dev).manual_seed(4)
+    shift = torch.linspace(-3.0, 3.0, n, device=dev).view(n, 1, 1, 1)
+    x = (torch.randn((n, c, h, w), device=dev, generator=g) * 2.0 + shift).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(x.shape, device=dev, generator=g)
+    ref = precision.BatchNorm2d(c).to(dev).train()
+    with torch.no_grad():
+        ref.weight.uniform_(0.5, 1.5, generator=g)
+        ref.bias.normal_(0, 0.1, generator=g)
+    bn = convert_global_bn(copy.deepcopy(ref), mesh)
+    xr = x.clone().requires_grad_(True)
+    yr = ref(xr)
+    (yr * dy).sum().backward()
+    xs = shard_batch(mesh, x).clone().requires_grad_(True)
+    ys = bn(xs)
+    (ys * shard_batch(mesh, dy)).sum().backward()
+    gr = shard_batch(mesh, xr.grad)
+    errs = torch.stack([
+        (ys - shard_batch(mesh, yr)).detach().abs().max(),
+        (bn.running_mean - ref.running_mean).abs().max(),
+        ((bn.running_var - ref.running_var).abs() / ref.running_var).max(),
+        (xs.grad.float() - gr.float()).norm() / gr.float().norm()])
+    e_y, e_m, e_v, e_g = (float(e) for e in all_gather_rows(mesh, errs[None]).amax(0))
+    kinds = (isinstance(bn, GlobalBatchNorm), ys.dtype, xs.grad.dtype)
+    tol_y, tol_m, tol_v, tol_g = 1e-4, 1e-5, 1e-5, 2.0 ** -8
+    print(f"[ddp] bf16 global BatchNorm on ({xs.shape[0]} of {n}, {c}, {h}, {w}) a rank "
+          f"against precision.BatchNorm2d on the whole map, worst rank: output max_abs_err "
+          f"{e_y:.3g} (tol {tol_y:.3g}), running mean {e_m:.3g} (tol {tol_m:.3g}), running "
+          f"var rel {e_v:.3g} (tol {tol_v:.3g}), input grad rel 2-norm {e_g:.3g} (tol "
+          f"{tol_g:.3g}); swapped, output and input-gradient dtypes: {kinds}")
+    check(e_y <= tol_y and e_m <= tol_m and e_v <= tol_v and e_g <= tol_g
+          and kinds == (True, torch.float32, torch.bfloat16),
+          "the bf16 global BatchNorm and precision.BatchNorm2d on the whole map differ")
+
+
+def _ddp_trainer(mesh, dtype=None):
+    """Phase 4's ResNet-50 (with ``dtype`` its compute dtype, ``--fp16``),
+    bank and trainer, under ``mesh`` or (None) on the rank's card alone."""
     from reid_gan_torch.engine.trainers import ClusterContrastTrainer
     from reid_gan_torch.engine.usl import bank_rows
     from reid_gan_torch.models import create
@@ -3561,26 +3632,34 @@ def _ddp_trainer(mesh):
     centers = torch.nn.functional.normalize(
         torch.randn((700, 2048), device=dev, generator=g), dim=1)
     torch.manual_seed(0)
-    trainer = ClusterContrastTrainer(create("resnet50", norm=True), height=256,
+    trainer = ClusterContrastTrainer(create("resnet50", norm=True, dtype=dtype), height=256,
                                      width=128, num_instances=16,
                                      device=None if mesh else dev, mesh=mesh)
     state = trainer.init_state(init_memory(centers, k_pad=bank_rows(700), device=dev))
     return trainer, state
 
 
-def _ddp_step(mesh, warm=5):
+def _ddp_step(mesh, warm=5, dtype=None):
     """One USL step under the mesh against the same step without it (rank
     0, the whole batch), TF32 off, and the gradient all-reduce of that step
     against the mean of the ranks' own gradients; then warm steps of both in
-    turns."""
+    turns. With ``dtype`` bf16, the ``--fp16`` step (the global BatchNorms
+    widen their bf16 input, the averaged gradients stay fp32), held as the
+    CPU tests hold a bf16 step: each gap to the bf16 step without the mesh
+    within twice that step's own gap to the fp32 step (``_bf16_held``); the
+    tight hold of the bf16 path under the mesh is ``_ddp_global_bn_bf16``."""
     from reid_gan_torch.engine import trainers as trainers_module
     from reid_gan_torch.engine.usl import make_train_loader
 
     items, imgs = _pseudo_set()
+    shards = (mesh, None) if dtype is None else (mesh, None, None)
     loaders = [make_train_loader(items, 256, 128, 256, 16, workers=4, iters=20, seed=1,
                                  cache=_InMemoryImages(imgs), shard=shard)
-               for shard in (mesh, None)]
-    sides = [_ddp_trainer(mesh), _ddp_trainer(None) if mesh.rank == 0 else None]
+               for shard in shards]
+    sides = [_ddp_trainer(mesh, dtype), _ddp_trainer(None, dtype) if mesh.rank == 0 else None]
+    if dtype is not None:
+        sides.append(_ddp_trainer(None) if mesh.rank == 0 else None)
+    label = "USL" if dtype is None else "bf16 USL"
 
     def step(i, seed):
         trainer, state = sides[i]
@@ -3598,11 +3677,20 @@ def _ddp_step(mesh, warm=5):
             loss_m = float(step(0, 99))
         if mesh.rank == 0:
             loss_s = float(step(1, 99))
+            loss_32 = float(step(2, 99)) if dtype is not None else None
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
     e_reduce, leaves = rec.error(mesh)
     del rec
-    if mesh.rank == 0:
+    if mesh.rank == 0 and dtype is not None:
+        (tm, sm), (ts, ss), (t32, s32) = sides
+        fp32_grads = all(q.grad.dtype == torch.float32 for q in tm.model.parameters()
+                         if q.grad is not None)
+        _bf16_held(label, mesh, (loss_m, loss_s, loss_32),
+                   [m.model for m in (tm, ts, t32)],
+                   [x.memory.features for x in (sm, ss, s32)], e_reduce, leaves, fp32_grads)
+        sides.pop()
+    elif mesh.rank == 0:
         (tm, sm), (ts, ss) = sides
         # the gradients Adam took (left in .grad by the step): under the mesh,
         # the ranks' mean after all_reduce_grads; each leaf's relative 2-norm,
@@ -3624,7 +3712,7 @@ def _ddp_step(mesh, warm=5):
         e_bank = float((sm.memory.features - ss.memory.features).abs().max())
         e_loss = abs(loss_m - loss_s)
         tol_loss, tol_reduce, tol_grad, tol_bank, tol_stats = 1e-3, 1e-5, 0.1, 1e-4, 1e-3
-        print(f"[ddp] one USL step under the mesh vs without (TF32 off, batch 256, "
+        print(f"[ddp] one {label} step under the mesh vs without (TF32 off, batch 256, "
               f"{256 // mesh.world_size} a rank): loss {loss_m:.6f} vs {loss_s:.6f} (err "
               f"{e_loss:.3g}, tol {tol_loss:.3g}); the gradient all-reduce against the "
               f"fp64 mean of the ranks' own, {leaves} leaves: at most "
@@ -3636,26 +3724,79 @@ def _ddp_step(mesh, warm=5):
               f"{tol_bank:.3g}); running stats rel {e_stats:.3g} (tol {tol_stats:.3g})")
         check(e_loss <= tol_loss and e_reduce <= tol_reduce and e_grad <= tol_grad
               and e_bank <= tol_bank and e_stats <= tol_stats,
-              "the USL step under the mesh differs from the step without it")
+              f"the {label} step under the mesh differs from the step without it")
 
-    _ddp_turns("USL", mesh, step, warm)   # TF32 convolutions, as [train]
+    _ddp_turns(label, mesh, step, warm)   # TF32 convolutions, as [train]
     for loader in loaders:
         loader.close()
 
 
-DDP_MODES = {   # [ddp]'s modes: (trainer mode, encoder, generator)
-    "hardmix": ("train", "resnet50", "AE"),
-    "bip": ("train_all_bip", "resnet_bip50", "AE"),
-    "memory": ("train_all_with_memory", "resnet50", "Pose"),
+def _tree_gap(a, b):
+    """Relative L2 of two gradient trees (dicts of tensors) over every
+    leaf, and of each leaf."""
+    keys = [k for k in b if b[k] is not None]
+    d = torch.cat([(a[k] - b[k]).double().flatten() for k in keys])
+    r = torch.cat([b[k].double().flatten() for k in keys])
+    return float(d.norm() / r.norm()), {
+        k: float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30)) for k in keys}
+
+
+def _bf16_held(label, mesh, losses, models, banks, e_reduce, leaves, fp32_grads):
+    """A bf16 step under the mesh (``models[0]``, losses and bank first)
+    against the bf16 step without it (second) and the fp32 step without it
+    (third), the same weights and batch. Held: the loss within twice the
+    bf16 step's own gap to the fp32 step (or 2 bf16 ulps), as the CPU tests
+    hold a bf16 loss (``tests/test_torch_port_fp16.py``); the gradient
+    all-reduce against the fp64 mean of the ranks' own; every averaged
+    gradient fp32. Printed, not held: the gradients (one tree, relative
+    L2), the running stats (max relative, of the values above 1e-3) and the
+    bank (max abs) against the bf16 step without the mesh, each beside that
+    step's gap to fp32. At init the BatchNorm backward passes leave mostly
+    rounding in a bf16 gradient, so these gaps are of the order of a
+    gradient in another direction and separate nothing; the bf16 global
+    BatchNorm is held where it is tight, in ``_ddp_global_bn_bf16``."""
+    (lm, ls, l32), (mm, ms, m32), (bm, bs, b32) = losses, models, banks
+    grads = [{k: p.grad for k, p in m.named_parameters()} for m in (mm, ms, m32)]
+    g_ms, per_leaf = _tree_gap(grads[0], grads[1])
+    g_s32, _ = _tree_gap(grads[1], grads[2])
+
+    def stats_gap(a, b):
+        ba, bb = dict(a.named_buffers()), dict(b.named_buffers())
+        return max(float(((ba[k] - v).abs() / v.abs().clamp_min(1e-3)).max())
+                   for k, v in bb.items() if "running" in k)
+
+    e_loss, tol_loss = abs(lm - ls), 2 * max(abs(ls - l32), 2 * 2.0 ** -8 * abs(l32))
+    seen = {"gradient tree": (g_ms, g_s32),
+            "running stats": (stats_gap(mm, ms), stats_gap(ms, m32)),
+            "bank": (float((bm - bs).abs().max()), float((bs - b32).abs().max()))}
+    print(f"[ddp] one {label} step under the mesh vs without (TF32 off, batch 256, "
+          f"{256 // mesh.world_size} a rank): loss {lm:.6f} vs {ls:.6f} (fp32 {l32:.6f}; "
+          f"err {e_loss:.3g}, tol {tol_loss:.3g}); the gradient all-reduce against the fp64 "
+          f"mean of the ranks' own, {leaves} leaves: at most {e_reduce:.3g} (tol 1e-05); "
+          f"every averaged gradient fp32: {fp32_grads}; not held, gap to the bf16 step "
+          f"without the mesh [that step's own gap to fp32]: "
+          + ", ".join(f"{k} {a:.3g} [{b:.3g}]" for k, (a, b) in seen.items())
+          + f"; leaves, relative 2-norm: median "
+          f"{float(np.median(list(per_leaf.values()))):.3g}, worst {max(per_leaf.values()):.3g}")
+    check(e_loss <= tol_loss and e_reduce <= 1e-5 and fp32_grads,
+          f"the {label} step under the mesh differs from the step without it")
+
+
+DDP_MODES = {   # [ddp]'s modes: (trainer mode, encoder, generator, compute dtype)
+    "hardmix": ("train", "resnet50", "AE", None),
+    "bip": ("train_all_bip", "resnet_bip50", "AE", None),
+    "memory": ("train_all_with_memory", "resnet50", "Pose", None),
+    "bf16 train_all": ("train_all", "resnet50", "Pose", torch.bfloat16),
 }
 
 
-def _ddp_mode_trainer(mesh, arch, model_gen):
+def _ddp_mode_trainer(mesh, arch, model_gen, dtype=None):
     """``[joint]``'s nets for one mode (a random ``arch`` at 256x128 and the
-    ``model_gen`` generator with the discriminator at 128x64, seed 0; the
-    bank of 700 unit rows padded to 768, and trainable clusters from it for
-    the pose generator's memory mode) under ``mesh`` or (None) on the rank's
-    card alone. Returns (trainer, state, gmem)."""
+    ``model_gen`` generator with the discriminator at 128x64, seed 0, with
+    ``dtype`` their compute dtype; the bank of 700 unit rows padded to 768,
+    and trainable clusters from it for the pose generator's memory mode)
+    under ``mesh`` or (None) on the rank's card alone. Returns (trainer,
+    state, gmem)."""
     from reid_gan_torch.config import GANConfig
     from reid_gan_torch.engine.gan_trainers import ClusterContrastWithGANTrainer
     from reid_gan_torch.engine.usl import bank_rows
@@ -3670,8 +3811,9 @@ def _ddp_mode_trainer(mesh, arch, model_gen):
     memory = init_memory(centers, k_pad=bank_rows(700), device=dev)
     torch.manual_seed(0)
     gan = create_gan(GANConfig(model="AE", model_gen=model_gen), gan_height=128,
-                     gan_width=64, reid_feat_dim=2048, device=dev)
-    trainer = ClusterContrastWithGANTrainer(create(arch, norm=True), gan, height=256,
+                     gan_width=64, reid_feat_dim=2048, device=dev, dtype=dtype)
+    trainer = ClusterContrastWithGANTrainer(create(arch, norm=True, dtype=dtype), gan,
+                                            height=256,
                                             width=128, num_instances=16,
                                             device=None if mesh else dev, mesh=mesh)
     state = trainer.init_state(memory, gan.init_state())
@@ -3689,6 +3831,9 @@ def _ddp_mode_step(trainer, state, gmem, batch, mode, seed):
     dev = {k: v if k == "pid" else trainer.local(v) for k, v in dev.items()}
     if mode == "train":
         state, errs = trainer.train_step(state, dev, seed)
+    elif mode == "train_all":
+        state, errs = trainer.train_all_step(
+            state, dev, seed, torch.ones(len(batch["pid"]), device=trainer.device))
     elif mode == "train_all_bip":
         state, errs = trainer.train_all_bip_step(state, dev, seed)
     else:
@@ -3784,9 +3929,13 @@ def _ddp_gan_modes(mesh, warm=3):
     batches = [loader.next() for _ in range(2 + 4 * (warm + 1))]
     loader.close()
     flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    for label, (mode, arch, model_gen) in DDP_MODES.items():
-        sides = [list(_ddp_mode_trainer(mesh, arch, model_gen)),
-                 list(_ddp_mode_trainer(None, arch, model_gen)) if mesh.rank == 0 else None]
+    for label, (mode, arch, model_gen, dtype) in DDP_MODES.items():
+        sides = [list(_ddp_mode_trainer(mesh, arch, model_gen, dtype)),
+                 list(_ddp_mode_trainer(None, arch, model_gen, dtype))
+                 if mesh.rank == 0 else None]
+        if dtype is not None:   # the fp32 step the bf16 steps are held to
+            sides.append(list(_ddp_mode_trainer(None, arch, model_gen))
+                         if mesh.rank == 0 else None)
         c0 = None if sides[0][2] is None else sides[0][2].clusters.clone()
 
         def step(i, seed, batch=None):
@@ -3803,6 +3952,8 @@ def _ddp_gan_modes(mesh, warm=3):
             e_reduce, leaves = rec.error(mesh)
             errs_s = {k: float(v) for k, v in step(1, 99, batches[0]).items()} \
                 if mesh.rank == 0 else None
+            errs_32 = {k: float(v) for k, v in step(2, 99, batches[0]).items()} \
+                if mesh.rank == 0 and dtype is not None else None
         finally:
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
         same_clusters, e_clusters = True, 0.0
@@ -3818,6 +3969,14 @@ def _ddp_gan_modes(mesh, warm=3):
             e_loss = max(abs(errs_m[k] - errs_s[k]) / max(abs(errs_s[k]), 1e-30)
                          for k in errs_s)
             tol_loss, tol_reduce, tol_clusters = 1e-3, 1e-5, 0.1
+            if errs_32 is not None:
+                # bf16, as _bf16_held: each loss's gap to the bf16 step without
+                # the mesh within twice that step's gap to fp32 (or 2 ulps)
+                e_loss = max(abs(errs_m[k] - errs_s[k]) / max(
+                    abs(errs_s[k] - errs_32[k]), 2 * 2.0 ** -8 * abs(errs_32[k]), 1e-30)
+                    for k in errs_s)
+                tol_loss = 2.0
+                sides.pop()
             extra = f"; clusters against the step without the mesh, relative to their " \
                 f"move: {e_clusters:.3g} (tol {tol_clusters:.3g}), every rank's bit-equal: " \
                 f"{same_clusters}" if c0 is not None else ""
@@ -3825,7 +3984,10 @@ def _ddp_gan_modes(mesh, warm=3):
                   f"the mesh vs without (TF32 off, batch 256, {256 // mesh.world_size} a "
                   f"rank): " + ", ".join(f"{k} {errs_m[k]:.6f} vs {errs_s[k]:.6f}"
                                          for k in errs_s)
-                  + f" (max rel err {e_loss:.3g}, tol {tol_loss:.3g}); the gradient "
+                  + (f" (fp32: " + ", ".join(f"{k} {v:.6f}" for k, v in errs_32.items())
+                     + "; the largest gap as a multiple of the bf16 step's own gap to fp32"
+                     if errs_32 is not None else " (max rel err")
+                  + f" {e_loss:.3g}, tol {tol_loss:.3g}); the gradient "
                   f"all-reduces against the fp64 mean of the ranks' own, {leaves} leaves: "
                   f"at most {e_reduce:.3g} (tol {tol_reduce:.3g}){extra}")
             check(e_loss <= tol_loss and e_reduce <= tol_reduce
@@ -3945,6 +4107,269 @@ def _ddp_eval(mesh):
     check(e_cmc <= tol and e_map <= tol, "the sharded eval differs from the unsharded one")
 
 
+def _stats_error(net_m, net_s):
+    """The running stats' largest error, mesh against without, each buffer's
+    relative L2 (G's channel means sit near zero at init)."""
+    bm, bs = dict(net_m.named_buffers()), dict(net_s.named_buffers())
+    return max([float((bm[k] - b).norm() / b.norm().clamp_min(1e-30))
+                for k, b in bs.items() if "running" in k] or [0.0])
+
+
+def _fd_held(label, mesh, rec, errs_m, errs_s, pairs, tol_loss=1e-3, tol_grad=0.1,
+             tol_stats=1e-3):
+    """Print and check one FD step under the mesh against the step without
+    it (rank 0): ``pairs`` are (name, mesh net, net without), the losses the
+    ranks' means. Each net's gradients are held as one tree (relative L2):
+    at init a leaf whose gradient nearly cancels (the verifier's bias, at a
+    loss of log 2) moves by tens of percent between two BatchNorm
+    algorithms, while a sum in place of the ranks' mean moves the tree by
+    the mesh size less one."""
+    e_reduce, leaves = rec.error(mesh)
+    if mesh.rank != 0:
+        return
+    e_loss = max(abs(errs_m[k] - errs_s[k]) / max(abs(errs_s[k]), 1e-30) for k in errs_s)
+    grads, stats = {}, {}
+    for name, net_m, net_s in pairs:
+        gm = {k: p.grad for k, p in net_m.named_parameters()}
+        gs = {k: p.grad for k, p in net_s.named_parameters()}
+        if any(v is not None for v in gs.values()):
+            tree, errs = _tree_gap(gm, gs)
+            worst, k = max((v, k) for k, v in errs.items())
+            grads[name] = (tree, worst, k, float(np.median(list(errs.values()))), len(errs))
+        stats[name] = _stats_error(net_m, net_s)
+    e_grad = max(v[0] for v in grads.values())
+    e_stats = max(stats.values())
+    print(f"[ddp] {label} one step under the mesh vs without (TF32 off, cuDNN "
+          f"deterministic, 256 pairs, {256 // mesh.world_size} a rank): "
+          + ", ".join(f"{k} {errs_m[k]:.6f} vs {errs_s[k]:.6f}" for k in errs_s)
+          + f" (max rel err {e_loss:.3g}, tol {tol_loss:.3g}); the gradient all-reduces "
+          f"against the fp64 mean of the ranks' own, {leaves} leaves: at most "
+          f"{e_reduce:.3g} (tol 1e-05); gradients, relative 2-norm of each net's tree "
+          f"(tol {tol_grad:.3g}) [its leaves: worst, leaf; median; count]: " + ", ".join(
+              f"{n} {t:.3g} [{w:.3g}, {k}; {m:.3g}; {c}]"
+              for n, (t, w, k, m, c) in grads.items())
+          + "; running stats rel " + ", ".join(
+              f"{n} {v:.3g}" for n, v in stats.items()) + f" (tol {tol_stats:.3g})")
+    check(e_loss <= tol_loss and e_reduce <= 1e-5 and e_grad <= tol_grad
+          and e_stats <= tol_stats,
+          f"the {label} step under the mesh differs from the step without it")
+
+
+def _ddp_fd(mesh, warm=1):
+    """FD-GAN under the mesh: the stage-I Siamese step, then one
+    ``FDGANModel`` step of stage II and of stage III, at full width (256
+    pairs of a small FD set), each held against the same step without it on
+    rank 0 (the same weights, batch and draws; TF32 off, cuDNN
+    deterministic), then warm steps with and without the mesh in turns; the
+    sharded ``CascadeEvaluator`` against the unsharded one on phase 3's eval
+    set."""
+    import tempfile
+
+    from reid_gan_torch.cli.fdgan_baseline import make_cascade_evaluator
+    from reid_gan_torch.config import Config, FDGANConfig
+    from reid_gan_torch.data.loader import DataLoader, Preprocessor
+    from reid_gan_torch.data.sampler import RandomPairSampler
+    from reid_gan_torch.engine import fdgan as fdgan_engine
+    from reid_gan_torch.engine.fdgan import SiameseTrainer
+    from reid_gan_torch.models import siamese_baseline
+    from reid_gan_torch.models.fdgan import model as fdgan_model
+    from reid_gan_torch.models.fdgan.model import FDGANModel
+    from reid_gan_torch.ops.transforms import sample_fd_augment_params
+    from reid_gan_torch.parallel import all_reduce_mean, pad_to_multiple, shard_batch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+
+    def exact():
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+
+    def restore():
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ds, imgs = _fd_set(tmp, seed=9, n_ids=64, per_id=8, n_query=128, n_gallery=384)
+        cache = _InMemoryImages(imgs)
+
+        def batches(mode, n, seed):
+            kw = dict(pid_imgs=ds.pid_imgs, pose_root=ds.poses_dir) \
+                if mode == "fdgan_pose" else {}
+            loader = DataLoader(Preprocessor(ds.train, mode=mode, seed=seed, cache=cache,
+                                             **kw),
+                                sampler=RandomPairSampler(ds.train, seed=seed),
+                                batch_size=256, drop_last=True)
+            it = iter(loader)
+            out = [next(it) for _ in range(n)]
+            it.close()
+            return out
+
+        pair_batches = batches("pair", 3, 11)
+        pose_batches = batches("fdgan_pose", 3, 12)
+
+    # ---- stage I: SiameseTrainer
+    def siamese(m):
+        torch.manual_seed(0)
+        return SiameseTrainer(siamese_baseline(50), lr=0.01, device=None if m else dev,
+                              seed=0, mesh=m)
+
+    sides = [siamese(mesh), siamese(None) if mesh.rank == 0 else None]
+    g = torch.Generator(device=dev).manual_seed(5)
+    draws = [(sample_fd_augment_params(256, 256, 128, g),
+              sample_fd_augment_params(256, 256, 128, g)) for _ in pair_batches]
+
+    def s_step(i, seed, k=None):
+        trainer = sides[i]
+        k = seed % len(pair_batches) if k is None else k
+        b1, b2 = pair_batches[k]
+        t = (b1["pid"] == b2["pid"]).astype(np.int64)
+        arrays = (b1["img"], b2["img"], t) if i == 1 else shard_batch(
+            mesh, (b1["img"], b2["img"], t))
+        i1, i2, tg = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+        loss, _ = trainer.step(i1, i2, tg, *draws[k])
+        return loss if i == 1 else all_reduce_mean(mesh, loss)
+
+    exact()
+    try:
+        with _RecordedReduce(fdgan_engine) as rec:
+            loss_m = float(s_step(0, 0, 0))
+        loss_s = float(s_step(1, 0, 0)) if mesh.rank == 0 else None
+    finally:
+        restore()
+    _fd_held("FD stage I (SiameseTrainer: ResNet-50, last stride 2)", mesh, rec,
+             {"loss": loss_m}, {"loss": loss_s},
+             [("siamese", sides[0].model, sides[1].model)] if mesh.rank == 0 else [])
+    del rec
+    _ddp_turns("FD stage I (256 pairs)", mesh, s_step, 3)
+
+    # ---- the cascade evaluation: the mesh-side net, sharded and not
+    torch.backends.cudnn.allow_tf32 = True
+    eval_batches, query, gallery = _eval_set()
+
+    def local(b):
+        img, _ = pad_to_multiple(b["img"], mesh.world_size)
+        return dict(b, img=shard_batch(mesh, img))
+
+    model = sides[0].model
+    cfg = Config()
+    t0 = time.perf_counter()
+    top1_m, map_m = make_cascade_evaluator(model, cfg, None, mesh).evaluate(
+        [local(b) for b in eval_batches], query, gallery, rerank_topk=100,
+        dataset="market1501")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if mesh.rank == 0:
+        top1_s, map_s = make_cascade_evaluator(model, cfg, dev).evaluate(
+            eval_batches, query, gallery, rerank_topk=100, dataset="market1501")
+        tol = 1e-6 if mesh.world_size == 1 else 1e-3
+        print(f"[ddp] sharded CascadeEvaluator.evaluate ({len(query)} + {len(gallery)}, the "
+              f"top 100 re-scored, {mesh.world_size} rank(s)): {wall:.2f} s; top-1 "
+              f"{top1_m:.6f} vs unsharded {top1_s:.6f}, mAP {map_m:.6f} vs {map_s:.6f} (tol "
+              f"{tol:.3g})")
+        check(abs(top1_m - top1_s) <= tol and abs(map_m - map_s) <= tol,
+              "the sharded cascade evaluation differs from the unsharded one")
+    del sides, model
+    torch.cuda.empty_cache()
+
+    # ---- stages II and III: FDGANModel
+    for stage, pose_aug in ((1, "gauss"), (2, "erase")):
+        label = f"FD stage {'II' if stage == 1 else 'III'}"
+
+        def build(m):
+            torch.manual_seed(stage)
+            cfg = FDGANConfig(stage=stage, pose_aug=pose_aug, lambda_veri=10.0,
+                              lambda_sp=10.0)
+            return FDGANModel(cfg, device=None if m else dev, seed=stage, mesh=m)
+
+        models = [build(mesh), build(None) if mesh.rank == 0 else None]
+        ref = models[0]
+        fd_draws = [ref.sample_draws(256) for _ in pose_batches]
+
+        def f_step(i, seed, k=None):
+            model = models[i]
+            k = seed % len(pose_batches) if k is None else k
+            b1, b2 = pose_batches[k]
+            if i == 0:      # the rank's rows of every field (``fname`` a list)
+                s = 256 // mesh.world_size
+                b1, b2 = ({f: v[mesh.rank * s:(mesh.rank + 1) * s] for f, v in b.items()}
+                          for b in (b1, b2))
+            errs, _ = model.optimize_step(b1, b2, fd_draws[k])
+            return model.global_errors(errs)
+
+        exact()
+        try:
+            with _RecordedReduce(fdgan_model) as rec:
+                errs_m = {k: float(v) for k, v in f_step(0, 0, 0).items()}
+            errs_s = {k: float(v) for k, v in f_step(1, 0, 0).items()} \
+                if mesh.rank == 0 else None
+        finally:
+            restore()
+        pairs = [(n, models[0].nets()[n], models[1].nets()[n])
+                 for n in ("E", "G", "Di", "Dp")] if mesh.rank == 0 else []
+        _fd_held(f"{label} (FDGANModel stage {stage}: E, Di ResNet-50, G, Dp at 256x128)",
+                 mesh, rec, errs_m, errs_s, pairs, tol_loss=1e-2)
+        del rec
+        _ddp_turns(f"{label} (256 pairs)", mesh, f_step, warm)
+        del models, ref, fd_draws, f_step
+        torch.cuda.empty_cache()
+
+
+def _ddp_dsbn(mesh):
+    """``cli/test.run --dsbn`` under the mesh (every rank loads a DSBN
+    msgpack checkpoint of a random ResNet-50 and folds the domain's
+    BatchNorms) against the run without it on rank 0, on phase 3's eval
+    set, for the target and the source domain; the target apart from the
+    source."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from reid_gan_torch.cli import test as test_cli
+    from reid_gan_torch.config import Config
+    from reid_gan_torch.models import create
+    from reid_gan_torch.models.convert import flax_variables_from_model
+    from reid_gan_torch.models.dsbn import convert_dsbn, update_domain
+    from reid_gan_torch.utils.serialization import save_msgpack_checkpoint
+
+    batches, query, gallery = _eval_set()
+    dataset = SimpleNamespace(query=query, gallery=gallery)
+    cache = _InMemoryImages(np.concatenate([b["img"] for b in batches]))
+    torch.manual_seed(0)
+    tree = flax_variables_from_model(create("resnet50"))
+    rng = np.random.default_rng(6)
+    target = {"params": tree["params"], "batch_stats": _map_tree(
+        lambda a: (a * (1 + 0.2 * rng.random(a.shape)) + 0.05).astype(np.float32),
+        tree["batch_stats"])}
+    cfg = Config()
+    cfg.data.workers = 4
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"dsbn_rank{mesh.rank}.msgpack")
+        save_msgpack_checkpoint({"dsbn": update_domain(convert_dsbn(tree), 1, target),
+                                 "epoch": np.asarray(1), "best_mAP": np.asarray(0.0)},
+                                False, path)
+        cfg.train.resume = path
+        got = {}
+        for name, source in (("target", False), ("source", True)):
+            t0 = time.perf_counter()
+            got[name] = test_cli.run(cfg, dataset, image_cache=cache, dsbn=True,
+                                     test_source=source, mesh=mesh)
+            wall = time.perf_counter() - t0
+            if mesh.rank == 0:
+                cmc_s, map_s = test_cli.run(cfg, dataset, device=mesh.device,
+                                            image_cache=cache, dsbn=True, test_source=source)
+                cmc_m, map_m = got[name]
+                tol = 1e-6 if mesh.world_size == 1 else 1e-3
+                e = max(float(np.abs(cmc_m - cmc_s).max()), abs(map_m - map_s))
+                print(f"[ddp] cli/test.run --dsbn ({name} domain) under the mesh: {wall:.2f} "
+                      f"s; mAP {map_m:.6f} vs without {map_s:.6f}, top-1 {cmc_m[0]:.6f} vs "
+                      f"{cmc_s[0]:.6f}; max err {e:.3g} (tol {tol:.3g})")
+                check(e <= tol, f"--dsbn ({name}) under the mesh differs from the run "
+                                f"without it")
+    if mesh.rank == 0:
+        check(got["target"][1] != got["source"][1],
+              "--dsbn: the target domain's BatchNorms did not change the evaluation")
+
+
 # [ddp]'s run() epochs: (label, the flags on the joint config, kernels that
 # must not launch); every other kernel must
 DDP_RUNS = (
@@ -4048,11 +4473,72 @@ def _ddp_runs(mesh):
             saved.append(("warmup", nets))
             check(state.step == 2 and {"latest_net_G.pth", "latest_net_D.pth"} <= set(nets),
                   f"the warm-up took {state.step} steps, wrote {nets}")
+        fd_best = _ddp_fd_chain(mesh, os.path.join(tmp, "fd"), counted)
     print(f"[ddp] cli/train_gan_usl.run best mAP: "
           + ", ".join(f"{k} {v:.4f}" for k, v in bests.items()) + f"; rank 0 wrote {saved}")
     if mesh.rank == 0:
         check(np.isfinite(best_usl), "cli/train_usl.run: no finite mAP")
+        check(np.isfinite(fd_best), "cli/fdgan_baseline.run: no finite mAP")
     return total
+
+
+def _ddp_fd_chain(mesh, root, counted):
+    """Under the mesh, FD-GAN's chain through its CLIs' ``run`` at full width
+    (ResNet-50 nets at 256x128, 256 pairs, 2 steps an epoch on 256 train
+    images of 32 ids, 64 + 192 eval): ``cli/fdgan_baseline.run``, then
+    ``cli/fdgan_train.run`` stage 1 from its checkpoint and stage 2 from the
+    stage-1 nets, each through ``counted`` (its launches held to its
+    kernels). Each rank writes its landmark files under its own ``root``;
+    the logs and nets go under rank 0's, which every rank reads, as the
+    CLIs' ranks share one file system. Returns the baseline's best mAP."""
+    import copy
+
+    from reid_gan_torch import kernels
+    from reid_gan_torch.cli import fdgan_baseline, fdgan_train
+    from reid_gan_torch.config import Config
+    from reid_gan_torch.parallel import broadcast_object
+
+    ds, imgs = _fd_set(root, seed=13, n_ids=32, per_id=8, n_query=64, n_gallery=192)
+    cache = _InMemoryImages(imgs)
+    root = broadcast_object(mesh, root)
+    cfg = Config()
+    cfg.data.workers, cfg.data.batch_size = 4, 256
+    cfg.train.epochs, cfg.train.eval_step = 1, 1
+    cfg.train.logs_dir = os.path.join(root, "base")
+    cfg.fdgan.niter, cfg.fdgan.niter_decay, cfg.fdgan.eval_step = 1, 0, 1
+    cfg.gan.save_dir = os.path.join(root, "ckpt")
+
+    def off(*on):
+        return tuple(k.name for k in kernels.KERNELS if k.name not in on)
+
+    best = counted("cli/fdgan_baseline.run (2 steps)",
+                   off("eval_transform", "rank_stats", "fd_augment"),
+                   lambda: fdgan_baseline.run(cfg, ds, image_cache=cache, mesh=mesh))
+    c1 = copy.deepcopy(cfg)
+    c1.fdgan.stage, c1.fdgan.pose_aug = 1, "gauss"
+    c1.fdgan.netE_pretrain = os.path.join(root, "base", "model_best.pth.tar")
+    c1.train.logs_dir, c1.gan.name = os.path.join(root, "s1"), "s1"
+    m1 = counted("cli/fdgan_train.run stage 1 (2 steps)", off("pose_peaks", "fd_augment"),
+                 lambda: fdgan_train.run(c1, ds, image_cache=cache, mesh=mesh))
+    s1 = os.path.join(root, "ckpt", "s1")
+    c2 = copy.deepcopy(cfg)
+    c2.fdgan.stage, c2.fdgan.pose_aug = 2, "erase"
+    c2.fdgan.netE_pretrain, c2.fdgan.netG_pretrain, c2.fdgan.netDi_pretrain, \
+        c2.fdgan.netDp_pretrain = (os.path.join(s1, f"latest_net_{n}.pth")
+                                   for n in ("E", "G", "Di", "Dp"))
+    c2.train.logs_dir, c2.gan.name = os.path.join(root, "s2"), "s2"
+    m2 = counted("cli/fdgan_train.run stage 2 (2 steps)",
+                 off("eval_transform", "rank_stats", "pose_peaks", "fd_augment"),
+                 lambda: fdgan_train.run(c2, ds, image_cache=cache, mesh=mesh))
+    if mesh.rank == 0:
+        saved = sorted(os.listdir(os.path.join(root, "ckpt", "s2")))
+        # G's Adam counts the steps each stage took
+        steps = [int(next(iter(m.opt_G.state.values()))["step"]) for m in (m1, m2)]
+        print(f"[ddp] FD chain under the mesh: baseline best mAP {best:.4f}; steps "
+              f"{steps}; stage 2 wrote {saved}")
+        check(steps == [2, 2] and {"best_net_E.pth", "latest_net_Dp.pth"}
+              <= set(saved), "the FD chain under the mesh did not run or write its nets")
+    return best
 
 
 def phase_vgg_warmup():
@@ -4417,9 +4903,9 @@ def _fd_set(root, seed=0, n_ids=128, per_id=8, n_query=256, n_gallery=768, h=256
     for name, pts in zip(names[:n_train], lm):
         with open(os.path.join(poses, name[:-4] + ".txt"), "w") as f:
             f.write("".join(f"{y} {x}\n" for y, x in pts))
-    pid_imgs = {}
+    pid_imgs = {}       # lists in the set's order, the same in every process
     for name, pid, _ in items[:n_train]:
-        pid_imgs.setdefault(pid, set()).add(name)
+        pid_imgs.setdefault(pid, []).append(name)
     return SimpleNamespace(train=items[:n_train], query=items[n_train:n_train + n_query],
                            gallery=items[n_train + n_query:], pid_imgs=pid_imgs,
                            poses_dir=poses), imgs

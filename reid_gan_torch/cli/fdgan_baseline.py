@@ -20,6 +20,14 @@ variables, fdgan_baseline.py:51), strictly. Runs on the card unless
 an open-reid tree (``meta.json``, ``splits.json``, ``images/``), whose image
 names resolve under its ``images/``; cuhk03 is scored under its own CMC
 protocol.
+
+Several cards (fdgan_baseline.py:34-39): with more than one card visible
+and no ``--device cpu``, ``main`` runs one process a card over all of them
+(``parallel.launch``): each rank decodes its slice of each pair batch and
+of each eval batch, the steps and the evaluation are those of one device
+on the whole batch (``engine/fdgan.py``), and only rank 0 prints and writes
+``log.txt``, ``opt.txt`` and the checkpoints. The mesh size must divide
+the batch size. ``main(argv, mesh=False)`` keeps one card.
 """
 
 import argparse
@@ -30,13 +38,22 @@ import torch
 
 from ..config import dump_config, parse_config
 from ..data.datasets import create as create_dataset
-from ..data.loader import DataLoader, Preprocessor
+from ..data.loader import DataLoader, Preprocessor, check_pair_batch
 from ..data.sampler import RandomPairSampler
 from ..device import resolve_device
-from ..parallel.mesh import refuse_mesh
 from ..engine.evaluators import FeatureExtractor
 from ..engine.fdgan import CascadeEvaluator, SiameseTrainer
 from ..models import siamese_baseline
+from ..parallel.mesh import (
+    is_main,
+    launch,
+    local_device_count,
+    main_first,
+    main_prints,
+    mesh_device,
+    replicate,
+    wants_mesh,
+)
 from ..utils import Logger
 from ..utils.serialization import resume_checkpoint, save_checkpoint
 
@@ -47,9 +64,9 @@ def main(argv=None, mesh=None):
     """Parse the flags (JAX's, plus ``--device``), tee stdout to
     ``<logs-dir>/log.txt``, write ``opt.txt``, load the dataset and train.
     Returns the best mAP (the evaluation's (top-1, mAP) with
-    ``--evaluate``). ``mesh``: a ``Mesh``, or
-    None with more than one card visible, raises ``NotImplementedError`` (no
-    data-mesh path yet); False, or one card, runs as before."""
+    ``--evaluate``). ``mesh``: None spans every card when more than one is
+    visible, False keeps one, a ``Mesh`` is this rank's (the module's
+    docstring)."""
     argv = sys.argv[1:] if argv is None else argv
     extra = argparse.ArgumentParser(allow_abbrev=False)
     extra.add_argument("--device", default="cuda",
@@ -57,36 +74,66 @@ def main(argv=None, mesh=None):
                             "the kernels")
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=SECTIONS)
-    device = resolve_device(ns.device)
-    refuse_mesh("cli/fdgan_baseline (FD-GAN stage I)", mesh, device)
-    logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
-    sys.stdout = logger
+    return run_main(cfg, SECTIONS, resolve_device(ns.device), mesh, argv, _main_on_rank, run)
+
+
+def _main_on_rank(mesh, argv):
+    return main(argv, mesh=mesh)
+
+
+def run_main(cfg, sections, device, mesh, argv, on_rank, run_fn):
+    """The two FD-GAN CLIs' ``main`` after parsing: ``launch`` one rank a
+    card (``on_rank(mesh, argv)``) where ``wants_mesh``, else tee stdout to
+    ``<logs-dir>/log.txt`` and write ``opt.txt`` (rank 0), load the dataset
+    (rank 0 first) and return ``run_fn(cfg, dataset, device, mesh=mesh)``.
+    A mesh size that does not divide the batch size raises ``ValueError``
+    before any work."""
+    if wants_mesh(device, mesh):
+        check_pair_batch(cfg.data.batch_size, local_device_count())
+        return launch(on_rank, local_device_count(), args=(argv,))
+    mesh = mesh or None
+    if mesh is not None:
+        check_pair_batch(cfg.data.batch_size, mesh.world_size)
+    logger = Logger(osp.join(cfg.train.logs_dir, "log.txt")) if is_main(mesh) else None
+    if logger is not None:
+        sys.stdout = logger
     try:
-        dump_config(cfg, cfg.train.logs_dir, "opt.txt", sections=SECTIONS)
-        return run(cfg, create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True),
-                   device)
+        with main_prints(mesh):
+            if is_main(mesh):
+                dump_config(cfg, cfg.train.logs_dir, "opt.txt", sections=sections)
+            dataset = main_first(mesh, lambda: create_dataset(
+                cfg.data.dataset, cfg.data.data_dir, verbose=is_main(mesh)))
+        return run_fn(cfg, dataset, None if mesh else device, mesh=mesh)
     finally:
-        sys.stdout = logger.console
-        logger.close()
+        if logger is not None:
+            sys.stdout = logger.console
+            logger.close()
 
 
-def make_cascade_evaluator(model, cfg, device):
+def make_cascade_evaluator(model, cfg, device, mesh=None):
     """The two-stage evaluator over a Siamese net: its base's features in
-    fp32 (the JAX CLI's ``dtype=jnp.float32``), its head as the verifier."""
+    fp32 (the JAX CLI's ``dtype=jnp.float32``), its head as the verifier;
+    with ``mesh``, sharded over it."""
     ex = FeatureExtractor(model.base_model, height=cfg.data.height, width=cfg.data.width,
                           batch_size=cfg.data.batch_size, device=device,
-                          dtype=torch.float32)
+                          dtype=torch.float32, mesh=mesh)
     return CascadeEvaluator(ex, model.embed_model)
 
 
-def run(cfg, dataset, device=None, image_cache=None, depth=50):
+def run(cfg, dataset, device=None, image_cache=None, depth=50, mesh=None):
     """Stage I (fdgan_baseline.py:28-111) on ``dataset`` (``.train``,
     ``.query``, ``.gallery`` lists of ``(fname, pid, camid)``, the names
     relative to ``.images_dir`` where it has one), on ``device``
     (default: the card). ``image_cache`` goes to every ``Preprocessor``
-    (default: the shared decode cache). Returns the best mAP, or the
-    evaluation's (top-1, mAP) with ``--evaluate``."""
-    device = resolve_device(device)
+    (default: the shared decode cache). With ``mesh`` (a ready ``Mesh``, on
+    every rank) the run is sharded over it and only rank 0 prints and
+    writes. Returns the best mAP, or the evaluation's (top-1, mAP) with
+    ``--evaluate``."""
+    with main_prints(mesh):
+        return _run(cfg, dataset, mesh_device(mesh, device), image_cache, depth, mesh)
+
+
+def _run(cfg, dataset, device, image_cache, depth, mesh):
     # TF32 convolutions as in the training CLIs; every other product stays fp32
     torch.backends.cudnn.allow_tf32 = True
     if cfg.train.debug:
@@ -97,15 +144,15 @@ def run(cfg, dataset, device=None, image_cache=None, depth=50):
     model = siamese_baseline(depth=depth)
     if cfg.train.resume:
         resume_checkpoint(cfg.train.resume, model)
-    model = model.to(device, memory_format=torch.channels_last)
+    model = replicate(mesh, model.to(device, memory_format=torch.channels_last))
     h, w = cfg.data.height, cfg.data.width
     query, gallery = list(dataset.query), list(dataset.gallery)
     test_loader = DataLoader(Preprocessor(query + gallery, root=root, mode="reid",
                                           height=h, width=w, cache=cache),
                              batch_size=cfg.data.batch_size, drop_last=False,
-                             num_workers=cfg.data.workers)
+                             num_workers=cfg.data.workers, shard=mesh)
     rerank_topk = min(20 if cfg.train.debug else 100, len(gallery) - 1)
-    evaluator = make_cascade_evaluator(model, cfg, device)
+    evaluator = make_cascade_evaluator(model, cfg, device, mesh)
 
     def evaluate():
         return evaluator.evaluate(test_loader, query, gallery, rerank_topk=rerank_topk,
@@ -116,7 +163,7 @@ def run(cfg, dataset, device=None, image_cache=None, depth=50):
     trainer = SiameseTrainer(model, lr=cfg.optim.lr, momentum=cfg.optim.momentum,
                              weight_decay=cfg.optim.weight_decay,
                              step_size=cfg.optim.step_size, device=device,
-                             seed=cfg.train.seed)
+                             seed=cfg.train.seed, mesh=mesh)
     epochs = 1 if cfg.train.debug else cfg.train.epochs
     best_map = 0.0
     for epoch in range(epochs):
@@ -125,19 +172,23 @@ def run(cfg, dataset, device=None, image_cache=None, depth=50):
             Preprocessor(train, root=root, mode="pair", height=h, width=w,
                          seed=cfg.train.seed + epoch, cache=cache),
             sampler=RandomPairSampler(train, neg_pos_ratio=1, seed=cfg.train.seed + epoch),
-            batch_size=cfg.data.batch_size, num_workers=cfg.data.workers, drop_last=True)
+            batch_size=cfg.data.batch_size, num_workers=cfg.data.workers, drop_last=True,
+            shard=mesh)
         trainer.train(epoch, _limit(loader, 2) if cfg.train.debug else loader,
                       print_freq=cfg.train.print_freq)
         if epoch % cfg.train.eval_step == 0 or epoch == epochs - 1:
             _, mAP = evaluate()
             is_best = mAP > best_map
             best_map = max(mAP, best_map)
-            save_checkpoint({"state_dict": {k: v.detach().cpu()
-                                            for k, v in model.state_dict().items()},
-                             "epoch": epoch + 1, "best_mAP": best_map}, is_best,
-                            osp.join(cfg.train.logs_dir, "checkpoint.pth.tar"))
+            if is_main(mesh):
+                save_checkpoint({"state_dict": {k: v.detach().cpu()
+                                                for k, v in model.state_dict().items()},
+                                 "epoch": epoch + 1, "best_mAP": best_map}, is_best,
+                                osp.join(cfg.train.logs_dir, "checkpoint.pth.tar"))
             print(f"\n * Finished epoch {epoch:3d}  mAP: {mAP:5.1%} "
                   f"best: {best_map:5.1%}{' *' if is_best else ''}\n")
+    if mesh is not None:
+        mesh.barrier()      # rank 0's checkpoints are on disk for every rank
     return best_map
 
 

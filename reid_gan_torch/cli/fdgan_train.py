@@ -21,6 +21,16 @@ none) with ``CascadeEvaluator`` over E, saves ``best_net_*`` on a new best
 mAP and, after the run, tests the best E (FD/train.py:96-116). ``--debug``:
 ResNet-18 nets, one epoch of 2 iterations. Runs on the card unless
 ``--device cpu`` is given.
+
+Several cards (fdgan_train.py:73-78): with more than one card visible and
+no ``--device cpu``, ``main`` runs one process a card over all of them
+(``parallel.launch``): every rank loads the pretrained nets, decodes its
+slice of each pair batch and of each eval batch, and the steps and the
+evaluations are those of one device on the whole batch
+(``models/fdgan/model.py``); the printed losses are the whole batch's, and
+only rank 0 prints and writes ``log.txt``, ``opt.txt``, the images, the
+loss log and the nets. The mesh size must divide the batch size.
+``main(argv, mesh=False)`` keeps one card.
 """
 
 import argparse
@@ -30,17 +40,16 @@ import time
 
 import torch
 
-from ..config import dump_config, parse_config
-from ..data.datasets import create as create_dataset
+from ..config import parse_config
 from ..data.loader import DataLoader, Preprocessor
 from ..data.sampler import RandomPairSampler
 from ..device import resolve_device
-from ..parallel.mesh import refuse_mesh
 from ..models.fdgan.model import FDGANModel
-from ..utils import AverageMeter, Logger
+from ..parallel.mesh import is_main, main_prints, mesh_device, replicate
+from ..utils import AverageMeter
 from ..utils.serialization import load_networks, save_networks
 from ..utils.visualizer import Visualizer
-from .fdgan_baseline import _limit, make_cascade_evaluator
+from .fdgan_baseline import _limit, make_cascade_evaluator, run_main
 
 SECTIONS = ("data", "model", "optim", "train", "gan", "fdgan")
 
@@ -48,9 +57,11 @@ SECTIONS = ("data", "model", "optim", "train", "gan", "fdgan")
 def main(argv=None, mesh=None):
     """Parse the flags (JAX's, plus ``--device``), tee stdout to
     ``<logs-dir>/log.txt``, write ``opt.txt``, load the dataset and train.
-    Returns the engine. ``mesh``: a ``Mesh``, or
-    None with more than one card visible, raises ``NotImplementedError`` (no
-    data-mesh path yet); False, or one card, runs as before."""
+    Returns the engine where this process trains (one card, or this rank
+    of ``mesh``); None where it spawns a rank a card, whose engines stay on
+    their cards. ``mesh``:
+    None spans every card when more than one is visible, False keeps one, a
+    ``Mesh`` is this rank's (the module's docstring)."""
     argv = sys.argv[1:] if argv is None else argv
     extra = argparse.ArgumentParser(allow_abbrev=False)
     extra.add_argument("--device", default="cuda",
@@ -58,43 +69,45 @@ def main(argv=None, mesh=None):
                             "the kernels")
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=SECTIONS)
-    device = resolve_device(ns.device)
-    refuse_mesh("cli/fdgan_train (FD-GAN stages II and III)", mesh, device)
-    logger = Logger(osp.join(cfg.train.logs_dir, "log.txt"))
-    sys.stdout = logger
-    try:
-        dump_config(cfg, cfg.train.logs_dir, "opt.txt", sections=SECTIONS)
-        return run(cfg, create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=True),
-                   device)
-    finally:
-        sys.stdout = logger.console
-        logger.close()
+    return run_main(cfg, SECTIONS, resolve_device(ns.device), mesh, argv, _main_on_rank, run)
 
 
-def run(cfg, dataset, device=None, image_cache=None):
+def _main_on_rank(mesh, argv):
+    main(argv, mesh=mesh)
+
+
+def run(cfg, dataset, device=None, image_cache=None, mesh=None):
     """Stages II/III (fdgan_train.py:65-203) on ``dataset`` (``.train``,
     ``.query``, ``.gallery``, ``.pid_imgs`` and ``.poses_dir``, the landmark
     files; the image names relative to ``.images_dir`` where it has one), on
     ``device`` (default: the card). ``image_cache`` goes to every
-    ``Preprocessor`` (default: the shared decode cache). Returns the
-    engine."""
-    device = resolve_device(device)
+    ``Preprocessor`` (default: the shared decode cache). With ``mesh`` (a
+    ready ``Mesh``, on every rank) the run is sharded over it and only rank
+    0 prints and writes. Returns the engine."""
+    with main_prints(mesh):
+        return _run(cfg, dataset, mesh_device(mesh, device), image_cache, mesh)
+
+
+def _run(cfg, dataset, device, image_cache, mesh):
     # TF32 convolutions as in the training CLIs; every other product stays fp32
     torch.backends.cudnn.allow_tf32 = True
     cache = "default" if image_cache is None else image_cache
     h, w = cfg.data.height, cfg.data.width
     torch.manual_seed(cfg.train.seed)
     model = FDGANModel(cfg.fdgan, height=h, width=w, depth=18 if cfg.train.debug else 50,
-                       device=device, seed=cfg.train.seed)
+                       device=device, seed=cfg.train.seed, mesh=mesh)
     save_dir = osp.join(cfg.gan.save_dir, cfg.gan.name)
     if cfg.gan.continue_train:
         load_networks(model.nets(), save_dir, cfg.gan.which_epoch)
+        for net in model.nets().values():
+            replicate(mesh, net)
     train = list(dataset.train)
     root = getattr(dataset, "images_dir", None)   # the JSON datasets' names are relative
     pre = Preprocessor(train, root=root, mode="fdgan_pose", height=h, width=w,
                        pid_imgs=dataset.pid_imgs, pose_root=getattr(dataset, "poses_dir", None),
                        seed=cfg.train.seed, cache=cache)
-    visualizer = Visualizer(cfg.train.logs_dir, name=cfg.gan.name)
+    visualizer = Visualizer(cfg.train.logs_dir, name=cfg.gan.name) if is_main(mesh) \
+        else None
 
     # stage 2: periodic validation with best tracking (FD/train.py:96-103);
     # datasets without a val split validate on query/gallery
@@ -106,10 +119,10 @@ def run(cfg, dataset, device=None, image_cache=None):
         return DataLoader(Preprocessor(items, root=root, mode="reid", height=h, width=w,
                                        cache=cache),
                           batch_size=cfg.data.batch_size, drop_last=False,
-                          num_workers=cfg.data.workers)
+                          num_workers=cfg.data.workers, shard=mesh)
 
     if cfg.fdgan.stage != 1:
-        evaluator = make_cascade_evaluator(model.net_E, cfg, device)
+        evaluator = make_cascade_evaluator(model.net_E, cfg, device, mesh)
         val = list(getattr(dataset, "val", None) or [])
         val_query, val_gallery = (val, val) if val else (query, gallery)
         val_loader = reid_loader(sorted(set(val_query) | set(val_gallery)))
@@ -128,8 +141,10 @@ def run(cfg, dataset, device=None, image_cache=None):
         def drain():
             if buf:
                 names = list(buf[0])
-                vals = torch.stack([torch.stack([e[k].float() for k in names])
-                                    for e in buf]).cpu().numpy()
+                # the whole batch's losses: one reduction a print window
+                vals = model.global_errors({k: torch.stack([e[k].double() for e in buf])
+                                            for k in names})
+                vals = torch.stack([vals[k] for k in names], 1).cpu().numpy()
                 for row in vals:
                     for k, v in zip(names, row):
                         meters.setdefault(k, AverageMeter()).update(float(v))
@@ -139,12 +154,12 @@ def run(cfg, dataset, device=None, image_cache=None):
         loader = DataLoader(pre, sampler=RandomPairSampler(train, neg_pos_ratio=1,
                                                            seed=cfg.train.seed + epoch),
                             batch_size=cfg.data.batch_size, num_workers=cfg.data.workers,
-                            drop_last=True)
+                            drop_last=True, shard=mesh)
         i = -1
         for i, (b1, b2) in enumerate(_limit(loader, 2) if cfg.train.debug else loader):
             errors, fake = model.optimize_step(b1, b2)
             buf.append(errors)
-            if (i + 1) % cfg.gan.display_freq == 0:
+            if (i + 1) % cfg.gan.display_freq == 0 and visualizer is not None:
                 visualizer.display_current_results(
                     {"fake": fake[0].permute(1, 2, 0).float().cpu().numpy()}, epoch)
             if (i + 1) % cfg.train.print_freq == 0:
@@ -153,28 +168,34 @@ def run(cfg, dataset, device=None, image_cache=None):
                 print(f"Epoch {epoch} [{i + 1}]  {msg}  ({time.time() - t0:.1f}s)")
         drain()
         print(f"End of epoch {epoch} \t Time Taken: {time.time() - t0:.0f} sec")
-        if i >= 0:       # a set smaller than one batch runs no step
-            visualizer.display_current_results(
-                {"fake": fake[0].permute(1, 2, 0).float().cpu().numpy()}, epoch)
-        visualizer.print_current_errors(epoch, i + 1, {k: m.avg for k, m in meters.items()},
-                                        t=time.time() - t0)
-        if (epoch + 1) % cfg.fdgan.save_step == 0 or epoch == epochs - 1:
+        if visualizer is not None:
+            if i >= 0:       # a set smaller than one batch runs no step
+                visualizer.display_current_results(
+                    {"fake": fake[0].permute(1, 2, 0).float().cpu().numpy()}, epoch)
+            visualizer.print_current_errors(epoch, i + 1,
+                                            {k: m.avg for k, m in meters.items()},
+                                            t=time.time() - t0)
+        if is_main(mesh) and ((epoch + 1) % cfg.fdgan.save_step == 0 or epoch == epochs - 1):
             save_networks(nets, save_dir, "latest")
         if val_loader is not None and (epoch + 1) % cfg.fdgan.eval_step == 0:
             mAP = evaluator.evaluate(val_loader, val_query, val_gallery,
                                      rerank_topk=min(75, len(val_gallery) - 1), top1=False)
             is_best = mAP > best_map
             best_map = max(mAP, best_map)
-            if is_best:
+            if is_best and is_main(mesh):
                 save_networks(nets, save_dir, "best")
             print(f"\n * Finished epoch {epoch:3d}  mAP: {mAP:5.1%}  "
                   f"best: {best_map:5.1%}{' *' if is_best else ''}\n")
 
     if val_loader is not None and not cfg.train.debug and best_map > 0.0:
         print("Test with best model:")
-        load_networks({"E": model.net_E}, save_dir, "best")
+        if is_main(mesh):
+            load_networks({"E": model.net_E}, save_dir, "best")
+        replicate(mesh, model.net_E)
         evaluator.evaluate(reid_loader(query + gallery), query, gallery,
                            rerank_topk=min(100, len(gallery) - 1), dataset=cfg.data.dataset)
+    if mesh is not None:
+        mesh.barrier()      # rank 0's nets are on disk for every rank
     return model
 
 

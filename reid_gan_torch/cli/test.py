@@ -19,8 +19,9 @@ Several cards (test.py:71-80): with more than one card visible and no
 ``--device cpu``, ``main`` runs one process a card over all of them; each
 rank extracts its slice of each batch and ranks its share of the query
 chunks (``engine/evaluators.py``), and only rank 0 prints. ``main(argv,
-mesh=False)`` keeps one card. ``--dsbn`` under a mesh raises
-``NotImplementedError`` before any work.
+mesh=False)`` keeps one card. With ``--dsbn`` every rank loads the
+checkpoint and folds the chosen domain's BatchNorms before the sharded
+eval.
 """
 
 import argparse
@@ -78,10 +79,8 @@ def main(argv=None, mesh=None):
         raise ValueError("--dsbn reads a domain-specific BN checkpoint of the "
                          "JAX package: give it with --resume <file>.msgpack")
     if wants_mesh(device, mesh):
-        _check_mesh(ns.dsbn, True)
         return launch(_main_on_rank, local_device_count(), args=(argv,))
     mesh = mesh or None
-    _check_mesh(ns.dsbn, mesh)
     with main_prints(mesh):
         dataset = main_first(mesh, lambda: create_dataset(
             cfg.data.dataset, cfg.data.data_dir, verbose=is_main(mesh)))
@@ -91,13 +90,6 @@ def main(argv=None, mesh=None):
 
 def _main_on_rank(mesh, argv):
     return main(argv, mesh=mesh)
-
-
-def _check_mesh(dsbn, mesh):
-    if mesh and dsbn:
-        raise NotImplementedError("--dsbn under a data mesh of several cards is not "
-                                  "ported yet; run on one card (CUDA_VISIBLE_DEVICES, "
-                                  "or mesh=False)")
 
 
 def run(cfg, dataset, device=None, image_cache=None, resume_torch="", dsbn=False,
@@ -110,7 +102,6 @@ def run(cfg, dataset, device=None, image_cache=None, resume_torch="", dsbn=False
     (default: the shared decode cache). With ``mesh`` (a ready ``Mesh``, on
     every rank) the eval is sharded over it and only rank 0 prints. Returns
     (CMC, mAP)."""
-    _check_mesh(dsbn, mesh)
     with main_prints(mesh):
         return _run(cfg, dataset, mesh_device(mesh, device), image_cache, resume_torch,
                     dsbn, test_source, rerank, mesh)

@@ -60,8 +60,8 @@ data mesh for every mode (``train_reid``, ``train_all`` with either GAN
 loss, the hard-mix ``train`` of ``--no-gan-train``, ``train_all_bip`` and
 ``train_all_with_memory``; ``engine/gan_trainers.py``); ``main(argv,
 mesh=False)`` keeps one card. Only rank 0 prints and writes the logs, the
-checkpoints, ``latest_net_{G,D}.pth`` and ``iter.txt``. Under a mesh
-``--fp16`` raises ``NotImplementedError`` before any work.
+checkpoints, ``latest_net_{G,D}.pth`` and ``iter.txt``. ``--fp16`` runs
+under a mesh in every mode.
 """
 
 import argparse
@@ -78,7 +78,6 @@ from ..data.loader import DataLoader, Preprocessor
 from ..device import resolve_device
 from ..engine.evaluators import Evaluator, FeatureExtractor
 from ..engine.gan_trainers import ClusterContrastWithGANTrainer
-from ..engine.trainers import check_mesh_precision
 from ..engine.usl import cluster_epoch, make_train_loader
 from ..models import create as create_model
 from ..models.dual_gan.models import create_model as create_gan
@@ -218,10 +217,8 @@ def main(argv=None, mesh=None):
     device = resolve_device(ns.device)
     _check_generator(cfg)
     if wants_mesh(device, mesh):
-        check_mesh_precision(True, cfg.train.fp16)
         return launch(_main_on_rank, local_device_count(), args=(argv,))
     mesh = mesh or None
-    check_mesh_precision(mesh, cfg.train.fp16)
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt")) if is_main(mesh) else None
     if logger is not None:
         sys.stdout = logger
@@ -260,7 +257,6 @@ def run(cfg, dataset, device=None, image_cache=None, mesh=None):
     the rank's card over the mesh; only rank 0 prints and writes files.
     Returns the best mAP."""
     _check_generator(cfg)
-    check_mesh_precision(mesh, cfg.train.fp16)
     with main_prints(mesh):
         return _run(cfg, dataset, mesh_device(mesh, device), image_cache, mesh)
 

@@ -23,8 +23,8 @@ visible and no ``--device cpu``, ``main`` runs one process a card over all
 of them, a data mesh (``GANTrainer``: the ``only_gan`` batches sharded, G's
 and D's BatchNorms over the whole batch, their gradients averaged before
 each Adam step); ``main(argv, mesh=False)`` keeps one card. Only rank 0
-prints and writes the logs and ``latest_net_{G,D}.pth``. Under a mesh
-``--fp16`` raises ``NotImplementedError`` before any work.
+prints and writes the logs and ``latest_net_{G,D}.pth``. ``--fp16`` runs
+under a mesh too.
 
 The standalone step drives the AE generator: the other generators raise
 ``ValueError`` before any work, where the JAX CLI fails in its first step
@@ -45,7 +45,6 @@ from ..data.datasets import create as create_dataset
 from ..data.loader import DataLoader, Preprocessor
 from ..device import resolve_device
 from ..engine.gan_trainers import GANTrainer
-from ..engine.trainers import check_mesh_precision
 from ..models.dual_gan.models import create_model as create_gan
 from ..parallel.mesh import (
     is_main,
@@ -97,10 +96,8 @@ def main(argv=None, mesh=None):
     device = resolve_device(ns.device)
     _check(cfg)
     if wants_mesh(device, mesh):
-        check_mesh_precision(True, cfg.train.fp16)
         return launch(_main_on_rank, local_device_count(), args=(argv,))
     mesh = mesh or None
-    check_mesh_precision(mesh, cfg.train.fp16)
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt")) if is_main(mesh) else None
     if logger is not None:
         sys.stdout = logger
@@ -131,7 +128,6 @@ def run(cfg, dataset, device=None, image_cache=None, mesh=None):
     only rank 0 prints and writes files. Returns the engine's state
     (``AEState``: the nets, trained in place, and their optimizers)."""
     _check(cfg)
-    check_mesh_precision(mesh, cfg.train.fp16)
     with main_prints(mesh):
         return _run(cfg, dataset, mesh_device(mesh, device), image_cache, mesh)
 

@@ -22,8 +22,10 @@ Several cards (train_usl.py:41-44): with more than one card visible and no
 pass are those of one device on the whole batch (``engine/trainers.py``,
 ``engine/evaluators.py``); ``main(argv, mesh=False)`` keeps one card, and
 ``CUDA_VISIBLE_DEVICES`` picks the cards. Only rank 0 prints and writes
-``log.txt``, ``train_opt.txt`` and the checkpoints. ``--fp16`` under a mesh
-raises ``NotImplementedError`` before any work.
+``log.txt``, ``train_opt.txt`` and the checkpoints. ``--fp16`` runs under
+a mesh as on one card: the global BatchNorms widen their bf16 input as
+``models/precision.py``'s do, and the parameters and their averaged
+gradients stay fp32.
 """
 
 import argparse
@@ -38,7 +40,7 @@ from ..data.datasets import create as create_dataset
 from ..data.loader import DataLoader, Preprocessor
 from ..device import resolve_device
 from ..engine.evaluators import Evaluator, FeatureExtractor
-from ..engine.trainers import ClusterContrastTrainer, check_mesh_precision
+from ..engine.trainers import ClusterContrastTrainer
 from ..engine.usl import cluster_epoch, make_train_loader
 from ..models import create as create_model
 from ..parallel.mesh import (
@@ -73,10 +75,8 @@ def main(argv=None, mesh=None):
     cfg = parse_config(rest, sections=SECTIONS)
     device = resolve_device(ns.device)
     if wants_mesh(device, mesh):
-        check_mesh_precision(True, cfg.train.fp16)
         return launch(_main_on_rank, local_device_count(), args=(argv,))
     mesh = mesh or None
-    check_mesh_precision(mesh, cfg.train.fp16)
     logger = Logger(osp.join(cfg.train.logs_dir, "log.txt")) if is_main(mesh) else None
     if logger is not None:
         sys.stdout = logger
@@ -123,7 +123,6 @@ def run(cfg, dataset, device=None, image_cache=None, on_cluster=None, mesh=None)
     With ``mesh`` (a ready ``Mesh``, on every rank) the loop runs on the
     rank's card over the mesh; only rank 0 prints and writes files.
     Returns the best mAP, or the eval's (cmc, mAP) with ``--evaluate``."""
-    check_mesh_precision(mesh, cfg.train.fp16)
     with main_prints(mesh):
         return _run(cfg, dataset, mesh_device(mesh, device), image_cache, on_cluster,
                     mesh)

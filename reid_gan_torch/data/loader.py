@@ -156,6 +156,7 @@ def load_landmark_txt(path, scale_h=1.0, scale_w=1.0):
 
 
 _MODES = ("reid", "with_gan", "only_gan", "pair", "fdgan_pose")
+PAIR_MODES = ("pair", "fdgan_pose")
 
 
 class Preprocessor:
@@ -211,7 +212,7 @@ class Preprocessor:
         """True when the decoded set fits the cache budget twice (the cache
         and the packed copy are both resident), so a batch is one gather.
         The pair modes are served item by item."""
-        if self.mode in ("pair", "fdgan_pose"):
+        if self.mode in PAIR_MODES:
             return False
         need = 0
         if self.mode != "only_gan":
@@ -280,37 +281,48 @@ class Preprocessor:
                 "gan_flip": flip, "old_size": old_size,
                 "keypoints": self._keypoints(base)}
 
-    def _fdgan_pair_item(self, pair):
-        """Each index of the pair → its image, a random other image of its
-        pid as the target (itself when it is the pid's only one), that
-        image's landmarks scaled to the frame, and a flip draw
-        (loader.py:316-342)."""
-        items = []
+    def pair_draws(self, pair):
+        """The draws of a pair item from ``rng``, in the item's order: for
+        each index of an ``fdgan_pose`` pair the target's name (a random
+        other image of its pid, itself when it is the pid's only one) and
+        then its flip (loader.py:316-342); None for a ``pair`` item, which
+        draws nothing."""
+        if self.mode != "fdgan_pose":
+            return None
+        out = []
         for index in pair:
-            fname, pid, camid = self.dataset[index]
-            bundle = {"img": self._read(fname), "pid": pid, "camid": camid,
-                      "fname": fname}
+            fname, pid, _ = self.dataset[index]
             pid_query = list(self.pid_imgs[pid])
             base = osp.basename(fname)
             if base in pid_query and len(pid_query) > 1:
                 pid_query.remove(base)
             pname = osp.splitext(pid_query[self.rng.randint(len(pid_query))])[0]
+            out.append((pname, bool(self.rng.rand() < 0.5)))
+        return out
+
+    def pair_item(self, pair, draws):
+        """The two items of ``pair`` with the draws ``pair_draws`` gave it:
+        an ``fdgan_pose`` item is each index's image, the target, the
+        target's landmarks scaled to the frame, and the flip."""
+        if self.mode == "pair":
+            return [self._item(i) for i in pair]
+        items = []
+        for index, (pname, flip) in zip(pair, draws):
+            fname, pid, camid = self.dataset[index]
             gt = osp.join(osp.dirname(fname), pname + ".jpg") if osp.dirname(fname) \
                 else pname + ".jpg"
             target, gt_size = self.cache.get(self._path(gt), self.height, self.width)
             landmark = load_landmark_txt(osp.join(self.pose_root, pname + ".txt"),
                                          self.height / float(gt_size[0]),
                                          self.width / float(gt_size[1]))
-            bundle.update(target=target, landmark=landmark,
-                          flip=bool(self.rng.rand() < 0.5))
-            items.append(bundle)
+            items.append({"img": self._read(fname), "pid": pid, "camid": camid,
+                          "fname": fname, "target": target, "landmark": landmark,
+                          "flip": flip})
         return items
 
     def __getitem__(self, index):
-        if self.mode == "fdgan_pose":
-            return self._fdgan_pair_item(index)
-        if self.mode == "pair":
-            return [self._item(i) for i in index]
+        if self.mode in PAIR_MODES:   # one pair alone (``DataLoader`` draws a batch first)
+            return self.pair_item(index, self.pair_draws(index))
         return self._item(index)
 
     def _item(self, index):
@@ -326,6 +338,15 @@ class Preprocessor:
             item["flip"] = flip
             item.update(self._gan_item(fname, flip))
         return item
+
+
+def check_pair_batch(batch_size, world_size):
+    """A pair batch splits over the mesh without padding, or raises
+    ``ValueError`` naming both numbers."""
+    if batch_size % world_size:
+        raise ValueError(f"a pair batch of {batch_size} does not split over a mesh of "
+                         f"{world_size} ranks; give a batch size that {world_size} "
+                         f"divides")
 
 
 def _collate(items):
@@ -370,15 +391,25 @@ class DataLoader:
     The decoded fields hold those s rows; the index fields (``fname``,
     ``pid``, ``camid``, ``index``) hold the whole batch's n, which every rank
     needs for the bank fold and the feature keys. The ``with_gan`` flips are
-    the whole batch's draws, each rank taking its rows'. The pair modes are not
-    sharded.
+    the whole batch's draws, each rank taking its rows'.
+
+    The pair modes (FD-GAN's stages) shard as JAX's ``shard_batch`` places
+    each of the two batches: rank r decodes pairs [r·s, (r+1)·s), s = n /
+    size, and every field of both batches holds those s rows. A pair batch
+    is never padded (that would change the loss): a mesh size that does not
+    divide ``batch_size`` raises ``ValueError`` here, and so does a last
+    batch it does not divide. In the pair modes every process, with or
+    without a shard, makes the whole batch's ``rng`` draws
+    (``Preprocessor.pair_draws``) in the batch's order on the producing
+    thread before its workers decode its rows, so the batches and ``rng``
+    do not depend on ``num_workers`` and every rank's ``rng`` ends where a
+    run of one process over the whole batch leaves it.
     """
 
     def __init__(self, preprocessor, sampler=None, batch_size=64, num_workers=4,
                  drop_last=True, shuffle=False, prefetch=2, seed=None, shard=None):
-        if shard is not None and preprocessor.mode in ("pair", "fdgan_pose"):
-            raise NotImplementedError(f"the {preprocessor.mode!r} loader under a data "
-                                      f"mesh (FD-GAN's stages)")
+        if shard is not None and preprocessor.mode in PAIR_MODES:
+            check_pair_batch(batch_size, shard.world_size)
         self.pre = preprocessor
         self.shard = shard
         self.sampler = sampler
@@ -400,6 +431,18 @@ class DataLoader:
     def __len__(self):
         n = len(self._indices()) if self.sampler is not None else len(self.pre)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _pair_batch(self, b, pool):
+        """The pairs of ``b`` this process decodes (all of them without a
+        shard), with the whole batch's draws made in order first."""
+        mine = slice(None)
+        if self.shard is not None:
+            size, rank = self.shard.world_size, self.shard.rank
+            check_pair_batch(len(b), size)
+            s = len(b) // size
+            mine = slice(rank * s, (rank + 1) * s)
+        draws = [self.pre.pair_draws(pair) for pair in b]
+        return _collate(list(pool.map(self.pre.pair_item, b[mine], draws[mine])))
 
     def _shard_batch(self, b, pool):
         """This rank's decoded rows of the batch of indices ``b`` and the
@@ -450,13 +493,16 @@ class DataLoader:
             return False
 
         packed = self.pre.batchable()
+        pairs = self.pre.mode in PAIR_MODES
 
         def produce():
             try:
                 for b in batches:
                     if stop.is_set():
                         return
-                    if self.shard is not None:
+                    if pairs:
+                        batch = self._pair_batch(b, pool)
+                    elif self.shard is not None:
                         batch = self._shard_batch(b, pool)
                     elif packed:
                         batch = self.pre.get_batch(b)

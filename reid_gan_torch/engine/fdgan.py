@@ -17,6 +17,21 @@ FD/baseline.py:96-143).
   card) and pushes the rest beyond a gap. The top-k set
   (``np.argpartition``) and the merge stay on the host, as in JAX, so ties
   at the boundary pick the same set.
+
+Under a data mesh (one rank a card, JAX ``engine/fdgan.py:52-54,90-93,
+129-133,240-243``) the Siamese net is replicated from rank 0 and each rank
+takes its contiguous slice of both halves of each pair batch
+(``DataLoader(shard=)``). Its BatchNorms become global (``ops/norm.py``):
+the base runs in train mode on each half in turn, so each half is
+normalised with that half's statistics over every rank and the running
+stats fold twice, as on one card. K14's draws are the whole batch's, drawn
+alike on every rank from the same generator and sliced; the gradients are
+averaged over the ranks before SGD; the printed loss and precision are the
+whole batch's, reduced once a print window. The cascade evaluator extracts
+on every rank's rows and gathers the features (``engine/evaluators.py``),
+and every rank ranks the same distance matrix; the verifier scores the
+rank's contiguous share of the m·k top-k pairs, gathered in order, and
+rank 0's metrics are every rank's.
 """
 
 import time
@@ -25,9 +40,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve_device
+from ..ops.norm import convert_global_bn
 from ..ops.transforms import fd_augment, sample_fd_augment_params
-from ..parallel.mesh import refuse_mesh
+from ..parallel.mesh import (
+    all_gather_rows,
+    all_reduce_grads,
+    all_reduce_sum,
+    broadcast_object,
+    main_prints,
+    mesh_device,
+    pad_to_multiple,
+    replicate,
+    shard_batch,
+)
 from ..utils import AverageMeter
 from .evaluators import extract_features, pairwise_distance
 from .metrics import accuracy, cmc, rank_metrics
@@ -35,13 +60,16 @@ from .metrics import accuracy, cmc, rank_metrics
 
 class SiameseTrainer:
     """Stage-I supervised verification baseline on ``device`` (default: the
-    card). ``seed`` seeds the ``torch.Generator`` of the augmentation draws."""
+    card). ``seed`` seeds the ``torch.Generator`` of the augmentation draws.
+    With ``mesh`` the device is the rank's, the net's BatchNorms become
+    global and its weights rank 0's (the module's docstring)."""
 
     def __init__(self, model, lr=0.01, momentum=0.9, weight_decay=5e-4, step_size=40,
                  device=None, seed=0, mesh=None):
-        refuse_mesh("SiameseTrainer (FD-GAN stage I)", mesh)
-        self.device = resolve_device(device)
-        self.model = model.to(self.device, memory_format=torch.channels_last)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
+        self.model = replicate(mesh, convert_global_bn(model, mesh).to(
+            self.device, memory_format=torch.channels_last))
         self.base_lr = lr
         self.step_size = step_size
         # optax.chain(add_decayed_weights, sgd(momentum)) is torch's SGD with
@@ -58,14 +86,18 @@ class SiameseTrainer:
     def step(self, img1, img2, targets, params1=None, params2=None):
         """One step on device uint8 pair halves (B, H, W, 3) and int64
         targets (1 = same pid); ``params1``/``params2``: K14 draws (B, 9),
-        drawn from the trainer's generator when not given. Returns the
-        device (loss, logits)."""
+        drawn from the trainer's generator when not given. Under a mesh the
+        halves and targets are the rank's rows and the draws the whole
+        batch's. Returns the device (loss, logits) of the rank's rows."""
         n, h, w = img1.shape[:3]
+        n *= self.mesh.world_size if self.mesh else 1
         p_dtype = next(self.model.parameters()).dtype
         if params1 is None:
             params1 = sample_fd_augment_params(n, h, w, self.generator)
         if params2 is None:
             params2 = sample_fd_augment_params(n, h, w, self.generator)
+        if self.mesh is not None:
+            params1, params2 = shard_batch(self.mesh, (params1, params2))
         x1 = fd_augment(img1, params1).to(p_dtype)
         x2 = fd_augment(img2, params2).to(p_dtype)
         self.model.train()
@@ -73,25 +105,34 @@ class SiameseTrainer:
         loss = F.cross_entropy(logits, targets)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads(self.mesh, self.model.parameters())
         self.optimizer.step()
         return loss.detach(), logits.detach()
 
     def train(self, epoch, data_loader, print_freq=1):
         """One epoch over a ``pair``-mode loader of (batch1, batch2); returns
         the mean loss. The losses and logits of a print window are fetched
-        in one copy."""
+        in one copy; under a mesh each step's loss and correct count are
+        then summed over the ranks in one reduction a window."""
         batch_time, data_time = AverageMeter(), AverageMeter()
         losses, precisions = AverageMeter(), AverageMeter()
         buf = []
+        world = self.mesh.world_size if self.mesh else 1
 
         def drain():
             if not buf:
                 return
             fetched = torch.stack([torch.cat([l[None], g.flatten()]) for l, g, _ in buf]).cpu()
-            for row, (_, g, tgt) in zip(fetched.numpy(), buf):
-                prec, = accuracy(row[1:].reshape(g.shape), tgt)
-                losses.update(float(row[0]), len(tgt))
-                precisions.update(prec, len(tgt))
+            rows = [(float(row[0]), accuracy(row[1:].reshape(g.shape), tgt)[0] * len(tgt),
+                     len(tgt) * world) for row, (_, g, tgt) in zip(fetched.numpy(), buf)]
+            if self.mesh is not None:
+                sums = all_reduce_sum(self.mesh, torch.tensor(
+                    [r[:2] for r in rows], dtype=torch.float64, device=self.device)).cpu()
+                rows = [(loss / world, correct, n)
+                        for (loss, correct), (_, _, n) in zip(sums.tolist(), rows)]
+            for loss, correct, n in rows:
+                losses.update(loss, n)
+                precisions.update(correct / n, n)
             buf.clear()
 
         self.adjust_lr(epoch)
@@ -159,28 +200,46 @@ class CascadeEvaluator:
     ``FeatureExtractor`` over the Siamese net's base) gives the features;
     ``embed_model`` (its ``EltwiseSubEmbed``) re-scores the top k in eval
     mode. Both are the live modules, so a trainer's later weights need no
-    swap."""
+    swap. Under the extractor's mesh the loader is sharded over it (the
+    module's docstring)."""
 
     def __init__(self, extractor, embed_model, embed_dist_fn="softmax0"):
-        refuse_mesh("CascadeEvaluator (FD-GAN's evaluation)",
-                    getattr(extractor, "mesh", None))
         self.extractor = extractor
+        self.mesh = getattr(extractor, "mesh", None)
         self.embed_model = embed_model.to(extractor.device)
         self.embed_dist_fn = embed_dist_fn
 
     def _embed(self, probe, gallery):
+        """The verifier's distance of each (probe, gallery) row pair; under
+        a mesh each rank scores its contiguous share of the rows (padded to
+        a multiple of the mesh size), gathered in order."""
         self.embed_model.eval()
         dev = self.extractor.device
         dtype = next(self.embed_model.parameters()).dtype
+        n = len(probe)
+        if self.mesh is not None:
+            probe, gallery = (shard_batch(self.mesh, pad_to_multiple(a, self.mesh.world_size)[0])
+                              for a in (probe, gallery))
+        probe, gallery = (torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+                          for a in (probe, gallery))
         with torch.inference_mode():
-            logits = self.embed_model(torch.from_numpy(probe).to(dev, dtype),
-                                      torch.from_numpy(gallery).to(dev, dtype))
+            logits = self.embed_model(probe, gallery)
             if self.embed_dist_fn == "softmax0":
                 logits = torch.softmax(logits, dim=1)
-            return logits[:, 0].float().cpu().numpy()
+            return all_gather_rows(self.mesh, logits[:, 0].float(), n).cpu().numpy()
 
     def evaluate(self, data_loader, query, gallery, rerank_topk=75, second_stage=True,
                  dataset=None, top1=True):
+        """(top-1, mAP) with ``dataset``, else as ``fd_evaluate_all`` returns
+        (fdgan.py:230-274); under a mesh rank 0's, on every rank, and only
+        rank 0 prints."""
+        with main_prints(self.mesh):
+            out = self._evaluate(data_loader, query, gallery, rerank_topk, second_stage,
+                                 dataset, top1)
+        return broadcast_object(self.mesh, out)
+
+    def _evaluate(self, data_loader, query, gallery, rerank_topk, second_stage, dataset,
+                  top1):
         device = self.extractor.device
         features, _ = extract_features(self.extractor, data_loader, print_freq=1 << 30)
         distmat, qf, gf = pairwise_distance(features, query, gallery, device)

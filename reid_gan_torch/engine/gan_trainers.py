@@ -118,8 +118,6 @@ from ..parallel.mesh import (
 from ..utils import AverageMeter
 from .trainers import (
     ClusterContrastTrainer,
-    check_mesh_precision,
-    computes_bf16,
     make_optimizer,
     optimizer_params,
     zero_missing_grads,
@@ -157,7 +155,6 @@ class ClusterContrastWithGANTrainer(ClusterContrastTrainer):
     def __init__(self, model, gan, height=256, width=128, temp=0.05, momentum=0.2,
                  use_hard=False, lr=3.5e-4, weight_decay=5e-4, step_size=20,
                  iters_per_epoch=400, num_instances=16, device=None, mesh=None):
-        check_mesh_precision(mesh, computes_bf16(gan.net_G, gan.net_D))
         super().__init__(model, height, width, temp, momentum, use_hard, lr,
                          weight_decay, step_size, iters_per_epoch, num_instances,
                          device, mesh)
@@ -489,7 +486,6 @@ class GANTrainer:
     ranks' means (``AEModel.step``)."""
 
     def __init__(self, gan, print_freq=100, device=None, mesh=None):
-        check_mesh_precision(mesh, computes_bf16(gan.net_G, gan.net_D))
         self.gan = gan
         self.print_freq = print_freq
         self.mesh = mesh

@@ -72,22 +72,6 @@ def optimizer_params(optimizer):
     return [q for group in optimizer.param_groups for q in group["params"]]
 
 
-def check_mesh_precision(mesh, fp16):
-    """``--fp16`` (a bf16 compute dtype, ``models/precision.py``) is not
-    ported to the data mesh yet: under ``mesh`` it raises. The CLIs call this
-    with their flag before any work, the trainers with ``computes_bf16``."""
-    if mesh and fp16:
-        raise NotImplementedError("--fp16 (bf16 compute) under a data mesh of "
-                                  "several cards is not ported yet; run on one "
-                                  "card (CUDA_VISIBLE_DEVICES, or mesh=False)")
-
-
-def computes_bf16(*nets):
-    """Whether a module of ``nets`` has a compute dtype (``--fp16``)."""
-    return any(getattr(m, "compute_dtype", None) is not None
-               for net in nets for m in net.modules())
-
-
 def zero_missing_grads(optimizer):
     """Give a parameter the loss did not reach (a variant's second branch,
     GAN projection or predictor) a zero gradient, as the JAX step does, so
@@ -111,7 +95,6 @@ class ClusterContrastTrainer:
     def __init__(self, model, height=256, width=128, temp=0.05, momentum=0.2,
                  use_hard=False, lr=3.5e-4, weight_decay=5e-4, step_size=20,
                  iters_per_epoch=400, num_instances=None, device=None, mesh=None):
-        check_mesh_precision(mesh, computes_bf16(model))
         self.mesh = mesh
         self.device = mesh_device(mesh, device)
         self.model = convert_global_bn(model, mesh).to(self.device,

@@ -33,6 +33,20 @@ they run chunk by chunk under activation checkpointing (``CHUNK`` images
 at a time), so their activations are never held for the whole batch; each D
 loss is two halves, backward in turn; Di and Dp take no gradient in the G
 step, nor E in stage 1.
+
+Under a data mesh (one rank a card; JAX model.py:75-77,134-137,435-438) the
+four nets are replicated from rank 0 and each rank takes its contiguous
+slice of both pair batches. E and Di run with fixed BatchNorm and need no
+collective; G's and Dp's BatchNorms become global (``ops/norm.py``), Dp's
+folding its running stats on each of its three forwards. The draws are the
+whole batch's on every rank, from the same generator in lockstep (so the
+scalars and the host's label-flip decision agree), and each rank takes its
+rows: those of the (2B, ·) draws, the two halves' in ``[b1; b2]`` order,
+come from global rows [r·s, (r+1)·s) and [B + r·s, B + (r+1)·s), as the
+rank's ``origin`` is its rows of ``b1`` then of ``b2``. The gradients of
+each optimiser are averaged over the ranks before its step. The same-pose
+loss is a ratio of global sums (its denominator is all-reduced), and the
+returned losses are the rank's (``global_errors`` reduces them).
 """
 
 from typing import NamedTuple, Optional
@@ -41,8 +55,17 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ...ops.norm import convert_global_bn
 from ...ops.pose import render_pose_peaks
 from ...ops.transforms import FD_FLIP, FD_PARAMS, fd_augment, sample_fd_augment_params
+from ...parallel.mesh import (
+    all_reduce_grads,
+    all_reduce_mean,
+    all_reduce_sum,
+    mesh_device,
+    replicate,
+    shard_batch,
+)
 from ..multi_branch import siamese_net
 from .losses import gan_loss_bce
 from .networks import CustomPoseGenerator, NLayerDiscriminator
@@ -57,8 +80,8 @@ class FDDraws(NamedTuple):
     (2B,) int32, the pose maps' σ and erased channel of each side before the
     pose sharing; ``noise``: (B, noise_size); ``u_flip``: (2,) uniforms of
     the Di and Dp label flips; ``u_smooth``: (4,) smoothing uniforms, Di
-    real and fake, Dp real and fake; ``masks``: G's five dropout keep masks,
-    or None to draw them from ``generator`` during the forward."""
+    real and fake, Dp real and fake; ``masks``: G's five dropout keep masks
+    over the 2B fakes, None when G does not drop."""
     origin: torch.Tensor
     sigma: torch.Tensor
     erase: torch.Tensor
@@ -90,13 +113,9 @@ class FDGANModel:
 
     def __init__(self, cfg, height=256, width=128, depth=50, device=None, seed=0,
                  mesh=None):
-        from ...device import resolve_device
-        from ...parallel.mesh import refuse_mesh
-
-        refuse_mesh("FDGANModel (FD-GAN stages II and III)", mesh)
-
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.height, self.width = height, width
         self.stage = cfg.stage
         self.smooth = cfg.smooth_label
@@ -116,6 +135,10 @@ class FDGANModel:
         self._base_lrs = (lr * 0.1, lr * 0.01, lr) if self.stage == 1 else \
             (lr * 0.1, lr, lr)
         self._bootstrap()
+        convert_global_bn(self.net_G, mesh)
+        convert_global_bn(self.net_Dp, mesh)
+        for net in self.nets().values():
+            replicate(mesh, net)
         g_params = list(self.net_G.parameters())
         if self.stage == 2:
             g_params += list(self.net_E.parameters())
@@ -181,8 +204,8 @@ class FDGANModel:
     # ------------------------------------------------------------- draws
     def sample_draws(self, b):
         """One step's draws for B pairs from ``generator``, over JAX's ranges
-        (model.py:210-265,293-306); G's dropout masks are drawn in the
-        forward."""
+        (model.py:210-265,293-306), and G's dropout masks last when G
+        drops."""
         gen, dev, h, w = self.generator, self.device, self.height, self.width
         origin = sample_fd_augment_params(2 * b, h, w, gen)
         pose_aug = self.cfg.pose_aug
@@ -194,9 +217,35 @@ class FDGANModel:
             erase = torch.randint(0, 18, (2 * b,), generator=gen, device=dev,
                                   dtype=torch.int32)
         noise = torch.randn((b, self.noise_size), generator=gen, device=dev)
-        return FDDraws(origin, sigma, erase, noise,
-                       torch.rand(2, generator=gen, device=dev),
-                       torch.rand(4, generator=gen, device=dev))
+        u_flip = torch.rand(2, generator=gen, device=dev)
+        u_smooth = torch.rand(4, generator=gen, device=dev)
+        masks = self.net_G.draw_masks(2 * b, gen) if self.net_G.dropout > 0.0 else None
+        return FDDraws(origin, sigma, erase, noise, u_flip, u_smooth, masks)
+
+    def local_draws(self, draws):
+        """The rank's rows of the whole batch's ``draws`` (the module's
+        docstring); ``draws`` itself without a mesh."""
+        mesh = self.mesh
+        if mesh is None:
+            return draws
+        masks = draws.masks
+
+        def halves(t):
+            return torch.cat([shard_batch(mesh, h) for h in t.chunk(2)])
+
+        return draws._replace(
+            origin=halves(draws.origin), sigma=halves(draws.sigma),
+            erase=halves(draws.erase), noise=shard_batch(mesh, draws.noise),
+            masks=None if masks is None else [halves(m) for m in masks])
+
+    def global_errors(self, errors):
+        """A step's losses (a dict of device scalars, or of stacked steps)
+        as the whole batch's: each the mean over the ranks, in one
+        reduction; ``errors`` itself without a mesh."""
+        if self.mesh is None:
+            return errors
+        return dict(zip(errors, all_reduce_mean(self.mesh, torch.stack(
+            [v.double() for v in errors.values()]))))
 
     # --------------------------------------------------------- preprocess
     def preprocess(self, batch1, batch2, draws):
@@ -259,11 +308,15 @@ class FDGANModel:
     def optimize_step(self, batch1, batch2, draws=None):
         """One Di → Dp → G iteration on host pair batches (``fdgan_pose``
         mode). Returns (errors, a dict of device scalars; the fake (2B, 3,
-        H, W), detached)."""
+        H, W), detached). Under a mesh the batches are the rank's rows,
+        ``draws`` the whole batch's, and the errors and the fake the
+        rank's."""
         cfg = self.cfg
+        mesh = self.mesh
         self._mark("start")
         if draws is None:
-            draws = self.sample_draws(len(batch1["pid"]))
+            draws = self.sample_draws(len(batch1["pid"]) * (mesh.world_size if mesh else 1))
+        draws = self.local_draws(draws)
         origin, target, posemap, labels, noise = self.preprocess(batch1, batch2, draws)
         self._mark("inputs (K14, K13)")
         b = labels.shape[0]
@@ -281,8 +334,7 @@ class FDGANModel:
         f2 = _run_base(e_base, origin[b:], stage2)
         with torch.set_grad_enabled(stage2):
             id_score = E.embed_model(f1, f2)
-        fake = G(posemap, torch.cat([f1, f2]), noise, masks=draws.masks,
-                 generator=self.generator)
+        fake = G(posemap, torch.cat([f1, f2]), noise, masks=draws.masks)
         fake_d = fake.detach()
         self._mark("E and G forward")
 
@@ -296,6 +348,7 @@ class FDGANModel:
 
         loss_Di = self._d_halves(lambda: di_logits(target), lambda: di_logits(fake_d),
                                  u_flip[0], u_sm[0], u_sm[1])
+        all_reduce_grads(mesh, Di.parameters())
         self.opt_Di.step()
         self._mark("Di step")
 
@@ -304,6 +357,7 @@ class FDGANModel:
         loss_Dp = self._d_halves(lambda: Dp(torch.cat([posemap, target], 1)),
                                  lambda: Dp(torch.cat([posemap, fake_d], 1)),
                                  u_flip[1], u_sm[2], u_sm[3])
+        all_reduce_grads(mesh, Dp.parameters())
         self.opt_Dp.step()
         self._mark("Dp step")
 
@@ -318,8 +372,13 @@ class FDGANModel:
             loss_r = torch.abs(fake - target).mean()
             mask_f = labels.to(fake.dtype)[:, None, None, None]
             num = torch.sum(torch.abs(fake[:b] - fake[b:]) * mask_f)
-            den = torch.clamp_min(torch.sum(mask_f) * fake[0].numel(), 1.0)
-            loss_sp = num / den
+            # a ratio of sums over the whole batch: the denominator counts
+            # every rank's positive pairs, and the rank's numerator is scaled
+            # by the mesh size, so that the ranks' mean (of the loss, and of
+            # its gradient after all_reduce_grads) is Σ_r num_r / den
+            den = torch.clamp_min(all_reduce_sum(mesh, torch.sum(mask_f)) * fake[0].numel(),
+                                  1.0)
+            loss_sp = num * (mesh.world_size if mesh else 1) / den
             pred_fake_di = Di.embed_model(o_feat_di, _run_base(Di.base_model, fake, True))
             pred_fake_dp = Dp(torch.cat([posemap, fake], 1))
             loss_gan_di = gan_loss_bce(pred_fake_di, True)
@@ -328,6 +387,7 @@ class FDGANModel:
                       loss_v * cfg.lambda_veri + loss_sp * cfg.lambda_sp)
             self.opt_G.zero_grad(set_to_none=True)
             loss_G.backward()
+            all_reduce_grads(mesh, [p for g in self.opt_G.param_groups for p in g["params"]])
             self.opt_G.step()
             self._mark("G step")
         finally:

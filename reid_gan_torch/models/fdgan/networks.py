@@ -25,8 +25,9 @@ NCHW in and out. Module names follow the flax modules (``en_conv1``,
   model.py:160-161).
 
 The generator's dropout (after ``de_avg`` and the four middle decoder
-blocks) draws its keep masks from an explicit ``torch.Generator``, or takes
-them given (``masks``), so a test can hand it the JAX step's.
+blocks) applies the keep masks it is given (``masks``: ``draw_masks``'s, or
+the JAX step's in a test); given none, the forward draws them with
+``draw_masks`` from an explicit ``torch.Generator``.
 """
 
 import torch
@@ -73,6 +74,7 @@ class CustomPoseGenerator(nn.Module):
         if fuse_mode not in ("cat", "add"):
             raise ValueError("fuse_mode must be cat|add")
         self.dropout = dropout
+        self.ngf, self.height, self.width = ngf, height, width
         self.fuse_mode = fuse_mode
         self.connect_layers = connect_layers
         k_avg = (height // 32, width // 32)
@@ -105,18 +107,27 @@ class CustomPoseGenerator(nn.Module):
                                                 bias=False)
         _gan_init(self)
 
-    def _drop(self, x, i, masks, generator):
+    def draw_masks(self, n, generator):
+        """The five keep masks of a batch of ``n``, drawn from ``generator``
+        in the order the forward applies them (after ``de_avg`` and each of
+        the four middle decoder blocks)."""
+        h, w, ngf = self.height // 32, self.width // 32, self.ngf
+        dev = self.de_avg_conv.weight.device
+        return [torch.rand((n, c, h << k, w << k), generator=generator, device=dev)
+                < 1.0 - self.dropout
+                for k, c in enumerate((ngf * 8, ngf * 8, ngf * 4, ngf * 2, ngf))]
+
+    def _drop(self, x, i, masks):
         """flax ``Dropout``: keep with p 1 − rate, scaled by 1 / (1 − rate)."""
-        if not self.training or self.dropout <= 0.0:
+        if masks is None:
             return x
-        keep_p = 1.0 - self.dropout
-        if masks is not None:
-            keep = masks[i]
-        else:
-            keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_p
-        return torch.where(keep, x / keep_p, 0.0)
+        return torch.where(masks[i], x / (1.0 - self.dropout), 0.0)
 
     def forward(self, posemap, reid_feature, noise, masks=None, generator=None):
+        if not self.training or self.dropout <= 0.0:
+            masks = None
+        elif masks is None:
+            masks = self.draw_masks(len(noise), generator)
         lrelu = lambda t: F.leaky_relu(t, 0.2)  # noqa: E731
         p = [self.en_conv1(posemap)]
         for i in range(2, 6):
@@ -130,14 +141,14 @@ class CustomPoseGenerator(nn.Module):
             feat = (self.W_reid(reid_feature) + self.W_pose(pose_feature[:, :, 0, 0]) +
                     self.W_noise(noise))[:, :, None, None]
         y = self.de_avg_bn(self.de_avg_conv(F.relu(feat)))
-        y = self._drop(y, 0, masks, generator)
+        y = self._drop(y, 0, masks)
         cn = self.connect_layers
         for i, (name, skip) in enumerate(zip(_DEC, p[:0:-1]), start=1):
             if cn > 0:
                 y = torch.cat([y, skip], dim=1)
                 cn -= 1
             y = getattr(self, f"{name}_bn")(getattr(self, f"{name}_conv")(F.relu(y)))
-            y = self._drop(y, i, masks, generator)
+            y = self._drop(y, i, masks)
         if cn > 0:
             y = torch.cat([y, p[0]], dim=1)
         return torch.tanh(self.de_conv1_conv(F.relu(y)))

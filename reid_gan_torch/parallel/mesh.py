@@ -384,14 +384,3 @@ def main_first(mesh, fn):
     mesh.barrier()
     return out if mesh.rank == 0 else fn()
 
-
-def refuse_mesh(what, mesh, device=None):
-    """``what`` has no data-mesh path yet: a ``Mesh``, or ``mesh=None`` for
-    a run on the card (``device``) with more than one card visible, raises
-    ``NotImplementedError`` naming it, before any work; ``mesh=False``
-    passes."""
-    if mesh is not False and (mesh is not None or
-                              (device is not None and wants_mesh(device))):
-        raise NotImplementedError(f"{what} under a data mesh of several cards is not "
-                                  f"ported yet; run on one card "
-                                  f"(CUDA_VISIBLE_DEVICES, or mesh=False)")

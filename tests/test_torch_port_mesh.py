@@ -3,11 +3,9 @@
 ``parallel/mesh.py`` on the conftest's virtual CPU devices (``get_mesh(4)``),
 on gloo meshes of four CPU processes (``torch_mesh_ranks.spawn``): the
 shards, the gathers and reductions, BatchNorm over the whole mesh batch,
-the swap of a net's BatchNorms, every pairing a mesh does not take yet,
-which raises before any work, and ``cli/test`` on four ranks against the JAX
-CLI on its mesh."""
-
-import os.path as osp
+the swap of a net's BatchNorms, every pairing past the checks that once
+refused a mesh, and ``cli/test`` on four ranks against the JAX CLI on its
+mesh."""
 
 import numpy as np
 import pytest
@@ -320,12 +318,22 @@ def test_assemble_rows_means_and_local_stats_on_four_ranks(tmp_path):
     assert got["n"] == 1
 
 
-def test_unported_mesh_pairings_raise_before_any_work(tmp_path):
-    """Under a mesh, each pairing without a mesh path raises
-    ``NotImplementedError`` naming it, before it writes anything: ``--fp16``
-    in the three training CLIs (the joint CLI in each of its modes) and in
-    the trainers (the GAN warm-up's too), ``--dsbn`` in the eval CLI,
-    FD-GAN's CLIs and engines, and the pair loaders."""
+class _Reached(Exception):
+    """Raised where a run gets to its first piece of work."""
+
+
+def test_ported_mesh_pairings_run_past_their_checks(tmp_path, monkeypatch):
+    """Under a mesh every pairing runs past the checks that used to refuse
+    it: each CLI gets to its dataset (``main_first``, stopped there) with
+    ``--fp16`` (the three training CLIs, the joint CLI in each of its
+    modes), with ``--dsbn`` (the eval CLI), and FD-GAN's two CLIs; the joint
+    trainer gets to its first batch in every mode, with fp32 and with bf16
+    nets; the bf16 USL trainer and the GAN warm-up trainer (fp32 and bf16)
+    are built and the warm-up gets to its first batch; ``SiameseTrainer``
+    gets to its first batch, ``FDGANModel`` is built in both stages, and
+    the pair loaders take a shard. A pair batch that the mesh size does not
+    divide raises ``ValueError`` naming both numbers before any work: in
+    both FD-GAN CLIs and in the pair loaders."""
     from reid_gan_torch.cli import (
         fdgan_baseline,
         fdgan_train,
@@ -338,76 +346,14 @@ def test_unported_mesh_pairings_raise_before_any_work(tmp_path):
     from reid_gan_torch.data.loader import DataLoader, Preprocessor
     from reid_gan_torch.engine.fdgan import SiameseTrainer
     from reid_gan_torch.engine.gan_trainers import (
-        ClusterContrastWithGANTrainer,
-        GANTrainer,
-    )
-    from reid_gan_torch.engine.trainers import ClusterContrastTrainer
-    from reid_gan_torch.models import create
-    from reid_gan_torch.models.dual_gan.ae_model import AEModel
-    from reid_gan_torch.models.fdgan.model import FDGANModel
-
-    mesh = _fake_mesh(0, 2)
-    logs = tmp_path / "logs"
-    base = ["--dataset", "synthetic", "--data-dir", str(tmp_path / "d"), "--arch",
-            "resnet18", "--logs-dir", str(logs), "--device", "cpu"]
-    cases = [
-        (train_usl, ["--fp16"], "--fp16"),
-        (test, ["--dsbn", "--resume", "x.msgpack"], "--dsbn"),
-        (train_gan_usl, ["--model-gen", "Pose", "--fp16"], "--fp16"),
-        (train_gan_usl, ["--model-gen", "AE", "--no-gan-train", "--fp16"], "--fp16"),
-        (train_gan_usl, ["--model-gen", "AE", "--arch", "resnet_bip50", "--bipath",
-                         "--fp16"], "--fp16"),
-        (train_gan_usl, ["--model-gen", "Pose", "--learnable-memory", "--fp16"],
-         "--fp16"),
-        (train_gan_warmup, ["--model-gen", "AE", "--fp16"], "--fp16"),
-        (fdgan_baseline, [], "cli/fdgan_baseline"),
-        (fdgan_train, ["--stage", "1"], "cli/fdgan_train"),
-    ]
-    for cli, extra, what in cases:
-        with pytest.raises(NotImplementedError, match=what):
-            cli.main(base + extra, mesh=mesh)
-        assert not logs.exists() and not (tmp_path / "d").exists(), (cli, extra)
-
-    with pytest.raises(NotImplementedError, match="--fp16"):
-        ClusterContrastTrainer(create("resnet18", dtype=torch.bfloat16), device="cpu",
-                               mesh=mesh)
-    kw = dict(gan_height=16, gan_width=8, num_feats=32, ngf=8, reid_feat_dim=512,
-              device="cpu")
-    bf16 = AEModel(GANConfig(model="AE", model_gen="AE"), dtype=torch.bfloat16, **kw)
-    with pytest.raises(NotImplementedError, match="--fp16"):
-        ClusterContrastWithGANTrainer(create("resnet18"), bf16, height=32, width=16,
-                                      device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="--fp16"):
-        GANTrainer(bf16, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="SiameseTrainer"):
-        SiameseTrainer(create("resnet18"), device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="FDGANModel"):
-        FDGANModel(FDGANConfig(), device="cpu", mesh=mesh)
-    for mode in ("pair", "fdgan_pose"):
-        with pytest.raises(NotImplementedError, match=f"'{mode}' loader"):
-            DataLoader(Preprocessor([], mode=mode), shard=mesh)
-    assert not osp.exists(tmp_path / "d")
-
-
-class _Reached(Exception):
-    """Raised where a run gets to its first piece of work."""
-
-
-def test_ported_mesh_pairings_run_past_their_checks(tmp_path, monkeypatch):
-    """Under a mesh the joint CLI's hard-mix, bip, learnable-memory and
-    WGAN-GP pairings and the GAN warm-up no longer raise before work: each
-    CLI gets to its dataset (``main_first``, stopped there), the joint
-    trainer to its first batch in every mode, and the warm-up trainer is
-    built and gets to its first batch."""
-    from reid_gan_torch.cli import train_gan_usl, train_gan_warmup
-    from reid_gan_torch.config import GANConfig
-    from reid_gan_torch.engine.gan_trainers import (
         MODES,
         ClusterContrastWithGANTrainer,
         GANTrainer,
     )
-    from reid_gan_torch.models import create
+    from reid_gan_torch.engine.trainers import ClusterContrastTrainer
+    from reid_gan_torch.models import create, siamese_baseline
     from reid_gan_torch.models.dual_gan.ae_model import AEModel
+    from reid_gan_torch.models.fdgan.model import FDGANModel
 
     def reached(*args, **kwargs):
         raise _Reached
@@ -416,37 +362,77 @@ def test_ported_mesh_pairings_run_past_their_checks(tmp_path, monkeypatch):
     base = ["--dataset", "synthetic", "--data-dir", str(tmp_path / "d"), "--arch",
             "resnet18", "--device", "cpu"]
     cases = [
+        (train_usl, ["--fp16"]),
+        (test, ["--dsbn", "--resume", "x.msgpack"]),
+        (train_gan_usl, ["--model-gen", "Pose", "--fp16"]),
         (train_gan_usl, ["--model-gen", "AE", "--no-gan-train"]),
+        (train_gan_usl, ["--model-gen", "AE", "--no-gan-train", "--fp16"]),
         (train_gan_usl, ["--model-gen", "AE", "--arch", "resnet_bip50", "--bipath"]),
+        (train_gan_usl, ["--model-gen", "AE", "--arch", "resnet_bip50", "--bipath",
+                         "--fp16"]),
         (train_gan_usl, ["--model-gen", "Pose", "--learnable-memory"]),
+        (train_gan_usl, ["--model-gen", "Pose", "--learnable-memory", "--fp16"]),
         (train_gan_usl, ["--model-gen", "Pose", "--gan-mode", "wgangp"]),
         (train_gan_warmup, ["--model-gen", "AE"]),
+        (train_gan_warmup, ["--model-gen", "AE", "--fp16"]),
         (train_gan_warmup, ["--model-gen", "AE", "--gan-mode", "wgangp"]),
+        (fdgan_baseline, []),
+        (fdgan_train, ["--stage", "1"]),
+        (fdgan_train, ["--stage", "2"]),
     ]
     for i, (cli, extra) in enumerate(cases):
-        monkeypatch.setattr(cli, "main_first", reached)
+        # the FD-GAN CLIs load their dataset through fdgan_baseline's main
+        monkeypatch.setattr(fdgan_baseline if cli is fdgan_train else cli, "main_first",
+                            reached)
         with pytest.raises(_Reached):
             cli.main(base + extra + ["--logs-dir", str(tmp_path / f"logs{i}")], mesh=mesh)
+    for cli in (fdgan_baseline, fdgan_train):
+        logs = tmp_path / f"odd_{cli.__name__}"
+        with pytest.raises(ValueError, match="a pair batch of 7 does not split over a "
+                                             "mesh of 2 ranks"):
+            cli.main(base + ["-b", "7", "--logs-dir", str(logs)], mesh=mesh)
+        assert not logs.exists()
     assert not (tmp_path / "d").exists()
 
     class Loader:
         def next(self):
             raise _Reached
 
-    for gen, gan_mode in (("AE", "lsgan"), ("Pose", "wgangp")):
-        gan = AEModel(GANConfig(model="AE", model_gen=gen, gan_mode=gan_mode),
-                      gan_height=16, gan_width=8, num_feats=32, ngf=8, reid_feat_dim=512,
-                      device="cpu")
-        trainer = ClusterContrastWithGANTrainer(create("resnet18"), gan, height=32,
-                                                width=16, device="cpu", mesh=mesh)
+        def __iter__(self):
+            raise _Reached
+
+    kw = dict(gan_height=16, gan_width=8, num_feats=32, ngf=8, reid_feat_dim=512,
+              device="cpu")
+    for gen, gan_mode, dtype in (("AE", "lsgan", None), ("Pose", "wgangp", None),
+                                 ("AE", "lsgan", torch.bfloat16),
+                                 ("Pose", "lsgan", torch.bfloat16)):
+        gan = AEModel(GANConfig(model="AE", model_gen=gen, gan_mode=gan_mode), dtype=dtype,
+                      **kw)
+        trainer = ClusterContrastWithGANTrainer(create("resnet18", dtype=dtype), gan,
+                                                height=32, width=16, device="cpu",
+                                                mesh=mesh)
         for mode in MODES:
             with pytest.raises(_Reached):
                 trainer.run_epoch(None, 0, Loader(), mode=mode, gmem=object())
-    warm = GANTrainer(gan, device="cpu", mesh=mesh)
-    monkeypatch.setattr("reid_gan_torch.engine.gan_trainers.replicate",
-                        lambda m, tree: tree)
+    ClusterContrastTrainer(create("resnet18", dtype=torch.bfloat16), device="cpu", mesh=mesh)
+    for module in ("engine.gan_trainers", "engine.fdgan", "models.fdgan.model"):
+        monkeypatch.setattr(f"reid_gan_torch.{module}.replicate", lambda m, tree: tree)
+    for dtype in (None, torch.bfloat16):
+        gan = AEModel(GANConfig(model="AE", model_gen="AE"), dtype=dtype, **kw)
+        warm = GANTrainer(gan, device="cpu", mesh=mesh)
+        with pytest.raises(_Reached):
+            warm.train_gan(gan.init_state(), 0, Loader(), train_iters=1)
+    siamese = SiameseTrainer(siamese_baseline(depth=18), device="cpu", mesh=mesh)
     with pytest.raises(_Reached):
-        warm.train_gan(gan.init_state(), 0, Loader(), train_iters=1)
+        siamese.train(0, Loader())
+    for stage in (1, 2):
+        assert FDGANModel(FDGANConfig(stage=stage), height=64, width=32, depth=18,
+                          device="cpu", mesh=mesh).mesh is mesh
+    for mode in ("pair", "fdgan_pose"):
+        assert DataLoader(Preprocessor([], mode=mode), batch_size=64, shard=mesh).shard \
+            is mesh
+        with pytest.raises(ValueError, match="a pair batch of 63 does not split"):
+            DataLoader(Preprocessor([], mode=mode), batch_size=63, shard=mesh)
 
 
 @pytest.mark.parametrize("rerank", [False, True], ids=["plain", "rerank"])

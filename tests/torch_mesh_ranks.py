@@ -167,12 +167,34 @@ def cli_main(mesh, cli, argv, out_dir):
     import importlib
 
     mod = importlib.import_module(f"reid_gan_torch.cli.{cli}")
-    writers = [n for n in ("Logger", "dump_config", "save_checkpoint", "save_networks",
-                           "Visualizer") if hasattr(mod, n)]
-    _record_writes(mod, mesh.rank, out_dir, writers)
-    out = mod.main(argv, mesh=mesh)
-    # the warm-up returns its nets and optimisers: their step count goes back
-    return out.step if hasattr(out, "step") else out
+    # fdgan_train opens its log and writes its options through fdgan_baseline
+    mods = [mod] + ([importlib.import_module("reid_gan_torch.cli.fdgan_baseline")]
+                    if cli == "fdgan_train" else [])
+    for m in mods:
+        writers = [n for n in ("Logger", "dump_config", "save_checkpoint", "save_networks",
+                               "Visualizer") if hasattr(m, n)]
+        _record_writes(m, mesh.rank, out_dir, writers)
+    return _steps(mod.main(argv, mesh=mesh))
+
+
+def _steps(out):
+    """What a CLI's ``main`` returned, or, for the warm-up's state and
+    FD-GAN's engine, the number of steps it took (G's Adam step count)."""
+    if hasattr(out, "step"):
+        return out.step
+    if hasattr(out, "opt_G"):
+        return int(next(iter(out.opt_G.state.values()))["step"])
+    return out
+
+
+def cli_alone(mesh, cli, argv):
+    """``reid_gan_torch.cli.<cli>.main(argv, mesh=False)`` in a spawned
+    process of its own (``mesh`` is a group of one, unused), so that it
+    sees the environment the ranks of a ``spawn`` see. Returns what
+    ``cli_main`` returns."""
+    import importlib
+
+    return _steps(importlib.import_module(f"reid_gan_torch.cli.{cli}").main(argv, mesh=False))
 
 
 def joint_step(mesh, enc_state, gan_states, bank, gan_bank, batch, conf, seed,
@@ -375,3 +397,102 @@ def mesh_pieces(mesh, x, rows, bn_in):
             "y": y.detach().numpy(), "rm": net[0].running_mean.numpy(),
             "rv": net[0].running_var.numpy(),
             "n": int(net[0].num_batches_tracked)}
+
+
+def siamese_step(mesh, state_dict, img1, img2, targets, p1, p2):
+    """One fp64 ``SiameseTrainer`` step (depth 18) on the rank's rows of the
+    uint8 pair halves and targets, with the whole batch's K14 draws ``p1``,
+    ``p2``. Returns rank 0's: the loss (the ranks' mean), the logits of
+    every rank in order, the gradients SGD took (averaged over the ranks),
+    the state dict after the step and the class of each BatchNorm."""
+    from reid_gan_torch.engine.fdgan import SiameseTrainer
+    from reid_gan_torch.models.multi_branch import siamese_baseline
+    from reid_gan_torch.parallel import all_gather_rows, all_reduce_mean, shard_batch
+
+    model = _load(siamese_baseline(depth=18).double(), state_dict)
+    trainer = SiameseTrainer(model, lr=0.01, momentum=0.9, weight_decay=5e-4, device="cpu",
+                             mesh=mesh)
+    i1, i2, t = (torch.from_numpy(shard_batch(mesh, a)) for a in (img1, img2, targets))
+    loss, logits = trainer.step(i1, i2, t, torch.from_numpy(p1), torch.from_numpy(p2))
+    return {"loss": float(all_reduce_mean(mesh, loss)),
+            "logits": all_gather_rows(mesh, logits).numpy(),
+            "grads": {n: p.grad.numpy() for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "state": _numpy_state(model),
+            "norms": sorted({type(m).__name__ for m in model.modules()
+                             if "BatchNorm" in type(m).__name__})}
+
+
+def _pair_rows(mesh, t):
+    """Every rank's rows of a pair tensor (the rank's ``[b1 rows; b2
+    rows]``) in the whole batch's ``[b1; b2]`` order."""
+    from reid_gan_torch.parallel import all_gather_rows
+
+    g = all_gather_rows(mesh, t)
+    return g.reshape(mesh.world_size, 2, -1, *t.shape[1:]).transpose(0, 1).reshape(g.shape)
+
+
+def fdgan_step(mesh, spec):
+    """One fp64 ``FDGANModel`` step (depth 18) at ``spec["size"]`` with
+    ``spec["cfg"]``'s config, from the state dicts ``spec["nets"]``, on the
+    rank's rows of the whole pair batches ``b1``, ``b2`` with the whole
+    batch's draws ``spec["draws"]`` (an ``FDDraws``'s fields; without
+    masks, G draws them from the model's generator, seeded by
+    ``spec["seed"]``). ``mesh`` None runs one process on the whole batch.
+    Returns rank 0's: the losses (the whole batch's), the fake in the
+    batch's order, each net's gradients (as its optimiser took them) and
+    state dict."""
+    from reid_gan_torch.config import FDGANConfig
+    from reid_gan_torch.models.fdgan.model import FDDraws, FDGANModel
+    from reid_gan_torch.parallel import shard_batch
+
+    h, w = spec["size"]
+    model = FDGANModel(FDGANConfig(**spec["cfg"]), height=h, width=w, depth=18, device="cpu",
+                       seed=spec["seed"], mesh=mesh)
+    nets = model.nets()
+    for name, net in nets.items():
+        _load(net.double(), spec["nets"][name])
+    draws = FDDraws(**{k: [torch.from_numpy(m) for m in v] if k == "masks"
+                       else torch.from_numpy(v) for k, v in spec["draws"].items()})
+    b1, b2 = (spec[k] if mesh is None else shard_batch(mesh, spec[k]) for k in ("b1", "b2"))
+    errors, fake = model.optimize_step(b1, b2, draws)
+    return {"errors": {k: float(v) for k, v in model.global_errors(errors).items()},
+            "fake": (fake if mesh is None else _pair_rows(mesh, fake)).numpy(),
+            "grads": {n: {k: p.grad.numpy() for k, p in net.named_parameters()
+                          if p.grad is not None} for n, net in nets.items()},
+            "state": {n: _numpy_state(net) for n, net in nets.items()}}
+
+
+def bf16_usl_update(mesh, state_dict, bank, x, pid, height, width, num_instances, k_pad):
+    """``ClusterContrastTrainer.update`` of the bf16 resnet18 (``--fp16``)
+    on the rank's rows of the augmented fp32 batch ``x`` (NCHW; the whole
+    batch's labels ``pid``), from ``state_dict``'s weights and the bank.
+    Returns rank 0's loss (the ranks' mean), the gradients Adam took, and
+    checks of the bf16 path under the mesh: the BatchNorms' classes, every
+    gradient's dtype, and the dtype of the gradient that the first
+    BatchNorm hands back to its convolution."""
+    from reid_gan_torch.engine.trainers import ClusterContrastTrainer
+    from reid_gan_torch.models.precision import set_compute_dtype
+    from reid_gan_torch.ops.cluster_memory import init_memory
+    from reid_gan_torch.parallel import shard_batch
+
+    model = set_compute_dtype(_resnet18(state_dict), torch.bfloat16)
+    trainer = ClusterContrastTrainer(model, height=height, width=width,
+                                     num_instances=num_instances, device="cpu", mesh=mesh)
+    seen = {}
+
+    def note(module, grad_in, grad_out):
+        seen.setdefault("conv1_out_grad", grad_out[0].dtype)
+
+    model.conv1.register_full_backward_hook(note)
+    state = trainer.init_state(init_memory(bank, k_pad=k_pad, device="cpu"))
+    _, loss = trainer.update(state, torch.from_numpy(shard_batch(mesh, x)),
+                             torch.from_numpy(pid))
+    return {"loss": float(loss),
+            "grads": {n: p.grad.numpy() for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "grad_dtypes": sorted({str(p.grad.dtype) for p in model.parameters()
+                                   if p.grad is not None}),
+            "norms": sorted({type(m).__name__ for m in model.modules()
+                             if "BatchNorm" in type(m).__name__}),
+            **{k: str(v) for k, v in seen.items()}}
