@@ -299,12 +299,24 @@ the script exits non-zero without printing a result:
    images and 128 + 384 eval images in memory with landmark files on disk.
    Launch counts are zeroed just before and read just after: K1, K3, K13
    and K14 must have launched;
-18. a JSON line with every kernel's launches (the sum over the two whole
+18. the learning and scale checks (``[validate]``, after ``[cuhk03]``):
+   the ``main`` of each ``scripts/torch_validate_*.py`` at its own sizes:
+   ``cli/train_usl.run`` on the synthetic set (best mAP > 0.5),
+   ``cli/train_gan_usl.run`` on it (best mAP > 0.5, ``latest_net_G.pth``
+   written), the Jaccard build at 12,936 rows (< 23 s) and ``--fp16``
+   ``cli/train_usl.run`` on the hard set of 500 ids x 26 (first mAP < 0.6,
+   best ≥ first + 0.10, best > 0.5), and the clustering phase at MSMT17's
+   32,621 rows (Jaccard fp32 and fp16, DBSCAN, Infomap, each < 146 s; the
+   bank step at the DBSCAN cluster count held against its plain version, <
+   1 s; peak RSS < 24 GB), the last in a process of its own, as the JAX
+   script runs alone. Launch counts are zeroed before each script and read
+   after; K6 and K8 must launch;
+19. a JSON line with every kernel's launches (the sum over the two whole
    joint loops, phases 13 and 14, ``[gan_clusters]``, ``[vgg_joint]``'s two
    epochs, the ``run()`` epochs of ``[bip_joint]`` and ``[memory_joint]``,
    ``[ddp]``'s ``run()`` epochs,
    ``[fp16_usl]``, ``[msgpack]``, the FD-GAN chain, phase 17,
-   ``[cuhk03]`` and the headline recipe's loop, phase 8), error,
+   ``[cuhk03]``, ``[validate]`` and the headline recipe's loop, phase 8), error,
    times and bound; K5's and K6's entries carry ``forward_ms``,
    ``backward_ms`` and ``autograd_ms`` (``ms`` is forward + backward;
    ``autograd_ms`` adds autograd's accumulation into ``x.grad``), K6's
@@ -316,11 +328,12 @@ the script exits non-zero without printing a result:
    time at 32,621 rows (``n32621_ms``), its fp32 FMA bound
    (``bound_fp32_ms``) and the fp32 ``torch.matmul`` of the product alone
    (``matmul_fp32_ms``, context, not a library version of K8);
-19. the last line: ``{"ok": true, "device": {...}}``.
+20. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 import functools
 import importlib
+import importlib.util
 import inspect
 import json
 import os
@@ -1500,21 +1513,12 @@ def phase_main_path(counts, arch="resnet50", label="main", dtype=None):
     return n_img / ext
 
 
-class _InMemoryImages:
-    """Stands in for the loader's decode cache: file name → a staged uint8
-    image of a numpy array (``imgs`` at the re-ID size, ``gan_imgs`` at the
-    GAN size) and the original size ``old_size``. The index is the name's
-    last ``_`` field. Budget 0, so the loader gathers per item."""
-    budget = 0
+def _in_memory_images(imgs, gan_imgs=None, old_size=(256.0, 128.0)):
+    """The loader's image source of staged arrays
+    (``reid_gan_torch.data.in_memory.InMemoryImages``)."""
+    from reid_gan_torch.data.in_memory import InMemoryImages
 
-    def __init__(self, imgs, gan_imgs=None, old_size=(256.0, 128.0)):
-        self.imgs, self.gan_imgs = imgs, gan_imgs
-        self.old_size = np.asarray(old_size, np.float32)
-
-    def get(self, fpath, height, width):
-        i = int(os.path.basename(fpath).split(".")[0].rsplit("_", 1)[-1])
-        src = self.imgs if height == self.imgs.shape[1] else self.gan_imgs
-        return src[i], self.old_size
+    return InMemoryImages(imgs, gan_imgs, old_size)
 
 
 @functools.lru_cache(maxsize=1)
@@ -1627,7 +1631,7 @@ def phase_train(counts, arch="resnet50", use_hard=False, label="train"):
                                      num_instances=16, device="cuda")
     state = trainer.init_state(memory)
     loader = make_train_loader(items, 256, 128, 256, 16, workers=4, iters=400,
-                               seed=1, cache=_InMemoryImages(imgs))
+                               seed=1, cache=_in_memory_images(imgs))
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if p.requires_grad}
     print(f"[{label}] {arch}, {'hard' if use_hard else 'plain'} fold; set-up (data "
@@ -1891,7 +1895,7 @@ def phase_variants():
                                          device="cuda")
         state = trainer.init_state(init_memory(centers, k_pad=bank_rows(n_ids), device="cuda"))
         loader = make_train_loader(items, 256, 128, 256, 16, workers=4, iters=400, seed=1,
-                                   cache=_InMemoryImages(imgs))
+                                   cache=_in_memory_images(imgs))
         before = {n: p.detach().clone() for n, p in model.named_parameters()
                   if p.requires_grad}
         torch.cuda.reset_peak_memory_stats()
@@ -2016,7 +2020,7 @@ def phase_usl(counts, arch="resnet50", use_hard=False, label="usl", fp16=False):
 
     t_phase = time.perf_counter()
     dataset, imgs = _usl_set()
-    cache = _InMemoryImages(imgs)
+    cache = _in_memory_images(imgs)
     cfg = Config()                     # the recipe: eps 0.4, min_samples 4, k1 30, k2 6
     cfg.model.arch, cfg.cluster.use_hard, cfg.train.fp16 = arch, use_hard, fp16
     cfg.data.workers = 4
@@ -2287,7 +2291,7 @@ def _joint_trainer(gan_bank=False, iters=400, seed=1, use_vgg=False, dtype=None,
     with tempfile.TemporaryDirectory() as tmp:   # the loader reads the CSV at once
         loader = make_train_loader(
             items, 256, 128, 256, 16, workers=4, iters=iters, seed=seed,
-            cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]), mode="with_gan",
+            cache=_in_memory_images(imgs, imgs[:, ::2, ::2]), mode="with_gan",
             gan_height=128, gan_width=64, flip_all=True,
             pose_file=_write_pose_csv(items, os.path.join(tmp, "poses.csv"), 12))
     return trainer, state, loader
@@ -2423,7 +2427,7 @@ def phase_joint_run(counts, label="joint", iters=20, vgg_weights=None, flags=Non
         try:
             t0 = time.perf_counter()
             best = train_gan_usl.run(cfg, dataset, device="cuda",
-                                     image_cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+                                     image_cache=_in_memory_images(imgs, imgs[:, ::2, ::2]))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -2476,7 +2480,7 @@ def _hardmix_trainer(items, imgs):
     trainer = ClusterContrastWithGANTrainer(model, gan, height=256, width=128,
                                             num_instances=16, device="cuda")
     loader = make_train_loader(items, 256, 128, 256, 16, workers=4, iters=400, seed=1,
-                               cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]),
+                               cache=_in_memory_images(imgs, imgs[:, ::2, ::2]),
                                mode="with_gan", gan_height=128, gan_width=64,
                                flip_all=True)
     return trainer, trainer.init_state(memory, gan.init_state()), loader
@@ -2751,7 +2755,7 @@ def phase_warmup():
     gan = create_gan(GANConfig(model="AE", model_gen="AE"), gan_height=128, gan_width=64,
                      device="cuda")
     pre = Preprocessor(items, mode="only_gan", gan_height=128, gan_width=64,
-                       cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+                       cache=_in_memory_images(imgs, imgs[:, ::2, ::2]))
     it = IterLoader(DataLoader(pre, batch_size=256, shuffle=True, num_workers=4,
                                drop_last=True, seed=1))
     it.new_epoch()
@@ -2815,7 +2819,7 @@ def phase_hardmix_run(counts):
 
     t_phase = time.perf_counter()
     dataset, imgs = _usl_set()
-    cache = _InMemoryImages(imgs, imgs[:, ::2, ::2])
+    cache = _in_memory_images(imgs, imgs[:, ::2, ::2])
     cfg = Config()                   # the DBSCAN recipe: eps 0.4, min_samples 4, k1 30, k2 6
     cfg.data.workers = 4
     cfg.gan.model, cfg.gan.model_gen, cfg.gan.gan_train = "AE", "AE", False
@@ -3030,7 +3034,7 @@ def phase_gan_clusters(counts):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             best = train_gan_usl.run(cfg, dataset, device="cuda",
-                                     image_cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+                                     image_cache=_in_memory_images(imgs, imgs[:, ::2, ::2]))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -3654,7 +3658,7 @@ def _ddp_step(mesh, warm=5, dtype=None):
     items, imgs = _pseudo_set()
     shards = (mesh, None) if dtype is None else (mesh, None, None)
     loaders = [make_train_loader(items, 256, 128, 256, 16, workers=4, iters=20, seed=1,
-                                 cache=_InMemoryImages(imgs), shard=shard)
+                                 cache=_in_memory_images(imgs), shard=shard)
                for shard in shards]
     sides = [_ddp_trainer(mesh, dtype), _ddp_trainer(None, dtype) if mesh.rank == 0 else None]
     if dtype is not None:
@@ -3923,7 +3927,7 @@ def _ddp_gan_modes(mesh, warm=3):
     with tempfile.TemporaryDirectory() as tmp:   # the loader reads the CSV at once
         loader = make_train_loader(
             items, 256, 128, 256, 16, workers=4, iters=2 + 4 * (warm + 1), seed=3,
-            cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]), mode="with_gan",
+            cache=_in_memory_images(imgs, imgs[:, ::2, ::2]), mode="with_gan",
             gan_height=128, gan_width=64, flip_all=True,
             pose_file=_write_pose_csv(items, os.path.join(tmp, "poses.csv"), 15))
     batches = [loader.next() for _ in range(2 + 4 * (warm + 1))]
@@ -4191,7 +4195,7 @@ def _ddp_fd(mesh, warm=1):
 
     with tempfile.TemporaryDirectory() as tmp:
         ds, imgs = _fd_set(tmp, seed=9, n_ids=64, per_id=8, n_query=128, n_gallery=384)
-        cache = _InMemoryImages(imgs)
+        cache = _in_memory_images(imgs)
 
         def batches(mode, n, seed):
             kw = dict(pid_imgs=ds.pid_imgs, pose_root=ds.poses_dir) \
@@ -4333,7 +4337,7 @@ def _ddp_dsbn(mesh):
 
     batches, query, gallery = _eval_set()
     dataset = SimpleNamespace(query=query, gallery=gallery)
-    cache = _InMemoryImages(np.concatenate([b["img"] for b in batches]))
+    cache = _in_memory_images(np.concatenate([b["img"] for b in batches]))
     torch.manual_seed(0)
     tree = flax_variables_from_model(create("resnet50"))
     rng = np.random.default_rng(6)
@@ -4399,7 +4403,7 @@ def _ddp_runs(mesh):
 
     dataset, imgs = _usl_set(n_train=2048, ids=128, n_query=256, n_gallery=768,
                              eval_ids=64)
-    cache = _InMemoryImages(imgs, imgs[:, ::2, ::2])
+    cache = _in_memory_images(imgs, imgs[:, ::2, ::2])
 
     def config(logs):
         cfg = Config()
@@ -4437,7 +4441,7 @@ def _ddp_runs(mesh):
         usl = config(os.path.join(tmp, "usl"))
         best_usl = counted("cli/train_usl.run", DDP_RUN_OFF + (
             "gan_input", "pose_maps", "gan_feat_l2n"), lambda: train_usl.run(
-                usl, dataset, image_cache=_InMemoryImages(imgs), mesh=mesh))
+                usl, dataset, image_cache=_in_memory_images(imgs), mesh=mesh))
         print(f"[ddp] cli/train_usl.run: best mAP {best_usl:.4f}")
         saved, bests = [], {}
         for label, flags, off in DDP_RUNS:
@@ -4499,7 +4503,7 @@ def _ddp_fd_chain(mesh, root, counted):
     from reid_gan_torch.parallel import broadcast_object
 
     ds, imgs = _fd_set(root, seed=13, n_ids=32, per_id=8, n_query=64, n_gallery=192)
-    cache = _InMemoryImages(imgs)
+    cache = _in_memory_images(imgs)
     root = broadcast_object(mesh, root)
     cfg = Config()
     cfg.data.workers, cfg.data.batch_size = 4, 256
@@ -4559,7 +4563,7 @@ def phase_vgg_warmup():
     gan = create_gan(GANConfig(model="AE", model_gen="AE", use_vgg=True), gan_height=128,
                      gan_width=64, device="cuda")
     pre = Preprocessor(items, mode="only_gan", gan_height=128, gan_width=64,
-                       cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+                       cache=_in_memory_images(imgs, imgs[:, ::2, ::2]))
     it = IterLoader(DataLoader(pre, batch_size=256, shuffle=True, num_workers=4,
                                drop_last=True, seed=2))
     it.new_epoch()
@@ -5050,7 +5054,7 @@ def phase_fd_stage1(counts, fd_set, root, batch=256):
     torch.manual_seed(0)
     model = siamese_baseline(50)
     trainer = SiameseTrainer(model, lr=0.01, step_size=40, device="cuda", seed=0)
-    cache = _InMemoryImages(imgs)
+    cache = _in_memory_images(imgs)
 
     def loader(epoch):
         pre = Preprocessor(ds.train, mode="pair", seed=epoch, cache=cache)
@@ -5138,7 +5142,7 @@ def _fd_pair_loader(ds, imgs, batch, seed):
     from reid_gan_torch.data.sampler import RandomPairSampler
 
     pre = Preprocessor(ds.train, mode="fdgan_pose", pid_imgs=ds.pid_imgs,
-                       pose_root=ds.poses_dir, seed=seed, cache=_InMemoryImages(imgs))
+                       pose_root=ds.poses_dir, seed=seed, cache=_in_memory_images(imgs))
     it = IterLoader(DataLoader(pre, sampler=RandomPairSampler(ds.train, seed=seed),
                                batch_size=batch, num_workers=4, drop_last=True))
     it.new_epoch()
@@ -5252,7 +5256,7 @@ def phase_fd_chain(counts, root, batch=256):
 
     t_phase = time.perf_counter()
     ds, imgs = _fd_set(root, seed=5, n_ids=64, per_id=8, n_query=128, n_gallery=384)
-    cache = _InMemoryImages(imgs)
+    cache = _in_memory_images(imgs)
     cfg = Config()
     cfg.data.workers, cfg.data.batch_size = 4, batch
     cfg.optim.lr, cfg.optim.step_size = 0.01, 40
@@ -5299,13 +5303,139 @@ def phase_fd_chain(counts, root, batch=256):
     print(f"[fd_chain] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+def _validate_path(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        f"torch_validate_{name}.py")
+
+
+def _validate_script(name):
+    """``scripts/torch_validate_<name>.py`` of this checkout, as a module."""
+    spec = importlib.util.spec_from_file_location(f"torch_validate_{name}",
+                                                  _validate_path(name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _msmt_alone():
+    """``torch_validate_msmt_scale.py`` in a process of its own, as the JAX
+    script runs (its RSS bound is of a process that runs the phase alone,
+    not of one that ran the smoke's phases before): its output, and its
+    results from its last line, the phase's launches among them."""
+    proc = subprocess.run([sys.executable, _validate_path("msmt_scale"), "--device", "cuda"],
+                          capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="")
+    print(proc.stderr[-4000:], end="", file=sys.stderr)
+    check(proc.returncode == 0, f"the MSMT-scale check failed (exit {proc.returncode})")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _msmt_kernel_times(report, bank_k):
+    """K8's inner-product kNN (k 15, Infomap's graph) on the MSMT check's
+    32,621 features and K6 against a bank of ``bank_k`` rows padded as the
+    CLIs pad it (the DBSCAN cluster count of the check), each held against
+    its plain version at the tolerances of ``check_k8`` and ``check_k6``,
+    then timed; the times join K8's and K6's entries of the kernels line."""
+    from reid_gan_torch.engine.usl import bank_rows
+    from reid_gan_torch.ops.cluster_memory import memory_loss, memory_loss_plain
+    from reid_gan_torch.ops.distance import knn_search_plain, knn_topk_cuda
+
+    f = torch.from_numpy(_validate_script("msmt_scale").make_feats(32621)).cuda()
+    n, dim = f.shape
+    vals, idx = (t.cpu().numpy() for t in knn_topk_cuda(f, 15, "ip"))
+    pv, pi = knn_search_plain(f, 15, "ip")
+    err = float(np.abs(vals - pv).max())
+    rows, gap = _swap_gap(f, idx, pv, pi, "ip")
+    print(f"[validate] K8 ip N {n} D {dim} k 15: vals max_abs_err {err:.3g} (tol 2e-05); "
+          f"{rows.size} swapped entries, largest plain-side gap {gap:.3g} (tol 2e-05)")
+    check(err <= 2e-5 and gap <= 2e-5, "K8 ip at N 32,621 differs from plain")
+    ms = device_ms(lambda: knn_topk_cuda(f, 15, "ip"), reps=3)
+    b, by, _ = _k8_bound(n, dim, 15)
+    print(f"[validate] K8 ip k 15 at N {n}: ms {ms:.4f} bound_ms {b:.4f} ({by}, 3xTF32)")
+    report.setdefault("knn_topk", {}).update(n32621_ip_ms=ms, n32621_ip_bound_ms=b)
+    del f
+
+    k_pad = bank_rows(bank_k)
+    state, y, x0, _ = _k6_inputs(k_pad, bank_k, 21)
+
+    def run(fn):
+        x = x0.detach().requires_grad_(True)
+        loss, logits = fn(x, y, state)
+        loss.mean().backward()
+        return loss, logits, x.grad
+
+    (loss, logits, dx), (loss_r, logits_r, dx_r) = run(memory_loss), run(memory_loss_plain)
+    e = (float((logits[:, :bank_k] - logits_r[:, :bank_k]).abs().max()),
+         float((loss - loss_r).abs().max()), float((dx - dx_r).abs().max()))
+    print(f"[validate] K6 K_pad {k_pad} num_valid {bank_k}: max_abs_err logits {e[0]:.3g}, "
+          f"loss {e[1]:.3g} (tol 0.0001), dx {e[2]:.3g} (tol 1e-06)")
+    check(e[0] <= 1e-4 and e[1] <= 1e-4 and e[2] <= 1e-6,
+          "K6 at the MSMT bank differs from plain")
+    t = _time_k6(f"K_pad {k_pad} (the MSMT bank)", state, y, x0)
+    report.setdefault("infonce", {}).update({f"msmt_bank_{k}": v for k, v in t.items()})
+
+
+def phase_validate(counts, root, report):
+    """``[validate]``: the port's four learning and scale checks, each
+    script's ``main`` at its own sizes on the card, under ``root``: the USL
+    and joint loops on the synthetic set, the Jaccard build at 12,936 rows
+    and the ``--fp16`` USL loop on the hard set of 500 ids x 26, the
+    clustering phase and the bank step at MSMT17's 32,621 rows. A failed
+    check raises. Launch counts are zeroed before each script and read after
+    (summed into ``counts``; the MSMT check's come from its own process,
+    ``_msmt_alone``): K6 and K8 must launch, and K8 inside the MSMT phase's
+    Infomap. This process's RSS is printed before the phase. Then K8 and K6
+    at the MSMT check's shapes, held and timed (``_msmt_kernel_times``)."""
+    import resource
+
+    from reid_gan_torch import kernels
+
+    t_phase = time.perf_counter()
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    with open("/proc/self/statm") as f:
+        now = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+    print(f"[validate] the process's RSS before the phase: {now:.1f} GB, its peak "
+          f"so far {rss0:.1f} GB")
+    runs = (("synthetic_usl", lambda: _validate_script("synthetic_usl").main(
+                os.path.join(root, "usl"))),
+            ("synthetic_joint", lambda: _validate_script("synthetic_joint").main(
+                os.path.join(root, "joint"))),
+            ("hard_synthetic", lambda: _validate_script("hard_synthetic").main(
+                os.path.join(root, "hard"))),
+            ("msmt_scale", _msmt_alone))
+    results = {}
+    for name, run in runs:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = out.pop("launches", None) or kernels.launch_counts()
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+        results[name] = out
+        shown = {k: (round(v, 4) if isinstance(v, float) else
+                     [round(x, 4) for x in v] if isinstance(v, list) else v)
+                 for k, v in out.items()}
+        print(f"[validate] {name} passed in {seconds:.1f} s: {json.dumps(shown)}")
+        print(f"[validate] {name} launches: K6 {launches['infonce']}, "
+              f"K8 {launches['knn_topk']}; all {launches}")
+    check(counts["infonce"] > 0 and counts["knn_topk"] > 0,
+          f"K6 and K8 must launch in [validate]: {counts}")
+    check(results["msmt_scale"]["infomap_knn_launches"] > 0,
+          "K8 did not launch in the MSMT phase's Infomap")
+    _msmt_kernel_times(report, results["msmt_scale"]["bank_k"])
+    print(f"[validate] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def _cuhk03_tree(root, seed=7, n_ids=1467, n_test=100, h=256, w=128):
     """CUHK03 in the open-reid layout at its split sizes, written to ``root``:
     ``meta.json`` (1,467 ids, 9 or 10 images an id over two cameras, listed
     by bare names), ``splits.json`` (the first 1,367 ids trainval, the last
     100 both query and gallery, as CUHK03's splits list them) and an empty
     ``images/``; the pixels stay in memory (two colour blocks an id plus
-    noise, staged at 256x128) for ``_InMemoryImages``, so a name's last field
+    noise, staged at 256x128) for ``_in_memory_images``, so a name's last field
     is its image's index."""
     rng = np.random.default_rng(seed)
     pids = np.repeat(np.arange(n_ids), rng.integers(9, 11, n_ids))
@@ -5362,7 +5492,7 @@ def phase_cuhk03(counts, root, batch=256, anchors=256):
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        best = fdgan_baseline.run(cfg, ds, "cuda", image_cache=_InMemoryImages(imgs))
+        best = fdgan_baseline.run(cfg, ds, "cuda", image_cache=_in_memory_images(imgs))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -5443,7 +5573,7 @@ def phase_msgpack(counts, root):
     torch.backends.cudnn.allow_tf32 = True   # as cli/test.py sets it
     batches, query, gallery = _eval_set()
     dataset = SimpleNamespace(query=query, gallery=gallery)
-    cache = _InMemoryImages(np.concatenate([b["img"] for b in batches]))
+    cache = _in_memory_images(np.concatenate([b["img"] for b in batches]))
     torch.manual_seed(0)
     src = create("resnet50")
     g = torch.Generator().manual_seed(3)
@@ -5541,7 +5671,7 @@ def phase_msgpack(counts, root):
     try:
         t0 = time.perf_counter()
         best = train_gan_usl.run(cfg, dataset, device="cuda",
-                                 image_cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+                                 image_cache=_in_memory_images(imgs, imgs[:, ::2, ::2]))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -5715,7 +5845,7 @@ def phase_fp16(counts):
                                      device="cuda")
     state = trainer.init_state(init_memory(centers, k_pad=bank_rows(n_ids), device="cuda"))
     loader = make_train_loader(items, 256, 128, 256, 16, workers=4, iters=400, seed=1,
-                               cache=_InMemoryImages(imgs))
+                               cache=_in_memory_images(imgs))
     steps = 10
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
@@ -5790,7 +5920,7 @@ def phase_fp16(counts):
     gan = create_gan(GANConfig(model="AE", model_gen="AE"), gan_height=128, gan_width=64,
                      device="cuda", dtype=bf16)
     pre = Preprocessor(items, mode="only_gan", gan_height=128, gan_width=64,
-                       cache=_InMemoryImages(imgs, imgs[:, ::2, ::2]))
+                       cache=_in_memory_images(imgs, imgs[:, ::2, ::2]))
     it = IterLoader(DataLoader(pre, batch_size=256, shuffle=True, num_workers=4,
                                drop_last=True, seed=1))
     it.new_epoch()
@@ -5967,6 +6097,10 @@ def main(argv=None):
         torch.cuda.synchronize()
         phase_cuhk03(cuhk03_counts, os.path.join(tmp, "cuhk03"))
         torch.cuda.synchronize()
+    validate_counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_validate(validate_counts, tmp, report)
+        torch.cuda.synchronize()
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces,
@@ -5975,7 +6109,7 @@ def main(argv=None):
                                              vgg_joint_counts, bip_counts,
                                              memory_counts, ddp_counts,
                                              cuhk03_counts, fp16_counts,
-                                             msgpack_counts)),
+                                             msgpack_counts, validate_counts)),
          "library_ms": None, **report[k.name]}
         for k in kernels.KERNELS]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

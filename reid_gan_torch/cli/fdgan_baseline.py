@@ -27,7 +27,8 @@ and no ``--device cpu``, ``main`` runs one process a card over all of them
 of each eval batch, the steps and the evaluation are those of one device
 on the whole batch (``engine/fdgan.py``), and only rank 0 prints and writes
 ``log.txt``, ``opt.txt`` and the checkpoints. The mesh size must divide
-the batch size. ``main(argv, mesh=False)`` keeps one card.
+the batch size. ``main(argv, mesh=False)`` keeps one card. The ranks
+draw from this process's order of each id's names (``run_main``).
 """
 
 import argparse
@@ -60,13 +61,13 @@ from ..utils.serialization import resume_checkpoint, save_checkpoint
 SECTIONS = ("data", "model", "optim", "train")
 
 
-def main(argv=None, mesh=None):
+def main(argv=None, mesh=None, pid_imgs=None):
     """Parse the flags (JAX's, plus ``--device``), tee stdout to
     ``<logs-dir>/log.txt``, write ``opt.txt``, load the dataset and train.
     Returns the best mAP (the evaluation's (top-1, mAP) with
     ``--evaluate``). ``mesh``: None spans every card when more than one is
     visible, False keeps one, a ``Mesh`` is this rank's (the module's
-    docstring)."""
+    docstring). ``pid_imgs``: see ``run_main``."""
     argv = sys.argv[1:] if argv is None else argv
     extra = argparse.ArgumentParser(allow_abbrev=False)
     extra.add_argument("--device", default="cuda",
@@ -74,23 +75,34 @@ def main(argv=None, mesh=None):
                             "the kernels")
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=SECTIONS)
-    return run_main(cfg, SECTIONS, resolve_device(ns.device), mesh, argv, _main_on_rank, run)
+    return run_main(cfg, resolve_device(ns.device), mesh, argv, _main_on_rank, run,
+                    pid_imgs)
 
 
-def _main_on_rank(mesh, argv):
-    return main(argv, mesh=mesh)
+def _main_on_rank(mesh, argv, pid_imgs):
+    return main(argv, mesh=mesh, pid_imgs=pid_imgs)
 
 
-def run_main(cfg, sections, device, mesh, argv, on_rank, run_fn):
+def run_main(cfg, device, mesh, argv, on_rank, run_fn, pid_imgs=None):
     """The two FD-GAN CLIs' ``main`` after parsing: ``launch`` one rank a
-    card (``on_rank(mesh, argv)``) where ``wants_mesh``, else tee stdout to
-    ``<logs-dir>/log.txt`` and write ``opt.txt`` (rank 0), load the dataset
-    (rank 0 first) and return ``run_fn(cfg, dataset, device, mesh=mesh)``.
-    A mesh size that does not divide the batch size raises ``ValueError``
-    before any work."""
+    card (``on_rank(mesh, argv, pid_imgs)``) where ``wants_mesh``, else tee
+    stdout to ``<logs-dir>/log.txt`` and write ``opt.txt`` (rank 0), load
+    the dataset (rank 0 first) and return ``run_fn(cfg, dataset, device,
+    mesh=mesh)``. A mesh size that does not divide the batch size raises
+    ``ValueError`` before any work.
+
+    ``pid_imgs`` (pid → image names, lists) replaces the dataset's own. The
+    ``fdgan_pose`` loader draws each target by its position in
+    ``list(pid_imgs[pid])``, and a dataset's sets list their names in an
+    order that follows the process's string hashing, which a spawned rank
+    seeds anew. So the launch passes this process's lists to every rank,
+    and each rank draws what this process would draw."""
     if wants_mesh(device, mesh):
         check_pair_batch(cfg.data.batch_size, local_device_count())
-        return launch(on_rank, local_device_count(), args=(argv,))
+        names = getattr(create_dataset(cfg.data.dataset, cfg.data.data_dir, verbose=False),
+                        "pid_imgs", None)
+        order = None if names is None else {pid: list(v) for pid, v in names.items()}
+        return launch(on_rank, local_device_count(), args=(argv, order))
     mesh = mesh or None
     if mesh is not None:
         check_pair_batch(cfg.data.batch_size, mesh.world_size)
@@ -100,9 +112,11 @@ def run_main(cfg, sections, device, mesh, argv, on_rank, run_fn):
     try:
         with main_prints(mesh):
             if is_main(mesh):
-                dump_config(cfg, cfg.train.logs_dir, "opt.txt", sections=sections)
+                dump_config(cfg, cfg.train.logs_dir, "opt.txt")
             dataset = main_first(mesh, lambda: create_dataset(
                 cfg.data.dataset, cfg.data.data_dir, verbose=is_main(mesh)))
+        if pid_imgs is not None:
+            dataset.pid_imgs = pid_imgs
         return run_fn(cfg, dataset, None if mesh else device, mesh=mesh)
     finally:
         if logger is not None:

@@ -29,7 +29,9 @@ slice of each pair batch and of each eval batch, and the steps and the
 evaluations are those of one device on the whole batch
 (``models/fdgan/model.py``); the printed losses are the whole batch's, and
 only rank 0 prints and writes ``log.txt``, ``opt.txt``, the images, the
-loss log and the nets. The mesh size must divide the batch size.
+loss log and the nets. The mesh size must divide the batch size. Every
+rank draws each target as this process would: the launch passes its order
+of each id's names (``fdgan_baseline.run_main``).
 ``main(argv, mesh=False)`` keeps one card.
 """
 
@@ -54,14 +56,17 @@ from .fdgan_baseline import _limit, make_cascade_evaluator, run_main
 SECTIONS = ("data", "model", "optim", "train", "gan", "fdgan")
 
 
-def main(argv=None, mesh=None):
+def main(argv=None, mesh=None, pid_imgs=None):
     """Parse the flags (JAX's, plus ``--device``), tee stdout to
     ``<logs-dir>/log.txt``, write ``opt.txt``, load the dataset and train.
     Returns the engine where this process trains (one card, or this rank
     of ``mesh``); None where it spawns a rank a card, whose engines stay on
     their cards. ``mesh``:
     None spans every card when more than one is visible, False keeps one, a
-    ``Mesh`` is this rank's (the module's docstring)."""
+    ``Mesh`` is this rank's (the module's docstring). ``pid_imgs``: the
+    pid → image names lists the ``fdgan_pose`` targets are drawn from in
+    place of the dataset's sets (``fdgan_baseline.run_main``; a launch
+    passes its own to its ranks)."""
     argv = sys.argv[1:] if argv is None else argv
     extra = argparse.ArgumentParser(allow_abbrev=False)
     extra.add_argument("--device", default="cuda",
@@ -69,11 +74,12 @@ def main(argv=None, mesh=None):
                             "the kernels")
     ns, rest = extra.parse_known_args(argv)
     cfg = parse_config(rest, sections=SECTIONS)
-    return run_main(cfg, SECTIONS, resolve_device(ns.device), mesh, argv, _main_on_rank, run)
+    return run_main(cfg, resolve_device(ns.device), mesh, argv, _main_on_rank, run,
+                    pid_imgs)
 
 
-def _main_on_rank(mesh, argv):
-    main(argv, mesh=mesh)
+def _main_on_rank(mesh, argv, pid_imgs):
+    main(argv, mesh=mesh, pid_imgs=pid_imgs)
 
 
 def run(cfg, dataset, device=None, image_cache=None, mesh=None):

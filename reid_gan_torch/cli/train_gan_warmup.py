@@ -104,7 +104,7 @@ def main(argv=None, mesh=None):
     try:
         with main_prints(mesh):
             if is_main(mesh):
-                dump_config(cfg, cfg.train.logs_dir, sections=SECTIONS)
+                dump_config(cfg, cfg.train.logs_dir)
             dataset = main_first(mesh, lambda: create_dataset(
                 cfg.data.dataset, cfg.data.data_dir, verbose=is_main(mesh)))
         return run(cfg, dataset, None if mesh else device, mesh=mesh)

@@ -203,15 +203,13 @@ def parse_config(argv=None, sections=("data", "model", "optim", "cluster", "trai
     return cfg
 
 
-def dump_config(cfg, out_dir, fname="train_opt.txt", sections=None):
-    """Write the resolved options, one ``section.field: value`` line each
-    (config.py:222-235; parity: CC/examples/options/base_options.py:148-159).
-    ``sections``: the sections to write (default: all)."""
+def dump_config(cfg, out_dir, fname="train_opt.txt"):
+    """Write the resolved options of every section, one ``section.field:
+    value`` line each, whichever sections the CLI parses (config.py:222-235;
+    parity: CC/examples/options/base_options.py:148-159)."""
     mkdir_if_missing(out_dir)
     lines = ["------------ Options -------------"]
     for sec_field in fields(cfg):
-        if sections is not None and sec_field.name not in sections:
-            continue
         sec = getattr(cfg, sec_field.name)
         for f in fields(sec):
             lines.append(f"{sec_field.name}.{f.name}: {getattr(sec, f.name)}")

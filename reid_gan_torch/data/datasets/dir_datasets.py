@@ -14,11 +14,14 @@ from .base import BaseImageDataset
 _PATTERN = re.compile(r"([-\d]+)_c(\d+)")
 
 
-def scan_dir(dir_path, relabel=False, ext="jpg"):
+def scan_dir(dir_path, relabel=False, ext="jpg", names=None):
     """Glob a split dir into a sorted list of (abs_path, pid, camid);
     pid −1 (junk) is dropped; camids are 0-based
-    (CC/clustercontrast/datasets/market1501.py:60-84)."""
-    img_paths = sorted(glob.glob(osp.join(dir_path, f"*.{ext}")))
+    (CC/clustercontrast/datasets/market1501.py:60-84). ``names``: the
+    split's file names in place of the directory's (a set whose images are
+    held in memory)."""
+    img_paths = sorted(glob.glob(osp.join(dir_path, f"*.{ext}")) if names is None
+                       else (osp.join(dir_path, n) for n in names))
     pid_container = set()
     for p in img_paths:
         m = _PATTERN.search(osp.basename(p))

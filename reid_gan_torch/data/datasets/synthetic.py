@@ -5,6 +5,7 @@ branch, per-image landmark ``.txt`` for FD-GAN), so every entry-point config
 can run a debug epoch without real data.
 """
 
+import functools
 import json
 import os
 import os.path as osp
@@ -30,8 +31,99 @@ def _random_keypoints(rng, h, w):
     return ys, xs
 
 
-class SyntheticDataset(BaseImageDataset):
-    """Writes a small Market-style tree under ``root/synthetic`` on first use:
+@functools.lru_cache(maxsize=None)
+def _patterns(h, w, phase):
+    """The hard set's id-phase 2x2 checker texture and its vignette, (h, w,
+    1) each, read-only (a few of them per set, shared by its images)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    checker = (((yy // 2 + xx // 2 + phase) % 2) * 24.0 - 12.0)
+    cy, cx = h / 2.0, w / 2.0
+    vig = 1.0 - 0.35 * (((yy - cy) / cy) ** 2 + ((xx - cx) / cx) ** 2) / 2
+    out = checker[:, :, None], vig[:, :, None]
+    for a in out:
+        a.setflags(write=False)
+    return out
+
+
+class _SyntheticTree(BaseImageDataset):
+    """The Market-style tree both synthetic sets write and read under
+    ``dataset_dir``: the three split dirs of ``{pid}_c{cam}s1_{i}_00.jpg``
+    images, the two keypoint CSVs and ``poses/``. A subclass's ``draw``
+    yields ``(split, name, image, ys, xs)`` from its ``RandomState`` in the
+    order the JAX package draws them (each image, then its keypoints);
+    ``_write`` turns them into files.
+
+    ``in_memory``: every file but the images is written, each time; the
+    images stay in ``self.images`` (name → the drawn uint8 HWC array, which
+    the writer would encode as JPEG at ``quality``), the splits list the
+    drawn names, and no ``.complete`` marks the tree, whose images are not
+    on disk. Otherwise ``self.images`` is None and the images are JPEG files
+    (Pillow)."""
+
+    quality = 90
+    label = "Synthetic"
+
+    def _load(self, dataset_dir, draws, in_memory, verbose):
+        self.dataset_dir = dataset_dir
+        self.train_dir = osp.join(dataset_dir, "bounding_box_train")
+        self.query_dir = osp.join(dataset_dir, "query")
+        self.gallery_dir = osp.join(dataset_dir, "bounding_box_test")
+        self.train_pose_dir = osp.join(dataset_dir, "market-annotation-train.csv")
+        self.test_pose_dir = osp.join(dataset_dir, "market-annotation-test.csv")
+        self.poses_dir = osp.join(dataset_dir, "poses")
+        self.images = {} if in_memory else None
+        names = {}
+        if in_memory or not osp.exists(osp.join(dataset_dir, ".complete")):
+            names = self._write(draws(), self.images)
+
+        self.train = scan_dir(self.train_dir, relabel=True, names=names.get("train"))
+        self.query = scan_dir(self.query_dir, relabel=False, names=names.get("query"))
+        self.gallery = scan_dir(self.gallery_dir, relabel=False,
+                                names=names.get("gallery"))
+        if verbose:
+            print(f"=> {self.label} loaded")
+            self.print_dataset_statistics(self.train, self.query, self.gallery)
+        self.num_train_pids, self.num_train_imgs, self.num_train_cams = (
+            self.get_imagedata_info(self.train))
+        self.pid_imgs = {}
+        for fname, pid, _ in self.train:
+            self.pid_imgs.setdefault(pid, set()).add(osp.basename(fname))
+
+    def _write(self, draws, images=None):
+        """Write the tree of ``draws``, the images into ``images`` (a dict)
+        where given, else as JPEGs. Returns each split's names."""
+        dirs = {"train": self.train_dir, "query": self.query_dir,
+                "gallery": self.gallery_dir}
+        for d in list(dirs.values()) + [self.poses_dir]:
+            os.makedirs(d, exist_ok=True)
+        names = {split: [] for split in dirs}
+        rows = {"train": [], "test": []}
+        for split, name, img, ys, xs in draws:
+            if images is None:
+                from PIL import Image
+
+                Image.fromarray(img).save(osp.join(dirs[split], name), quality=self.quality)
+            else:
+                images[name] = img
+            names[split].append(name)
+            rows["train" if split == "train" else "test"].append(
+                f"{name}:{json.dumps(ys.tolist())}:{json.dumps(xs.tolist())}")
+            with open(osp.join(self.poses_dir, osp.splitext(name)[0] + ".txt"), "w") as f:
+                for y, x in zip(ys, xs):
+                    f.write(f"{y} {x}\n")
+        header = "name:keypoints_y:keypoints_x"
+        for path, split in ((self.train_pose_dir, "train"), (self.test_pose_dir, "test")):
+            with open(path, "w") as f:
+                f.write("\n".join([header] + rows[split]) + "\n")
+        if images is None:
+            with open(osp.join(self.dataset_dir, ".complete"), "w") as f:
+                f.write("ok\n")
+        return names
+
+
+class SyntheticDataset(_SyntheticTree):
+    """Writes a small Market-style tree under ``root/synthetic`` on first use
+    (every use with ``in_memory``, ``_SyntheticTree``):
 
     - bounding_box_train/query/bounding_box_test with ``{pid}_c{cam}_{i}.jpg``
     - ``market-annotation-train.csv`` / ``-test.csv`` (``name:keypoints_y:keypoints_x``
@@ -42,40 +134,15 @@ class SyntheticDataset(BaseImageDataset):
     """
 
     def __init__(self, root, num_ids=8, num_cams=3, imgs_per_id=4,
-                 height=64, width=32, seed=0, verbose=False, **kwargs):
-        self.dataset_dir = osp.join(root, "synthetic")
-        self.train_dir = osp.join(self.dataset_dir, "bounding_box_train")
-        self.query_dir = osp.join(self.dataset_dir, "query")
-        self.gallery_dir = osp.join(self.dataset_dir, "bounding_box_test")
-        self.train_pose_dir = osp.join(self.dataset_dir, "market-annotation-train.csv")
-        self.test_pose_dir = osp.join(self.dataset_dir, "market-annotation-test.csv")
-        self.poses_dir = osp.join(self.dataset_dir, "poses")
+                 height=64, width=32, seed=0, verbose=False, in_memory=False, **kwargs):
         self.height, self.width = height, width
+        self._load(osp.join(root, "synthetic"), lambda: self.draw(
+            num_ids, num_cams, imgs_per_id, height, width, seed), in_memory, verbose)
 
-        if not osp.exists(osp.join(self.dataset_dir, ".complete")):
-            self._generate(num_ids, num_cams, imgs_per_id, height, width, seed)
-
-        self.train = scan_dir(self.train_dir, relabel=True)
-        self.query = scan_dir(self.query_dir, relabel=False)
-        self.gallery = scan_dir(self.gallery_dir, relabel=False)
-        if verbose:
-            print("=> Synthetic loaded")
-            self.print_dataset_statistics(self.train, self.query, self.gallery)
-        self.num_train_pids, self.num_train_imgs, self.num_train_cams = (
-            self.get_imagedata_info(self.train))
-
-        self.pid_imgs = {}
-        for fname, pid, _ in self.train:
-            self.pid_imgs.setdefault(pid, set()).add(osp.basename(fname))
-
-    def _generate(self, num_ids, num_cams, imgs_per_id, h, w, seed):
+    @staticmethod
+    def draw(num_ids, num_cams, imgs_per_id, h, w, seed):
         """Trivially separable: per-id base color, mild noise."""
-        from PIL import Image
-
         rng = np.random.RandomState(seed)
-        for d in (self.train_dir, self.query_dir, self.gallery_dir, self.poses_dir):
-            os.makedirs(d, exist_ok=True)
-        rows_train, rows_test = [], []
         # per-identity base color so features are somewhat id-clusterable
         base = rng.randint(0, 255, (num_ids, 3))
         for pid in range(1, num_ids + 1):
@@ -85,27 +152,16 @@ class SyntheticDataset(BaseImageDataset):
                            rng.randint(-40, 40, (h, w, 3))).clip(0, 255).astype(np.uint8)
                     name = f"{pid:04d}_c{cam}s1_{i:06d}_00.jpg"
                     if cam == 1 and i == 0:
-                        subdir, rows = self.query_dir, rows_test
+                        split = "query"
                     elif cam == num_cams and i == 0:
-                        subdir, rows = self.gallery_dir, rows_test
+                        split = "gallery"
                     else:
-                        subdir, rows = self.train_dir, rows_train
-                    Image.fromarray(img).save(osp.join(subdir, name), quality=90)
+                        split = "train"
                     ys, xs = _random_keypoints(rng, h, w)
-                    rows.append(f"{name}:{json.dumps(ys.tolist())}:{json.dumps(xs.tolist())}")
-                    with open(osp.join(self.poses_dir, osp.splitext(name)[0] + ".txt"), "w") as f:
-                        for y, x in zip(ys, xs):
-                            f.write(f"{y} {x}\n")
-        header = "name:keypoints_y:keypoints_x"
-        with open(self.train_pose_dir, "w") as f:
-            f.write("\n".join([header] + rows_train) + "\n")
-        with open(self.test_pose_dir, "w") as f:
-            f.write("\n".join([header] + rows_test) + "\n")
-        with open(osp.join(self.dataset_dir, ".complete"), "w") as f:
-            f.write("ok\n")
+                    yield split, name, img, ys, xs
 
 
-class HardSyntheticDataset(BaseImageDataset):
+class HardSyntheticDataset(_SyntheticTree):
     """A regression benchmark that can FAIL (VERDICT r1 item 4).
 
     The plain SyntheticDataset is trivially separable (per-id base color →
@@ -129,40 +185,21 @@ class HardSyntheticDataset(BaseImageDataset):
     annotations as SyntheticDataset, so every CLI runs on it unchanged.
     """
 
+    quality = 92
+    label = "HardSynthetic"
+
     def __init__(self, root, num_ids=48, num_cams=6, imgs_per_id=24,
                  height=64, width=32, palette=8, seed=0, verbose=False,
-                 **kwargs):
-        self.dataset_dir = osp.join(
-            root, f"synthetic_hard_{num_ids}x{imgs_per_id}")
-        self.train_dir = osp.join(self.dataset_dir, "bounding_box_train")
-        self.query_dir = osp.join(self.dataset_dir, "query")
-        self.gallery_dir = osp.join(self.dataset_dir, "bounding_box_test")
-        self.train_pose_dir = osp.join(self.dataset_dir,
-                                       "market-annotation-train.csv")
-        self.test_pose_dir = osp.join(self.dataset_dir,
-                                      "market-annotation-test.csv")
-        self.poses_dir = osp.join(self.dataset_dir, "poses")
+                 in_memory=False, **kwargs):
         self.height, self.width = height, width
-
-        if not osp.exists(osp.join(self.dataset_dir, ".complete")):
-            self._generate(num_ids, num_cams, imgs_per_id, height, width,
-                           palette, seed)
-
-        self.train = scan_dir(self.train_dir, relabel=True)
-        self.query = scan_dir(self.query_dir, relabel=False)
-        self.gallery = scan_dir(self.gallery_dir, relabel=False)
-        if verbose:
-            print("=> HardSynthetic loaded")
-            self.print_dataset_statistics(self.train, self.query, self.gallery)
-        self.num_train_pids, self.num_train_imgs, self.num_train_cams = (
-            self.get_imagedata_info(self.train))
-        self.pid_imgs = {}
-        for fname, pid, _ in self.train:
-            self.pid_imgs.setdefault(pid, set()).add(osp.basename(fname))
+        self._load(osp.join(root, f"synthetic_hard_{num_ids}x{imgs_per_id}"),
+                   lambda: self.draw(num_ids, num_cams, imgs_per_id, height, width,
+                                     palette, seed), in_memory, verbose)
 
     @staticmethod
-    def _render(rng, pid, cam, h, w, base, stripe1, stripe2, phase,
-                cam_gain, cam_off):
+    def _id_image(h, w, base, stripe1, stripe2, phase):
+        """An id's image before any camera (float32): its palette colour,
+        its two stripes and its checker phase."""
         img = np.broadcast_to(base[None, None], (h, w, 3)).astype(np.float32)
         # id-coding stripes (position is the identity signal)
         s = max(2, h // 8)
@@ -170,28 +207,25 @@ class HardSyntheticDataset(BaseImageDataset):
         img = img.copy()
         img[stripe1:stripe1 + s] = 0.7 * c1 + 0.3 * img[stripe1:stripe1 + s]
         img[stripe2:stripe2 + s] = 0.5 * c1[::-1] + 0.5 * img[stripe2:stripe2 + s]
-        # id-phase 2x2 checker texture
-        yy, xx = np.mgrid[0:h, 0:w]
-        checker = (((yy // 2 + xx // 2 + phase) % 2) * 24.0 - 12.0)
-        img += checker[:, :, None]
-        # camera nuisance: channel gain/offset + vignette + jitter + noise
-        img = img * cam_gain[None, None] + cam_off[None, None]
-        cy, cx = h / 2.0, w / 2.0
-        vig = 1.0 - 0.35 * (((yy - cy) / cy) ** 2 + ((xx - cx) / cx) ** 2) / 2
-        img *= vig[:, :, None]
-        shift = rng.randint(-2, 3)
-        img = np.roll(img, shift, axis=0)
-        img += rng.randn(h, w, 3) * 10.0
-        return img.clip(0, 255).astype(np.uint8)
+        img += _patterns(h, w, phase)[0]
+        return img
 
-    def _generate(self, num_ids, num_cams, imgs_per_id, h, w, palette, seed):
-        from PIL import Image
+    @staticmethod
+    def _render(img, vig, cam_gain, cam_off, shifts, noise):
+        """An id's images (n, h, w, 3) uint8 from its image ``img``, each on
+        its camera (``cam_gain``, ``cam_off``: (n, 3)): channel gain and
+        offset, vignette, a vertical jitter of ``shifts`` rows (``np.roll``),
+        noise (``noise``: (n, h, w, 3) standard normal draws)."""
+        n, h = len(shifts), img.shape[0]
+        x = img[None] * cam_gain[:, None, None] + cam_off[:, None, None]
+        x *= vig
+        x = x[np.arange(n)[:, None], (np.arange(h)[None] - shifts[:, None]) % h]
+        x += noise * 10.0
+        return x.clip(0, 255).astype(np.uint8)
 
+    @classmethod
+    def draw(cls, num_ids, num_cams, imgs_per_id, h, w, palette, seed):
         rng = np.random.RandomState(seed)
-        for d in (self.train_dir, self.query_dir, self.gallery_dir,
-                  self.poses_dir):
-            os.makedirs(d, exist_ok=True)
-        rows_train, rows_test = [], []
         colors = rng.randint(40, 215, (palette, 3)).astype(np.float32)
         s = max(2, h // 8)
         # id code: shared palette color + unique (stripe1, stripe2, phase)
@@ -219,31 +253,24 @@ class HardSyntheticDataset(BaseImageDataset):
             cams = rng.choice(num_cams, imgs_per_id, p=weights)
             # guarantee eval coverage: at least one image on cam 0 and cam 1
             cams[0], cams[1] = 0, 1
+            # each image's draws in turn: its jitter, its noise, its keypoints
+            shifts, noise, keypoints = [], [], []
+            for _ in cams:
+                shifts.append(rng.randint(-2, 3))
+                noise.append(rng.randn(h, w, 3))
+                keypoints.append(_random_keypoints(rng, h, w))
+            imgs = cls._render(cls._id_image(h, w, base, st1, st2, phase),
+                               _patterns(h, w, phase)[1], cam_gain[cams], cam_off[cams],
+                               np.asarray(shifts), np.stack(noise))
             seen = set()
             for i, cam in enumerate(cams):
-                img = self._render(rng, pid, cam, h, w, base, st1, st2,
-                                   phase, cam_gain[cam], cam_off[cam])
                 name = f"{pid:04d}_c{cam + 1}s1_{i:06d}_00.jpg"
                 first = cam not in seen
                 seen.add(cam)
                 if first and cam % 2 == 1:
-                    subdir, rows = self.query_dir, rows_test
+                    split = "query"
                 elif first and cam % 2 == 0:
-                    subdir, rows = self.gallery_dir, rows_test
+                    split = "gallery"
                 else:
-                    subdir, rows = self.train_dir, rows_train
-                Image.fromarray(img).save(osp.join(subdir, name), quality=92)
-                ys, xs = _random_keypoints(rng, h, w)
-                rows.append(f"{name}:{json.dumps(ys.tolist())}:"
-                            f"{json.dumps(xs.tolist())}")
-                with open(osp.join(self.poses_dir,
-                                   osp.splitext(name)[0] + ".txt"), "w") as f:
-                    for y, x in zip(ys, xs):
-                        f.write(f"{y} {x}\n")
-        header = "name:keypoints_y:keypoints_x"
-        with open(self.train_pose_dir, "w") as f:
-            f.write("\n".join([header] + rows_train) + "\n")
-        with open(self.test_pose_dir, "w") as f:
-            f.write("\n".join([header] + rows_test) + "\n")
-        with open(osp.join(self.dataset_dir, ".complete"), "w") as f:
-            f.write("ok\n")
+                    split = "train"
+                yield (split, name, imgs[i]) + keypoints[i]

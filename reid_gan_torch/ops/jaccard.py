@@ -74,37 +74,44 @@ def _k_reciprocal_sets(initial_rank, k1, n):
     return nn_k1, nn_k1_half
 
 
-def jaccard_from_rank(initial_rank, features, k1=30, k2=6, native=True):
+def jaccard_from_rank(initial_rank, features, k1=30, k2=6, native=True,
+                      use_float16=False):
     """The Jaccard half of ``compute_jaccard_distance`` (jaccard.py:121-158):
     from a kNN table ``initial_rank`` (N, rank_w) int32, self first, and the
-    (N, D) L2-normalised features. Returns (N, N) float32, zeros clipped."""
+    (N, D) L2-normalised features. Returns (N, N) float32 (float16 with
+    ``use_float16``: the native path rounds the float32 matrix, the plain
+    one holds V in float16 and sums in float32, as JAX does), zeros
+    clipped."""
     feats = np.asarray(features, np.float32)
     n = feats.shape[0]
+    mat_type = np.float16 if use_float16 else np.float32
     if native:
         idx, w, cnt = kreciprocal_v_native(initial_rank, feats, k1, k2)
         # the C min-sum clips negatives as it writes
-        return jaccard_minsum_rows_native(idx, w, cnt)
+        return jaccard_minsum_rows_native(idx, w, cnt).astype(mat_type, copy=False)
     nn_k1, nn_k1_half = _k_reciprocal_sets(initial_rank, k1, n)
-    V = np.zeros((n, n), dtype=np.float32)
+    V = np.zeros((n, n), dtype=mat_type)
     for i in range(n):
         idx = _expanded_reciprocal(initial_rank, i, nn_k1, nn_k1_half)
         # soft weights: softmax over −(2−2·cos) distances (faiss_rerank.py:81-85)
         dist = 2.0 - 2.0 * feats[i] @ feats[idx].T
         e = np.exp(-dist)
-        V[i, idx] = e / e.sum()
-    V = _query_expand(V, initial_rank, k2).astype(np.float32)
-    jaccard = _min_sum_jaccard(V)
+        V[i, idx] = (e / e.sum()).astype(mat_type)
+    V = _query_expand(V, initial_rank, k2).astype(mat_type)
+    # JAX sums the min-sum in float32 (its C++ path) over the float16 V
+    jaccard = _min_sum_jaccard(V.astype(np.float32, copy=False)).astype(mat_type, copy=False)
     np.clip(jaccard, 0.0, None, out=jaccard)
     return jaccard
 
 
 def compute_jaccard_distance(features, k1=30, k2=6, print_flag=True, native=True,
-                             device=None):
+                             device=None, use_float16=False):
     """Jaccard distance over k-reciprocal encodings for pseudo-labelling
     (jaccard.py:89-158). ``features``: (N, D) L2-normalised, a host array
     (searched on ``device``, default the card) or a tensor (searched where
     it lies). The kNN table has ``min(k1, N)`` columns, self included.
-    Returns the (N, N) float32 matrix, zeros clipped."""
+    Returns the (N, N) float32 matrix (float16 with ``use_float16``), zeros
+    clipped."""
     end = time.time()
     if print_flag:
         print("Computing jaccard distance...")
@@ -112,7 +119,7 @@ def compute_jaccard_distance(features, k1=30, k2=6, print_flag=True, native=True
         _, initial_rank = knn_search(features, k=min(k1, features.shape[0]),
                                      metric="l2", device=device)
     jaccard = jaccard_from_rank(initial_rank, to_numpy(features), k1, k2,
-                                native=native)
+                                native=native, use_float16=use_float16)
     if print_flag:
         print(f"Jaccard distance computing time cost: {time.time() - end}")
     return jaccard

@@ -6,6 +6,7 @@ against the C signatures of the kernels."""
 import ast
 import ctypes
 import filecmp
+import glob
 import os
 import os.path as osp
 import re
@@ -141,7 +142,9 @@ def _port_sources():
     root = osp.join(REPO, "reid_gan_torch")
     files = [osp.join(d, f) for d, _, fs in os.walk(root) for f in fs
              if f.endswith(".py")]
-    return files + [osp.join(REPO, "chip_smoke.py")]
+    scripts = sorted(glob.glob(osp.join(REPO, "scripts", "torch_validate_*.py")))
+    assert len(scripts) == 4, scripts
+    return files + [osp.join(REPO, "chip_smoke.py")] + scripts
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -3,7 +3,8 @@
 18, 2 steps of 8 pairs) on two gloo ranks (``torch_mesh_ranks.spawn``)
 against the same chain in one process (``mesh=False``) on the same
 synthetic set, and the ``fdgan_pose`` loader's draws on four ranks against
-one process."""
+one process, by hand and through the FD CLIs' launch, under an unfixed hash
+seed."""
 
 import glob
 import os.path as osp
@@ -55,36 +56,37 @@ def test_fdgan_chain_on_two_ranks_matches_one_process(tmp_path, monkeypatch):
     common = ["--dataset", "synthetic", "--data-dir", str(tmp_path / "d"), "--height",
               str(H), "--width", str(W), "-b", "8", "-j", "1", "--debug", "--device", "cpu"]
 
-    def chain(root, run):
+    def chain(root):
         # each stage starts from the files of one process's previous stage
-        base = run("fdgan_baseline", common + ["--logs-dir", str(root / "base")])
-        s1 = run("fdgan_train", common + [
-            "--stage", "1", "--pose-aug", "gauss", "--logs-dir", str(root / "s1"),
-            "--save-dir", str(root / "c1"),
-            "--netE-pretrain", str(one_root / "base" / "model_best.pth.tar")])
         nets = one_root / "c1" / "experiment"
-        s2 = run("fdgan_train", common + [
-            "--stage", "2", "--pose-aug", "erase", "--eval-step", "1",
-            "--logs-dir", str(root / "s2"), "--save-dir", str(root / "c2")] + sum(
-                ([f"--net{n}-pretrain", str(nets / f"latest_net_{n}.pth")]
-                 for n in ("E", "G", "Di", "Dp")), []))
-        return base, s1, s2
+        return [("fdgan_baseline", common + ["--logs-dir", str(root / "base")]),
+                ("fdgan_train", common + [
+                    "--stage", "1", "--pose-aug", "gauss", "--logs-dir", str(root / "s1"),
+                    "--save-dir", str(root / "c1"),
+                    "--netE-pretrain", str(one_root / "base" / "model_best.pth.tar")]),
+                ("fdgan_train", common + [
+                    "--stage", "2", "--pose-aug", "erase", "--eval-step", "1",
+                    "--logs-dir", str(root / "s2"), "--save-dir", str(root / "c2")] + sum(
+                        ([f"--net{n}-pretrain", str(nets / f"latest_net_{n}.pth")]
+                         for n in ("E", "G", "Di", "Dp")), []))]
 
-    # the fdgan_pose loader picks each target from its pid's set of names,
-    # whose order follows the process's string hashing: one fixed seed for
-    # every process, so that the ranks and the single process pick alike
-    monkeypatch.setenv("PYTHONHASHSEED", "0")
+    # every spawned process hashes strings with a seed of its own; both runs
+    # draw the fdgan_pose targets in this process's order of each id's names,
+    # as a launch passes it to its ranks (fdgan_baseline.run_main)
+    monkeypatch.delenv("PYTHONHASHSEED", raising=False)
+    from reid_gan_torch.data.datasets import create
 
-    def one(cli, argv):
-        return spawn(torch_mesh_ranks.cli_alone, 1, tmp_path, cli, argv)
+    order = {p: list(v) for p, v in create("synthetic", str(tmp_path / "d")).pid_imgs.items()}
 
     writes = tmp_path / "writes"
     writes.mkdir()
     one_root, two_root = tmp_path / "one", tmp_path / "two"
-    ref = chain(one_root, one)
-    got = chain(two_root, lambda cli, argv: spawn(torch_mesh_ranks.cli_main, 2, tmp_path,
-                                                  cli, argv, str(writes)))
-    assert got[1:] == ref[1:] == (2, 2)
+    # each chain's three runs in one spawn (torch_mesh_ranks.each)
+    ref = spawn(torch_mesh_ranks.each, 1, tmp_path, torch_mesh_ranks.cli_alone,
+                [(cli, argv, order) for cli, argv in chain(one_root)])
+    got = spawn(torch_mesh_ranks.each, 2, tmp_path, torch_mesh_ranks.cli_main,
+                [(cli, argv, str(writes), order) for cli, argv in chain(two_root)])
+    assert got[1:] == ref[1:] == [2, 2]
     assert abs(got[0] - ref[0]) <= 1e-4 and 0.0 < ref[0] <= 1.0
     assert np.allclose(_maps(two_root / "base" / "log.txt"),
                        _maps(one_root / "base" / "log.txt"), rtol=0, atol=1e-2)
@@ -158,3 +160,44 @@ def test_fdgan_pose_loader_draws_on_four_ranks_equal_one_process(tmp_path):
         np.testing.assert_array_equal(pre.rng.rand(4), after)
     with pytest.raises(ValueError, match="a pair batch of 6 does not split over a mesh of 4"):
         loader(Mesh(0, 4, "cpu"), batch=6)
+
+
+def test_fdgan_pose_draws_of_a_launch_equal_the_launching_process(tmp_path, monkeypatch):
+    """``cli/fdgan_baseline.run_main`` where it launches (four gloo ranks in
+    place of four cards) under an unfixed hash seed: one epoch of the
+    ``fdgan_pose`` loader on each rank (``torch_mesh_ranks.fdgan_pose_epoch``)
+    gives this process's rows of every batch (target images, landmarks,
+    flips), though the ranks' own sets list their names otherwise."""
+    import pickle
+
+    from reid_gan_torch.cli import fdgan_baseline
+    from reid_gan_torch.config import parse_config
+    from reid_gan_torch.data.datasets import create
+
+    import torch_mesh_ranks
+
+    monkeypatch.delenv("PYTHONHASHSEED", raising=False)
+    argv = ["--dataset", "synthetic", "--data-dir", str(tmp_path / "d"), "--height", str(H),
+            "--width", str(W), "-b", "8", "-j", "2", "--seed", "3",
+            "--logs-dir", str(tmp_path / "logs")]
+    cfg = parse_config(argv, sections=("data", "train"))
+    ds = create("synthetic", str(tmp_path / "d"))
+    ref = torch_mesh_ranks.fdgan_pose_epoch(cfg, ds)
+    assert len(ref) > 10
+
+    monkeypatch.setattr(fdgan_baseline, "wants_mesh", lambda device, mesh: mesh is None)
+    monkeypatch.setattr(fdgan_baseline, "local_device_count", lambda: 4)
+    monkeypatch.setattr(fdgan_baseline, "launch", lambda fn, n, args: spawn(
+        fn, n, tmp_path, *args))
+    fdgan_baseline.run_main(cfg, "cpu", None, argv, torch_mesh_ranks.fdgan_pose_ranks, None)
+    ranks = []
+    for r in range(4):
+        with open(tmp_path / "logs" / f"draws.rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    order = {p: list(v) for p, v in ds.pid_imgs.items()}
+    assert any(got["own"] != order for got in ranks)
+    for i, batch in enumerate(ref):
+        for side in (0, 1):
+            for k, v in batch[side].items():
+                joined = np.concatenate([got["rows"][i][side][k] for got in ranks])
+                np.testing.assert_array_equal(joined, v, err_msg=f"batch {i} side {side} {k}")

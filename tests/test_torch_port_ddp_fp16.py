@@ -75,33 +75,49 @@ def test_bf16_usl_update_on_four_ranks_matches_the_jax_mesh_step(tmp_path):
     assert_tree_closer(grads, ref["16"][1], ref["32"][1], "USL gradients under the mesh")
 
 
-@pytest.mark.parametrize("domain", ["target", "source"])
-def test_dsbn_eval_cli_on_four_ranks_matches_the_jax_cli_on_its_mesh(tmp_path, domain):
+_DOMAINS = {"target": [], "source": ["--test-source"]}
+
+
+@pytest.fixture(scope="module")
+def dsbn_ranks(tmp_path_factory):
     """One DSBN checkpoint (``test_torch_port_dsbn``'s: the target domain's
-    BatchNorm stats and ``feat_bn`` drawn apart from the source's): every
-    rank loads it and folds the domain's BatchNorms before the sharded
-    eval; the result is the JAX CLI's on ``get_mesh(4)``."""
+    BatchNorm stats and ``feat_bn`` drawn apart from the source's) and
+    ``cli/test --dsbn`` on four gloo ranks for each domain, both in one
+    spawn (``torch_mesh_ranks.each``). Returns the CLI's flags without
+    ``--test-source`` and each domain's (cmc, mAP)."""
     import torch_mesh_ranks
     from test_torch_port_dsbn import ARGS, _variables
-    from reid_gan_tpu.cli.test import main as jax_main
     from reid_gan_tpu.models.dsbn import convert_dsbn, update_domain
-    from reid_gan_tpu.parallel.mesh import get_mesh
     from reid_gan_tpu.utils.serialization import save_checkpoint
 
+    root = tmp_path_factory.mktemp("dsbn")
     v, tgt = _variables(32), _variables(33)
     tgt["params"] = jax.tree_util.tree_map(lambda a: a, v["params"])
     tgt["params"]["feat_bn"] = _variables(34)["params"]["feat_bn"]
-    ckpt = str(tmp_path / "dsbn.msgpack")
+    ckpt = str(root / "dsbn.msgpack")
     save_checkpoint({"dsbn": update_domain(convert_dsbn(v), 1, tgt), "epoch": 3,
                      "best_mAP": 0.5}, False, ckpt)
-    args = ARGS + ["--data-dir", str(tmp_path), "--resume", ckpt, "--dsbn"] + \
-        (["--test-source"] if domain == "source" else [])
-    ref_cmc, ref_map = jax_main(args, mesh=get_mesh(4))
+    args = ARGS + ["--data-dir", str(root), "--resume", ckpt, "--dsbn"]
+    calls = []
+    for domain, flag in _DOMAINS.items():
+        (root / domain).mkdir()
+        calls.append(("test", args + flag + ["--device", "cpu"], str(root / domain)))
+    got = spawn(torch_mesh_ranks.each, 4, root, torch_mesh_ranks.cli_main, calls)
+    return args, dict(zip(_DOMAINS, got))
+
+
+@pytest.mark.parametrize("domain", list(_DOMAINS))
+def test_dsbn_eval_cli_on_four_ranks_matches_the_jax_cli_on_its_mesh(dsbn_ranks, domain):
+    """Every rank loads the DSBN checkpoint and folds the domain's
+    BatchNorms before the sharded eval; the result is the JAX CLI's on
+    ``get_mesh(4)``."""
+    from reid_gan_tpu.cli.test import main as jax_main
+    from reid_gan_tpu.parallel.mesh import get_mesh
+
+    args, got = dsbn_ranks
+    ref_cmc, ref_map = jax_main(args + _DOMAINS[domain], mesh=get_mesh(4))
     sys.stdout = sys.__stdout__
-    out = tmp_path / "writes"
-    out.mkdir()
-    cmc, mAP = spawn(torch_mesh_ranks.cli_main, 4, tmp_path, "test",
-                     args + ["--device", "cpu"], str(out))
+    cmc, mAP = got[domain]
     for k in (1, 5, 10):
         assert abs(cmc[k - 1] - ref_cmc[k - 1]) <= 1e-4, k
     assert abs(mAP - ref_map) <= 1e-4

@@ -99,9 +99,38 @@ def _assert_losses(got, ref, keys):
 # the hard-mix train step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("b,group", [(8, 2), (12, 4)], ids=["within", "straddle"])
-def test_hard_mix_step_on_four_ranks_matches_the_jax_mesh_step(tmp_path, monkeypatch,
-                                                               b, group):
+_HARD_MIX = {"within": (8, 2), "straddle": (12, 4)}
+
+
+@pytest.fixture(scope="module")
+def hard_mix_ranks(tmp_path_factory):
+    """Each hard-mix case's weights and batch, and its port step on four
+    gloo ranks: both cases in one spawn (``torch_mesh_ranks.each``)."""
+    import torch_mesh_ranks
+    from test_torch_port_hardmix import _weights
+
+    cases = {}
+    for case, (b, group) in _HARD_MIX.items():
+        weights = _weights()
+        jmodel, jgan, params, stats, G, Dv, bank = weights
+        gan = _port_nets("AE", G, Dv)
+        enc = _numpy_state(_port_model(params, stats, torch.float64))
+        rng = np.random.RandomState(40 + b)
+        batch = {"img": rng.randint(0, 256, (b, H, W, 3)).astype(np.uint8),
+                 "pid": np.repeat(rng.permutation(NV)[:b // group], group).astype(np.int32),
+                 "Xs": rng.randint(0, 256, (b, GH, GW, 3)).astype(np.uint8)}
+        spec = dict(mode="train", enc=enc, gen="AE", G=_numpy_state(gan.net_G),
+                    D=_numpy_state(gan.net_D), bank=bank, batch=batch, seed=30,
+                    sizes=(H, W, GH, GW), group=group)
+        cases[case] = (weights, gan, spec)
+    got = spawn(torch_mesh_ranks.each, 4, tmp_path_factory.mktemp("hard_mix"),
+                torch_mesh_ranks.mode_step, [(c[2],) for c in cases.values()])
+    return {case: c + (g,) for (case, c), g in zip(cases.items(), got)}
+
+
+@pytest.mark.parametrize("case", list(_HARD_MIX))
+def test_hard_mix_step_on_four_ranks_matches_the_jax_mesh_step(monkeypatch, hard_mix_ranks,
+                                                               case):
     """One fp64 hard-mix ``train`` step (resnet18 at 32x16, the AE generator
     at 16x8) on four gloo ranks against JAX's jitted ``train`` step under
     ``get_mesh(4)``. ``within``: batch 8 in groups of 2, a group a rank;
@@ -115,26 +144,15 @@ def test_hard_mix_step_on_four_ranks_matches_the_jax_mesh_step(tmp_path, monkeyp
     the loss by 1e-9. Held: the loss, the encoder's parameters and running
     stats, G's running stats after its two train-mode forwards (its
     parameters and D untouched), the bank."""
-    import torch_mesh_ranks
-    from test_torch_port_hardmix import _float64_norm_stats, _weights
+    from test_torch_port_hardmix import _float64_norm_stats
     from reid_gan_tpu.engine import gan_trainers as jax_gan_trainers
     from reid_gan_tpu.models.dual_gan.ae_model import AEState
     from reid_gan_tpu.ops.cluster_memory import init_memory as jax_init_memory
     from reid_gan_tpu.parallel.mesh import get_mesh, replicate
     from reid_gan_tpu.parallel.mesh import shard_batch as jax_shard
 
-    jmodel, jgan, params, stats, G, Dv, bank = _weights()
-    gan = _port_nets("AE", G, Dv)
-    enc = _numpy_state(_port_model(params, stats, torch.float64))
-    rng = np.random.RandomState(40 + b)
-    batch = {"img": rng.randint(0, 256, (b, H, W, 3)).astype(np.uint8),
-             "pid": np.repeat(rng.permutation(NV)[:b // group], group).astype(np.int32),
-             "Xs": rng.randint(0, 256, (b, GH, GW, 3)).astype(np.uint8)}
-    seed = 30
-    spec = dict(mode="train", enc=enc, gen="AE", G=_numpy_state(gan.net_G),
-                D=_numpy_state(gan.net_D), bank=bank, batch=batch, seed=seed,
-                sizes=(H, W, GH, GW), group=group)
-    got = spawn(torch_mesh_ranks.mode_step, 4, tmp_path, spec)
+    (jmodel, jgan, params, stats, G, Dv, bank), gan, spec, got = hard_mix_ranks[case]
+    batch, seed, group = spec["batch"], spec["seed"], spec["group"]
 
     _float64_norm_stats(monkeypatch)
     _identity_transforms(monkeypatch)
@@ -230,8 +248,40 @@ def test_train_all_wgangp_step_on_four_ranks_matches_the_jax_mesh_step(tmp_path,
 # the GAN warm-up
 # ---------------------------------------------------------------------------
 
+@pytest.fixture(scope="module")
+def warmup_ranks(tmp_path_factory):
+    """Each GAN mode's nets, batches and keys, and its two port warm-up
+    iterations on four gloo ranks: both modes in one spawn
+    (``torch_mesh_ranks.each``)."""
+    import torch_mesh_ranks
+    from test_torch_port_ae_gan import ae_variables
+    from reid_gan_tpu.config import GANConfig
+    from reid_gan_tpu.models.dual_gan.ae_model import AEModel as JaxAEModel
+
+    cases = {}
+    for gan_mode in ("lsgan", "wgangp"):
+        jgan = JaxAEModel(GANConfig(model="AE", model_gen="AE", gan_mode=gan_mode),
+                          gan_height=GH, gan_width=GW, num_feats=32, ngf=8,
+                          reid_feat_dim=64)
+        G, Dv = ae_variables(jgan, 31)
+        gan = _port_nets("AE", G, Dv, gan_mode)
+        rng = np.random.RandomState(32)
+        xs = [rng.randint(0, 256, (8, GH, GW, 3)).astype(np.uint8) for _ in range(2)]
+        seed = 11
+        keys = [jax.random.PRNGKey(seed + i) for i in range(2)]
+        with jax.enable_x64(True):
+            alphas = [np.asarray(jax.random.uniform(k, (8, 1, 1, 1))) for k in keys] \
+                if gan_mode == "wgangp" else None
+        spec = dict(G=_numpy_state(gan.net_G), D=_numpy_state(gan.net_D), xs=xs,
+                    sizes=(GH, GW), seed=seed, gan_mode=gan_mode, alphas=alphas)
+        cases[gan_mode] = (jgan, G, Dv, gan, xs, keys, spec)
+    got = spawn(torch_mesh_ranks.each, 4, tmp_path_factory.mktemp("warmup"),
+                torch_mesh_ranks.warmup_steps, [(c[-1],) for c in cases.values()])
+    return {m: c[:-1] + (g,) for (m, c), g in zip(cases.items(), got)}
+
+
 @pytest.mark.parametrize("gan_mode", ["lsgan", "wgangp"])
-def test_warmup_steps_on_four_ranks_match_the_jax_mesh_step(tmp_path, gan_mode):
+def test_warmup_steps_on_four_ranks_match_the_jax_mesh_step(warmup_ranks, gan_mode):
     """Two ``GANTrainer.train_gan`` iterations in fp64 (the AE generator and
     D at 16x8, batch 8, 2 rows a rank; G's and D's BatchNorms over the whole
     batch, D's gradient averaged before D's Adam, G's fresh loss against the
@@ -242,28 +292,11 @@ def test_warmup_steps_on_four_ranks_match_the_jax_mesh_step(tmp_path, gan_mode):
     weights are JAX's draws from that key for the whole batch, sliced by
     each rank. Held: each iteration's G and D losses, G's and D's
     parameters, running stats and spectral u/sigma after both."""
-    import torch_mesh_ranks
-    from test_torch_port_ae_gan import ae_variables
-    from reid_gan_tpu.config import GANConfig
-    from reid_gan_tpu.models.dual_gan.ae_model import AEModel as JaxAEModel
     from reid_gan_tpu.models.dual_gan.ae_model import AEState
     from reid_gan_tpu.parallel.mesh import get_mesh, replicate
     from reid_gan_tpu.parallel.mesh import shard_batch as jax_shard
 
-    jgan = JaxAEModel(GANConfig(model="AE", model_gen="AE", gan_mode=gan_mode),
-                      gan_height=GH, gan_width=GW, num_feats=32, ngf=8, reid_feat_dim=64)
-    G, Dv = ae_variables(jgan, 31)
-    gan = _port_nets("AE", G, Dv, gan_mode)
-    rng = np.random.RandomState(32)
-    xs = [rng.randint(0, 256, (8, GH, GW, 3)).astype(np.uint8) for _ in range(2)]
-    seed = 11
-    keys = [jax.random.PRNGKey(seed + i) for i in range(2)]
-    with jax.enable_x64(True):
-        alphas = [np.asarray(jax.random.uniform(k, (8, 1, 1, 1))) for k in keys] \
-            if gan_mode == "wgangp" else None
-    got = spawn(torch_mesh_ranks.warmup_steps, 4, tmp_path, dict(
-        G=_numpy_state(gan.net_G), D=_numpy_state(gan.net_D), xs=xs, sizes=(GH, GW),
-        seed=seed, gan_mode=gan_mode, alphas=alphas))
+    jgan, G, Dv, gan, xs, keys, got = warmup_ranks[gan_mode]
 
     mesh = get_mesh(4)
     with jax.enable_x64(True):

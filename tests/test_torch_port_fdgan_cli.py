@@ -108,14 +108,18 @@ def test_fdgan_clis_chain_through_their_checkpoints(tmp_path):
     """``cli/fdgan_baseline`` → ``cli/fdgan_train --stage 1`` (E from the
     baseline's checkpoint, Di from it) → ``--stage 2`` (each net from its
     stage-1 file), ``--debug --device cpu``: every checkpoint written, the
-    losses finite, the stage-2 validation run."""
+    losses finite, the stage-2 validation run; the baseline's and stage
+    1's ``opt.txt`` equal JAX's for the same flags."""
     from reid_gan_torch.cli import fdgan_baseline, fdgan_train
     from reid_gan_torch.utils.serialization import load_checkpoint
+    from torch_port_opts import assert_options_match_jax
 
     common = ["--dataset", "synthetic", "--data-dir", str(tmp_path / "d"), "--height",
               str(H), "--width", str(W), "-b", "8", "-j", "2", "--debug", "--device", "cpu"]
     best = fdgan_baseline.main(common + ["--logs-dir", str(tmp_path / "base")])
     assert 0.0 < best <= 1.0
+    assert_options_match_jax("fdgan_baseline", tmp_path / "base" / "opt.txt",
+                             common + ["--logs-dir", str(tmp_path / "base")])
     ck = load_checkpoint(str(tmp_path / "base" / "model_best.pth.tar"))
     assert ck["state_dict"]["embed_model.classifier.weight"].shape == (2, 512)
     m1 = fdgan_train.main(common + [
@@ -125,6 +129,10 @@ def test_fdgan_clis_chain_through_their_checkpoints(tmp_path):
     di = m1.net_Di.state_dict()["embed_model.classifier.weight"]
     assert di.shape == (1, 512)
     s1 = tmp_path / "c1" / "experiment"
+    assert_options_match_jax("fdgan_train", tmp_path / "s1" / "opt.txt", common + [
+        "--stage", "1", "--pose-aug", "gauss", "--logs-dir", str(tmp_path / "s1"),
+        "--save-dir", str(tmp_path / "c1"),
+        "--netE-pretrain", str(tmp_path / "base" / "model_best.pth.tar")])
     nets = {n: str(s1 / f"latest_net_{n}.pth") for n in ("E", "G", "Di", "Dp")}
     assert all(osp.exists(p) for p in nets.values())
     assert osp.exists(tmp_path / "s1" / "images" / "epoch000_fake.png")

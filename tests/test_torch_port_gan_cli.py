@@ -18,13 +18,12 @@ _GAN = ["--model", "AE", "--model-gen", "Pose", "--gan-height", "32", "--gan-wid
 def test_train_gan_usl_end_to_end_and_continue_train(tmp_path, capsys):
     """``--debug --device cpu`` runs one joint epoch and writes
     ``checkpoint.pth.tar``, ``model_best.pth.tar``, ``log.txt``,
-    ``loss_log.txt``, a ``train_opt.txt`` whose lines are JAX's for the
-    same flags (its FD-GAN section aside), ``latest_net_G.pth``,
+    ``loss_log.txt``, a ``train_opt.txt`` equal to JAX's for the
+    same flags (every section), ``latest_net_G.pth``,
     ``latest_net_D.pth`` and ``iter.txt`` = ``1,0``; ``--continue-train``
     then resumes at epoch 1 from them and runs the second epoch."""
-    from reid_gan_tpu.config import dump_config as jax_dump
-    from reid_gan_tpu.config import parse_config as jax_parse
     from reid_gan_torch.cli.train_gan_usl import main
+    from torch_port_opts import assert_options_match_jax
 
     logs, ckpt = tmp_path / "logs", tmp_path / "ckpt"
     flags = _FLAGS + _GAN + ["--data-dir", str(tmp_path), "--eval-step", "1",
@@ -46,14 +45,8 @@ def test_train_gan_usl_end_to_end_and_continue_train(tmp_path, capsys):
         line = fh.read().splitlines()[-1]
     assert all(f"{k}: " in line for k in ("loss", "loss_cl", "G", "D"))
 
-    jax_dump(jax_parse(flags + ["--debug", "--logs-dir", str(logs)],
-                       sections=("data", "model", "optim", "cluster", "train", "gan")),
-             str(tmp_path / "jax"))
-    with open(tmp_path / "jax" / "train_opt.txt") as fh:
-        ref = [ln for ln in fh.read().splitlines() if not ln.startswith("fdgan.")]
-    with open(logs / "train_opt.txt") as fh:
-        got = fh.read().splitlines()
-    assert got == ref and sum(ln.startswith("gan.") for ln in got) > 20
+    assert_options_match_jax("train_gan_usl", logs / "train_opt.txt",
+                             flags + ["--debug", "--logs-dir", str(logs)])
 
     saved_g = torch.load(nets / "latest_net_G.pth", weights_only=True)
     main(flags + ["--continue-train", "--epochs", "2", "--iters", "2",

@@ -108,12 +108,14 @@ def test_only_gan_loader_matches_jax(tmp_path):
 
 def test_warmup_then_hard_mix_cli_end_to_end(tmp_path, capsys):
     """``cli/train_gan_warmup --debug --device cpu``: 1 epoch of 4 D→G
-    iterations, its loss line, ``loss_log.txt``, ``train_opt.txt`` and the
+    iterations, its loss line, ``loss_log.txt``, ``train_opt.txt`` (JAX's
+    for the same flags) and the
     nets' ``latest_net_{G,D}.pth``; then ``cli/train_gan_usl --model-gen AE
     --no-gan-train --continue-train --debug --device cpu`` loads those nets
     and runs a hard-mix epoch to ``Mean AP`` (G frozen: the nets' files stay
     as the warm-up wrote them)."""
     from reid_gan_torch.cli import train_gan_usl, train_gan_warmup
+    from torch_port_opts import assert_options_match_jax
 
     ckpt = tmp_path / "ckpt"
     common = ["--dataset", "synthetic", "--data-dir", str(tmp_path), "--batch-size", "16",
@@ -127,6 +129,8 @@ def test_warmup_then_hard_mix_cli_end_to_end(tmp_path, capsys):
         assert osp.exists(nets / f), f
     for f in ("log.txt", "loss_log.txt", "train_opt.txt"):
         assert osp.exists(tmp_path / "w" / f), f
+    assert_options_match_jax("train_gan_warmup", tmp_path / "w" / "train_opt.txt",
+                             common + ["--debug", "--logs-dir", str(tmp_path / "w")])
     with open(tmp_path / "w" / "loss_log.txt") as fh:
         line = fh.read().splitlines()[-1]
     assert "G: " in line and "D: " in line

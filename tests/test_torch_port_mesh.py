@@ -126,8 +126,36 @@ def _jax_global_bn(x, dy, weight, bias, rm, rv):
                 "rv": np.asarray(st["var"])}
 
 
-@pytest.mark.parametrize("shape", [(8, 5, 3, 2), (12, 7)], ids=["2d", "1d"])
-def test_global_batch_norm_matches_jax_under_a_sharded_jit(tmp_path, shape):
+_BN_SHAPES = {"2d": (8, 5, 3, 2), "1d": (12, 7)}
+
+
+def _bn_inputs(shape):
+    rng = np.random.RandomState(2)
+    c = shape[1]
+    x = rng.randn(*shape) * 2.0 + rng.randn(1, c, *([1] * (len(shape) - 2))) * 3.0
+    dy = rng.randn(*shape)
+    weight, bias = rng.rand(c) + 0.5, rng.randn(c) * 0.1
+    rm, rv = rng.randn(c).astype(np.float32), (rng.rand(c) + 0.5).astype(np.float32)
+    return x, dy, weight, bias, rm, rv
+
+
+@pytest.fixture(scope="module")
+def global_bn_ranks(tmp_path_factory):
+    """Each shape's ``GlobalBatchNorm`` on four gloo ranks, both in one
+    spawn (``torch_mesh_ranks.each``)."""
+    import torch_mesh_ranks
+
+    calls = []
+    for shape in _BN_SHAPES.values():
+        x, dy, weight, bias, rm, rv = _bn_inputs(shape)
+        calls.append((x, dy, weight, bias, rm.astype(np.float64), rv.astype(np.float64)))
+    got = spawn(torch_mesh_ranks.each, 4, tmp_path_factory.mktemp("global_bn"),
+                torch_mesh_ranks.global_bn, calls)
+    return dict(zip(_BN_SHAPES, got))
+
+
+@pytest.mark.parametrize("case", list(_BN_SHAPES))
+def test_global_batch_norm_matches_jax_under_a_sharded_jit(global_bn_ranks, case):
     """``GlobalBatchNorm`` (all-reduces of [Σx, n] and Σ(x − mean)², its
     gradient written out) on four gloo ranks in fp64, against JAX
     ``TorchBatchNorm`` under ``jit`` on the 4-way-sharded global batch: the
@@ -135,17 +163,8 @@ def test_global_batch_norm_matches_jax_under_a_sharded_jit(tmp_path, shape):
     1e-9, the running mean and the running variance (Bessel's n/(n−1) of the
     global n) within 1e-6 relative (fp32 on the JAX side, ROADMAP C). An
     odd channel count, means far from 0."""
-    import torch_mesh_ranks
-
-    rng = np.random.RandomState(2)
-    c = shape[1]
-    x = rng.randn(*shape) * 2.0 + rng.randn(1, c, *([1] * (len(shape) - 2))) * 3.0
-    dy = rng.randn(*shape)
-    weight, bias = rng.rand(c) + 0.5, rng.randn(c) * 0.1
-    rm, rv = rng.randn(c).astype(np.float32), (rng.rand(c) + 0.5).astype(np.float32)
-    got = spawn(torch_mesh_ranks.global_bn, 4, tmp_path, x, dy, weight, bias,
-                rm.astype(np.float64), rv.astype(np.float64))
-    ref = _jax_global_bn(x, dy, weight, bias, rm, rv)
+    got = global_bn_ranks[case]
+    ref = _jax_global_bn(*_bn_inputs(_BN_SHAPES[case]))
     np.testing.assert_allclose(got["y"], ref["y"], rtol=0, atol=1e-10)
     for k in ("dx", "dw", "db"):
         np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-9, err_msg=k)
@@ -435,31 +454,48 @@ def test_ported_mesh_pairings_run_past_their_checks(tmp_path, monkeypatch):
             DataLoader(Preprocessor([], mode=mode), batch_size=63, shard=mesh)
 
 
-@pytest.mark.parametrize("rerank", [False, True], ids=["plain", "rerank"])
-def test_eval_cli_on_four_ranks_matches_the_jax_cli_on_its_mesh(tmp_path, rerank):
-    """``cli/test`` on four gloo ranks against the JAX CLI over
-    ``get_mesh(4)`` on the same saved weights: CMC top-1/5/10 and mAP within
-    1e-4; with ``--rerank`` rank 0 re-ranks and broadcasts the metrics."""
+_RERANK = {"plain": [], "rerank": ["--rerank"]}
+
+
+@pytest.fixture(scope="module")
+def eval_cli_ranks(tmp_path_factory):
+    """A random resnet18 saved as ``model.pth`` and the synthetic_hard set
+    under one root, and ``cli/test`` on four gloo ranks with and without
+    ``--rerank``, both in one spawn (``torch_mesh_ranks.each``). Returns
+    the CLI's flags without ``--rerank`` and each case's (cmc, mAP)."""
     import torch_mesh_ranks
-    from reid_gan_tpu.cli.test import main as jax_main
-    from reid_gan_tpu.parallel.mesh import get_mesh
     from reid_gan_torch.models import create
 
+    root = tmp_path_factory.mktemp("eval_cli")
     torch.manual_seed(5)
     model = create("resnet18")
     with torch.no_grad():
         model.gap.p.fill_(3.2)
         model.feat_bn.weight.uniform_(0.5, 1.5)
-    pth = tmp_path / "model.pth"
+    pth = root / "model.pth"
     torch.save(model.state_dict(), str(pth))
-    args = ["--dataset", "synthetic_hard", "--data-dir", str(tmp_path), "--arch",
+    args = ["--dataset", "synthetic_hard", "--data-dir", str(root), "--arch",
             "resnet18", "--height", "64", "--width", "32", "--batch-size", "16",
-            "--workers", "1", "--resume-torch", str(pth)] + (["--rerank"] if rerank else [])
-    ref_cmc, ref_map = jax_main(args, mesh=get_mesh(4))
-    out = tmp_path / "writes"
-    out.mkdir()
-    cmc, mAP = spawn(torch_mesh_ranks.cli_main, 4, tmp_path, "test",
-                     args + ["--device", "cpu"], str(out))
+            "--workers", "1", "--resume-torch", str(pth)]
+    calls = []
+    for case, flag in _RERANK.items():
+        (root / case).mkdir()
+        calls.append(("test", args + flag + ["--device", "cpu"], str(root / case)))
+    got = spawn(torch_mesh_ranks.each, 4, root, torch_mesh_ranks.cli_main, calls)
+    return args, dict(zip(_RERANK, got))
+
+
+@pytest.mark.parametrize("case", list(_RERANK))
+def test_eval_cli_on_four_ranks_matches_the_jax_cli_on_its_mesh(eval_cli_ranks, case):
+    """``cli/test`` on four gloo ranks against the JAX CLI over
+    ``get_mesh(4)`` on the same saved weights: CMC top-1/5/10 and mAP within
+    1e-4; with ``--rerank`` rank 0 re-ranks and broadcasts the metrics."""
+    from reid_gan_tpu.cli.test import main as jax_main
+    from reid_gan_tpu.parallel.mesh import get_mesh
+
+    args, got = eval_cli_ranks
+    ref_cmc, ref_map = jax_main(args + _RERANK[case], mesh=get_mesh(4))
+    cmc, mAP = got[case]
     for k in (1, 5, 10):
         assert abs(cmc[k - 1] - ref_cmc[k - 1]) <= 1e-4, k
     assert abs(mAP - ref_map) <= 1e-4

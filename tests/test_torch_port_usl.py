@@ -140,9 +140,8 @@ def test_train_usl_end_to_end_and_its_checkpoint_in_the_eval_cli(tmp_path, capsy
     log.txt and a train_opt.txt whose lines are JAX's for the sections both
     parse; ``cli.test --resume-torch model_best.pth.tar`` then prints the
     mAP of the loop's final eval."""
-    from reid_gan_tpu.config import dump_config as jax_dump
-    from reid_gan_tpu.config import parse_config as jax_parse
     from reid_gan_torch.cli.test import main as test_main
+    from torch_port_opts import assert_options_match_jax
     from reid_gan_torch.cli.train_usl import main
 
     logs = tmp_path / "logs"
@@ -157,15 +156,7 @@ def test_train_usl_end_to_end_and_its_checkpoint_in_the_eval_cli(tmp_path, capsy
     with open(logs / "log.txt") as fh:
         assert "Clustered into" in fh.read()
 
-    jax_dump(jax_parse(flags, sections=("data", "model", "optim", "cluster", "train")),
-             str(tmp_path / "jax"))
-    sections = ("data.", "model.", "optim.", "cluster.", "train.")
-    with open(tmp_path / "jax" / "train_opt.txt") as fh:
-        ref = [ln for ln in fh.read().splitlines()
-               if not ln.startswith(("gan.", "fdgan."))]
-    with open(logs / "train_opt.txt") as fh:
-        got = fh.read().splitlines()
-    assert got == ref and sum(ln.startswith(sections) for ln in got) > 30
+    assert_options_match_jax("train_usl", logs / "train_opt.txt", flags)
 
     cmc, mAP = test_main(_FLAGS + ["--data-dir", str(tmp_path), "--resume-torch",
                                    str(logs / "model_best.pth.tar"), "--device", "cpu"])

@@ -165,8 +165,10 @@ def test_vgg_clis_end_to_end(tmp_path, capsys, weights):
     """``cli/train_gan_warmup --use-vgg --debug --device cpu`` (4 D→G
     iterations) and ``cli/train_gan_usl --use-vgg --debug --device cpu``
     (one joint epoch to ``Mean AP``), with random taps (the warning) or
-    ``--vgg-weights`` (a torchvision-layout file saved here)."""
+    ``--vgg-weights`` (a torchvision-layout file saved here); the joint
+    run's ``train_opt.txt`` is JAX's for the same flags."""
     from reid_gan_torch.cli import train_gan_usl, train_gan_warmup
+    from torch_port_opts import assert_options_match_jax
 
     vgg = ["--use-vgg"] + (["--vgg-weights", _vgg_file(str(tmp_path / "vgg19.pth"))]
                            if weights else [])
@@ -188,3 +190,8 @@ def test_vgg_clis_end_to_end(tmp_path, capsys, weights):
     with open(tmp_path / "j" / "train_opt.txt") as fh:
         opts = fh.read()
     assert "gan.use_vgg: True" in opts
+    assert_options_match_jax("train_gan_usl", tmp_path / "j" / "train_opt.txt",
+                             _FLAGS + common + [
+                                 "--model", "AE", "--model-gen", "Pose", "--eval-step", "1",
+                                 "--logs-dir", str(tmp_path / "j"),
+                                 "--save-dir", str(tmp_path / "ck")])

@@ -27,6 +27,12 @@ def spawn(fn, world, tmp_path, *args, timeout=TIMEOUT):
                   init_method=f"file://{store}", threads=1, timeout=timeout)
 
 
+def each(mesh, fn, calls):
+    """``fn(mesh, *args)`` for each ``args`` of ``calls`` in turn, so that
+    several cases share one spawn; their results in order."""
+    return [fn(mesh, *args) for args in calls]
+
+
 def gathers_and_reductions(mesh, batch, n):
     """``shard_batch``, ``pad_to_multiple`` and ``all_gather_rows`` round
     trips of ``batch`` (rows beyond ``n`` are padding), and the other
@@ -149,32 +155,49 @@ def sharded_eval(mesh, state_dict, query, gallery, height, width, batch_size):
 
 def _record_writes(module, rank, out_dir, names):
     """Wrap ``module``'s functions ``names`` so each call leaves a file
-    ``<out_dir>/<name>.rank<r>``."""
+    ``<out_dir>/<name>.rank<r>``. Returns a function that unwraps them."""
     def wrap(name, fn):
         def inner(*a, **kw):
             open(osp.join(out_dir, f"{name}.rank{rank}"), "a").close()
             return fn(*a, **kw)
         return inner
 
-    for name in names:
-        setattr(module, name, wrap(name, getattr(module, name)))
+    real = {name: getattr(module, name) for name in names}
+    for name, fn in real.items():
+        setattr(module, name, wrap(name, fn))
+
+    def restore():
+        for name, fn in real.items():
+            setattr(module, name, fn)
+    return restore
 
 
-def cli_main(mesh, cli, argv, out_dir):
+def _order(pid_imgs):
+    # the FD CLIs' ``main`` takes the launching process's name lists
+    return {} if pid_imgs is None else {"pid_imgs": pid_imgs}
+
+
+def cli_main(mesh, cli, argv, out_dir, pid_imgs=None):
     """``reid_gan_torch.cli.<cli>.main(argv, mesh=mesh)`` with its writers
     (the log, the options file, the checkpoints and the GAN nets) recording
-    which ranks call them under ``out_dir``."""
+    which ranks call them under ``out_dir``; ``pid_imgs`` goes to the FD
+    CLIs' ``main``."""
     import importlib
 
     mod = importlib.import_module(f"reid_gan_torch.cli.{cli}")
     # fdgan_train opens its log and writes its options through fdgan_baseline
     mods = [mod] + ([importlib.import_module("reid_gan_torch.cli.fdgan_baseline")]
                     if cli == "fdgan_train" else [])
+    restores = []
     for m in mods:
         writers = [n for n in ("Logger", "dump_config", "save_checkpoint", "save_networks",
                                "Visualizer") if hasattr(m, n)]
-        _record_writes(m, mesh.rank, out_dir, writers)
-    return _steps(mod.main(argv, mesh=mesh))
+        restores.append(_record_writes(m, mesh.rank, out_dir, writers))
+    try:
+        return _steps(mod.main(argv, mesh=mesh, **_order(pid_imgs)))
+    finally:
+        for restore in restores:
+            restore()
 
 
 def _steps(out):
@@ -187,14 +210,57 @@ def _steps(out):
     return out
 
 
-def cli_alone(mesh, cli, argv):
+def cli_alone(mesh, cli, argv, pid_imgs=None):
     """``reid_gan_torch.cli.<cli>.main(argv, mesh=False)`` in a spawned
     process of its own (``mesh`` is a group of one, unused), so that it
     sees the environment the ranks of a ``spawn`` see. Returns what
     ``cli_main`` returns."""
     import importlib
 
-    return _steps(importlib.import_module(f"reid_gan_torch.cli.{cli}").main(argv, mesh=False))
+    mod = importlib.import_module(f"reid_gan_torch.cli.{cli}")
+    return _steps(mod.main(argv, mesh=False, **_order(pid_imgs)))
+
+
+def fdgan_pose_epoch(cfg, dataset, device=None, mesh=None):
+    """One epoch of the ``fdgan_pose`` loader as ``cli/fdgan_train`` builds
+    it (the dataset's ``pid_imgs``, ``--seed``, the epoch-0 pair sampler),
+    sharded over ``mesh``: each batch's two sides' rows of the target
+    images, landmarks and flips. Under a mesh each rank also writes them,
+    with its dataset's own ``pid_imgs`` order (``create`` in this
+    process), to ``<logs-dir>/draws.rank<r>.pkl``."""
+    import pickle
+
+    import numpy as np
+
+    from reid_gan_torch.data.datasets import create
+    from reid_gan_torch.data.loader import DataLoader, Preprocessor
+    from reid_gan_torch.data.sampler import RandomPairSampler
+
+    train = list(dataset.train)
+    pre = Preprocessor(train, mode="fdgan_pose", height=cfg.data.height,
+                       width=cfg.data.width, pid_imgs=dataset.pid_imgs,
+                       pose_root=dataset.poses_dir, seed=cfg.train.seed, cache=None)
+    loader = DataLoader(pre, sampler=RandomPairSampler(train, neg_pos_ratio=1,
+                                                       seed=cfg.train.seed),
+                        batch_size=cfg.data.batch_size, num_workers=cfg.data.workers,
+                        drop_last=True, shard=mesh)
+    rows = [[{k: np.asarray(side[k]) for k in ("target", "landmark", "flip")}
+             for side in batch] for batch in loader]
+    if mesh is not None:
+        own = create(cfg.data.dataset, cfg.data.data_dir).pid_imgs
+        with open(osp.join(cfg.train.logs_dir, f"draws.rank{mesh.rank}.pkl"), "wb") as f:
+            pickle.dump({"rows": rows, "own": {p: list(v) for p, v in own.items()}}, f)
+    return rows
+
+
+def fdgan_pose_ranks(mesh, argv, pid_imgs):
+    """A rank of ``cli/fdgan_baseline.run_main`` whose run is
+    ``fdgan_pose_epoch``."""
+    from reid_gan_torch.cli.fdgan_baseline import run_main
+    from reid_gan_torch.config import parse_config
+
+    cfg = parse_config(argv, sections=("data", "train"))
+    return run_main(cfg, "cpu", mesh, argv, fdgan_pose_ranks, fdgan_pose_epoch, pid_imgs)
 
 
 def joint_step(mesh, enc_state, gan_states, bank, gan_bank, batch, conf, seed,
@@ -370,7 +436,10 @@ def cli_main_bip18(mesh, cli, argv, out_dir):
         return ResNetBip(18, *args, **kwargs)
 
     train_gan_usl.create_model = create_model
-    return cli_main(mesh, cli, argv, out_dir)
+    try:
+        return cli_main(mesh, cli, argv, out_dir)
+    finally:
+        train_gan_usl.create_model = create
 
 
 def mesh_pieces(mesh, x, rows, bn_in):
