@@ -311,12 +311,23 @@ the script exits non-zero without printing a result:
    1 s; peak RSS < 24 GB), the last in a process of its own, as the JAX
    script runs alone. Launch counts are zeroed before each script and read
    after; K6 and K8 must launch;
-19. a JSON line with every kernel's launches (the sum over the two whole
+19. the speed scripts (``[speed_scripts]``, after ``[validate]``): the
+   ``main`` of each ``scripts/torch_{bench_loader_scaling,profile_augment,
+   profile_usl_step,profile_joint_step,project_market_walltime}.py`` at the
+   JAX scripts' sizes (the loader's scaling at workers 1 and 4, 20 batches
+   a pass), the loader fed from memory (``--source memory``: no
+   Pillow on the card's machine), each printing its table (the
+   projection its JSON line). Launch counts are zeroed before each script
+   and read after: K4 must launch in the augmentation's profile, K4-K7 in
+   the USL step's, K4 and K6 in the joint step's, K1-K4 and K6-K8 in the
+   projection's; every time, rate and loss must be finite and positive;
+20. a JSON line with every kernel's launches (the sum over the two whole
    joint loops, phases 13 and 14, ``[gan_clusters]``, ``[vgg_joint]``'s two
    epochs, the ``run()`` epochs of ``[bip_joint]`` and ``[memory_joint]``,
    ``[ddp]``'s ``run()`` epochs,
    ``[fp16_usl]``, ``[msgpack]``, the FD-GAN chain, phase 17,
-   ``[cuhk03]``, ``[validate]`` and the headline recipe's loop, phase 8), error,
+   ``[cuhk03]``, ``[validate]``, ``[speed_scripts]`` and the headline
+   recipe's loop, phase 8), error,
    times and bound; K5's and K6's entries carry ``forward_ms``,
    ``backward_ms`` and ``autograd_ms`` (``ms`` is forward + backward;
    ``autograd_ms`` adds autograd's accumulation into ``x.grad``), K6's
@@ -328,7 +339,7 @@ the script exits non-zero without printing a result:
    time at 32,621 rows (``n32621_ms``), its fp32 FMA bound
    (``bound_fp32_ms``) and the fp32 ``torch.matmul`` of the product alone
    (``matmul_fp32_ms``, context, not a library version of K8);
-20. the last line: ``{"ok": true, "device": {...}}``.
+21. the last line: ``{"ok": true, "device": {...}}``.
 """
 
 import functools
@@ -5303,18 +5314,30 @@ def phase_fd_chain(counts, root, batch=256):
     print(f"[fd_chain] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
-def _validate_path(name):
+def _script_path(stem):
     return os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                        f"torch_validate_{name}.py")
+                        f"{stem}.py")
+
+
+def _validate_path(name):
+    return _script_path(f"torch_validate_{name}")
+
+
+def _script(stem):
+    """``scripts/<stem>.py`` of this checkout, as a module (the scripts'
+    directory on ``sys.path``, where one script imports another)."""
+    scripts = os.path.dirname(_script_path(stem))
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    spec = importlib.util.spec_from_file_location(stem, _script_path(stem))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _validate_script(name):
     """``scripts/torch_validate_<name>.py`` of this checkout, as a module."""
-    spec = importlib.util.spec_from_file_location(f"torch_validate_{name}",
-                                                  _validate_path(name))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _script(f"torch_validate_{name}")
 
 
 def _msmt_alone():
@@ -5427,6 +5450,77 @@ def phase_validate(counts, root, report):
           "K8 did not launch in the MSMT phase's Infomap")
     _msmt_kernel_times(report, results["msmt_scale"]["bank_k"])
     print(f"[validate] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+# [speed_scripts]: each script's main at the JAX script's sizes, and the
+# kernels it must launch. The loader's scaling runs at two worker counts and
+# 20 batches a pass (the script's default: 1, 2, 4, 8 and 40), which keeps
+# the whole smoke inside its time limit
+SPEED_RUNS = (
+    ("bench_loader_scaling", lambda m: m.main("memory", workers=(1, 4), iters=20), ()),
+    ("profile_augment", lambda m: m.main(), ("train_augment",)),
+    ("profile_usl_step", lambda m: m.main(),
+     ("train_augment", "gem_pool", "infonce", "bank_fold")),
+    ("profile_joint_step", lambda m: m.main(), ("train_augment", "infonce")),
+    ("project_market_walltime", lambda m: m.main(source="memory"),
+     ("eval_transform", "gem_bn_l2n", "rank_stats", "train_augment", "infonce",
+      "bank_fold", "knn_topk")),
+)
+
+
+def _speed_numbers(name, out):
+    """The times, rates and losses of a speed script's result, each of which
+    must be finite and positive."""
+    if name == "bench_loader_scaling":
+        return [v for k in ("cold", "cached", "streaming") for v in out[k].values()]
+    if name == "profile_augment":
+        return list(out["ms"].values())
+    if name == "profile_usl_step":
+        return [ms for _, ms, _ in out["rows"]] + [out["full_ms"], out["img_s"], out["loss"]]
+    if name == "profile_joint_step":
+        return [out["full_ms"], out["img_s"], *out["ms"].values(), *out["losses"].values()]
+    return [out[k] for k in ("extract_s", "jaccard_s", "dbscan_s", "train_iter_ms",
+                             "eval_s", "epoch_s_cached", "epoch_s_streaming",
+                             "projected_total_min_cached", "projected_total_min_streaming")] \
+        + list(out["loader_ips_used"].values())[:2]
+
+
+def phase_speed_scripts(counts):
+    """``[speed_scripts]``: the port's five speed scripts, each ``main`` at
+    the JAX script's sizes on the card, the loader fed from memory. Launch
+    counts are zeroed before each script and read after (summed into
+    ``counts``); each script's kernels (``SPEED_RUNS``) must launch, and its
+    times, rates and losses must be finite and positive. A failed check
+    raises."""
+    import threading
+
+    from reid_gan_torch import kernels
+
+    t_phase = time.perf_counter()
+    # the host's share: threads that earlier phases left running compete
+    # with the scripts' host work
+    print(f"[speed_scripts] the process's threads: {threading.active_count()} Python, "
+          f"{len(os.listdir('/proc/self/task'))} in all")
+    for name, run, needed in SPEED_RUNS:
+        mod = _script(f"torch_{name}")
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(mod)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+        print(f"[speed_scripts] {name} in {seconds:.1f} s; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        missing = [k for k in needed if not launches[k]]
+        check(not missing, f"[speed_scripts] {name}: {missing} did not launch")
+        nums = _speed_numbers(name, out)
+        check(all(np.isfinite(v) and v > 0 for v in nums),
+              f"[speed_scripts] {name}: a time, rate or loss is not finite and "
+              f"positive: {nums}")
+    print(f"[speed_scripts] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def _cuhk03_tree(root, seed=7, n_ids=1467, n_test=100, h=256, w=128):
@@ -6101,6 +6195,9 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         phase_validate(validate_counts, tmp, report)
         torch.cuda.synchronize()
+    speed_counts = {}
+    phase_speed_scripts(speed_counts)
+    torch.cuda.synchronize()
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces,
@@ -6109,7 +6206,8 @@ def main(argv=None):
                                              vgg_joint_counts, bip_counts,
                                              memory_counts, ddp_counts,
                                              cuhk03_counts, fp16_counts,
-                                             msgpack_counts, validate_counts)),
+                                             msgpack_counts, validate_counts,
+                                             speed_counts)),
          "library_ms": None, **report[k.name]}
         for k in kernels.KERNELS]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -11,6 +11,7 @@ which the card's machine lacks.
   file (``pil_bilinear``).
 """
 
+import functools
 import os.path as osp
 
 import numpy as np
@@ -61,16 +62,18 @@ class NamedImages:
 _PRECISION_BITS = 22          # Pillow's fixed point for 8-bit resampling
 
 
+@functools.lru_cache(maxsize=64)
 def _coefficients(n_in, n_out):
     """Pillow's bilinear (triangle) resampling weights from ``n_in`` to
     ``n_out`` samples, widened by the scale when shrinking, normalised per
     output and rounded to its fixed point (libImaging/Resample.c,
-    precompute_coeffs and normalize_coeffs_8bpc): an (n_out, n_in) int64
-    matrix."""
+    precompute_coeffs and normalize_coeffs_8bpc), as taps: (n_out, T) input
+    indices and int64 weights, T the widest support, a row's unused taps
+    weighted 0. Read-only, one pair per size pair."""
     scale = n_in / n_out
     filterscale = max(scale, 1.0)
     support = filterscale                  # the triangle's support is 1
-    out = np.zeros((n_out, n_in), np.int64)
+    rows = []
     for j in range(n_out):
         center = (j + 0.5) * scale
         lo = max(int(center - support + 0.5), 0)
@@ -79,15 +82,32 @@ def _coefficients(n_in, n_out):
         w = np.maximum(1.0 - np.abs(x), 0.0)
         if w.sum() != 0.0:
             w = w / w.sum()
-        out[j, lo:hi] = np.where(w < 0, -0.5 + w * (1 << _PRECISION_BITS),
-                                 0.5 + w * (1 << _PRECISION_BITS)).astype(np.int64)
-    return out
+        rows.append((lo, np.where(w < 0, -0.5 + w * (1 << _PRECISION_BITS),
+                                  0.5 + w * (1 << _PRECISION_BITS)).astype(np.int64)))
+    taps = max(len(w) for _, w in rows)
+    idx = np.zeros((n_out, taps), np.int64)
+    weight = np.zeros((n_out, taps), np.int64)
+    for j, (lo, w) in enumerate(rows):
+        idx[j, :len(w)] = np.arange(lo, lo + len(w))
+        weight[j, :len(w)] = w
+    for a in (idx, weight):
+        a.setflags(write=False)
+    return idx, weight
 
 
 def _resample(img, coef, axis):
-    moved = np.moveaxis(img.astype(np.int64), axis, -1)
-    acc = moved @ coef.T + (1 << (_PRECISION_BITS - 1))
-    return np.moveaxis(np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8), -1, axis)
+    """One pass of Pillow's fixed-point filter along ``axis`` of a uint8
+    image, ``coef`` the taps of ``_coefficients``: each output sample the
+    int64 sum of its taps' bytes times their weights, rounded and shifted
+    back to a byte."""
+    idx, weight = coef
+    shape = [1] * img.ndim
+    shape[axis] = idx.shape[0]
+    acc = np.full(1, 1 << (_PRECISION_BITS - 1), np.int64)
+    for t in range(idx.shape[1]):
+        acc = acc + np.take(img, idx[:, t], axis=axis).astype(np.int64) * \
+            weight[:, t].reshape(shape)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
 def pil_bilinear(img, height, width):

@@ -69,12 +69,13 @@ class ImageCache:
     def __len__(self):
         return len(self._table)
 
-    def get(self, fpath, height, width):
+    def get(self, fpath, height, width, decode=None):
+        """``decode`` (default: the JPEG decode) fills a miss."""
         key = (fpath, height, width)
         hit = self._table.get(key)
         if hit is not None:
             return hit
-        val = _decode(fpath, height, width)
+        val = (decode or _decode)(fpath, height, width)
         nbytes = val[0].nbytes + val[1].nbytes + 64
         with self._lock:
             if self.used + nbytes <= self.budget:
@@ -89,8 +90,8 @@ class _NullCache:
     def __len__(self):
         return 0
 
-    def get(self, fpath, height, width):
-        return _decode(fpath, height, width)
+    def get(self, fpath, height, width, decode=None):
+        return (decode or _decode)(fpath, height, width)
 
 
 _default_cache = None

@@ -9,7 +9,9 @@ extractor's dtype that ``engine/evaluators.py:47`` applies. The train branch
 (``train=True``: flip → random sized rect crop → normalize → random erasing,
 :152-157) is split in two, as the port's ground rule for random draws asks:
 ``sample_augment_params`` draws the per-image parameters from an explicit
-``torch.Generator`` and ``train_augment`` applies them. The output is a
+``torch.Generator`` and ``train_augment`` applies them; its plain version
+composes JAX's four stages, each with the draws given (``random_hflip``,
+``random_sized_rect_crop``, ``normalize``, ``random_erasing``). The output is a
 logical NCHW tensor in channels_last memory, so it feeds cuDNN's
 channels_last convolutions without a copy.
 
@@ -46,10 +48,14 @@ def to_float(img_u8):
     return img_u8.to(torch.float32) / 255.0
 
 
-def normalize(x, mean=IMAGENET_MEAN, std=IMAGENET_STD):
-    """Per-channel ``(x - mean) / std`` of an NCHW batch."""
-    m = torch.tensor(mean, dtype=x.dtype, device=x.device).view(1, -1, 1, 1)
-    s = torch.tensor(std, dtype=x.dtype, device=x.device).view(1, -1, 1, 1)
+def normalize(x, mean=IMAGENET_MEAN, std=IMAGENET_STD, dim=1):
+    """Per-channel ``(x - mean) / std`` of a batch with its channels on
+    ``dim``: 1 for NCHW, -1 for NHWC (the train augmentation's stages, as
+    JAX's ``normalize``, :36)."""
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    m = torch.tensor(mean, dtype=x.dtype, device=x.device).view(shape)
+    s = torch.tensor(std, dtype=x.dtype, device=x.device).view(shape)
     return (x - m) / s
 
 
@@ -161,36 +167,52 @@ def _taps(out_size, size, top, crop):
     return i0.clamp(0, size - 1), (i0 + 1).clamp(0, size - 1), w0, w1
 
 
-def train_augment_plain(img_u8, params):
-    """Plain PyTorch version of K4: (N, H, W, 3) uint8 and (N, 10) params →
-    (N, 3, H, W) float32, channels_last, at the staged size."""
-    n, h, w, _ = img_u8.shape
-    x = to_float(img_u8)
-    flip = params[:, FLIP] != 0
-    x = torch.where(flip[:, None, None, None], torch.flip(x, [2]), x)
-    ya, yb, wy0, wy1 = _taps(h, h, params[:, CROP_TOP], params[:, CROP_H])
-    xa, xb, wx0, wx1 = _taps(w, w, params[:, CROP_LEFT], params[:, CROP_W])
+def random_hflip(x, params):
+    """JAX's ``random_hflip`` (:59-62) with its draws given: the NHWC
+    images whose ``FLIP`` column is set, mirrored along W."""
+    return torch.where((params[:, FLIP] != 0)[:, None, None, None], torch.flip(x, [2]), x)
+
+
+def random_sized_rect_crop(x, params, out_h=256, out_w=128):
+    """JAX's ``random_sized_rect_crop`` (:86-104) with its draws given: the
+    rectangle of each NHWC image in the ``CROP_*`` columns resampled to
+    (out_h, out_w) with ``jax.image.scale_and_translate``'s linear taps."""
+    n, h, w, _ = x.shape
+    ya, yb, wy0, wy1 = _taps(out_h, h, params[:, CROP_TOP], params[:, CROP_H])
+    xa, xb, wx0, wx1 = _taps(out_w, w, params[:, CROP_LEFT], params[:, CROP_W])
     idx = torch.arange(n, device=x.device)[:, None, None]
 
     def px(ys, xs):
-        return x[idx, ys[:, :, None], xs[:, None, :]]          # (N, H, W, 3)
+        return x[idx, ys[:, :, None], xs[:, None, :]]          # (N, oh, ow, C)
 
     wy0, wy1 = wy0[:, :, None, None], wy1[:, :, None, None]
     wx0, wx1 = wx0[:, None, :, None], wx1[:, None, :, None]
-    v = wy0 * (wx0 * px(ya, xa) + wx1 * px(ya, xb)) + \
+    return wy0 * (wx0 * px(ya, xa) + wx1 * px(ya, xb)) + \
         wy1 * (wx0 * px(yb, xa) + wx1 * px(yb, xb))
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
-    z = (v - mean) / std
-    fill = z.mean(dim=(1, 2))                                   # (N, 3)
+
+
+def random_erasing(x, params):
+    """JAX's ``random_erasing`` (:108-134) with its draws given: the
+    ``ERASE_*`` rectangle of each NHWC image whose ``ERASE`` column is set,
+    filled with the image's per-channel mean."""
+    _, h, w, _ = x.shape
+    fill = x.mean(dim=(1, 2))                                   # (N, C)
     yy = torch.arange(h, device=x.device, dtype=torch.float32)[None, :, None]
     xx = torch.arange(w, device=x.device, dtype=torch.float32)[None, None, :]
     p = params[:, :, None, None]
     inside = ((yy >= p[:, ERASE_TOP]) & (yy < p[:, ERASE_TOP] + p[:, ERASE_H])
               & (xx >= p[:, ERASE_LEFT]) & (xx < p[:, ERASE_LEFT] + p[:, ERASE_W])
               & (p[:, ERASE] != 0))
-    z = torch.where(inside[..., None], fill[:, None, None, :], z)
-    return z.permute(0, 3, 1, 2)
+    return torch.where(inside[..., None], fill[:, None, None, :], x)
+
+
+def train_augment_plain(img_u8, params):
+    """Plain PyTorch version of K4: (N, H, W, 3) uint8 and (N, 10) params →
+    (N, 3, H, W) float32, channels_last, at the staged size. JAX's stages in
+    ``reid_augment``'s order (:152-157): flip, crop, normalize, erase."""
+    _, h, w, _ = img_u8.shape
+    x = random_sized_rect_crop(random_hflip(to_float(img_u8), params), params, h, w)
+    return random_erasing(normalize(x, dim=-1), params).permute(0, 3, 1, 2)
 
 
 def _check_params(img_u8, params):
